@@ -1,0 +1,47 @@
+"""Runtime flags the port reads (counterpart of ``paddle_tpu/flags.py``).
+
+Only the serving defaults the paged engine reads exist here, with the
+reference's values; flags of later slices are added with the code that
+reads them. ``set_flags`` refuses names it does not know, so a flag meant
+for an unported feature cannot be set and silently ignored.
+"""
+from __future__ import annotations
+
+_FLAGS = {
+    # Decode slots: the fixed batch of the fused [B, 1] decode dispatch.
+    "FLAGS_serving_slots": 8,
+    # Sequence capacity per slot; 0 = the model's max_seq_len.
+    "FLAGS_serving_max_seq_len": 0,
+    # Wait-queue bound: submit raises QueueFullError past it.
+    "FLAGS_serving_max_queue": 256,
+    # KV layout; the port serves the paged layout only.
+    "FLAGS_serving_kv_layout": "paged",
+    # Tokens per KV page.
+    "FLAGS_serving_page_size": 16,
+    # Physical pages in the pool; 0 = num_slots * ceil(Smax / page) + 1.
+    "FLAGS_serving_num_pages": 0,
+    # Largest prefill chunk (tokens); the chunk ladder is the power-of-two
+    # multiples of page_size up to it.
+    "FLAGS_serving_prefill_chunk": 16,
+    # Map cached prompt prefixes to shared pages (copy-on-write).
+    "FLAGS_serving_prefix_cache": True,
+    # Route one-token decode attention through the hand-written CUDA
+    # kernel (serving/paged_decode.py) on CUDA tensors.
+    "FLAGS_serving_paged_kernel": True,
+}
+
+
+def set_flags(flags: dict):
+    unknown = sorted(k for k in flags if k not in _FLAGS)
+    if unknown:
+        raise KeyError(f"unknown flag(s) {unknown}; the port knows "
+                       f"{sorted(_FLAGS)}")
+    _FLAGS.update(flags)
+
+
+def get_flags(flags=None):
+    if flags is None:
+        return dict(_FLAGS)
+    if isinstance(flags, str):
+        flags = [flags]
+    return {k: _FLAGS.get(k) for k in flags}

@@ -1,0 +1,127 @@
+"""GPT parameter trees (counterpart of ``init_gpt_params`` in
+``paddle_tpu/models/gpt_hybrid.py``).
+
+The tree has the reference's keys and shapes: ``wte`` [V, H], ``wpe``
+[max_seq_len, H], ``lnf_g``/``lnf_b`` [H], ``head_w`` [H, V] and
+``blocks`` with every per-layer leaf stacked on a leading [L] axis. So a
+tree crosses between the frameworks as a dict of numpy arrays
+(``params_from_numpy``), which is how the tests run both on the same
+weights. Random values come from a ``torch.Generator`` and differ from
+the reference's threefry values for the same seed.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .gpt import compute_dtype
+
+BLOCK_KEYS = ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b",
+              "ln2_g", "ln2_b", "up_w", "up_b", "down_w", "down_b")
+# leaves the reference reads in float32 whatever the compute dtype
+# (generation._final_ln / _final_logits cast them to float32)
+FP32_KEYS = ("lnf_g", "lnf_b", "head_w")
+
+
+def param_shapes(config):
+    """{key: shape} of the tree, with ``blocks`` nested."""
+    H, L, V = config.hidden_size, config.num_layers, config.vocab_size
+    inner = config.ffn_mult * H
+    blocks = {
+        "ln1_g": (L, H), "ln1_b": (L, H),
+        "qkv_w": (L, H, 3 * H), "qkv_b": (L, 3 * H),
+        "out_w": (L, H, H), "out_b": (L, H),
+        "ln2_g": (L, H), "ln2_b": (L, H),
+        "up_w": (L, H, inner), "up_b": (L, inner),
+        "down_w": (L, inner, H), "down_b": (L, H),
+    }
+    return {"wte": (V, H), "wpe": (config.max_seq_len, H), "lnf_g": (H,),
+            "lnf_b": (H,), "head_w": (H, V), "blocks": blocks}
+
+
+def init_gpt_params(config, seed=0, device=None, dtype=torch.float32):
+    """Random GPT params: normal(0, initializer_range) projections and
+    embeddings, ones/zeros LayerNorms, zero biases — the reference's
+    recipe, drawn from a ``torch.Generator`` seeded with ``seed`` on
+    ``device``. Values are drawn in float32 and stored in ``dtype``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    std = config.initializer_range
+    shapes = param_shapes(config)
+    bs = shapes["blocks"]
+
+    def norm(shape):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def const(shape, fill):
+        return torch.full(shape, fill, dtype=dtype, device=dev)
+
+    # draw order follows the reference's key split: qkv, out, up, down,
+    # wte, wpe, head
+    drawn = {k: norm(bs[k]) for k in ("qkv_w", "out_w", "up_w", "down_w")}
+    blocks = {}
+    for k in BLOCK_KEYS:
+        if k in drawn:
+            blocks[k] = drawn[k]
+        else:
+            blocks[k] = const(bs[k], 1.0 if k.endswith("_g") else 0.0)
+    out = {"wte": norm(shapes["wte"]), "wpe": norm(shapes["wpe"])}
+    head = norm(shapes["head_w"])
+    out.update(lnf_g=const(shapes["lnf_g"], 1.0),
+               lnf_b=const(shapes["lnf_b"], 0.0), head_w=head,
+               blocks=blocks)
+    return out
+
+
+def params_from_numpy(tree, config, device=None, dtype=torch.float32):
+    """The reference's parameter tree, handed over as numpy arrays (or
+    anything ``np.asarray`` takes), as the port's torch tree on
+    ``device`` in ``dtype``. Keys and shapes are checked against
+    ``config``."""
+    dev = resolve_device(device)
+    shapes = param_shapes(config)
+
+    def conv(name, arr, shape):
+        a = np.asarray(arr)
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"param {name} has shape {a.shape}, the config "
+                             f"needs {shape}")
+        return torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
+
+    missing = set(shapes) - set(tree) | \
+        set(shapes["blocks"]) - set(tree.get("blocks", {}))
+    if missing:
+        raise KeyError(f"param tree lacks {sorted(missing)}")
+    out = {k: conv(k, tree[k], s) for k, s in shapes.items()
+           if k != "blocks"}
+    out["blocks"] = {k: conv("blocks." + k, tree["blocks"][k], s)
+                     for k, s in shapes["blocks"].items()}
+    return out
+
+
+def cast_for_compute(params, config, device=None):
+    """The reference's per-use casts done once, at load: every leaf its
+    forward casts to the compute dtype (``p[name].astype(h.dtype)``, the
+    embeddings) is stored in that dtype, and the final LayerNorm and LM
+    head stay float32 as ``_final_logits`` reads them. Values are those
+    the reference computes with; at bf16 the weight bytes halve.
+    ``device=None`` keeps the tree where it is."""
+    dt = compute_dtype(config)
+    dev = None if device is None else torch.device(device)
+
+    def put(t, dtype):
+        return t.to(dev if dev is not None else t.device, dtype)
+
+    out = {k: put(v, torch.float32 if k in FP32_KEYS else dt)
+           for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: put(v, dt) for k, v in params["blocks"].items()}
+    return out
+
+
+def layer_params(params):
+    """Per-layer views ``[{key: blocks[key][l]}]`` of the stacked blocks —
+    built once per forward caller instead of once per layer per step."""
+    blocks = params["blocks"]
+    L = blocks["qkv_w"].shape[0]
+    return [{k: v[i] for k, v in blocks.items()} for i in range(L)]

@@ -1,0 +1,14 @@
+"""Serving: the paged continuous-batching engine (counterpart of
+``paddle_tpu/serving``)."""
+from .engine import Engine
+from .metrics import (reset_serving_counters, serving_counters,
+                      serving_summary)
+from .paged_kv import PagedKVPool, PagePoolExhausted, pages_for
+from .request import (EXPIRED, FINISHED, LENGTH, QUEUED, RUNNING, STOP,
+                      GenerationResult, Request)
+from .scheduler import QueueFullError, Scheduler
+
+__all__ = ["Engine", "GenerationResult", "Request", "QueueFullError",
+           "Scheduler", "PagedKVPool", "PagePoolExhausted", "pages_for",
+           "serving_counters", "serving_summary", "reset_serving_counters",
+           "QUEUED", "RUNNING", "FINISHED", "STOP", "LENGTH", "EXPIRED"]

@@ -60,6 +60,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running benches excluded from the tier-1 '-m not slow' "
         "gate")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (a hand-written kernel without a CPU "
+        "mode); skips where torch.cuda.is_available() is False")
 
 
 @pytest.fixture(scope="session")
