@@ -5,10 +5,13 @@
 
 Phases, each of which fails the run (nonzero exit, no result line):
 
-1. build the hand-written CUDA kernels from ``paddle_tpu_torch/csrc``;
-2. hold each kernel against its plain PyTorch version at the serving
-   slice's shapes (8 slots, 16 heads of 128, page 16, 128 slot pages,
-   bf16 pool, positions at 0 and page boundaries);
+1. build the hand-written CUDA kernels from ``paddle_tpu_torch/csrc``, one
+   nvcc per source, all started together;
+2. hold each kernel against its plain PyTorch version: paged decode at the
+   serving slice's shapes (8 slots, 16 heads of 128, page 16, 128 slot
+   pages, bf16 pool, positions at 0 and page boundaries); the flash
+   forward (O, LSE), dQ and dK/dV kernels at B=2, 16 heads of 128, bf16,
+   causal and not, S=2048 and the ragged S=200, and one d=64 case;
 3. serve GPT-3 1.3B (full width and depth, bf16, random weights from the
    seed) through ``serving.Engine``: 16 requests, prompts of 32-1024
    tokens, greedy and sampled, two sharing a cached prefix. Every request
@@ -18,8 +21,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
    step through the plain gather path (bf16 tolerance), and greedy
    agreement with ``generate_from_params`` (printed, not gated: random
    weights make near-ties);
-5. timings: each kernel against its bound, its plain version and one
-   PyTorch library call; engine decode tokens/s and TTFT.
+5. train GPT-3 1.3B at full width and depth through ``HybridTrainStep``
+   (bench.py's recipe: bf16 params and compute, AdamW(2e-4) with global
+   norm clip 1.0 and bf16 moments, remat "full") on ids [8, 2048] from the
+   seed: 2 warm-up and 5 timed steps. Every loss must be finite, the last
+   below the first (same batch), and each step must launch the flash
+   forward kernel 48 times (24 layers, each rerun in the backward) and
+   the dQ and dK/dV kernels 24 times each;
+6. one step of a 2-layer copy at full width (B=2, S=2048) through the
+   kernels and through ``use_flash=False`` on the same weights: loss and
+   every gradient leaf within a bf16 tolerance;
+7. timings: each kernel against its bound, its plain version and one
+   PyTorch library call; engine decode tokens/s and TTFT; train step
+   time, tokens/s and MFU; torch.profiler over a decode step and over a
+   train step.
 
 The lines before the last carry a ``{"kernels": [...]}`` JSON object and
 the card's name and power limit (nvidia-smi); the last line is
@@ -29,8 +44,10 @@ result when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,9 +57,16 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch import cuda_build
-from paddle_tpu_torch.models import (GPT_CONFIGS, cast_for_compute,
-                                     generate_from_params, init_gpt_params)
+from paddle_tpu_torch.models import (GPT_CONFIGS, HybridTrainStep,
+                                     cast_for_compute, generate_from_params,
+                                     init_gpt_params)
+from paddle_tpu_torch.models.gpt_hybrid import (flatten_params, gpt_loss,
+                                                unflatten_params)
 from paddle_tpu_torch.models.params import layer_params
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.observability import flops
+from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import (Engine, Request, reset_serving_counters,
                                       serving_counters, serving_summary)
 from paddle_tpu_torch.serving import paged_decode
@@ -51,15 +75,45 @@ from paddle_tpu_torch.serving.paged_decode import (gather_window,
                                                    paged_decode_attention,
                                                    paged_decode_plain)
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and fp32
-# rate outside the tensor cores (the kernel's math is fp32 FMA)
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, fp32
+# rate outside the tensor cores (the paged-decode kernel's math is fp32
+# FMA) and the bf16 dense tensor-core rate (the flash kernels' products)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 MODEL = "gpt3-1.3B"
 SLOTS, PAGE, CHUNK = 8, 16, 256
 KERNEL_TOL = 1e-3           # atol = rtol: fp32 accumulation, bf16 inputs
 LOGIT_TOL = 0.05            # max |kernel - plain| / max |plain| logits
+# flash kernels against their plain versions: bf16 inputs and outputs,
+# fp32 accumulation, P and dS rounded to bf16 for the tensor cores; the
+# plain version computes in fp32 and rounds only its output. Gate:
+# max |kernel - plain| <= FLASH_REL * max |plain| per output; the fp32
+# LSE differs by summation order only (atol = rtol = LSE_TOL).
+FLASH_REL = 2e-2
+LSE_TOL = 1e-3
+FLASH_CASES = [  # (B, S, nh, d, causal)
+    (2, 2048, 16, 128, True), (2, 2048, 16, 128, False),
+    (2, 200, 16, 128, True), (2, 200, 16, 128, False),
+    (2, 2048, 16, 64, True),
+]
+TRAIN_B, TRAIN_S = 8, 2048  # bench.py's headline rung
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+# train-path parity, kernels vs use_flash=False, bf16 everywhere else the
+# same ops: |loss_k - loss_p| <= PARITY_LOSS_REL * |loss_p| and, per
+# gradient leaf, ||g_k - g_p|| <= PARITY_GRAD_REL * ||g_p|| (P rounded to
+# bf16 in the kernels, fp32 in the blockwise path)
+PARITY_LOSS_REL = 1e-3
+PARITY_GRAD_REL = 5e-2
+FLASH_KERNELS = (  # (name, wrapper, TPU kernel it replaces)
+    ("flash_fwd", fa.flash_forward,
+     "paddle_tpu/ops/pallas_kernels/flash_attention.py:83"),
+    ("flash_dq", fa.flash_dq,
+     "paddle_tpu/ops/pallas_kernels/flash_attention_bwd.py:106"),
+    ("flash_dkv", fa.flash_dkv,
+     "paddle_tpu/ops/pallas_kernels/flash_attention_bwd.py:142"),
+)
 
 
 def check(cond, msg):
@@ -146,13 +200,22 @@ def decode_bound(pos, nh=16, d=128, pool_bytes=2):
 
 def phase_build():
     t0 = time.perf_counter()
+    sources = {"paged_decode": "paged_decode.cu",
+               "flash_attention": "flash_attention.cu"}
+    cuda_build.build_all(sources)
     paged_decode.build()
-    info = cuda_build.BUILD_INFO["paged_decode"]
-    print(f"[build] paged_decode.cu: {time.perf_counter() - t0:.2f}s "
-          f"-> {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    fa.build()
+    print(f"[build] {len(sources)} sources in parallel: "
+          f"{time.perf_counter() - t0:.2f}s")
+    for name, source in sources.items():
+        info = cuda_build.BUILD_INFO[name]
+        print(f"[build] {source}: {info['seconds']:.2f}s -> {info['path']}")
+        for line in info["log"].splitlines():
+            entry = re.search(r"(\w+_kernel)I(\w+?)EEEv", line)
+            if entry and "Compiling entry" in line:
+                print(f"[build]   {entry.group(1)}<{entry.group(2)}>")
+            elif "registers" in line or "spill" in line:
+                print(f"[build]     {line.strip()}")
 
 
 def phase_kernel_vs_plain(gen, dev):
@@ -421,6 +484,312 @@ def phase_timing(gen, dev, max_abs, launches, layers):
             "library_ms": lib}
 
 
+# ------------------------------------------------------------ flash / train
+def flash_inputs(gen, dev, B, S, nh, d, dtype=torch.bfloat16):
+    """q, k, v as strided views of one [B, S, 3, nh, d] qkv tensor (the
+    model's split, read in place by the kernels) and a contiguous dO."""
+    qkv = torch.randn(B, S, 3, nh, d, generator=gen, device=dev).to(dtype)
+    do = torch.randn(B, S, nh, d, generator=gen, device=dev).to(dtype)
+    q, k, v = qkv.unbind(2)
+    return q, k, v, do
+
+
+def flash_bound(kernel, B, S, nh, d, causal, itemsize=2):
+    """Least time (ms) and its limiter for one call of a flash kernel:
+    each [B, S, nh, d] input read once and each output written once (LSE
+    and delta fp32 [B*nh, S]); the tensor-core flops of its products over
+    the (query, key) pairs the mask keeps, S(S+1)/2 when causal."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    t = B * S * nh * d * itemsize
+    stat = B * nh * S * 4
+    gemms, nbytes = {"flash_fwd": (2, 4 * t + stat),
+                     "flash_dq": (3, 5 * t + 2 * stat),
+                     "flash_dkv": (4, 6 * t + 2 * stat)}[kernel]
+    nflops = gemms * 2 * d * pairs * B * nh
+    t_ops = nflops / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", nflops, nbytes)
+
+
+def phase_flash_vs_plain(gen, dev):
+    """The three flash kernels against their plain versions on the same
+    inputs. Returns {kernel name: max abs error over the cases}."""
+    worst = {name: 0.0 for name, _, _ in FLASH_KERNELS}
+    for B, S, nh, d, causal in FLASH_CASES:
+        q, k, v, do = flash_inputs(gen, dev, B, S, nh, d)
+        o, lse = fa.flash_forward(q, k, v, causal)
+        delta = fa.attention_delta(o, do)
+        dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        o_p, lse_p = fa.flash_forward_plain(q, k, v, causal)
+        dq_p = fa.flash_dq_plain(q, k, v, do, lse_p, delta, causal)
+        dk_p, dv_p = fa.flash_dkv_plain(q, k, v, do, lse_p, delta, causal)
+        outs = {"o": (o, o_p, "flash_fwd"), "dq": (dq, dq_p, "flash_dq"),
+                "dk": (dk, dk_p, "flash_dkv"), "dv": (dv, dv_p, "flash_dkv")}
+        errs = []
+        for key, (got, want, kernel) in outs.items():
+            check(bool(torch.isfinite(got).all()),
+                  f"flash {key} not finite at B={B} S={S} d={d}")
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            worst[kernel] = max(worst[kernel], err)
+            errs.append(f"{key} {err:.2e}/{scale:.2e}")
+            check(err <= FLASH_REL * scale,
+                  f"flash {key} disagrees with its plain version at B={B} "
+                  f"S={S} nh={nh} d={d} causal={causal}: max abs {err:.3e} "
+                  f"> {FLASH_REL} x max |plain| {scale:.3e}")
+        lse_err = float((lse - lse_p).abs().max())
+        check(torch.allclose(lse, lse_p, atol=LSE_TOL, rtol=LSE_TOL),
+              f"flash LSE disagrees at B={B} S={S} d={d}: {lse_err:.3e}")
+        worst["flash_fwd"] = max(worst["flash_fwd"], lse_err)
+        print(f"[flash] B={B} S={S} nh={nh} d={d} bf16 "
+              f"{'causal' if causal else 'full'}: max abs err / max |plain| "
+              f"{', '.join(errs)}, lse {lse_err:.2e} (gate "
+              f"{FLASH_REL} x max |plain|, lse {LSE_TOL})")
+    return worst
+
+
+def train_config(num_layers=None):
+    """bench.py's recipe on GPT_CONFIGS[MODEL]: flash attention, bf16
+    compute, remat "full"."""
+    cfg = dataclasses.replace(GPT_CONFIGS[MODEL], use_flash=True,
+                              compute_dtype="bfloat16", remat=True,
+                              remat_policy="full")
+    return cfg if num_layers is None else dataclasses.replace(
+        cfg, num_layers=num_layers)
+
+
+def reset_flash_counts():
+    for _, wrapper, _ in FLASH_KERNELS:
+        wrapper.launches = 0
+
+
+def flash_counts():
+    return {name: wrapper.launches for name, wrapper, _ in FLASH_KERNELS}
+
+
+def phase_train(seed, gen, dev):
+    """GPT-3 1.3B through HybridTrainStep with bench.py's recipe: 2
+    warm-up and 5 timed steps on one batch. Returns (step, ids, launch
+    counts of the run)."""
+    cfg = train_config()
+    t0 = time.perf_counter()
+    opt = AdamW(2e-4, grad_clip=ClipGradByGlobalNorm(1.0),
+                moment_dtype="bfloat16")
+    step = HybridTrainStep(cfg, opt, param_dtype=torch.bfloat16, seed=seed,
+                           device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                        generator=gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"[train] {MODEL}: H={cfg.hidden_size} L={cfg.num_layers} "
+          f"nh={cfg.num_heads} V={cfg.vocab_size}, {step.num_params():,} "
+          f"params bf16, AdamW(2e-4, clip 1.0, bf16 moments), remat full, "
+          f"ids [{TRAIN_B}, {TRAIN_S}]; set up in "
+          f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts start at 0 here and are read right after
+    reset_flash_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(WARMUP_STEPS):
+        losses.append(step(ids))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED_STEPS):
+        losses.append(step(ids))
+    stop.record()
+    last = float(losses[-1])                   # scalar read-back
+    step_s = start.elapsed_time(stop) / 1e3 / TIMED_STEPS
+    counts = flash_counts()
+    losses = [float(x) for x in losses]
+    steps = WARMUP_STEPS + TIMED_STEPS
+    L = cfg.num_layers
+    want = {"flash_fwd": 2 * L * steps, "flash_dq": L * steps,
+            "flash_dkv": L * steps}
+    print(f"[train] losses {[round(x, 4) for x in losses]}")
+    print(f"[train] launches over {steps} steps: {counts} (want {want}: "
+          f"forward 2 x {L} layers per step, its rerun under remat "
+          f"included; dQ and dK/dV {L} each)")
+    check(all(np.isfinite(losses)), f"a train loss is not finite: {losses}")
+    check(last < losses[0], f"loss did not fall on the same batch: "
+          f"{losses[0]:.4f} -> {last:.4f}")
+    check(counts == want, "the train step did not run the flash kernels "
+          "the expected number of times")
+    fpt, n_params = flops.model_flops_per_token(cfg, TRAIN_S)
+    tokens = TRAIN_B * TRAIN_S
+    peak = flops.peak_flops_bf16(torch.cuda.get_device_name(0))
+    mfu = flops.mfu(fpt * tokens, step_s, peak)
+    stats = {"step_s": step_s, "tokens_per_s": tokens / step_s,
+             "mfu": mfu, "peak_flops_bf16": peak,
+             "flops_per_token": fpt, "n_params_formula": n_params,
+             "warmup_s": warm, "first_loss": losses[0], "last_loss": last,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[train] {json.dumps(stats)}")
+    return step, ids, counts
+
+
+def phase_train_profile(step, ids):
+    """Where a train step's time goes: torch.profiler (device kernels)
+    over one step, the device's busy share of it, kernel rows grouped by
+    kind and the largest rows by name."""
+    step(ids)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        t0 = time.perf_counter()
+        float(step(ids))
+        traced = time.perf_counter() - t0
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    events = sorted((e for e in prof.key_averages() if dev_us(e) > 0),
+                    key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in events) / 1e3
+    kinds = {"flash kernels": ("flash_",), "GEMMs": (
+        "gemm", "nvjet", "cutlass", "sm90_xmma", "Kernel2"),
+        "reductions": ("reduce",), "elementwise": ("elementwise",
+                                                   "vectorized", "unrolled"),
+        "index/embedding": ("index", "embedding", "gather", "scatter")}
+    by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
+    for e in events:
+        kind = next((k for k, pats in kinds.items()
+                     if any(p in e.key for p in pats)), "other")
+        by_kind[kind] += dev_us(e) / 1e3
+    print(f"[train-profile] one step: {traced * 1e3:.1f} ms host wall "
+          f"traced; device busy {busy:.1f} ms = {busy / (traced * 1e3):.1%}")
+    print(f"[train-profile] device ms by kind: "
+          f"{json.dumps({k: round(v, 3) for k, v in by_kind.items()})}")
+    for e in events[:14]:
+        print(f"[train-profile]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} "
+              f"calls  {e.key[:90]}")
+    # device time under each record_function range of the step: a second
+    # trace that also records host ops, so kernels nest under the ranges.
+    # The backward (autograd's own thread) is what the ranges leave over.
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        float(step(ids))
+    ranges = ("train_step/forward", "fused_ce/forward", "fused_ce/backward",
+              "train_step/clip", "train_step/optimizer")
+    cpu = torch.autograd.DeviceType.CPU
+    spans = {r: sum(getattr(e, "device_time_total", 0) for e in prof.events()
+                    if e.name == r and e.device_type == cpu) / 1e3
+             for r in ranges}
+    spans["backward (the rest)"] = busy - sum(
+        spans[r] for r in ("train_step/forward", "train_step/clip",
+                           "train_step/optimizer"))
+    print(f"[train-profile] device ms by part of the step (forward and "
+          f"backward contain fused_ce's): "
+          f"{json.dumps({k: round(v, 3) for k, v in spans.items()})}")
+
+
+def phase_train_parity(seed, gen, dev):
+    """One step of a 2-layer copy at full width, through the kernels and
+    through use_flash=False, on the same weights and ids."""
+    cfg = train_config(num_layers=2)
+    params = init_gpt_params(cfg, seed=seed + 1, device=dev,
+                             dtype=torch.bfloat16)
+    ids = torch.randint(0, cfg.vocab_size, (2, TRAIN_S), generator=gen,
+                        device=dev)
+    runs = {}
+    for use_flash in (True, False):
+        flat = {n: t.detach().clone().requires_grad_(True)
+                for n, t in flatten_params(params).items()}
+        loss = gpt_loss(unflatten_params(flat), ids,
+                        dataclasses.replace(cfg, use_flash=use_flash))
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        runs[use_flash] = (float(loss.detach()), dict(zip(flat, grads)))
+    (lk, gk), (lp, gp) = runs[True], runs[False]
+    rel = {n: float((gk[n].float() - gp[n].float()).norm() /
+                    gp[n].float().norm().clamp(min=1e-30)) for n in gk}
+    worst = max(rel, key=rel.get)
+    print(f"[parity] 2-layer {MODEL} width, B=2 S={TRAIN_S} bf16: loss "
+          f"kernels {lk:.6f} vs use_flash=False {lp:.6f} (|diff| "
+          f"{abs(lk - lp):.2e}); gradient leaves: max ||dg||/||g|| "
+          f"{rel[worst]:.3e} ({worst}), median "
+          f"{sorted(rel.values())[len(rel) // 2]:.3e} (gates: loss "
+          f"{PARITY_LOSS_REL} rel, leaves {PARITY_GRAD_REL})")
+    check(np.isfinite(lk) and abs(lk - lp) <= PARITY_LOSS_REL * abs(lp),
+          "train loss through the kernels disagrees with the plain path")
+    check(all(np.isfinite(v) and v <= PARITY_GRAD_REL
+              for v in rel.values()),
+          f"a gradient leaf disagrees with the plain path: {rel}")
+
+
+def phase_flash_timing(gen, dev, errs, counts):
+    """Each flash kernel at the 1.3B training shapes (B=8, S=2048, 16 heads
+    of 128, bf16, causal) against its bound, its plain version and SDPA
+    (forward, and forward + backward less forward for the backward
+    kernels: one SDPA backward computes dQ, dK and dV together).
+    Returns the three kernel rows."""
+    B, S, nh, d = TRAIN_B, TRAIN_S, 16, 128
+    q, k, v, do = flash_inputs(gen, dev, B, S, nh, d)
+    o, lse = fa.flash_forward(q, k, v, True)
+    delta = fa.attention_delta(o, do)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_forward(q, k, v, True),
+                      lambda: fa.flash_forward_plain(q, k, v, True)),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, True),
+                     lambda: fa.flash_dq_plain(q, k, v, do, lse, delta,
+                                               True)),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, True),
+                      lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta,
+                                                 True)),
+    }
+    qh, kh, vh, doh = (t.permute(0, 2, 1, 3).contiguous()
+                       for t in (q, k, v, do))
+    leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+
+    def sdpa_fwd():
+        F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        torch.autograd.grad(out, leaves, doh)
+
+    lib_fwd = graph_ms(sdpa_fwd, iters=10)
+    lib_fwd_bwd = graph_ms(sdpa_fwd_bwd, iters=10)
+    library = {"flash_fwd": lib_fwd, "flash_dq": lib_fwd_bwd - lib_fwd,
+               "flash_dkv": lib_fwd_bwd - lib_fwd}
+    rows = []
+    for name, _, replaces in FLASH_KERNELS:
+        kernel, plain = calls[name]
+        # device time, in turns: plain, kernel, kernel, plain
+        p1 = graph_ms(plain, iters=2, replays=3)
+        k1 = graph_ms(kernel, iters=10)
+        k2 = graph_ms(kernel, iters=10)
+        p2 = graph_ms(plain, iters=2, replays=3)
+        ms, plain_ms = min(k1, k2), min(p1, p2)
+        bound, bound_by, nflops, nbytes = flash_bound(name, B, S, nh, d,
+                                                      True)
+        print(f"[timing] {name} B={B} S={S} nh={nh} d={d} bf16 causal, "
+              f"device time (CUDA graph replay): kernel {k1:.4f}/{k2:.4f} "
+              f"ms = {nflops / ms / 1e9:.1f} TFLOP/s, plain "
+              f"{p1:.4f}/{p2:.4f} ms, SDPA {library[name]:.4f} ms, bound "
+              f"{bound:.4f} ms ({bound_by}: {nflops:.3e} flops, "
+              f"{nbytes / 1e6:.1f} MB) -> {bound / ms:.1%} of bound")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": replaces, "launches": counts[name],
+                     "max_abs_err": errs[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": library[name]})
+    print(f"[timing] SDPA (library yardstick, not used by the port): "
+          f"forward {lib_fwd:.4f} ms, forward + backward {lib_fwd_bwd:.4f} "
+          f"ms; flash kernels forward + dQ + dK/dV "
+          f"{sum(r['ms'] for r in rows):.4f} ms")
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -440,6 +809,7 @@ def main(argv=None):
 
     phase_build()
     max_abs = phase_kernel_vs_plain(gen, dev)
+    flash_errs = phase_flash_vs_plain(gen, dev)
 
     cfg = GPT_CONFIGS[MODEL]
     t0 = time.perf_counter()
@@ -455,16 +825,24 @@ def main(argv=None):
     phase_logits(cfg, eng, gen, dev)
     phase_profile(cfg, eng, rng)
     phase_oracle(cfg, params, results, wave1)
-    del eng
+    del eng, params, results
     torch.cuda.empty_cache()
     row = phase_timing(gen, dev, max_abs, launches, cfg.num_layers)
+
+    step, ids, counts = phase_train(args.seed, gen, dev)
+    phase_train_profile(step, ids)
+    del step, ids
+    torch.cuda.empty_cache()
+    phase_train_parity(args.seed, gen, dev)
+    torch.cuda.empty_cache()
+    rows = [row] + phase_flash_timing(gen, dev, flash_errs, counts)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

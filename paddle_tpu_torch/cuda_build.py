@@ -23,7 +23,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# name -> {"seconds": build time (0.0 when loaded from _build/),
+# name -> {"seconds": build time (0.0 when loaded from _build/; with
+#          build_all, from the start of all the builds),
 #          "log": nvcc's stderr, which carries ptxas's register and
 #          spill report}
 BUILD_INFO = {}
@@ -43,28 +44,58 @@ def nvcc_path():
                        "paddle_tpu_torch are built from source at first use")
 
 
+def _target(name, source):
+    """(source path, library path) of ``csrc/<source>``: the library is
+    named by a digest of the source and the flags."""
+    src = CSRC_DIR / source
+    digest = hashlib.sha256(src.read_bytes() +
+                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(sources):
+    """Build every library of ``{name: source}`` that is not in ``_build/``
+    yet, one nvcc process per source, all started together, and wait for
+    all of them. Raises with nvcc's output when a build fails; no process
+    outlives the call."""
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for name, source in sources.items():
+            src, lib = _target(name, source)
+            if lib.exists():
+                continue
+            BUILD_DIR.mkdir(exist_ok=True)
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE,
+                                            text=True), src, tmp, lib)
+        for name, (proc, src, tmp, lib) in procs.items():
+            out, err = proc.communicate()
+            log = out + err
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"building {src.name} failed "
+                                   f"(exit {proc.returncode}):\n{log}")
+            os.replace(tmp, lib)
+            BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
+                                "log": log, "path": str(lib)}
+    finally:
+        for proc, _, tmp, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+                tmp.unlink(missing_ok=True)
+
+
 def load_library(name, source):
     """Build ``csrc/<source>`` (if its digest is not in ``_build/`` yet)
     and return the loaded ``ctypes.CDLL``. Raises with nvcc's output when
     the build fails."""
-    src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not lib.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"building {src.name} failed "
-                               f"(exit {proc.returncode}):\n{log}")
-        os.replace(tmp, lib)
+    build_all({name: source})
+    _, lib = _target(name, source)
     handle = ctypes.CDLL(str(lib))
-    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log,
-                        "path": str(lib)}
+    BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "",
+                                 "path": str(lib)})
     return handle

@@ -1,16 +1,26 @@
-"""GPT configuration and the fp32 LayerNorm (counterpart of
-``paddle_tpu/models/gpt.py``).
+"""GPT configuration, the fp32 LayerNorm and the training block
+(counterpart of ``paddle_tpu/models/gpt.py``).
 
 ``GPTConfig`` keeps the reference's field names and defaults, so one set
 of keyword arguments builds both frameworks' configs. Fields that only
-the reference's training and Pallas paths read (flash tiles, remat, pp)
-are carried unchanged.
+the reference's TPU and pipeline paths read (flash tiles, pp) are carried
+unchanged.
+
+``gpt_block_fn`` is the block the training step runs over a
+``{name: tensor}`` dict of one layer's params. It keeps the reference's
+association of the MLP residual, ``x + (up @ down_w + down_b)``, which is
+not the serving block's ``(h + up @ down_w) + down_b``
+(``generation._block``): each side keeps its own reference's rounding.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
+
+from ..ops.blockwise_attention import blockwise_attention
+from ..ops.flash_attention import flash_attention_bshd
 
 
 @dataclass
@@ -67,3 +77,37 @@ def ln_fp32(x, g, b, eps):
     var = (xf - mu).square().mean(-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * g.to(x.dtype) \
         + b.to(x.dtype)
+
+
+def gpt_block_fn(config):
+    """(p, x) -> x of one pre-LN block over x [B, S, H]: fp32 LayerNorm,
+    qkv GEMM, causal attention (the flash kernels when
+    ``config.use_flash``, their plain versions for CPU tensors; else the
+    plain blockwise attention), out GEMM, fp32 LayerNorm, tanh-GELU MLP,
+    with the residual ``x + (gact @ down_w + down_b)``."""
+    if config.qkv_head_major:
+        raise NotImplementedError(
+            "qkv_head_major (the explicit tensor-parallel layout) is not "
+            "ported yet (ROADMAP Queue A item 11)")
+    nh = config.num_heads
+    eps = config.layer_norm_epsilon
+
+    def block(p, x):
+        B, S, H = x.shape
+        dt = x.dtype
+        h1 = ln_fp32(x, p["ln1_g"], p["ln1_b"], eps)
+        qkv = h1 @ p["qkv_w"].to(dt) + p["qkv_b"].to(dt)
+        # unbind: strided views the flash kernels read in place, whose
+        # backward is one stack into d(qkv)
+        q, k, v = qkv.view(B, S, 3, nh, H // nh).unbind(2)
+        if config.use_flash:
+            ctx = flash_attention_bshd(q, k, v, causal=True)
+        else:
+            ctx = blockwise_attention(q, k, v, causal=True)
+        x = x + (ctx.reshape(B, S, H) @ p["out_w"].to(dt) + p["out_b"].to(dt))
+        h2 = ln_fp32(x, p["ln2_g"], p["ln2_b"], eps)
+        up = F.gelu(h2 @ p["up_w"].to(dt) + p["up_b"].to(dt),
+                    approximate="tanh")
+        return x + (up @ p["down_w"].to(dt) + p["down_b"].to(dt))
+
+    return block

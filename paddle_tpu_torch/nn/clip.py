@@ -1,0 +1,58 @@
+"""Gradient clipping on lists of gradient tensors (counterpart of the
+``apply_arrays`` rules of ``paddle_tpu/nn/clip.py``).
+
+Norms are taken in fp32 whatever the gradients' dtype, and each clipped
+gradient is cast back to its own dtype, as the reference does. The eager
+``(param, grad)`` form of the reference waits for the eager API (ROADMAP
+Queue A item 14).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _sq_norm(g):
+    return g.float().square().sum()
+
+
+def _scaled(g, scale):
+    return (g.float() * scale).to(g.dtype)
+
+
+class ClipGradByValue:
+    def __init__(self, max, min=None):
+        self.max = float(max)
+        self.min = float(min) if min is not None else -self.max
+
+    def apply_arrays(self, grads):
+        return [g.clamp(self.min, self.max) for g in grads]
+
+
+class ClipGradByNorm:
+    """Each gradient scaled to norm at most ``clip_norm`` on its own."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    def apply_arrays(self, grads):
+        out = []
+        for g in grads:
+            norm = torch.sqrt(_sq_norm(g))
+            scale = torch.clamp(self.clip_norm / torch.clamp(norm, min=1e-12),
+                                max=1.0)
+            out.append(_scaled(g, scale))
+        return out
+
+
+class ClipGradByGlobalNorm:
+    """All gradients scaled by ``min(clip_norm / max(norm, 1e-12), 1)``,
+    norm the fp32 global norm over every gradient."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    def apply_arrays(self, grads):
+        norm = torch.sqrt(sum(_sq_norm(g) for g in grads))
+        scale = torch.clamp(self.clip_norm / torch.clamp(norm, min=1e-12),
+                            max=1.0)
+        return [_scaled(g, scale) for g in grads]

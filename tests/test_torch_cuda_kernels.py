@@ -104,3 +104,133 @@ def test_engine_decodes_through_the_kernel_on_card(cuda_device):
         set_flags(old)
     for a, b in zip(*runs):
         assert len(a) == len(b) == 6 and a[0] == b[0]
+
+
+# ------------------------------------------------------- flash attention
+# Tolerances: bf16 (or fp16) inputs and outputs, fp32 accumulation, and P
+# and dS rounded to the input type before the tensor-core products. The
+# plain version computes in fp32 from the same inputs and rounds only its
+# output, so each output may differ by a few input-type ulps of its
+# largest entry: max |kernel - plain| <= 2e-2 * max |plain|. The LSE is
+# fp32 on both sides and differs only in summation order.
+FLASH_REL = 2e-2
+LSE_TOL = 1e-3
+FLASH_CASES = [  # (B, S, H, D, dtype, causal)
+    (2, 2048, 16, 128, "bfloat16", True),
+    (2, 2048, 16, 128, "bfloat16", False),
+    (2, 200, 16, 128, "bfloat16", True),
+    (2, 200, 16, 128, "bfloat16", False),
+    (2, 333, 4, 64, "bfloat16", True),
+    (1, 256, 2, 128, "float16", True),
+]
+
+
+def _flash_inputs(device, B, S, H, D, dtype, seed=0):
+    """q, k, v as strided views of one [B, S, 3, H, D] qkv tensor (the
+    model's split), and a contiguous dO, all from numpy with a seed."""
+    rng = np.random.default_rng(seed)
+    tdt = getattr(torch, dtype)
+    qkv = torch.from_numpy(rng.standard_normal((B, S, 3, H, D)).astype(
+        np.float32)).to(device, tdt)
+    do = torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).to(device, tdt)
+    q, k, v = qkv.unbind(2)
+    return q, k, v, do
+
+
+def _max_rel(got, want):
+    return float((got.float() - want.float()).abs().max() /
+                 want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "B{}-S{}-H{}-D{}-{}-{}".format(
+                             *c[:5], "causal" if c[5] else "full"))
+def test_flash_kernels_match_plain_on_card(cuda_device, case):
+    """Forward O and LSE, dQ, dK and dV of the three kernels against their
+    plain versions, on the same strided inputs (S=200 and 333 exercise the
+    ragged edge)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    B, S, H, D, dtype, causal = case
+    q, k, v, do = _flash_inputs(cuda_device, B, S, H, D, dtype)
+    before = (fa.flash_forward.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    o, lse = fa.flash_forward(q, k, v, causal)
+    delta = fa.attention_delta(o, do)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_forward.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(n + 1 for n in before)
+    o_ref, lse_ref = fa.flash_forward_plain(q, k, v, causal)
+    dq_ref = fa.flash_dq_plain(q, k, v, do, lse_ref, delta, causal)
+    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, do, lse_ref, delta, causal)
+    for t in (o, lse, dq, dk, dv):
+        assert bool(torch.isfinite(t).all())
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_TOL, rtol=LSE_TOL)
+    errs = {name: _max_rel(got, want) for name, got, want in (
+        ("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref),
+        ("dv", dv, dv_ref))}
+    assert all(e <= FLASH_REL for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+def test_flash_autograd_runs_the_kernels_on_card(cuda_device):
+    """flash_attention_bshd's backward goes through the dQ and dK/dV
+    kernels and matches the plain gradients."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _flash_inputs(cuda_device, 2, 256, 4, 128, "bfloat16", 1)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    before = (fa.flash_forward.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    out = fa.flash_attention_bshd(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_forward.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(n + 1 for n in before)
+    o_ref, lse_ref = fa.flash_forward_plain(q, k, v, True)
+    delta = fa.attention_delta(o_ref, do)
+    want = (fa.flash_dq_plain(q, k, v, do, lse_ref, delta, True),
+            *fa.flash_dkv_plain(q, k, v, do, lse_ref, delta, True))
+    for got, ref in zip(grads, want):
+        assert _max_rel(got, ref) <= FLASH_REL
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda_device):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q = torch.zeros(1, 64, 2, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="use_flash=False"):
+        fa.flash_forward(q, q, q)
+    q96 = torch.zeros(1, 64, 2, 96, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="use_flash=False"):
+        fa.flash_forward(q96, q96, q96)
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="Queue B 4"):
+        fa.flash_forward(qb, qb[:, :32], qb[:, :32])
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        fa.flash_forward(qb.transpose(1, 3), qb.transpose(1, 3),
+                         qb.transpose(1, 3))
+
+
+@pytest.mark.cuda
+def test_flash_autograd_copies_layouts_the_kernels_cannot_read(cuda_device):
+    """A transposed input and the stride-0 gradient of ``.sum()`` are
+    copied to a readable layout by the autograd function, not refused."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(3)
+    base = [torch.from_numpy(rng.standard_normal((2, 64, 4, 96)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16) for _ in range(3)]
+    leaves = [t.requires_grad_(True) for t in base]
+    q, k, v = (t.transpose(1, 3) for t in leaves)      # [2, 96, 4, 64]
+    assert not fa._readable(q)
+    fa.flash_attention_bshd(q, k, v, causal=True).float().sum().backward()
+    ones = torch.ones(2, 96, 4, 64, device=cuda_device, dtype=torch.bfloat16)
+    qc, kc, vc = (t.detach().contiguous() for t in (q, k, v))
+    o, lse = fa.flash_forward_plain(qc, kc, vc, True)
+    delta = fa.attention_delta(o, ones)
+    want = (fa.flash_dq_plain(qc, kc, vc, ones, lse, delta, True),
+            *fa.flash_dkv_plain(qc, kc, vc, ones, lse, delta, True))
+    for leaf, ref in zip(leaves, want):
+        assert _max_rel(leaf.grad.transpose(1, 3), ref) <= FLASH_REL

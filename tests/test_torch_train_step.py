@@ -1,0 +1,168 @@
+"""The port's single-device training step (paddle_tpu_torch/models/
+gpt_hybrid.py) against the reference's ``gpt_hidden`` / ``gpt_forward``,
+``jax.value_and_grad`` of its training loss, and ``HybridTrainStep``.
+
+Both sides run the tests/torch_parity.py config (L=2, H=256, nh=2, V=512,
+fp32) on the reference's weights, handed over as numpy. The port runs its
+attention through the flash path (the kernels' plain versions on the CPU)
+and through the blockwise path; the reference runs blockwise off-TPU.
+Tolerances: 1e-5 relative on hidden states, logits, loss and each
+gradient leaf (fp32, summation order only); 1e-4 relative per step on the
+10-step loss trajectory.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.models.gpt_hybrid import HybridTrainStep as JaxTrainStep
+from paddle_tpu.models.gpt_hybrid import gpt_forward as jax_gpt_forward
+from paddle_tpu.models.gpt_hybrid import gpt_hidden as jax_gpt_hidden
+from paddle_tpu.nn.clip import ClipGradByGlobalNorm as JaxGlobalNorm
+from paddle_tpu.ops.fused_ce import fused_lm_loss as jax_fused_lm_loss
+from paddle_tpu.optimizer import AdamW as JaxAdamW
+from paddle_tpu_torch.models import params_from_numpy
+from paddle_tpu_torch.models.gpt_hybrid import (HybridTrainStep,
+                                                flatten_params, gpt_forward,
+                                                gpt_hidden, gpt_loss,
+                                                unflatten_params)
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.optimizer import AdamW
+from torch_parity import JCFG, TCFG, jax_params, numpy_params, torch_params
+
+TOL = 1e-5
+TRAJ_TOL = 1e-4
+CONFIGS = {"flash": dataclasses.replace(TCFG, use_flash=True),
+           "blockwise": dataclasses.replace(TCFG, use_flash=False)}
+
+
+def _ids(B=2, S=64, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, TCFG.vocab_size, (B, S)).astype(np.int32)
+
+
+def _rel(got, want):
+    want = np.asarray(want)
+    return float(np.abs(np.asarray(got) - want).max() /
+                 max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("attn", sorted(CONFIGS))
+def test_hidden_and_logits_match(attn):
+    ids = _ids()
+    want_h = jax_gpt_hidden(jax_params(), jnp.asarray(ids), JCFG)
+    want_l = jax_gpt_forward(jax_params(), jnp.asarray(ids), JCFG)
+    tids = torch.from_numpy(ids).long()
+    with torch.no_grad():
+        h = gpt_hidden(torch_params(), tids, CONFIGS[attn])
+        logits = gpt_forward(torch_params(), tids, CONFIGS[attn])
+    assert _rel(h.numpy(), want_h) < TOL
+    assert _rel(logits.numpy(), want_l) < TOL
+
+
+def _jax_loss(p, ids):
+    hidden = jax_gpt_hidden(p, ids, JCFG)
+    return jax_fused_lm_loss(hidden, p["head_w"].astype(hidden.dtype), ids)
+
+
+@pytest.mark.parametrize("attn", sorted(CONFIGS))
+def test_loss_and_every_gradient_leaf_match(attn):
+    ids = _ids(seed=1)
+    jl, jg = jax.value_and_grad(_jax_loss)(jax_params(), jnp.asarray(ids))
+    want = flatten_params(jg)
+    flat = flatten_params(torch_params())
+    for t in flat.values():
+        t.requires_grad_(True)
+    loss = gpt_loss(unflatten_params(flat), torch.from_numpy(ids).long(),
+                    CONFIGS[attn])
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    assert abs(float(loss.detach()) - float(jl)) <= TOL * abs(float(jl))
+    assert set(flat) == set(want)
+    errs = {n: _rel(g.numpy(), want[n]) for n, g in zip(flat, grads)}
+    assert max(errs.values()) < TOL, errs
+
+
+def _jax_step():
+    opt = JaxAdamW(1e-3, grad_clip=JaxGlobalNorm(1.0))
+    return JaxTrainStep(JCFG, opt, seed=0)
+
+
+@pytest.mark.parametrize("attn", sorted(CONFIGS))
+def test_ten_step_loss_trajectory_matches(attn):
+    ids = _ids(seed=2)
+    jstep = _jax_step()
+    tree = jax.tree_util.tree_map(np.asarray, jstep.params)
+    tstep = HybridTrainStep(
+        CONFIGS[attn], AdamW(1e-3, grad_clip=ClipGradByGlobalNorm(1.0)),
+        params=params_from_numpy(tree, TCFG, device="cpu"), device="cpu")
+    jl = [float(jstep(jnp.asarray(ids))) for _ in range(10)]
+    tl = [float(tstep(torch.from_numpy(ids))) for _ in range(10)]
+    assert tl[-1] < tl[0]
+    np.testing.assert_allclose(tl, jl, rtol=TRAJ_TOL)
+
+
+def test_step_keeps_the_callers_tree_and_reports_loss_only():
+    tree = torch_params()
+    before = tree["blocks"]["qkv_w"].clone()
+    step = HybridTrainStep(CONFIGS["flash"], AdamW(1e-3), params=tree,
+                           device="cpu")
+    ids = torch.from_numpy(_ids(seed=3))
+    first = step.loss_only(ids)
+    assert float(step(ids)) == pytest.approx(float(first), rel=1e-6)
+    assert torch.equal(tree["blocks"]["qkv_w"], before)
+    assert not torch.equal(step.params["blocks"]["qkv_w"], before)
+    assert step.num_params() == sum(
+        np.asarray(a).size for a in jax.tree_util.tree_leaves(numpy_params()))
+
+
+def test_remat_full_and_nothing_give_the_same_gradients():
+    ids = torch.from_numpy(_ids(seed=4)).long()
+    out = []
+    for policy in ("full", "nothing"):
+        cfg = dataclasses.replace(CONFIGS["flash"], remat_policy=policy)
+        flat = flatten_params(torch_params())
+        for t in flat.values():
+            t.requires_grad_(True)
+        loss = gpt_loss(unflatten_params(flat), ids, cfg)
+        out.append(torch.autograd.grad(loss, list(flat.values())))
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_no_batch", "save_attn"])
+def test_unported_remat_policies_raise(policy):
+    cfg = dataclasses.replace(CONFIGS["flash"], remat_policy=policy)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        gpt_hidden(torch_params(), torch.zeros(1, 8, dtype=torch.long), cfg)
+
+
+@pytest.mark.parametrize("kwargs, match", [
+    ({"mesh": object()}, "item 11"),
+    ({"offload": True}, "item 13"),
+    ({"zero_stage": 3}, "items 11 and 13"),
+])
+def test_unported_step_options_raise(kwargs, match):
+    with pytest.raises(NotImplementedError, match=match):
+        HybridTrainStep(TCFG, AdamW(1e-3), device="cpu", **kwargs)
+
+
+def test_unknown_remat_policy_and_head_major_qkv_raise():
+    ids = torch.zeros(1, 8, dtype=torch.long)
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        gpt_hidden(torch_params(), ids,
+                   dataclasses.replace(TCFG, remat_policy="bogus"))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        gpt_hidden(torch_params(), ids,
+                   dataclasses.replace(TCFG, qkv_head_major=True))
+
+
+def test_step_defaults_to_the_card():
+    """device=None means CUDA; without a card it raises instead of
+    training on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HybridTrainStep(TCFG, AdamW(1e-3))
