@@ -35,7 +35,7 @@
 //   q-tiles from the diagonal on. Every output tile is owned by one block,
 //   so there are no atomics and no cross-block reduction;
 // * 4 warps per block, each owning 16 rows of the block's tile. Products are
-//   warp-level mma.sync m16n8k16 with bf16 (or fp16) operands and fp32
+//   warp-level mma.sync m16n8k16 with bf16 operands and fp32
 //   accumulators. The accumulator layout of one product is the operand
 //   layout of the next, so P and dS go from registers straight into the
 //   P.V, dS.K, P^T.dO and dS^T.Q products without a trip through memory;
@@ -59,7 +59,6 @@
 // and bound with ctypes (paddle_tpu_torch/ops/flash_attention.py).
 
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -90,23 +89,6 @@ struct Mma<__nv_bfloat16> {
                                              uint32_t b0, uint32_t b1) {
     asm volatile(
         "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
         "{%0, %1, %2, %3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
@@ -639,37 +621,29 @@ cudaError_t dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// Calls F<T, D, causal>::go(args...) for the runtime dtype, D and causal;
-// -1 when this library has no such instance.
+// Calls FN<bf16, D, causal>(args...) for the runtime D and causal; -1 when
+// this library has no such instance.
 #define FLASH_DISPATCH(FN, ...)                                            \
   do {                                                                     \
-    if (dtype == 0 && head_dim == 64 && causal)                            \
+    if (head_dim == 64 && causal)                                          \
       return static_cast<int>(FN<__nv_bfloat16, 64, true>(__VA_ARGS__));  \
-    if (dtype == 0 && head_dim == 64 && !causal)                           \
+    if (head_dim == 64 && !causal)                                         \
       return static_cast<int>(FN<__nv_bfloat16, 64, false>(__VA_ARGS__)); \
-    if (dtype == 0 && head_dim == 128 && causal)                           \
+    if (head_dim == 128 && causal)                                         \
       return static_cast<int>(FN<__nv_bfloat16, 128, true>(__VA_ARGS__)); \
-    if (dtype == 0 && head_dim == 128 && !causal)                          \
+    if (head_dim == 128 && !causal)                                        \
       return static_cast<int>(FN<__nv_bfloat16, 128, false>(__VA_ARGS__));\
-    if (dtype == 1 && head_dim == 64 && causal)                            \
-      return static_cast<int>(FN<__half, 64, true>(__VA_ARGS__));          \
-    if (dtype == 1 && head_dim == 64 && !causal)                           \
-      return static_cast<int>(FN<__half, 64, false>(__VA_ARGS__));         \
-    if (dtype == 1 && head_dim == 128 && causal)                           \
-      return static_cast<int>(FN<__half, 128, true>(__VA_ARGS__));         \
-    if (dtype == 1 && head_dim == 128 && !causal)                          \
-      return static_cast<int>(FN<__half, 128, false>(__VA_ARGS__));        \
     return -1;                                                             \
   } while (0)
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float16. strides: [B, S, H] element strides of
-// q, k, v (and dout for the backward), three per tensor. Each returns 0, a
-// cudaError_t code, or -1 for a dtype or head_dim not built here.
+// Operands are bfloat16. strides: [B, S, H] element strides of q, k, v (and
+// dout for the backward), three per tensor. Each returns 0, a cudaError_t
+// code, or -1 for a head_dim not built here.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int B, int S, int H,
-                                int head_dim, int dtype, int causal,
+                                int head_dim, int causal,
                                 const long long* strides, float scale,
                                 void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
@@ -680,7 +654,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
 extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dqp, int B, int S,
-                               int H, int head_dim, int dtype, int causal,
+                               int H, int head_dim, int causal,
                                const long long* strides, float scale,
                                void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
@@ -692,9 +666,9 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
 extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dkp, void* dvp,
-                                int B, int S, int H, int head_dim, int dtype,
-                                int causal, const long long* strides,
-                                float scale, void* stream) {
+                                int B, int S, int H, int head_dim, int causal,
+                                const long long* strides, float scale,
+                                void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(dkv, q, k, v, dout, lse, delta, dkp, dvp, B, S, H, strides,
@@ -702,6 +676,6 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
 }
 
 extern "C" const char* flash_error_string(int code) {
-  if (code == -1) return "unsupported head_dim or dtype";
+  if (code == -1) return "unsupported head_dim";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

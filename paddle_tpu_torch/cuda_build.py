@@ -23,8 +23,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# name -> {"seconds": build time (0.0 when loaded from _build/; with
-#          build_all, from the start of all the builds),
+# name -> {"seconds": wall time from the start of the build call until
+#          this library was built (0.0 when loaded from _build/),
 #          "log": nvcc's stderr, which carries ptxas's register and
 #          spill report}
 BUILD_INFO = {}

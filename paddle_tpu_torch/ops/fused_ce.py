@@ -46,14 +46,7 @@ def _chunks(V, num_chunks):
     return [(i * C, min((i + 1) * C, V)) for i in range(n)]
 
 
-def _chunk_logits(hidden, head_w, head_b, lo, hi):
-    logits = _mm_f32(hidden, head_w[:, lo:hi])
-    if head_b is not None:
-        logits = logits + head_b[lo:hi].float()
-    return logits
-
-
-def _fwd_stats(hidden, head_w, labels, num_chunks, head_b=None):
+def _fwd_stats(hidden, head_w, labels, num_chunks):
     """Online logsumexp and gold logit over vocab chunks: (logz [N] fp32,
     gold [N] fp32)."""
     N = hidden.shape[0]
@@ -62,7 +55,7 @@ def _fwd_stats(hidden, head_w, labels, num_chunks, head_b=None):
     s = torch.zeros(N, **f32)
     gold = torch.zeros(N, **f32)
     for lo, hi in _chunks(head_w.shape[1], num_chunks):
-        logits = _chunk_logits(hidden, head_w, head_b, lo, hi)
+        logits = _mm_f32(hidden, head_w[:, lo:hi])
         m_new = torch.maximum(m, logits.amax(-1))
         s = s * torch.exp(m - m_new) + torch.exp(
             logits - m_new[:, None]).sum(-1)
@@ -73,17 +66,15 @@ def _fwd_stats(hidden, head_w, labels, num_chunks, head_b=None):
     return m + torch.log(s), gold
 
 
-def _bwd(hidden, head_w, head_b, labels, logz, g, num_chunks):
-    """(dh, dW, db) of the per-token losses for cotangent g [N]."""
+def _bwd(hidden, head_w, labels, logz, g, num_chunks):
+    """(dh, dW) of the per-token losses for cotangent g [N]."""
     N, H = hidden.shape
     V = head_w.shape[1]
     dh = torch.zeros(N, H, dtype=torch.float32, device=hidden.device)
     dW = torch.empty(H, V, dtype=torch.float32, device=hidden.device)
-    dB = torch.empty(V, dtype=torch.float32, device=hidden.device) \
-        if head_b is not None else None
     g = g.float()
     for lo, hi in _chunks(V, num_chunks):
-        logits = _chunk_logits(hidden, head_w, head_b, lo, hi)
+        logits = _mm_f32(hidden, head_w[:, lo:hi])
         delta = torch.exp(logits - logz[:, None])
         in_c = (labels >= lo) & (labels < hi)
         idx = (labels - lo).clamp(0, hi - lo - 1)
@@ -92,40 +83,34 @@ def _bwd(hidden, head_w, head_b, labels, logz, g, num_chunks):
         dc = delta.to(hidden.dtype)
         dh += _mm_f32(dc, head_w[:, lo:hi].t())
         dW[:, lo:hi] = _mm_f32(hidden.t(), dc)
-        if dB is not None:
-            dB[lo:hi] = delta.sum(0)
-    return (dh.to(hidden.dtype), dW.to(head_w.dtype),
-            None if dB is None else dB.to(head_b.dtype))
+    return dh.to(hidden.dtype), dW.to(head_w.dtype)
 
 
 class _FusedLinearCE(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, hidden, head_w, head_b, labels, num_chunks):
+    def forward(ctx, hidden, head_w, labels, num_chunks):
         with record_function("fused_ce/forward"):
-            logz, gold = _fwd_stats(hidden, head_w, labels, num_chunks,
-                                    head_b)
-        ctx.save_for_backward(hidden, head_w, head_b, labels, logz)
+            logz, gold = _fwd_stats(hidden, head_w, labels, num_chunks)
+        ctx.save_for_backward(hidden, head_w, labels, logz)
         ctx.num_chunks = num_chunks
         return logz - gold
 
     @staticmethod
     def backward(ctx, g):
-        hidden, head_w, head_b, labels, logz = ctx.saved_tensors
+        hidden, head_w, labels, logz = ctx.saved_tensors
         with record_function("fused_ce/backward"):
-            dh, dW, dB = _bwd(hidden, head_w, head_b, labels, logz, g,
-                              ctx.num_chunks)
-        return dh, dW, dB, None, None
+            dh, dW = _bwd(hidden, head_w, labels, logz, g, ctx.num_chunks)
+        return dh, dW, None, None
 
 
-def fused_linear_cross_entropy(hidden, head_w, labels, num_chunks=8,
-                               head_b=None):
-    """Per-token CE of ``softmax(hidden @ head_w [+ head_b])`` against
-    ``labels`` without materializing the logits. hidden [N, H], head_w
-    [H, V], labels [N] int, head_b optional [V]. Returns losses [N] fp32;
-    callers apply their own mask and reduction."""
-    return _FusedLinearCE.apply(hidden, head_w, head_b, labels.long(),
-                                num_chunks)
+def fused_linear_cross_entropy(hidden, head_w, labels, num_chunks=8):
+    """Per-token CE of ``softmax(hidden @ head_w)`` against ``labels``
+    without materializing the logits. hidden [N, H], head_w [H, V], labels
+    [N] int. Returns losses [N] fp32; callers apply their own mask and
+    reduction. The reference's head-bias variant is not ported: GPT has no
+    head bias."""
+    return _FusedLinearCE.apply(hidden, head_w, labels.long(), num_chunks)
 
 
 def fused_lm_loss(hidden, head_w, ids, num_chunks=8, shift=True):

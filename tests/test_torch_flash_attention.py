@@ -137,6 +137,26 @@ def test_unported_features_raise(kwargs):
 
 def test_unsupported_reason_names_the_kernel_limits():
     assert fa.unsupported_reason(128, torch.bfloat16) is None
-    assert fa.unsupported_reason(64, torch.float16) is None
+    assert fa.unsupported_reason(64, torch.bfloat16) is None
+    assert "float16" in fa.unsupported_reason(64, torch.float16)
     assert "head_dim 96" in fa.unsupported_reason(96, torch.bfloat16)
     assert "float32" in fa.unsupported_reason(128, torch.float32)
+
+
+def test_kernel_gate_passes_rounding_and_catches_a_missing_key_tile():
+    """``error_vs_plain`` / ``within_tolerance``, the gate that holds the
+    kernels to their plain versions on the card: a bf16 rounding of the
+    plain output passes, and one 64-key tile dropped for the last 128
+    queries of a causal S=1024 fails it."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 1024, 2, 64)).astype(
+        np.float32)) for _ in range(3))
+    want, _ = fa.flash_forward_plain(q, k, v, True)
+    ok = fa.error_vs_plain(want.bfloat16(), want)
+    assert fa.within_tolerance(ok), ok
+    s = fa._scores(q, k, True, 64 ** -0.5)
+    s[:, :, 896:, 512:576] = float("-inf")
+    dropped = (torch.softmax(s, -1) @ fa._heads(v)).permute(0, 2, 1, 3)
+    bad = fa.error_vs_plain(dropped.bfloat16(), want)
+    assert not fa.within_tolerance(bad), bad
+    assert bad["tile_rel_l2"] > 10 * fa.TILE_REL
