@@ -37,7 +37,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
 7. timings: each kernel against its bound, its plain version and one
    PyTorch library call; engine decode tokens/s and TTFT; train step
    time, tokens/s and MFU; torch.profiler over a decode step and over a
-   train step.
+   train step;
+8. quantized serving (phase 2 also holds its two kernels against their
+   plain versions: the quant GEMM at every GPT-3 1.3B shape at 8 and 256
+   rows and the LM head at 8 fp32 rows, and the quantized paged decode
+   over int8 and fp8 pools): GPT-3 1.3B served at ``quant="int8"`` and
+   ``quant="fp8"`` with the 16 requests of phase 3. Every request must
+   finish, the pool must balance, and each decode dispatch must launch
+   the quantized paged-decode kernel 24 times (the bf16 one never) and
+   every dispatch the quant GEMM kernel 97 times (4 per layer + the
+   head); one decode step through the kernels against the plain path
+   (bf16 tolerance). Printed, not gated: the logit drift against the
+   bf16 model at full width, greedy agreement with the bf16 engine,
+   decode tokens/s and TTFT against the bf16 engine's, the KV bytes per
+   token and pages at equal pool bytes, a profile of one int8 decode
+   step, and each kernel's times at every timed shape.
 
 The lines before the last carry a ``{"kernels": [...]}`` JSON object and
 the card's name and power limit (nvidia-smi); the last line is
@@ -70,14 +84,19 @@ from paddle_tpu_torch.models.params import layer_params
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.observability import flops
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import quant_gemm as qg
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import (Engine, Request, reset_serving_counters,
                                       serving_counters, serving_summary)
+from paddle_tpu_torch.serving import metrics as serving_metrics
 from paddle_tpu_torch.serving import paged_decode
-from paddle_tpu_torch.serving.paged_attention import paged_forward
+from paddle_tpu_torch.serving import quant as squant
+from paddle_tpu_torch.serving.paged_attention import new_pool, paged_forward
 from paddle_tpu_torch.serving.paged_decode import (gather_window,
                                                    paged_decode_attention,
-                                                   paged_decode_plain)
+                                                   paged_decode_attention_q,
+                                                   paged_decode_plain,
+                                                   paged_decode_q_plain)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, fp32
 # rate outside the tensor cores (the paged-decode kernel's math is fp32
@@ -108,6 +127,9 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 # bf16 in the kernels, fp32 in the blockwise path)
 PARITY_LOSS_REL = 1e-3
 PARITY_GRAD_REL = 5e-2
+QUANT_DTYPES = ("int8", "fp8")
+QUANT_TORCH = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+DECODE_POS = [0, 15, 16, 31, 511, 1023, 1500, 2047]
 FLASH_KERNELS = (  # (name, wrapper, TPU kernel it replaces)
     ("flash_fwd", fa.flash_forward,
      "paddle_tpu/ops/pallas_kernels/flash_attention.py:83"),
@@ -184,15 +206,17 @@ def decode_inputs(gen, dev, pos, layers=1, nh=16, d=128, mp=128):
     return q, kc, vc, table.to(dev), pos_t
 
 
-def decode_bound(pos, nh=16, d=128, pool_bytes=2):
+def decode_bound(pos, nh=16, d=128, pool_bytes=2, page_scales=False):
     """Least time (ms) and its limiter for one paged decode call: every
     live key and value read once, q read and ctx written once, the live
-    table entries and pos read; the fp32 q.k and p.v flops."""
+    table entries and pos read (and a quantized pool's two fp32 scales of
+    each live page); the fp32 q.k and p.v flops."""
     live_pages = [p // PAGE + 1 for p in pos]
     tokens = [p + 1 for p in pos]
     B = len(pos)
     nbytes = (sum(live_pages) * PAGE * nh * d * 2 * pool_bytes
-              + 2 * B * nh * d * 4 + sum(live_pages) * 4 + B * 4)
+              + 2 * B * nh * d * 4 + sum(live_pages) * 4 + B * 4
+              + (sum(live_pages) * 8 if page_scales else 0))
     flops = sum(tokens) * nh * d * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
@@ -200,13 +224,66 @@ def decode_bound(pos, nh=16, d=128, pool_bytes=2):
                                  "operations"), nbytes
 
 
+def decode_inputs_q(gen, dev, pos, dtype, layers=1, nh=16, d=128, mp=128):
+    """``decode_inputs`` over an int8/fp8 pool: quantized values spread
+    over the dtype's range, page scales [layers, P] drawn in [0.01, 0.1]
+    (the trash page 1.0)."""
+    q, kc, vc, table, pos_t = decode_inputs(gen, dev, pos, layers, nh, d, mp)
+
+    def quantize(pool):
+        if dtype == "int8":
+            return (pool.float() * 40).round().clamp(-127, 127).to(
+                torch.int8)
+        return (pool.float() * 100).clamp(-448, 448).to(QUANT_TORCH[dtype])
+
+    kq, vq = quantize(kc), quantize(vc)
+    del kc, vc
+    P = kq.shape[1]
+    scales = [torch.rand(layers, P, generator=gen, device=dev) * 0.09 + 0.01
+              for _ in range(2)]
+    for sc in scales:
+        sc[:, 0] = 1.0
+    return q, kq, vq, scales[0], scales[1], table, pos_t
+
+
+def gemm_bound(R, K, N, x_dtype):
+    """Least time (ms) and its limiter for one quant GEMM call: x, the
+    one-byte weight and the fp32 scale read once, out written once; 2RKF
+    operations at the peak of x's type (bf16 tensor cores, fp32 FMA)."""
+    xb = x_dtype.itemsize
+    nbytes = R * K * xb + K * N + N * 4 + R * N * xb
+    nflops = 2 * R * K * N
+    rate = BF16_FLOPS if x_dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nflops / rate * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, nflops)
+
+
+def quant_gemm_cases(cfg):
+    """(label, weight leaf, K, N, rows, x dtype) of the quant GEMMs on the
+    serving path: the four block GEMMs at a decode dispatch (SLOTS rows)
+    and a full prefill chunk (CHUNK rows), bf16 x; the LM head at a decode
+    dispatch, fp32 x (the final LayerNorm's output)."""
+    H, V = cfg.hidden_size, cfg.vocab_size
+    inner = cfg.ffn_mult * H
+    blocks = (("qkv", "qkv_w", H, 3 * H), ("out", "out_w", H, H),
+              ("up", "up_w", H, inner), ("down", "down_w", inner, H))
+    cases = [(label, leaf, K, N, R, torch.bfloat16)
+             for R in (SLOTS, CHUNK) for label, leaf, K, N in blocks]
+    cases.append(("head", "head_w", H, V, SLOTS, torch.float32))
+    return cases
+
+
 def phase_build():
     t0 = time.perf_counter()
     sources = {"paged_decode": "paged_decode.cu",
-               "flash_attention": "flash_attention.cu"}
+               "flash_attention": "flash_attention.cu",
+               "quant_gemm": "quant_gemm.cu"}
     cuda_build.build_all(sources)
     paged_decode.build()
     fa.build()
+    qg.build()
     print(f"[build] {len(sources)} sources in parallel: "
           f"{time.perf_counter() - t0:.2f}s")
     for name, source in sources.items():
@@ -239,6 +316,52 @@ def phase_kernel_vs_plain(gen, dev):
     return max_abs
 
 
+def phase_quant_vs_plain(gen, dev, cfg):
+    """The quant GEMM kernel at every case of ``quant_gemm_cases`` and the
+    quantized paged decode at the serving shapes, int8 and fp8, against
+    their plain versions on the same inputs. Returns {(kernel, dtype,
+    label, R): max abs error}."""
+    errs = {}
+    failed = []
+    for dtype in QUANT_DTYPES:
+        for label, _, K, N, R, x_dtype in quant_gemm_cases(cfg):
+            w = torch.randn(K, N, generator=gen, device=dev) * 0.02
+            wq, s = squant._quantize_leaf(w, dtype)
+            x = torch.randn(R, K, generator=gen, device=dev).to(x_dtype)
+            got = qg.quant_gemm(x, wq, s)
+            torch.cuda.synchronize()
+            r = qg.error_vs_plain(got, qg.quant_gemm_plain(x, wq, s))
+            errs[("quant_gemm", dtype, label, R)] = r["max_abs"]
+            ok = bool(torch.isfinite(got).all()) and \
+                qg.within_tolerance(r, x_dtype)
+            print(f"[quant] quant_gemm {dtype} {label} R={R} K={K} N={N} "
+                  f"x={str(x_dtype)[6:]}: max abs {r['max_abs']:.2e}, worst "
+                  f"element {r['element']:.2e} of (|plain| + row rms) "
+                  f"(gate {qg.ELEMENT_TOL[x_dtype]}), worst row rel L2 "
+                  f"{r['row']:.2e} (gate {qg.ROW_TOL[x_dtype]})")
+            if not ok:
+                failed.append(f"quant_gemm {dtype} {label} R={R}")
+            del w, wq, s, x, got
+        q, kq, vq, ksc, vsc, table, pos_t = decode_inputs_q(
+            gen, dev, DECODE_POS, dtype)
+        args = (q, kq[0], vq[0], table, pos_t, ksc[0], vsc[0], PAGE)
+        got = paged_decode_attention_q(*args)
+        torch.cuda.synchronize()
+        want = paged_decode_q_plain(*args)
+        max_abs = float((got - want).abs().max())
+        errs[("paged_decode_q", dtype)] = max_abs
+        print(f"[quant] paged_decode_q {dtype} pool, B=8 nh=16 d=128 page=16 "
+              f"MP=128, scales in [0.01, 0.1], pos={DECODE_POS}: max abs "
+              f"{max_abs:.3e} (max |plain| {float(want.abs().max()):.2e}; "
+              f"tolerance atol=rtol={KERNEL_TOL})")
+        if not (bool(torch.isfinite(got).all()) and torch.allclose(
+                got, want, atol=KERNEL_TOL, rtol=KERNEL_TOL)):
+            failed.append(f"paged_decode_q {dtype}")
+    check(not failed, f"quantized kernels disagree with their plain "
+          f"versions: {failed}")
+    return errs
+
+
 def make_requests(cfg, rng):
     """Wave 1: 14 requests, prompts spread over 32-1024 tokens; wave 2:
     an exact repeat of the first wave-1 prompt (prefix hit, CoW of its
@@ -267,23 +390,43 @@ def make_requests(cfg, rng):
     return wave1, wave2
 
 
-def phase_serve(cfg, params, rng):
+SERVE_KERNELS = {"paged_decode": paged_decode_attention,
+                 "paged_decode_q": paged_decode_attention_q,
+                 "quant_gemm": qg.quant_gemm}
+
+
+def phase_serve(cfg, params, rng, quant=None):
+    """The 16 requests through an Engine at ``quant`` (None: bf16). Gates
+    completion, the pool's balance, prefix reuse and every kernel's
+    launches; returns the engine, the requests, their results, the
+    launches by kernel (and the quant GEMM's by shape) and the stats."""
+    tag = "serve" if quant is None else f"serve-{quant}"
+    t0 = time.perf_counter()
     eng = Engine(params=params, config=cfg, num_slots=SLOTS,
-                 prefill_chunk=CHUNK, page_size=PAGE)
+                 prefill_chunk=CHUNK, page_size=PAGE, quant=quant)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     check(eng.use_kernel, "FLAGS_serving_paged_kernel is off")
+    check(quant is None or eng.quant_kernel,
+          "FLAGS_serving_quant_kernel is off")
     wave1, wave2 = make_requests(cfg, rng)
     # the main path: counts start at 0 here and are read right after;
     # later calls (the logits check, the timings) are not counted
     reset_serving_counters()
-    paged_decode_attention.launches = 0
+    for wrapper in SERVE_KERNELS.values():
+        wrapper.launches = 0
+    qg.quant_gemm.shapes.clear()
     t0 = time.perf_counter()
     results = eng.run(wave1)
     results.update(eng.run(wave2))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = paged_decode_attention.launches
+    counts = {n: w.launches for n, w in SERVE_KERNELS.items()}
+    shapes = dict(qg.quant_gemm.shapes)
     c = serving_counters()
-    print(f"[serve] {serving_summary()}")
+    print(f"[{tag}] engine built in {build_s:.1f}s (weights quantized and "
+          f"KV clips calibrated at build when quantized)")
+    print(f"[{tag}] {serving_summary()}")
     reqs = wave1 + wave2
     check(len(results) == len(reqs) and all(
         results[r.request_id].finish_reason in ("length", "stop")
@@ -299,13 +442,22 @@ def phase_serve(cfg, params, rng):
     check(c["prefix_hits"] >= 2 and c["cow_copies"] >= 1,
           f"prefix cache / CoW not exercised: hits {c['prefix_hits']}, "
           f"cow {c['cow_copies']}")
-    want = c["decode_dispatches"] * cfg.num_layers
-    print(f"[serve] paged_decode launches {launches} == decode dispatches "
-          f"{c['decode_dispatches']} x {cfg.num_layers} layers = {want}")
-    check(launches == want and launches > 0,
-          "the decode path did not run through the paged-decode kernel")
+    L = cfg.num_layers
+    decode = c["decode_dispatches"] * L
+    want = ({"paged_decode": decode, "paged_decode_q": 0, "quant_gemm": 0}
+            if quant is None else
+            {"paged_decode": 0, "paged_decode_q": decode,
+             "quant_gemm": c["paged_steps"] * (4 * L + 1)})
+    print(f"[{tag}] launches {counts} (want {want}: decode dispatches "
+          f"{c['decode_dispatches']} x {L} layers of paged decode; "
+          f"{c['paged_steps']} dispatches x (4 x {L} + 1) quant GEMMs)")
+    check(counts == want and decode > 0,
+          "the serving path did not launch its kernels as expected")
     decode_tokens = c["tokens_out"] - len(reqs)
     stats = {
+        "quant": quant, "kv_bytes_per_token": eng.kv_bytes_per_token(),
+        "kv_pool_bytes": 2 * eng.kv_shard_bytes(),
+        "pages": eng.pool.num_pages,
         "requests": len(reqs), "tokens_out": c["tokens_out"],
         "wall_s": wall, "tokens_per_s_wall": c["tokens_out"] / wall,
         "decode_dispatches": c["decode_dispatches"],
@@ -314,21 +466,28 @@ def phase_serve(cfg, params, rng):
         "token_latency_p50_ms": c["token_latency_p50"] * 1e3,
         "prefix_hits": c["prefix_hits"], "cow_copies": c["cow_copies"],
     }
-    print(f"[serve] {json.dumps(stats)}")
-    return eng, results, wave1, launches
+    print(f"[{tag}] {json.dumps(stats)}")
+    return {"eng": eng, "reqs": reqs, "results": results, "wave1": wave1,
+            "counts": counts, "shapes": shapes, "stats": stats}
 
 
 def phase_logits(cfg, eng, gen, dev):
     """One [8, 1] decode step of the fused forward at full width: the
-    kernel path against the plain gather path on the same pool state."""
+    kernel path against the plain gather path on the same pool state, at
+    the engine's dtype config (its quantized weights, pool dtype and page
+    scales)."""
     params = eng.params
     layers = layer_params(params)
     mp = 8
     L, nh = cfg.num_layers, cfg.num_heads
     d = cfg.hidden_size // nh
-    kc = torch.zeros(L, SLOTS * mp + 1, PAGE, nh, d, dtype=torch.bfloat16,
-                     device=dev)
-    vc = torch.zeros_like(kc)
+    P = SLOTS * mp + 1
+    kc = new_pool((L, P, PAGE, nh, d), eng._kc.dtype, dev)
+    vc = new_pool((L, P, PAGE, nh, d), eng._kc.dtype, dev)
+    kv = {}
+    if eng._kv_quant:
+        kv["kv_scales"] = tuple(torch.from_numpy(sc).to(dev) for sc in
+                                squant.kv_scales_for(eng._quant, L, P))
     table = (torch.arange(SLOTS * mp, dtype=torch.int32, device=dev)
              .view(SLOTS, mp) + 1)
     plen = 100
@@ -340,19 +499,23 @@ def phase_logits(cfg, eng, gen, dev):
         window[0, :plen] = ids[b, :plen]
         paged_forward(params, cfg, window, kc, vc, torch.zeros(1, **i32),
                       torch.full((1,), plen, **i32), table[b:b + 1], PAGE,
-                      use_kernel=False, layers=layers)
+                      use_kernel=False, layers=layers, **kv)
     start = torch.full((SLOTS,), plen, **i32)
     ones = torch.ones(SLOTS, **i32)
     tok = ids[:, plen:]
     plain = paged_forward(params, cfg, tok, kc, vc, start, ones, table, PAGE,
-                          use_kernel=False, layers=layers)
+                          use_kernel=False, layers=layers, **kv)
     kern = paged_forward(params, cfg, tok, kc, vc, start, ones, table, PAGE,
-                         use_kernel=True, layers=layers)
+                         use_kernel=True, layers=layers, **kv,
+                         wq_kernel=eng.quant_kernel)
     torch.cuda.synchronize()
     diff = float((kern - plain).abs().max())
     scale = float(plain.abs().max())
     agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
-    print(f"[logits] fused decode step, kernel vs plain: max abs diff "
+    config = ("bf16" if eng._quant is None else
+              f"w={eng._quant.weight_dtype} kv={eng._quant.kv_dtype}")
+    print(f"[logits] {config}: fused decode step, kernel vs plain: "
+          f"max abs diff "
           f"{diff:.4e} of max |logit| {scale:.4e} (tolerance "
           f"{LOGIT_TOL} x max), argmax agreement {agree:.3f}")
     check(bool(torch.isfinite(kern).all()), "kernel-path logits not finite")
@@ -392,11 +555,14 @@ def phase_profile(cfg, eng, rng, steps=10):
 
     events = sorted(prof.key_averages(), key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events) / 1e3 / steps        # ms/step
-    print(f"[profile] [8, 1] decode boundary: {wall * 1e3:.2f} ms host "
-          f"wall untraced, {traced * 1e3:.2f} ms traced; device busy "
+    config = ("bf16" if eng._quant is None else
+              f"w={eng._quant.weight_dtype} kv={eng._quant.kv_dtype}")
+    print(f"[profile] {config} [8, 1] decode boundary: {wall * 1e3:.2f} ms "
+          f"host wall untraced, {traced * 1e3:.2f} ms traced; device busy "
           f"{busy:.3f} ms/step = {busy / (traced * 1e3):.1%} of the traced "
           f"wall")
-    ours = [e for e in events if "paged_decode_kernel" in e.key]
+    ours = [e for e in events if "paged_decode_kernel" in e.key
+            or "quant_gemm" in e.key]
     for e in events[:8] + [e for e in ours if e not in events[:8]]:
         print(f"[profile]   {dev_us(e) / 1e3 / steps:8.4f} ms/step "
               f"{e.count // steps:5d} calls/step  {e.key[:90]}")
@@ -415,6 +581,186 @@ def phase_oracle(cfg, params, eng_results, wave1):
         print(f"[oracle] greedy request of {r.prompt_len} prompt tokens: "
               f"engine and generate_from_params agree on the first "
               f"{same}/{len(ref)} tokens (not gated)")
+
+
+def phase_quant_report(cfg, params, fp, qs, rng):
+    """Printed, not gated: the logit drift of the quantized model against
+    the bf16 one on one 128-token prefill at full width (through the
+    kernels), greedy agreement with the bf16 engine on the same requests,
+    decode tokens/s and TTFT against the bf16 engine's in this call, and
+    the KV bytes per token and pages at equal pool bytes."""
+    eng = qs["eng"]
+    prompt = rng.integers(0, cfg.vocab_size, 128)
+    drift, top = squant.max_logit_drift(params, cfg, eng._quant, prompt,
+                                        page_size=PAGE, use_kernel=True)
+    serving_metrics.observe_logit_drift(drift)
+    match = same = total = 0
+    for a, b in zip(fp["reqs"], qs["reqs"]):
+        if a.do_sample:
+            continue
+        ta = fp["results"][a.request_id].tokens
+        tb = qs["results"][b.request_id].tokens
+        n = min(len(ta), len(tb))
+        match += next((i for i in range(n) if ta[i] != tb[i]), n)
+        same += sum(x == y for x, y in zip(ta, tb))
+        total += n
+    f, q = fp["stats"], qs["stats"]
+    # quantized pages that the bf16 pool's bytes hold
+    pages = f["kv_pool_bytes"] * q["pages"] // q["kv_pool_bytes"]
+    report = {
+        "quant": q["quant"], "max_logit_drift": drift, "max_abs_logit": top,
+        "drift_over_bound": drift / (0.15 * max(top, 1.0)),
+        "greedy_prefix_agreement": match / total,
+        "greedy_token_agreement": same / total,
+        "decode_tokens_per_s": [q["decode_tokens_per_s"],
+                                f["decode_tokens_per_s"]],
+        "ttft_p50_ms": [q["ttft_p50_ms"], f["ttft_p50_ms"]],
+        "ttft_p99_ms": [q["ttft_p99_ms"], f["ttft_p99_ms"]],
+        "kv_bytes_per_token": [q["kv_bytes_per_token"],
+                               f["kv_bytes_per_token"]],
+        "pages_in_the_bf16_pool_bytes": [pages, f["pages"]],
+    }
+    print(f"[quant-{q['quant']}] (quantized, bf16) {json.dumps(report)}")
+    print(f"[quant-{q['quant']}] {serving_summary()}")
+
+
+def phase_quant_timing(cfg, qs, dtype, gen, dev, errs):
+    """The quant GEMM at every case of ``quant_gemm_cases`` and the
+    quantized paged decode at 8 slots x 512 live tokens, on the served
+    engine's own quantized weights (each call on the next layer's, so the
+    weights come from device memory as in a decode step): kernel, plain
+    version, the nearest library call (cuBLAS ``torch.mm`` on the weight
+    dequantized beforehand with its scale folded in: twice the bytes of
+    bf16, four of fp32), and for int8 ``torch._weight_int8pack_mm`` where
+    this torch has it on CUDA. Returns the ``kernels`` rows."""
+    eng = qs["eng"]
+    L = cfg.num_layers
+    rows = []
+    int8pack = None
+    for label, leaf, K, N, R, x_dtype in quant_gemm_cases(cfg):
+        if leaf == "head_w":
+            ws, ss = [eng.params["head_w"]], [eng.params["head_w_s"]]
+        else:
+            ws = list(eng.params["blocks"][leaf].unbind(0))
+            ss = list(eng.params["blocks"][leaf + "_s"].unbind(0))
+        n = len(ws)
+        x = torch.randn(R, K, generator=gen, device=dev).to(x_dtype)
+        layer = itertools.cycle(range(n))
+
+        def kernel():
+            i = next(layer)
+            qg.quant_gemm(x, ws[i], ss[i])
+
+        def plain():
+            i = next(layer)
+            qg.quant_gemm_plain(x, ws[i], ss[i])
+
+        p1 = graph_ms(plain, iters=n, replays=3)
+        k1 = graph_ms(kernel, iters=4 * n)
+        k2 = graph_ms(kernel, iters=4 * n)
+        p2 = graph_ms(plain, iters=n, replays=3)
+        deq = [(w.float() * sc).to(x_dtype) for w, sc in zip(ws, ss)]
+
+        def library():
+            i = next(layer)
+            torch.mm(x, deq[i])
+
+        lib = graph_ms(library, iters=4 * n)
+        del deq
+        extra = ""
+        if dtype == "int8" and x_dtype == torch.bfloat16:
+            packed = [w.t().contiguous() for w in ws]
+            scl = [sc.to(x_dtype) for sc in ss]
+
+            def pack():
+                i = next(layer)
+                torch._weight_int8pack_mm(x, packed[i], scl[i])
+
+            try:
+                pms = graph_ms(pack, iters=4 * n)
+                extra = f", torch._weight_int8pack_mm {pms:.4f} ms"
+                int8pack = int8pack or "runs on CUDA"
+            except (RuntimeError, NotImplementedError) as e:
+                torch.cuda.synchronize()
+                int8pack = f"not on CUDA here: {str(e).splitlines()[0][:120]}"
+            del packed, scl
+        ms, plain_ms = min(k1, k2), min(p1, p2)
+        bound, bound_by, nbytes, nflops = gemm_bound(R, K, N, x_dtype)
+        print(f"[timing] quant_gemm {dtype} {label} R={R} K={K} N={N} "
+              f"x={str(x_dtype)[6:]} over {n} weight(s), device time (CUDA "
+              f"graph replay): kernel {k1:.4f}/{k2:.4f} ms, plain "
+              f"{p1:.4f}/{p2:.4f} ms, torch.mm on the dequantized weight "
+              f"{lib:.4f} ms{extra}; bound {bound:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.1f} MB, {nflops:.3e} flops) -> "
+              f"{bound / ms:.1%} of bound")
+        rows.append({
+            "name": f"quant_gemm[{dtype} {label} R={R}]", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/quant_gemm.cu",
+            "replaces": "paddle_tpu/ops/pallas_kernels/quant_gemm.py:76",
+            "launches": qs["shapes"].get((R, K, N), 0),
+            "max_abs_err": errs[("quant_gemm", dtype, label, R)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib,
+            "library": "torch.mm on the weight dequantized beforehand"})
+        del ws, ss, x
+    if int8pack is not None:
+        print(f"[timing] torch._weight_int8pack_mm: {int8pack}")
+
+    pos = [511] * SLOTS
+    q, kq, vq, ksc, vsc, table, pos_t = decode_inputs_q(gen, dev, pos, dtype,
+                                                        layers=L)
+    layer = itertools.cycle(range(L))
+
+    def kernel():
+        i = next(layer)
+        paged_decode_attention_q(q, kq[i], vq[i], table, pos_t, ksc[i],
+                                 vsc[i], PAGE)
+
+    def plain():
+        i = next(layer)
+        paged_decode_q_plain(q, kq[i], vq[i], table, pos_t, ksc[i], vsc[i],
+                             PAGE)
+
+    live = pos[0] + 1
+    kg, vg = [], []
+    for i in range(L):
+        k_sc = ksc[i][table].repeat_interleave(PAGE, 1)[:, :live]
+        v_sc = vsc[i][table].repeat_interleave(PAGE, 1)[:, :live]
+        kg.append((gather_window(kq[i], table)[:, :live].float() *
+                   k_sc[:, :, None, None]).to(torch.bfloat16)
+                  .permute(0, 2, 1, 3).contiguous())
+        vg.append((gather_window(vq[i], table)[:, :live].float() *
+                   v_sc[:, :, None, None]).to(torch.bfloat16)
+                  .permute(0, 2, 1, 3).contiguous())
+    qb = q.to(torch.bfloat16)[:, :, None]
+
+    def library():
+        i = next(layer)
+        F.scaled_dot_product_attention(qb, kg[i], vg[i])
+
+    p1 = graph_ms(plain, iters=L)
+    k1 = graph_ms(kernel, iters=10 * L)
+    k2 = graph_ms(kernel, iters=10 * L)
+    p2 = graph_ms(plain, iters=L)
+    lib = graph_ms(library, iters=10 * L)
+    bound, bound_by, nbytes = decode_bound(pos, pool_bytes=1,
+                                           page_scales=True)
+    ms, plain_ms = min(k1, k2), min(p1, p2)
+    print(f"[timing] paged_decode_q {dtype} B=8 x 512 live tokens, nh=16 "
+          f"d=128, device time (CUDA graph replay): kernel {k1:.4f}/"
+          f"{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA on K/V gathered "
+          f"and dequantized to bf16 beforehand {lib:.4f} ms, bound "
+          f"{bound:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB) -> "
+          f"{bound / ms:.1%} of bound")
+    rows.append({
+        "name": f"paged_decode_q[{dtype}]", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "paddle_tpu/serving/paged_attention.py:140",
+        "launches": qs["counts"]["paged_decode_q"],
+        "max_abs_err": errs[("paged_decode_q", dtype)], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": lib})
+    return rows
 
 
 def phase_timing(gen, dev, max_abs, launches, layers):
@@ -833,9 +1179,10 @@ def main(argv=None):
     phase_build()
     max_abs = phase_kernel_vs_plain(gen, dev)
     flash_errs = phase_flash_vs_plain(gen, dev)
+    cfg = GPT_CONFIGS[MODEL]
+    quant_errs = phase_quant_vs_plain(gen, dev, cfg)
     phase_card_tests()
 
-    cfg = GPT_CONFIGS[MODEL]
     t0 = time.perf_counter()
     params = cast_for_compute(
         init_gpt_params(cfg, seed=args.seed, device=dev,
@@ -845,13 +1192,29 @@ def main(argv=None):
           f"nh={cfg.num_heads} V={cfg.vocab_size} {cfg.compute_dtype}, "
           f"random weights (seed {args.seed}) in "
           f"{time.perf_counter() - t0:.1f}s")
-    eng, results, wave1, launches = phase_serve(cfg, params, rng)
-    phase_logits(cfg, eng, gen, dev)
-    phase_profile(cfg, eng, rng)
-    phase_oracle(cfg, params, results, wave1)
-    del eng, params, results
+    fp = phase_serve(cfg, params, np.random.default_rng(args.seed))
+    phase_logits(cfg, fp["eng"], gen, dev)
+    phase_profile(cfg, fp["eng"], rng)
+    phase_oracle(cfg, params, fp["results"], fp["wave1"])
+    del fp["eng"]
     torch.cuda.empty_cache()
-    row = phase_timing(gen, dev, max_abs, launches, cfg.num_layers)
+    quant_rows = []
+    for dtype in QUANT_DTYPES:
+        # the same 16 requests as the bf16 run
+        qs = phase_serve(cfg, params, np.random.default_rng(args.seed),
+                         quant=dtype)
+        phase_logits(cfg, qs["eng"], gen, dev)
+        phase_quant_report(cfg, params, fp, qs, rng)
+        if dtype == "int8":
+            phase_profile(cfg, qs["eng"], rng)
+        quant_rows += phase_quant_timing(cfg, qs, dtype, gen, dev,
+                                         quant_errs)
+        del qs
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    row = phase_timing(gen, dev, max_abs, fp["counts"]["paged_decode"],
+                       cfg.num_layers)
 
     step, ids, counts = phase_train(args.seed, gen, dev)
     phase_train_profile(step, ids)
@@ -859,7 +1222,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase_train_parity(args.seed, gen, dev)
     torch.cuda.empty_cache()
-    rows = [row] + phase_flash_timing(gen, dev, flash_errs, counts)
+    rows = [row] + quant_rows + phase_flash_timing(gen, dev, flash_errs,
+                                                   counts)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -11,12 +11,20 @@
 // pages, fp32 accumulation, the same fully-masked-page guard as the TPU
 // kernel (alpha = 0 while the running max is still -inf).
 //
+// The int8 and float8_e4m3fn pool instances also replace the quantized TPU
+// kernel paddle_tpu/serving/paged_attention.py:_decode_kernel_q (reached
+// through paged_decode_attention_q, the pallas_call at :221): each page p
+// carries dequant scales ksc[p], vsc[p] (fp32 [P], the layer's row of the
+// pool's [L, P] scales). A score is (q . k_raw) / sqrt(d) * ksc[page], the
+// scale applied after the dot as in the TPU kernel, and a page's values
+// join the context times vsc[page]; the softmax sum never sees vsc.
+//
 // What bounds it on an H100: bytes. Each live key and value is read once
 // and used for 2*d flops, far below the ~295 flop/byte the card needs
 // before compute matters. The least time is
 //   sum_b (live pages_b * page_size) * nh * d * 2 (K and V) * sizeof(pool)
 // over 3.35 TB/s (B=8, 512 live tokens each, nh=16, d=128, bf16:
-// 33.5 MB, about 10 us).
+// 33.5 MB, about 10 us; an int8 or fp8 pool halves it to 16.8 MB, 5 us).
 //
 // Design, for the GPU rather than copied from the TPU grid:
 // * one block of 8 warps per (slot, head); the block reads its own page
@@ -29,12 +37,17 @@
 //   softmaxes are combined once, at the end, through shared memory (the
 //   TPU grid instead carried one running state through VMEM scratch);
 // * a key row of d elements is spread over d/8 lanes, each issuing one
-//   16-byte load (8 bf16) for K and one for V; the lanes of a row reduce
-//   the q.k dot product with warp shuffles;
+//   16-byte load (8 bf16) for K and one for V (8 bytes for 8 one-byte
+//   elements of a quantized pool); the lanes of a row reduce the q.k dot
+//   product with warp shuffles;
 // * the warp's next page is loaded into registers before the current one
 //   is reduced, and the page-table entry after that is read one page
 //   ahead, so no page waits on a dependent table load;
-// * bf16 -> fp32 with __bfloat162float, all math in fp32.
+// * a quantized page's two scales are loaded with its bytes, one page
+//   ahead like them;
+// * bf16 -> fp32 with __bfloat162float; int8 -> fp32 with one byte permute
+//   and one add (the 2^23 magic number); e4m3 -> fp32 through the
+//   hardware's fp8x2 -> half2 conversion; all math in fp32.
 // Split-K across blocks, TMA and wgmma are left for later work.
 //
 // Built by paddle_tpu_torch/cuda_build.py with
@@ -43,6 +56,8 @@
 // and bound with ctypes (paddle_tpu_torch/serving/paged_decode.py).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -85,8 +100,55 @@ struct Raw8<float> {
   }
 };
 
+// four int8 values in one word -> fp32: the biased byte b = v + 128 makes
+// float(2^23 + b) exactly, and subtracting 2^23 + 128 leaves v
+__device__ __forceinline__ void int8x4_to_float(uint32_t w, float* out) {
+  const uint32_t u = w ^ 0x80808080u;
+  out[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  out[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  out[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  out[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+// four e4m3 values in one word -> fp32 (exact, through half2)
+__device__ __forceinline__ void fp8x4_to_float(uint32_t w, float* out) {
+  __half2_raw lo = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(w & 0xffffu), __NV_E4M3);
+  __half2_raw hi = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(w >> 16), __NV_E4M3);
+  const float2 a = __half22float2(*reinterpret_cast<__half2*>(&lo));
+  const float2 b = __half22float2(*reinterpret_cast<__half2*>(&hi));
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+
+template <>
+struct Raw8<int8_t> {
+  uint2 w;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    w = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ void to_float(float* out) const {
+    int8x4_to_float(w.x, out);
+    int8x4_to_float(w.y, out + 4);
+  }
+};
+
+template <>
+struct Raw8<__nv_fp8_e4m3> {
+  uint2 w;
+  __device__ __forceinline__ void load(const __nv_fp8_e4m3* p) {
+    w = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ void to_float(float* out) const {
+    fp8x4_to_float(w.x, out);
+    fp8x4_to_float(w.y, out + 4);
+  }
+};
+
 template <typename T, int D, int PS>
 struct Shape {
+  // one-byte pools carry per-page dequant scales
+  static constexpr bool kQuant = sizeof(T) == 1;
   static constexpr int kLanes = D / kVec;              // threads per key row
   static constexpr int kRowsPerStep = 32 / kLanes;     // rows a warp holds
   static constexpr int kPer = PS / kRowsPerStep;       // rows/thread/page
@@ -122,6 +184,8 @@ paged_decode_kernel(const float* __restrict__ q,        // [B, nh, D] fp32
                     const T* __restrict__ vc,           // [P, PS, nh, D]
                     const int32_t* __restrict__ table,  // [B, max_pages]
                     const int32_t* __restrict__ pos,    // [B]
+                    const float* __restrict__ ksc,      // [P] or null
+                    const float* __restrict__ vsc,      // [P] or null
                     float* __restrict__ out,            // [B, nh, D] fp32
                     int nh, int max_pages, float scale) {
   using S = Shape<T, D, PS>;
@@ -163,22 +227,40 @@ paged_decode_kernel(const float* __restrict__ q,        // [B, nh, D] fp32
   for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
 
   Raw8<T> kr[S::kPer], vr[S::kPer];
+  float ks = 1.f, vs = 1.f;             // the page's dequant scales
   int j = warp;
   int phys_next = j + kWarps < n_pages ? tab[j + kWarps] : 0;
-  if (S::kPrefetch && j < n_pages)
-    load_page<T, D, PS>(kc, vc, static_cast<size_t>(tab[j]) * page + head,
+  if (S::kPrefetch && j < n_pages) {
+    const int phys = tab[j];
+    load_page<T, D, PS>(kc, vc, static_cast<size_t>(phys) * page + head,
                         row, sub, kr, vr);
+    if constexpr (S::kQuant) {
+      ks = ksc[phys];
+      vs = vsc[phys];
+    }
+  }
 
   for (; j < n_pages; j += kWarps) {
     Raw8<T> kn[S::kPer], vn[S::kPer];
+    float ksn = 1.f, vsn = 1.f;
     const bool more = j + kWarps < n_pages;
     if constexpr (S::kPrefetch) {
-      if (more)
+      if (more) {
         load_page<T, D, PS>(kc, vc, static_cast<size_t>(phys_next) * page +
                             head, row, sub, kn, vn);
+        if constexpr (S::kQuant) {
+          ksn = ksc[phys_next];
+          vsn = vsc[phys_next];
+        }
+      }
     } else {
-      load_page<T, D, PS>(kc, vc, static_cast<size_t>(tab[j]) * page + head,
+      const int phys = tab[j];
+      load_page<T, D, PS>(kc, vc, static_cast<size_t>(phys) * page + head,
                           row, sub, kr, vr);
+      if constexpr (S::kQuant) {
+        ks = ksc[phys];
+        vs = vsc[phys];
+      }
     }
     // the table entry after next: its latency hides behind this page
     const int j2 = j + 2 * kWarps;
@@ -198,7 +280,9 @@ paged_decode_kernel(const float* __restrict__ q,        // [B, nh, D] fp32
       for (int off = S::kLanes / 2; off > 0; off >>= 1)
         dot += __shfl_xor_sync(kAll, dot, off);
       const int key = j * PS + sub + r * S::kRowsPerStep;
-      s[r] = key <= p ? dot * scale : -INFINITY;
+      if constexpr (S::kQuant) dot = dot * scale * ks;
+      else dot = dot * scale;
+      s[r] = key <= p ? dot : -INFINITY;
       m_page = fmaxf(m_page, s[r]);
     }
 #pragma unroll
@@ -215,10 +299,11 @@ paged_decode_kernel(const float* __restrict__ q,        // [B, nh, D] fp32
     for (int r = 0; r < S::kPer; ++r) {
       const float pr = (s[r] == -INFINITY) ? 0.f : expf(s[r] - m_new);
       l += pr;
+      const float pv = S::kQuant ? pr * vs : pr;
       float vf[kVec];
       vr[r].to_float(vf);
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) acc[i] = fmaf(pr, vf[i], acc[i]);
+      for (int i = 0; i < kVec; ++i) acc[i] = fmaf(pv, vf[i], acc[i]);
     }
     m = m_new;
 
@@ -229,6 +314,8 @@ paged_decode_kernel(const float* __restrict__ q,        // [B, nh, D] fp32
           kr[r] = kn[r];
           vr[r] = vn[r];
         }
+        ks = ksn;
+        vs = vsn;
       }
     }
     phys_next = phys_after;
@@ -271,26 +358,29 @@ paged_decode_kernel(const float* __restrict__ q,        // [B, nh, D] fp32
 
 template <typename T, int D, int PS>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const void* table, const void* pos, void* out, int B,
-                   int nh, int max_pages, float scale, cudaStream_t stream) {
+                   const void* table, const void* pos, const void* ksc,
+                   const void* vsc, void* out, int B, int nh, int max_pages,
+                   float scale, cudaStream_t stream) {
   const dim3 grid(nh, B);
   paged_decode_kernel<T, D, PS><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const int32_t*>(table),
-      static_cast<const int32_t*>(pos), static_cast<float*>(out), nh,
+      static_cast<const int32_t*>(pos), static_cast<const float*>(ksc),
+      static_cast<const float*>(vsc), static_cast<float*>(out), nh,
       max_pages, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* kc, const void* vc, const void* table,
-             const void* pos, void* out, int B, int nh, int head_dim,
-             int page_size, int max_pages, float scale, cudaStream_t stream) {
+             const void* pos, const void* ksc, const void* vsc, void* out,
+             int B, int nh, int head_dim, int page_size, int max_pages,
+             float scale, cudaStream_t stream) {
 #define PAGED_DECODE_CASE(DD, PP)                                        \
   if (head_dim == DD && page_size == PP)                                 \
-    return static_cast<int>(launch<T, DD, PP>(q, kc, vc, table, pos, out, \
-                                              B, nh, max_pages, scale,   \
-                                              stream));
+    return static_cast<int>(launch<T, DD, PP>(q, kc, vc, table, pos, ksc, \
+                                              vsc, out, B, nh, max_pages, \
+                                              scale, stream));
   PAGED_DECODE_CASE(64, 8)
   PAGED_DECODE_CASE(64, 16)
   PAGED_DECODE_CASE(64, 32)
@@ -314,11 +404,33 @@ extern "C" int paged_decode_launch(const void* q, const void* kc,
   if (B <= 0 || nh <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pool_dtype == 0)
-    return dispatch<__nv_bfloat16>(q, kc, vc, table, pos, out, B, nh,
-                                   head_dim, page_size, max_pages, scale, s);
+    return dispatch<__nv_bfloat16>(q, kc, vc, table, pos, nullptr, nullptr,
+                                   out, B, nh, head_dim, page_size,
+                                   max_pages, scale, s);
   if (pool_dtype == 1)
-    return dispatch<float>(q, kc, vc, table, pos, out, B, nh, head_dim,
-                           page_size, max_pages, scale, s);
+    return dispatch<float>(q, kc, vc, table, pos, nullptr, nullptr, out, B,
+                           nh, head_dim, page_size, max_pages, scale, s);
+  return -1;
+}
+
+// The quantized pools: pool_dtype 2 = int8, 3 = float8_e4m3fn; ksc / vsc
+// are the layer's per-page scales, fp32 [P]. Returns as above.
+extern "C" int paged_decode_q_launch(const void* q, const void* kc,
+                                     const void* vc, const void* table,
+                                     const void* pos, const void* ksc,
+                                     const void* vsc, void* out, int B,
+                                     int nh, int head_dim, int page_size,
+                                     int max_pages, int pool_dtype,
+                                     float scale, void* stream) {
+  if (B <= 0 || nh <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pool_dtype == 2)
+    return dispatch<int8_t>(q, kc, vc, table, pos, ksc, vsc, out, B, nh,
+                            head_dim, page_size, max_pages, scale, s);
+  if (pool_dtype == 3)
+    return dispatch<__nv_fp8_e4m3>(q, kc, vc, table, pos, ksc, vsc, out, B,
+                                   nh, head_dim, page_size, max_pages, scale,
+                                   s);
   return -1;
 }
 

@@ -28,6 +28,14 @@ _FLAGS = {
     # Route one-token decode attention through the hand-written CUDA
     # kernel (serving/paged_decode.py) on CUDA tensors.
     "FLAGS_serving_paged_kernel": True,
+    # Quantized serving (serving/quant.py): the stored dtype of the GEMM
+    # weights and of the KV pages, "bf16" (full precision, none of the
+    # quantized code runs), "int8" or "fp8".
+    "FLAGS_serving_weight_dtype": "bf16",
+    "FLAGS_serving_kv_dtype": "bf16",
+    # Route quantized weight GEMMs through the hand-written CUDA kernel
+    # (ops/quant_gemm.py) on CUDA tensors.
+    "FLAGS_serving_quant_kernel": True,
 }
 
 

@@ -56,16 +56,20 @@ def _proj(x, w):
         lead + (w.shape[-1],))
 
 
-def _attend(q, kwin, vwin, qpos):
+def _attend(q, kwin, vwin, qpos, k_scale=None):
     """Causal attention of q [B, T, nh, d] over a key window kwin/vwin
     [B, S, nh, d] in virtual (absolute-position) order; query t of row b
     sees keys s <= qpos[b, t]. fp32 scores, softmax and context, as the
-    reference computes them. Returns ctx [B, T, nh, d] float32."""
+    reference computes them. ``k_scale`` [B, S] (a quantized pool's key
+    scales) multiplies the scores after the dot. Returns ctx
+    [B, T, nh, d] float32."""
     d = q.shape[-1]
     S = kwin.shape[1]
     qh = q.float().permute(0, 2, 1, 3)                    # [B, nh, T, d]
     kh = kwin.float().permute(0, 2, 3, 1)                 # [B, nh, d, S]
     scores = _matmul(qh, kh) / math.sqrt(d)               # [B, nh, T, S]
+    if k_scale is not None:
+        scores = scores * k_scale[:, None, None, :]
     keys = torch.arange(S, device=q.device)
     mask = keys[None, None, :] <= qpos[:, :, None]        # [B, T, S]
     scores = scores.masked_fill(~mask[:, None], float("-inf"))
@@ -74,20 +78,27 @@ def _attend(q, kwin, vwin, qpos):
     return _matmul(probs, vh).permute(0, 2, 1, 3)         # [B, T, nh, d]
 
 
-def _block(p, h, nh, eps, attend):
+def _weight_proj(x, p, name):
+    """The block's default projection: ``x @ p[name]``."""
+    return _proj(x, p[name])
+
+
+def _block(p, h, nh, eps, attend, proj=_weight_proj):
     """One pre-LN transformer block over h [B, T, H]. ``attend(q, k, v)``
     writes this window's K/V to its cache and returns the attention
-    context [B, T, nh, d] in h.dtype. Additions keep the reference's
-    association: ``(h + up @ down_w) + down_b``."""
+    context [B, T, nh, d] in h.dtype; ``proj(x, p, name)`` computes the
+    projection by the weight ``name`` (the paged layer routes quantized
+    weights through it). Additions keep the reference's association:
+    ``(h + up @ down_w) + down_b``."""
     B, T, H = h.shape
     d = H // nh
     h1 = ln_fp32(h, p["ln1_g"], p["ln1_b"], eps)
-    qkv = (_proj(h1, p["qkv_w"]) + p["qkv_b"]).view(B, T, 3, nh, d)
+    qkv = (proj(h1, p, "qkv_w") + p["qkv_b"]).view(B, T, 3, nh, d)
     ctx = attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
-    h = h + (_proj(ctx.reshape(B, T, H), p["out_w"]) + p["out_b"])
+    h = h + (proj(ctx.reshape(B, T, H), p, "out_w") + p["out_b"])
     h2 = ln_fp32(h, p["ln2_g"], p["ln2_b"], eps)
-    up = F.gelu(_proj(h2, p["up_w"]) + p["up_b"], approximate="tanh")
-    return h + _proj(up, p["down_w"]) + p["down_b"]
+    up = F.gelu(proj(h2, p, "up_w") + p["up_b"], approximate="tanh")
+    return h + proj(up, p, "down_w") + p["down_b"]
 
 
 def _layer_cached(p, h, kc, vc, start, nh, eps):

@@ -100,22 +100,33 @@ def params_from_numpy(tree, config, device=None, dtype=torch.float32):
     return out
 
 
+# storage dtypes of quantized GEMM weights (serving/quant.py), kept as
+# they are: the quantized GEMM reads them with their ``<name>_s`` scales
+QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
+
+
 def cast_for_compute(params, config, device=None):
     """The reference's per-use casts done once, at load: every leaf its
     forward casts to the compute dtype (``p[name].astype(h.dtype)``, the
     embeddings) is stored in that dtype, and the final LayerNorm and LM
     head stay float32 as ``_final_logits`` reads them. Values are those
-    the reference computes with; at bf16 the weight bytes halve.
-    ``device=None`` keeps the tree where it is."""
+    the reference computes with; at bf16 the weight bytes halve. A
+    quantized tree (``serving.quant.quantize_params``) keeps its int8/fp8
+    weights and their float32 ``<name>_s`` scales. ``device=None`` keeps
+    the tree where it is."""
     dt = compute_dtype(config)
     dev = None if device is None else torch.device(device)
 
-    def put(t, dtype):
+    def put(name, t, dtype):
+        if t.dtype in QUANT_DTYPES:
+            dtype = t.dtype
+        elif name.endswith("_s"):
+            dtype = torch.float32
         return t.to(dev if dev is not None else t.device, dtype)
 
-    out = {k: put(v, torch.float32 if k in FP32_KEYS else dt)
+    out = {k: put(k, v, torch.float32 if k in FP32_KEYS else dt)
            for k, v in params.items() if k != "blocks"}
-    out["blocks"] = {k: put(v, dt) for k, v in params["blocks"].items()}
+    out["blocks"] = {k: put(k, v, dt) for k, v in params["blocks"].items()}
     return out
 
 

@@ -24,6 +24,16 @@ so a request's tokens equal ``models.generate_from_params``'s for any
 admission order, greedy and sampled, with chunking and prefix sharing on
 (bit for bit on the CPU; see models/generation.py for the shape rules
 that keep the promise).
+
+``quant=`` (a ``serving.quant.QuantSpec``, "int8", "fp8", or None to read
+``FLAGS_serving_weight_dtype``/``FLAGS_serving_kv_dtype``) serves with
+int8/fp8 GEMM weights (the quantized GEMM kernel on CUDA) and/or an
+int8/fp8 KV pool with per-page scales (the quantized paged-decode kernel
+on CUDA). The weights are quantized as the caller passes them, before the
+compute casts; missing KV clip ranges are calibrated by one fp forward at
+build. A quantized engine keeps the promises above at its dtype config
+(against itself, not against the fp oracle); the bf16/bf16 config
+resolves to None and runs none of that code.
 """
 from __future__ import annotations
 
@@ -37,9 +47,11 @@ from ..flags import get_flags
 from ..models.generation import _mask_logits, _sample
 from ..models.gpt import compute_dtype
 from ..models.params import cast_for_compute, layer_params
+from ..ops import quant_gemm as _qgemm
 from . import metrics
 from . import paged_decode
-from .paged_attention import paged_forward
+from . import quant as _squant
+from .paged_attention import new_pool, paged_forward
 from .paged_kv import PagedKVPool, pages_for
 from .request import (EXPIRED, FINISHED, LENGTH, QUEUED, RUNNING, STOP,
                       Request)
@@ -51,7 +63,6 @@ from .scheduler import QueueFullError, Scheduler
 _LATER_SLICES = {
     "model": "Queue A item 14 (the GPTForCausalLM Layer of the eager API)",
     "prefill_buckets": "Queue A item 7 (the pooled-layout baseline)",
-    "quant": "Queue A item 8 (quantized serving)",
     "speculate_k": "Queue A item 9 (speculative decoding)",
     "draft_source": "Queue A item 9 (speculative decoding)",
     "draft_layers": "Queue A item 9 (speculative decoding)",
@@ -89,7 +100,7 @@ class Engine:
                  max_seq_len=None, max_queue=None, top_k=None,
                  kv_layout=None, page_size=None, num_pages=None,
                  prefill_chunk=None, prefix_cache=None, device=None,
-                 **later):
+                 quant=None, **later):
         for name, value in later.items():
             if name not in _LATER_SLICES:
                 raise TypeError(f"Engine() got an unexpected keyword "
@@ -112,6 +123,17 @@ class Engine:
                              f"{self.kv_layout!r}")
         self.device = resolve_device(device)
         self.config = config
+        # quantized serving: resolve the dtype config first; it decides the
+        # stored weight leaves, the pool's storage dtype and its scales.
+        # The weights quantize as the caller passed them, before the
+        # compute casts, and missing KV clips are calibrated on them.
+        self._quant = _squant.resolve(quant, flags)
+        if self._quant is not None:
+            _squant.validate(self._quant, params, config)
+            self._quant = _squant.ensure_kv_clips(self._quant, params,
+                                                  config)
+            if self._quant.quantizes_weights:
+                params = _squant.quantize_params(params, config, self._quant)
         self.params = cast_for_compute(params, config, self.device)
         self._layers = layer_params(self.params)
         self.num_slots = int(num_slots or flags["FLAGS_serving_slots"])
@@ -143,28 +165,57 @@ class Engine:
         if prefix_cache is None:
             prefix_cache = bool(flags["FLAGS_serving_prefix_cache"])
         B = self.num_slots
+        kv_dtype = "bf16" if self._quant is None else self._quant.kv_dtype
+        self._kv_quant = kv_dtype != "bf16"
+        pool_kw = {}
+        if self._kv_quant:
+            pool_kw = dict(kv_dtype=kv_dtype, num_layers=config.num_layers,
+                           k_clip=self._quant.kv_k_clip,
+                           v_clip=self._quant.kv_v_clip,
+                           qmax=_squant.QMAX[kv_dtype])
         self.pool = PagedKVPool(
             B, self.max_seq_len, self.page_size,
             num_pages=int(num_pages or flags["FLAGS_serving_num_pages"] or 0),
-            prefix_cache=prefix_cache)
+            prefix_cache=prefix_cache, **pool_kw)
 
         nh = config.num_heads
         d = config.hidden_size // nh
         dtype = compute_dtype(config)
+        store = _squant.STORE_DTYPES[kv_dtype] if self._kv_quant else dtype
         self.use_kernel = bool(flags["FLAGS_serving_paged_kernel"])
         if self.use_kernel and self.device.type == "cuda":
-            why = paged_decode.unsupported_reason(d, self.page_size, dtype)
+            why = paged_decode.unsupported_reason(d, self.page_size, store)
             if why:
                 raise ValueError(
                     f"the paged decode kernel cannot serve this config "
                     f"({why}); set FLAGS_serving_paged_kernel=False to "
                     f"decode through the gather path")
             paged_decode.build()      # nvcc now, not in the first TTFT
+        self.quant_kernel = (self._quant is not None
+                             and self._quant.quantizes_weights
+                             and bool(flags["FLAGS_serving_quant_kernel"]))
+        if self.quant_kernel and self.device.type == "cuda":
+            self._check_quant_gemm_shapes(dtype)
+            _qgemm.build()
         # zero-initialized: masked keys of unwritten pages are read as
         # 0 * V, which must stay finite
         shape = (config.num_layers, self.pool.num_pages, self.page_size, nh, d)
-        self._kc = torch.zeros(shape, dtype=dtype, device=self.device)
-        self._vc = torch.zeros(shape, dtype=dtype, device=self.device)
+        self._kc = new_pool(shape, store, self.device)
+        self._vc = new_pool(shape, store, self.device)
+        # a quantized pool's per-page scales on the device: the pool's
+        # host arrays are the authority; a copy-on-write updates both
+        self._ksc = self._vsc = None
+        if self._kv_quant:
+            self._ksc = torch.from_numpy(self.pool.k_scale).to(self.device)
+            self._vsc = torch.from_numpy(self.pool.v_scale).to(self.device)
+        if self._quant is not None:
+            scales = _squant.scale_bytes(self.params)
+            if self._kv_quant:
+                scales += self.pool.k_scale.nbytes + self.pool.v_scale.nbytes
+            metrics.set_quant_info(
+                self._quant.weight_dtype, self._quant.kv_dtype,
+                scale_bytes=scales,
+                kv_bytes_per_token=self.kv_bytes_per_token())
 
         # host-authoritative per-slot state
         self._slots = [None] * B          # Request or None
@@ -180,6 +231,22 @@ class Engine:
         self._admit_seq = np.zeros(B, np.int64)
         self._admit_count = 0
         self._results = {}                # request_id -> GenerationResult
+
+    def _check_quant_gemm_shapes(self, dtype):
+        """Refuse, at build, a config whose quantized GEMMs the kernel
+        cannot take (the blocks' x is the compute dtype, the head's fp32)."""
+        blocks = self.params["blocks"]
+        gemms = [(name, blocks[name].shape[1:], dtype)
+                 for name in _squant.BLOCK_WEIGHTS]
+        gemms.append(("head_w", self.params["head_w"].shape, torch.float32))
+        for name, (K, F), x_dtype in gemms:
+            why = _qgemm.unsupported_reason(K, F, blocks["qkv_w"].dtype,
+                                            x_dtype)
+            if why:
+                raise ValueError(
+                    f"the quant GEMM kernel cannot serve {name} [{K}, {F}] "
+                    f"({why}); set FLAGS_serving_quant_kernel=False to run "
+                    f"the plain quantized GEMM")
 
     # -- submission ----------------------------------------------------------
     def submit(self, request):
@@ -296,7 +363,10 @@ class Engine:
         logits = paged_forward(self.params, self.config, ids_t, self._kc,
                                self._vc, start_t, valid_t, table_t,
                                self.page_size, self.use_kernel,
-                               layers=self._layers)
+                               layers=self._layers,
+                               kv_scales=(self._ksc, self._vsc)
+                               if self._kv_quant else None,
+                               wq_kernel=self.quant_kernel)
         nxt = torch.argmax(logits, dim=-1)
         if sample.any():
             nucleus = top_p_t if (self._top_p[rows][sample] < 1.0).any() \
@@ -313,8 +383,16 @@ class Engine:
         slot b to a fresh page before the dispatch that writes the
         range."""
         for src, dst in self.pool.make_writable(b, start, end):
-            self._kc[:, dst] = self._kc[:, src]
-            self._vc[:, dst] = self._vc[:, src]
+            if self._kv_quant:
+                # one-byte pages move as uint8, with their page scales
+                for pool in (self._kc, self._vc):
+                    raw = pool.view(torch.uint8)
+                    raw[:, dst] = raw[:, src]
+                self._ksc[:, dst] = self._ksc[:, src]
+                self._vsc[:, dst] = self._vsc[:, src]
+            else:
+                self._kc[:, dst] = self._kc[:, src]
+                self._vc[:, dst] = self._vc[:, src]
             metrics.bump("cow_copies")
 
     def _iterate_paged(self):
@@ -513,6 +591,23 @@ class Engine:
         return [results[r.request_id] for r in reqs]
 
     # -- introspection -------------------------------------------------------
+    def kv_bytes_per_token(self):
+        """KV bytes one token position costs at this engine's dtype
+        config: K + V over all layers and heads, plus a quantized pool's
+        two fp32 scales per (layer, page) shared by page_size tokens
+        (rounded up)."""
+        cfg = self.config
+        per_tok = 2 * cfg.num_layers * cfg.hidden_size * \
+            self._kc.element_size()
+        if self._kv_quant:
+            per_tok += -(-2 * cfg.num_layers * 4 // self.page_size)
+        return per_tok
+
+    def kv_shard_bytes(self):
+        """Bytes of one of the two KV pool arrays at the pool's storage
+        dtype (the whole pool: the port serves on one device)."""
+        return self._kc.numel() * self._kc.element_size()
+
     @property
     def active_slots(self):
         return sum(r is not None for r in self._slots)

@@ -42,10 +42,18 @@ def _zero():
         "active_slot_steps": 0, "slot_steps": 0,
         # queue depth observed at step boundaries
         "queue_depth_sum": 0, "queue_depth_max": 0, "boundaries": 0,
+        # quantized serving (serving/quant.py): the largest logit drift
+        # against the fp engine a harness measured (0.0 until one runs)
+        "quant_logit_drift_max": 0.0,
     }
 
 
 _C = _zero()
+# the last quantized engine's configuration: its dtype labels, the bytes
+# of its scale tables and the KV bytes one token costs. Configuration, not
+# counters: it survives reset_serving_counters, and serving_counters()
+# reports the two gauges as quant_scale_bytes / quant_kv_bytes_per_token.
+_quant_info = {}
 _MAX_SAMPLES = 65536       # rings: percentiles follow the latest traffic
 _ttft = deque(maxlen=_MAX_SAMPLES)      # seconds
 _tok_lat = deque(maxlen=_MAX_SAMPLES)   # per-token decode latency (seconds)
@@ -54,6 +62,25 @@ _tok_lat = deque(maxlen=_MAX_SAMPLES)   # per-token decode latency (seconds)
 def bump(name, n=1):
     with _lock:
         _C[name] += n
+
+
+def set_quant_info(weight_dtype, kv_dtype, scale_bytes=0,
+                   kv_bytes_per_token=0):
+    """Record a quantized engine's dtype config (labels) and its gauges
+    (scale-table bytes, KV bytes per token); set at engine build."""
+    with _lock:
+        _quant_info.update(weight_dtype=str(weight_dtype),
+                           kv_dtype=str(kv_dtype),
+                           scale_bytes=int(scale_bytes),
+                           kv_bytes_per_token=int(kv_bytes_per_token))
+
+
+def observe_logit_drift(drift):
+    """Keep the largest logit drift (fp engine against the quantized one
+    on the same input) a harness measured."""
+    with _lock:
+        _C["quant_logit_drift_max"] = max(_C["quant_logit_drift_max"],
+                                          float(drift))
 
 
 def add_time(name, dt):
@@ -106,6 +133,9 @@ def serving_counters():
     occupancy, mean queue depth, prefix hit rate."""
     with _lock:
         out = dict(_C)
+        out["quant_scale_bytes"] = _quant_info.get("scale_bytes", 0)
+        out["quant_kv_bytes_per_token"] = _quant_info.get(
+            "kv_bytes_per_token", 0)
         ttft = list(_ttft)
         lat = list(_tok_lat)
     out["ttft_p50"], out["ttft_p99"] = _pct(ttft, 50), _pct(ttft, 99)
@@ -149,6 +179,16 @@ def serving_summary():
                  f"({c['prefix_tokens_reused']} tok reused)  "
                  f"chunk-interleaved: {c['chunk_steps']}/{c['paged_steps']} "
                  f"steps  cow: {c['cow_copies']}")
+    quant = ""
+    with _lock:
+        qinfo = dict(_quant_info)
+    if qinfo:
+        drift = (f"  drift-max: {c['quant_logit_drift_max']:.2e}"
+                 if c["quant_logit_drift_max"] else "")
+        quant = (f"  quant: w={qinfo['weight_dtype']} "
+                 f"kv={qinfo['kv_dtype']}  "
+                 f"scales: {c['quant_scale_bytes']}B  "
+                 f"kv-bytes/tok: {c['quant_kv_bytes_per_token']}{drift}")
     waste = ""
     if c["prefill_padded_reqs"]:
         waste = (f"  prefill-waste: {c['prefill_waste_mean']:.1f} "
@@ -158,4 +198,4 @@ def serving_summary():
             f"tokens: {c['tokens_out']}  tokens/s: {c['tokens_per_s']:.1f}  "
             f"ttft p50/p99: {ttft}  occupancy: {c['occupancy'] * 100:.1f}%  "
             f"queue: {c['queue_depth_mean']:.1f} avg/"
-            f"{c['queue_depth_max']} max{paged}{waste}")
+            f"{c['queue_depth_max']} max{paged}{quant}{waste}")

@@ -18,6 +18,16 @@ design.
 the CPU. On CUDA it launches the kernel or raises: a failed build or
 launch never falls back. ``paged_decode_attention.launches`` counts the
 kernel's launches.
+
+``paged_decode_attention_q`` is the same for an int8 or float8_e4m3fn
+pool with per-page dequant scales ksc_l/vsc_l [P] float32: it replaces
+``_decode_kernel_q`` (through ``paged_decode_attention_q``, the
+pallas_call at paged_attention.py:221) with the int8 and fp8 instances of
+the same CUDA kernel, which read half the bytes of a bf16 pool. Its plain
+version ``paged_decode_q_plain`` is the reference's gather read of a
+quantized pool: key scales multiply the scores after the q.k dot, values
+are dequantized after their gather. Its launches count in
+``paged_decode_attention_q.launches``.
 """
 from __future__ import annotations
 
@@ -32,14 +42,31 @@ from ..models.generation import _attend
 SUPPORTED_HEAD_DIMS = (64, 128)
 SUPPORTED_PAGE_SIZES = (8, 16, 32)
 _POOL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_QUANT_POOL_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
 
 def gather_window(pool_l, table):
     """Each slot's pages in virtual order: [P, page_size, nh, d] through
-    table [B, MP] -> [B, MP * page_size, nh, d]."""
+    table [B, MP] -> [B, MP * page_size, nh, d]. One-byte pools move as
+    uint8 (indexing is not implemented for every float8 type)."""
     B, MP = table.shape
     _, ps, nh, d = pool_l.shape
-    return pool_l[table].reshape(B, MP * ps, nh, d)
+    if pool_l.element_size() == 1:
+        win = pool_l.view(torch.uint8)[table].view(pool_l.dtype)
+    else:
+        win = pool_l[table]
+    return win.reshape(B, MP * ps, nh, d)
+
+
+def attend_quantized(q, kc_l, vc_l, table, pos, ksc_l, vsc_l, page_size):
+    """The reference's gather read of a quantized pool, for q
+    [B, T, nh, d] at positions pos [B, T]: scores against the raw keys,
+    times each key page's scale after the dot; values dequantized by their
+    page's scale after the gather. Returns ctx [B, T, nh, d] float32."""
+    k_sc = ksc_l[table].repeat_interleave(page_size, dim=1)        # [B, S]
+    v_sc = vsc_l[table].repeat_interleave(page_size, dim=1)
+    vwin = gather_window(vc_l, table).float() * v_sc[:, :, None, None]
+    return _attend(q, gather_window(kc_l, table), vwin, pos, k_scale=k_sc)
 
 
 def paged_decode_plain(q, kc_l, vc_l, table, pos, page_size):
@@ -50,6 +77,14 @@ def paged_decode_plain(q, kc_l, vc_l, table, pos, page_size):
                    gather_window(vc_l, table), pos[:, None])[:, 0]
 
 
+def paged_decode_q_plain(q, kc_l, vc_l, table, pos, ksc_l, vsc_l,
+                        page_size):
+    """The plain version of the quantized kernel: ``attend_quantized`` at
+    T=1, in fp32."""
+    return attend_quantized(q[:, None], kc_l, vc_l, table, pos[:, None],
+                            ksc_l, vsc_l, page_size)[:, 0]
+
+
 def unsupported_reason(head_dim, page_size, pool_dtype):
     """Why the kernel cannot take these shapes, or None when it can."""
     reasons = []
@@ -58,8 +93,10 @@ def unsupported_reason(head_dim, page_size, pool_dtype):
     if page_size not in SUPPORTED_PAGE_SIZES:
         reasons.append(f"page_size {page_size} not in "
                        f"{SUPPORTED_PAGE_SIZES}")
-    if pool_dtype not in _POOL_DTYPES:
-        reasons.append(f"pool dtype {pool_dtype} not bfloat16/float32")
+    if pool_dtype not in _POOL_DTYPES and \
+            pool_dtype not in _QUANT_POOL_DTYPES:
+        reasons.append(f"pool dtype {pool_dtype} not bfloat16/float32/"
+                       f"int8/float8_e4m3fn")
     return "; ".join(reasons) or None
 
 
@@ -70,6 +107,10 @@ def _library():
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 +
         [ctypes.c_float, ctypes.c_void_p])
     lib.paged_decode_launch.restype = ctypes.c_int
+    lib.paged_decode_q_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
+        [ctypes.c_float, ctypes.c_void_p])
+    lib.paged_decode_q_launch.restype = ctypes.c_int
     lib.paged_decode_error_string.argtypes = [ctypes.c_int]
     lib.paged_decode_error_string.restype = ctypes.c_char_p
     return lib
@@ -80,7 +121,7 @@ def build():
     _library()
 
 
-def _check(q, kc_l, vc_l, table, pos, page_size):
+def _check(q, kc_l, vc_l, table, pos, page_size, dtypes):
     dev = q.device
     for name, t in (("kc_l", kc_l), ("vc_l", vc_l), ("table", table),
                     ("pos", pos)):
@@ -104,6 +145,11 @@ def _check(q, kc_l, vc_l, table, pos, page_size):
     why = unsupported_reason(d, page_size, kc_l.dtype)
     if why:
         raise ValueError(f"paged decode kernel: {why}")
+    if kc_l.dtype not in dtypes:
+        raise ValueError(
+            f"pool dtype {kc_l.dtype}: this entry takes "
+            f"{sorted(str(t) for t in dtypes)} (a quantized pool goes "
+            f"through paged_decode_attention_q with its page scales)")
     for name, t in (("q", q), ("kc_l", kc_l), ("vc_l", vc_l),
                     ("table", table), ("pos", pos)):
         if not t.is_contiguous():
@@ -122,7 +168,7 @@ def paged_decode_attention(q, kc_l, vc_l, table, pos, page_size):
     if q.device.type != "cuda":
         raise ValueError(f"paged decode attention runs on cuda or cpu, not "
                          f"{q.device}")
-    _check(q, kc_l, vc_l, table, pos, page_size)
+    _check(q, kc_l, vc_l, table, pos, page_size, _POOL_DTYPES)
     lib = _library()
     B, nh, d = q.shape
     out = torch.empty((B, nh, d), dtype=torch.float32, device=q.device)
@@ -141,3 +187,44 @@ def paged_decode_attention(q, kc_l, vc_l, table, pos, page_size):
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_q(q, kc_l, vc_l, table, pos, ksc_l, vsc_l,
+                             page_size):
+    """ctx [B, nh, d] float32 of one-token decode attention over an int8
+    or float8_e4m3fn pool with per-page scales ksc_l/vsc_l [P] float32.
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream."""
+    if q.device.type == "cpu":
+        return paged_decode_q_plain(q, kc_l, vc_l, table, pos, ksc_l, vsc_l,
+                                    page_size)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged decode attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    _check(q, kc_l, vc_l, table, pos, page_size, _QUANT_POOL_DTYPES)
+    P = kc_l.shape[0]
+    for name, t in (("ksc_l", ksc_l), ("vsc_l", vsc_l)):
+        if t.device != q.device or t.dtype != torch.float32 or \
+                tuple(t.shape) != (P,) or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 [{P}] on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    lib = _library()
+    B, nh, d = q.shape
+    out = torch.empty((B, nh, d), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.paged_decode_q_launch(
+            q.data_ptr(), kc_l.data_ptr(), vc_l.data_ptr(), table.data_ptr(),
+            pos.data_ptr(), ksc_l.data_ptr(), vsc_l.data_ptr(),
+            out.data_ptr(), B, nh, d, page_size, table.shape[1],
+            _QUANT_POOL_DTYPES[kc_l.dtype], 1.0 / d ** 0.5, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"paged decode kernel launch failed ({rc}): "
+            f"{lib.paged_decode_error_string(rc).decode()}")
+    paged_decode_attention_q.launches += 1
+    return out
+
+
+paged_decode_attention_q.launches = 0

@@ -19,8 +19,12 @@ bookkeeping:
   one and returns the copies the engine must run first.
 
 Sharing is bitwise-safe because a token's KV depends only on the tokens
-before it. Quantized pools, transfer staging and snapshots come with the
-slices that need them.
+before it. A quantized pool (int8/fp8, serving/quant.py) also owns
+per-page dequant scales ``k_scale``/``v_scale`` [L, P]: the page is the
+quantization block, so a copy-on-write split copies the source page's
+scale entries with its bytes, prefix sharing shares a page with its
+scales, and the trash page keeps scale 1.0. Transfer staging and
+snapshots come with the slices that need them.
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ class PagedKVPool:
     (slot, logical page) maps to."""
 
     def __init__(self, num_slots, max_seq_len, page_size, num_pages=0,
-                 prefix_cache=True):
+                 prefix_cache=True, kv_dtype="bf16", num_layers=0,
+                 k_clip=None, v_clip=None, qmax=127.0):
         self.page_size = int(page_size)
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -54,6 +59,20 @@ class PagedKVPool:
             self.num_slots * self.slot_pages + 1
         if self.num_pages < 2:
             raise ValueError("need at least 2 pages (one is the trash page)")
+        # quantized pool: every page of layer l starts at clip[l] / qmax
+        self.kv_dtype = str(kv_dtype)
+        self.k_scale = self.v_scale = None
+        if self.kv_dtype != "bf16":
+            if not num_layers or k_clip is None or v_clip is None:
+                raise ValueError(
+                    "a quantized pool needs num_layers and per-layer "
+                    "k_clip/v_clip ranges (calibrate via serving.quant)")
+            from .quant import page_scales
+            L = int(num_layers)
+            self.k_scale = page_scales(np.broadcast_to(
+                np.asarray(k_clip, np.float64), (L,)), self.num_pages, qmax)
+            self.v_scale = page_scales(np.broadcast_to(
+                np.asarray(v_clip, np.float64), (L,)), self.num_pages, qmax)
         # slot -> physical page, logical order; 0 = unmapped/trash
         self.table = np.zeros((self.num_slots, self.slot_pages), np.int32)
         self.ref = np.zeros(self.num_pages, np.int64)
@@ -152,6 +171,10 @@ class PagedKVPool:
             copies.append((phys, dst))
             self.table[b, li] = dst
             self.decref([phys])
+            if self.k_scale is not None:
+                # the copy inherits the source page's scales with its bytes
+                self.k_scale[:, dst] = self.k_scale[:, phys]
+                self.v_scale[:, dst] = self.v_scale[:, phys]
         return copies
 
     # -- prefix cache --------------------------------------------------------

@@ -232,3 +232,159 @@ def test_flash_autograd_copies_layouts_the_kernels_cannot_read(cuda_device):
             *fa.flash_dkv_plain(qc, kc, vc, ones, lse, delta, True))
     for name, leaf, ref in zip(("dq", "dk", "dv"), leaves, want):
         _assert_close_to_plain(name, leaf.grad.transpose(1, 3), ref)
+
+
+# ------------------------------------------------------- quantized serving
+# GPT-3 1.3B's quantized GEMMs, K x F: qkv, out, up, down, and the LM head
+QUANT_GEMM_SHAPES = [(2048, 6144), (2048, 2048), (2048, 8192),
+                     (8192, 2048), (2048, 50304)]
+QUANT_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def _quantized_weight(rng, K, F, dtype, device):
+    from paddle_tpu_torch.serving.quant import _quantize_leaf
+    w = torch.from_numpy((rng.standard_normal((K, F)) * 0.02).astype(
+        np.float32)).to(device)
+    return _quantize_leaf(w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_quant_gemm_matches_plain_on_card(cuda_device, dtype, x_dtype):
+    """Every 1.3B shape at R = 1, 8, 24 and 256 rows (the stream kernel,
+    its k splits and row groups, and the bf16 tile kernel), per element
+    and per row (ops/quant_gemm.py states the tolerance and its reason)."""
+    from paddle_tpu_torch.ops.quant_gemm import (error_vs_plain, quant_gemm,
+                                                 quant_gemm_plain,
+                                                 within_tolerance)
+    rng = np.random.default_rng(11)
+    xdt = getattr(torch, x_dtype)
+    for K, F in QUANT_GEMM_SHAPES:
+        wq, s = _quantized_weight(rng, K, F, dtype, cuda_device)
+        for R in (1, 8, 24, 256):
+            x = torch.from_numpy(rng.standard_normal((R, K)).astype(
+                np.float32)).to(cuda_device, xdt)
+            before = quant_gemm.launches
+            got = quant_gemm(x, wq, s)
+            torch.cuda.synchronize()
+            assert quant_gemm.launches == before + 1
+            assert got.dtype == xdt and got.shape == (R, F)
+            assert bool(torch.isfinite(got).all())
+            readings = error_vs_plain(got, quant_gemm_plain(x, wq, s))
+            assert within_tolerance(readings, xdt), (K, F, R, readings)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_quant_paged_decode_matches_plain_on_card(cuda_device, dtype):
+    """The serving shapes (8 slots, 16 heads of 128, page 16, 128 slot
+    pages) over an int8/fp8 pool with page scales in [0.01, 0.1]."""
+    from paddle_tpu_torch.serving.paged_decode import (
+        paged_decode_attention_q, paged_decode_q_plain)
+    rng = np.random.default_rng(12)
+    pos = [0, 15, 16, 31, 511, 1023, 1500, 2047]
+    q, kc, vc, table, pos = _case(rng, 8, 16, 128, 16, 128, 1025, pos)
+    tdt = QUANT_DTYPES[dtype]
+
+    def pool(a):
+        if dtype == "int8":
+            return torch.from_numpy(np.clip(np.round(a * 40), -127, 127)
+                                    .astype(np.int8)).to(cuda_device)
+        return torch.from_numpy(a * 100).to(cuda_device).clamp(
+            -448, 448).to(tdt)
+
+    ksc, vsc = (torch.from_numpy(rng.uniform(0.01, 0.1, 1025).astype(
+        np.float32)).to(cuda_device) for _ in range(2))
+    args = [torch.from_numpy(q).to(cuda_device), pool(kc), pool(vc),
+            torch.from_numpy(table).to(cuda_device),
+            torch.from_numpy(pos).to(cuda_device), ksc, vsc, 16]
+    before = paged_decode_attention_q.launches
+    got = paged_decode_attention_q(*args)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_q.launches == before + 1
+    torch.testing.assert_close(got, paged_decode_q_plain(*args), rtol=1e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_quant_wrappers_refuse_bad_inputs(cuda_device):
+    from paddle_tpu_torch.ops.quant_gemm import quant_gemm
+    from paddle_tpu_torch.serving.paged_decode import (
+        paged_decode_attention, paged_decode_attention_q)
+    rng = np.random.default_rng(13)
+    wq, s = _quantized_weight(rng, 64, 96, "int8", cuda_device)
+    x = torch.zeros(4, 64, device=cuda_device, dtype=torch.bfloat16)
+    for bad in (lambda: quant_gemm(x[:, :40], wq[:40], s),          # K % 16
+                lambda: quant_gemm(x, wq[:, :90].contiguous(), s[:90]),
+                lambda: quant_gemm(x.half(), wq, s),
+                lambda: quant_gemm(x.t().contiguous().t(), wq, s),
+                lambda: quant_gemm(x, wq.float(), s)):
+        with pytest.raises(ValueError,
+                           match="FLAGS_serving_quant_kernel=False"):
+            bad()
+    with pytest.raises(ValueError, match="scale must be float32"):
+        quant_gemm(x, wq, s.half())
+    q = torch.zeros(2, 2, 128, device=cuda_device)
+    pool = torch.zeros(5, 16, 2, 128, device=cuda_device, dtype=torch.int8)
+    table = torch.zeros(2, 4, device=cuda_device, dtype=torch.int32)
+    pos = torch.zeros(2, device=cuda_device, dtype=torch.int32)
+    sc = torch.ones(5, device=cuda_device)
+    with pytest.raises(ValueError, match="paged_decode_attention_q"):
+        paged_decode_attention(q, pool, pool, table, pos, 16)
+    with pytest.raises(ValueError, match="this entry takes"):
+        bf = pool.to(torch.bfloat16)
+        paged_decode_attention_q(q, bf, bf, table, pos, sc, sc, 16)
+    with pytest.raises(ValueError, match="ksc_l must be"):
+        paged_decode_attention_q(q, pool, pool, table, pos, sc[:4], sc, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_quantized_engine_launches_both_kernels_on_card(cuda_device, dtype):
+    """A small bf16 engine at quant=dtype: each decode dispatch launches
+    the quantized paged-decode kernel once per layer (the bf16 one never),
+    each dispatch the quant GEMM kernel 4 times per layer plus the head;
+    the first greedy token matches the same engine on the plain paths."""
+    from paddle_tpu_torch.flags import get_flags, set_flags
+    from paddle_tpu_torch.models import GPTConfig, init_gpt_params
+    from paddle_tpu_torch.ops.quant_gemm import quant_gemm
+    from paddle_tpu_torch.serving import (Engine, Request,
+                                          reset_serving_counters,
+                                          serving_counters)
+    from paddle_tpu_torch.serving.paged_decode import (
+        paged_decode_attention, paged_decode_attention_q)
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=2, max_seq_len=256)
+    params = init_gpt_params(cfg, seed=0, device=cuda_device,
+                             dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, n) for n in (5, 40, 77, 130)]
+    runs = []
+    old = get_flags()
+    try:
+        for kernel in (True, False):
+            set_flags({"FLAGS_serving_paged_kernel": kernel,
+                       "FLAGS_serving_quant_kernel": kernel})
+            eng = Engine(params=params, config=cfg, num_slots=4,
+                         prefill_chunk=64, device=cuda_device, quant=dtype)
+            assert eng._kc.dtype == QUANT_DTYPES[dtype]
+            reset_serving_counters()
+            counts = (paged_decode_attention, paged_decode_attention_q,
+                      quant_gemm)
+            for f in counts:
+                f.launches = 0
+            reqs = [Request(p, max_new_tokens=6) for p in prompts]
+            res = eng.run(reqs)
+            c = serving_counters()
+            L = cfg.num_layers
+            want = ((0, c["decode_dispatches"] * L,
+                     c["paged_steps"] * (4 * L + 1)) if kernel
+                    else (0, 0, 0))
+            assert tuple(f.launches for f in counts) == want
+            assert eng.pool.balance()["refcounts_accounted"]
+            runs.append([res[r.request_id].tokens for r in reqs])
+    finally:
+        set_flags(old)
+    for a, b in zip(*runs):
+        assert len(a) == len(b) == 6 and a[0] == b[0]
