@@ -61,10 +61,12 @@ result when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import cProfile
 import dataclasses
 import itertools
 import json
 import pathlib
+import pstats
 import re
 import subprocess
 import sys
@@ -527,11 +529,13 @@ def phase_profile(cfg, eng, rng, steps=10):
     """Where a decode step's time goes: 8 decoding slots, ``steps``
     boundaries timed on the host, then the same number traced with
     torch.profiler (device kernels only) for kernel time by name and the
-    device's busy share of the traced window."""
+    device's busy share of the traced window, then the same number under
+    cProfile for the host's time by Python function (cProfile slows the
+    Python it counts, so read its shares, not its milliseconds)."""
     chunks = serving_counters()["prefill_chunks"] + SLOTS
     for _ in range(SLOTS):   # one 64-token chunk each, then decode only
         eng.submit(Request(rng.integers(0, cfg.vocab_size, 64),
-                           max_new_tokens=8 + 2 * steps))
+                           max_new_tokens=8 + 3 * steps))
     while serving_counters()["prefill_chunks"] < chunks:
         eng.step()
     check(eng.active_slots == SLOTS, "profile window lost a slot")
@@ -547,6 +551,12 @@ def phase_profile(cfg, eng, rng, steps=10):
             eng.step()
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) / steps
+    host = cProfile.Profile()
+    host.enable()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    host.disable()
     eng.run()
 
     def dev_us(e):
@@ -566,6 +576,16 @@ def phase_profile(cfg, eng, rng, steps=10):
     for e in events[:8] + [e for e in ours if e not in events[:8]]:
         print(f"[profile]   {dev_us(e) / 1e3 / steps:8.4f} ms/step "
               f"{e.count // steps:5d} calls/step  {e.key[:90]}")
+    rows = pstats.Stats(host).stats
+    total = sum(tt for _, _, tt, _, _ in rows.values())
+    print(f"[profile] host under cProfile: {total * 1e3 / steps:.2f} ms/step "
+          f"in Python functions and the C calls they make; largest own "
+          f"times:")
+    for (path, line, name), (_, calls, tt, _, _) in sorted(
+            rows.items(), key=lambda kv: kv[1][2], reverse=True)[:12]:
+        where = f"{pathlib.Path(path).name}:{line}" if line else path
+        print(f"[profile]   {tt / total:6.1%} {calls // steps:5d} calls/step "
+              f" {name} ({where})"[:120])
 
 
 def phase_oracle(cfg, params, eng_results, wave1):

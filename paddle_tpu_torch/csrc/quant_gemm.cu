@@ -24,29 +24,35 @@
 // Design, two kernels and a reduction:
 // * stream (R <= 16, and any R with fp32 x): a block of 8 warps owns a
 //   strip of 8 * VEC output columns for one group of RB rows; each thread
-//   owns VEC columns (VEC = 16 one-byte weights: one 16-byte load per k row,
-//   8 when RB = 16 to keep the RB * VEC fp32 accumulators in registers) and
-//   walks every 32nd k row of the block's k range, four rows of loads in
-//   flight. x is staged in shared memory as fp32, 256 k rows at a time.
-//   int8 -> fp32 is one byte permute and one add (the 2^23 magic number);
-//   e4m3 -> fp32 goes through the hardware's fp8x2 -> half2 conversion.
-//   The 32 k-row partial sums of a column are reduced over the warp with
-//   shuffles and over the 8 warps in shared memory. Few column strips
-//   (F = 2048 at RB = 8 is 16 strips) cannot fill 132 SMs, so the k range
-//   is split over blocks: each split writes fp32 partial sums and a second
-//   kernel adds them in split order, multiplies the scale and casts. One
-//   split writes the output directly.
+//   owns VEC columns (VEC = 16 one-byte weights, one 16-byte load per k
+//   row, for RB <= 4; VEC = 8 for RB = 8 and 16, which keeps the RB * VEC
+//   fp32 accumulators to at most 128 registers and two blocks on an SM
+//   at RB = 8). The block walks its k range 256 rows at a time: each
+//   thread first issues the loads of its 8 weight rows of the chunk, then
+//   the block stages the chunk's x in shared memory as fp32, k-major so
+//   a thread reads a row's RB values with 16-byte loads, while those
+//   loads are in flight. int8 -> fp32 is one byte permute and one add
+//   (the 2^23 magic number); e4m3 -> fp32 goes through the hardware's
+//   fp8x2 -> half2 conversion. The 32 k-row partial sums of a column are
+//   reduced over the warp with shuffles and over the 8 warps in shared
+//   memory. Few column strips (F = 2048 is 32 strips) cannot fill 132
+//   SMs, so the k range is split over blocks until the launch fills the
+//   SMs once (quant_gemm_plan reads the occupancy): each split writes
+//   fp32 partial sums and a second kernel adds them in split order,
+//   multiplies the scale and casts. One split writes the output directly.
 // * tile (bf16 x, R > 16: prefill chunks): a 64 x 128 output tile per block
 //   of 8 warps (each warp 32 x 32), k steps of 32. The x tile is copied to
 //   shared memory as it is; the weight tile is converted to bf16 on its way
-//   into shared memory (int8 and e4m3 are exact in bf16) and the products
-//   run on the tensor cores as warp-level mma.sync m16n8k16 with fp32
-//   accumulators (the fragment layout of flash_attention.cu). bf16 products
-//   are exact in fp32, so this computes the stream kernel's sums up to their
-//   order. fp32 x always takes the stream kernel: rounding x to bf16 would
-//   change the function.
-// Copies are synchronous; TMA, wgmma and a pipelined ring of tiles are
-// later work.
+//   into shared memory (int8 and e4m3 are exact in bf16); the next step's
+//   tiles are loaded into registers while this step computes. Fragments
+//   come from shared memory by ldmatrix (the weight's transposed), and
+//   the products run on the tensor cores as warp-level mma.sync m16n8k16
+//   with fp32 accumulators (the fragment layout of flash_attention.cu).
+//   bf16 products are exact in fp32, so this computes the stream kernel's
+//   sums up to their order. A launch of few tiles splits k over blocks
+//   like the stream kernel. fp32 x always takes the stream kernel:
+//   rounding x to bf16 would change the function.
+// TMA, wgmma and a deeper pipelined ring of tiles are later work.
 //
 // Built by paddle_tpu_torch/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -135,10 +141,33 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 // ------------------------------------------------------------ stream kernel
 constexpr int kTX = 8;                    // threads across a column strip
 constexpr int kTY = kThreads / kTX;       // k rows per pass (32)
-constexpr int kKC = 256;                  // k rows of x staged per chunk
-constexpr int kUnroll = 4;                // k rows of loads in flight
+constexpr int kUnroll = 8;                // k rows of loads per thread
+constexpr int kKC = kTY * kUnroll;        // k rows per chunk (256)
 
-template <typename WT, typename XT, int RB, int VEC>
+template <int RB>
+struct StreamShape {
+  static constexpr int kVec = RB <= 4 ? 16 : 8;   // columns per thread
+  static constexpr int kStrip = kTX * kVec;       // columns per block
+};
+
+// x[i][0..RB) of the k-major staged chunk
+template <int RB>
+__device__ __forceinline__ void load_x(const float* xs, int i, float* xv) {
+  if constexpr (RB % 4 == 0) {
+    const float4* p = reinterpret_cast<const float4*>(xs + i * RB);
+#pragma unroll
+    for (int r = 0; r < RB / 4; ++r) {
+      const float4 v = p[r];
+      xv[4 * r] = v.x; xv[4 * r + 1] = v.y;
+      xv[4 * r + 2] = v.z; xv[4 * r + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) xv[r] = xs[i * RB + r];
+  }
+}
+
+template <typename WT, typename XT, int RB>
 __global__ void __launch_bounds__(kThreads)
 quant_gemm_stream_kernel(const XT* __restrict__ x,       // [R, K]
                          const uint8_t* __restrict__ wq, // [K, F]
@@ -146,12 +175,12 @@ quant_gemm_stream_kernel(const XT* __restrict__ x,       // [R, K]
                          XT* __restrict__ out,           // [R, F]
                          float* __restrict__ ws,         // [splits, R, F]
                          int R, int K, int F, int k_per_split) {
-  constexpr int CB = kTX * VEC;                           // strip width
+  constexpr int VEC = StreamShape<RB>::kVec;
+  constexpr int CB = StreamShape<RB>::kStrip;
   constexpr int kXs = RB * kKC;
   constexpr int kRed = kWarps * RB * CB;
   constexpr int kSmem = kXs > kRed ? kXs : kRed;
   __shared__ __align__(16) float smem[kSmem];
-  float (*xs)[kKC] = reinterpret_cast<float (*)[kKC]>(smem);
 
   const int tx = threadIdx.x % kTX;
   const int ty = threadIdx.x / kTX;
@@ -174,38 +203,35 @@ quant_gemm_stream_kernel(const XT* __restrict__ x,       // [R, K]
 
   for (int kc0 = k_begin; kc0 < k_end; kc0 += kKC) {
     const int n = min(kKC, k_end - kc0);
+    // this thread's weight rows of the chunk: in flight while x stages
+    WVec<VEC> w[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = ty + u * kTY;
+      if (col_ok && i < n)
+        w[u].load(wq + static_cast<size_t>(kc0 + i) * F + col);
+      else
+        w[u].zero();
+    }
     for (int e = threadIdx.x; e < RB * kKC; e += kThreads) {
       const int r = e / kKC;
       const int i = e % kKC;
       const int row = row0 + r;
-      xs[r][i] = (row < R && i < n)
-                     ? to_f(x[static_cast<size_t>(row) * K + kc0 + i])
-                     : 0.f;
+      smem[i * RB + r] =
+          (row < R && i < n) ? to_f(x[static_cast<size_t>(row) * K + kc0 + i])
+                             : 0.f;
     }
     __syncthreads();
-    for (int i0 = ty; i0 < n; i0 += kTY * kUnroll) {
-      WVec<VEC> w[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = i0 + u * kTY;
-        if (col_ok && i < n)
-          w[u].load(wq + static_cast<size_t>(kc0 + i) * F + col);
-        else
-          w[u].zero();
-      }
+    for (int u = 0; u < kUnroll; ++u) {
+      float wf[VEC];
+      w[u].to_float(wt, wf);
+      float xv[RB];
+      load_x<RB>(smem, ty + u * kTY, xv);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = i0 + u * kTY;
-        if (i >= n) break;
-        float wf[VEC];
-        w[u].to_float(wt, wf);
+      for (int r = 0; r < RB; ++r)
 #pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const float xv = xs[r][i];
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) acc[r][v] = fmaf(xv, wf[v], acc[r][v]);
-        }
-      }
+        for (int v = 0; v < VEC; ++v) acc[r][v] = fmaf(xv[r], wf[v], acc[r][v]);
     }
     __syncthreads();
   }
@@ -276,6 +302,25 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -286,13 +331,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 //                         a2 (g, 8+2t..)     a3 (g+8, 8+2t..)
 //   B (16x8, k x n):      b0 (k = 2t..2t+1, n = g)   b1 (k = 8+2t.., n = g)
 //   C (16x8, fp32):       c0, c1 (g, 2t..2t+1)   c2, c3 (g+8, 2t..2t+1)
+// ldmatrix x4 of A at (row lane % 16, col 8 * (lane / 16)) returns a0..a3;
+// ldmatrix x4.trans of the k-major weight tile at (k lane % 16, n 8 *
+// (lane / 16)) returns b0, b1 of n-tile 0 and b0, b1 of n-tile 1.
 template <typename WT>
 __global__ void __launch_bounds__(kThreads)
 quant_gemm_tile_kernel(const __nv_bfloat16* __restrict__ x,   // [R, K]
                        const uint8_t* __restrict__ wq,        // [K, F]
                        const float* __restrict__ scale,       // [F]
                        __nv_bfloat16* __restrict__ out,       // [R, F]
-                       int R, int K, int F) {
+                       float* __restrict__ ws,                // [splits, R, F]
+                       int R, int K, int F, int k_per_split) {
   __shared__ __align__(16) __nv_bfloat16 As[kBM][kBK + kPadA];
   __shared__ __align__(16) __nv_bfloat16 Bs[kBK][kBN + kPadB];
   const int tid = threadIdx.x;
@@ -304,6 +353,9 @@ quant_gemm_tile_kernel(const __nv_bfloat16* __restrict__ x,   // [R, K]
   const int wn = warp % 4;               // warp cols [wn*32, wn*32+32)
   const int row0 = blockIdx.y * kBM;
   const int col0 = blockIdx.x * kBN;
+  const int split = blockIdx.z;
+  const int k_begin = split * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
   const WT wt{};
 
   float acc[2][4][4];
@@ -320,23 +372,25 @@ quant_gemm_tile_kernel(const __nv_bfloat16* __restrict__ x,   // [R, K]
   const int ak = (tid % 4) * 8;
   const int bk = tid / 8;
   const int bc = (tid % 8) * 16;
+  uint4 a_next;
+  WVec<16> b_next;
+  auto fetch = [&](int k0) {
+    a_next = make_uint4(0, 0, 0, 0);
+    if (row0 + ar < R && k0 + ak < k_end)
+      a_next = __ldg(reinterpret_cast<const uint4*>(
+          x + static_cast<size_t>(row0 + ar) * K + k0 + ak));
+    if (k0 + bk < k_end && col0 + bc < F)
+      b_next.load(wq + static_cast<size_t>(k0 + bk) * F + col0 + bc);
+    else
+      b_next.zero();
+  };
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
+  fetch(k_begin);
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
+    *reinterpret_cast<uint4*>(&As[ar][ak]) = a_next;
     {
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row0 + ar < R && k0 + ak < K)
-        v = __ldg(reinterpret_cast<const uint4*>(
-            x + static_cast<size_t>(row0 + ar) * K + k0 + ak));
-      *reinterpret_cast<uint4*>(&As[ar][ak]) = v;
-    }
-    {
-      WVec<16> w;
-      if (k0 + bk < K && col0 + bc < F)
-        w.load(wq + static_cast<size_t>(k0 + bk) * F + col0 + bc);
-      else
-        w.zero();
       float wf[16];
-      w.to_float(wt, wf);
+      b_next.to_float(wt, wf);
       uint4 lo, hi;
       lo.x = pack_bf16(wf[0], wf[1]);   lo.y = pack_bf16(wf[2], wf[3]);
       lo.z = pack_bf16(wf[4], wf[5]);   lo.w = pack_bf16(wf[6], wf[7]);
@@ -346,70 +400,57 @@ quant_gemm_tile_kernel(const __nv_bfloat16* __restrict__ x,   // [R, K]
       *reinterpret_cast<uint4*>(&Bs[bk][bc + 8]) = hi;
     }
     __syncthreads();
+    if (k0 + kBK < k_end) fetch(k0 + kBK);   // in flight while we compute
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
       uint32_t a[2][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const __nv_bfloat16* p = &As[wm * 32 + mi * 16 + g][kk + 2 * t];
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * (kBK + kPadA));
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * (kBK + kPadA)
-                                                      + 8);
-      }
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(a[mi], &As[wm * 32 + mi * 16 + (lane % 16)][kk + 8 * (lane / 16)]);
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = wn * 32 + ni * 8 + g;
-        const uint16_t* b = reinterpret_cast<const uint16_t*>(&Bs[0][0]);
-        constexpr int ld = kBN + kPadB;
-        const uint32_t b0 =
-            static_cast<uint32_t>(b[(kk + 2 * t) * ld + n]) |
-            (static_cast<uint32_t>(b[(kk + 2 * t + 1) * ld + n]) << 16);
-        const uint32_t b1 =
-            static_cast<uint32_t>(b[(kk + 8 + 2 * t) * ld + n]) |
-            (static_cast<uint32_t>(b[(kk + 9 + 2 * t) * ld + n]) << 16);
+      for (int np = 0; np < 4; np += 2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, &Bs[kk + (lane % 16)][wn * 32 + np * 8 +
+                                                8 * (lane / 16)]);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][np], a[mi], b[0], b[1]);
+          mma_bf16(acc[mi][np + 1], a[mi], b[2], b[3]);
+        }
       }
     }
     __syncthreads();
   }
 
-  // epilogue: the scale in fp32, one rounding to bf16
+  // epilogue: the scale in fp32, one rounding to bf16 (or the split's
+  // fp32 partial sums)
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
       const int c = col0 + wn * 32 + ni * 8 + 2 * t;
       if (c >= F) continue;
-      const float s0 = scale[c];
-      const float s1 = scale[c + 1];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = row0 + wm * 32 + mi * 16 + g + 8 * h;
         if (r >= R) continue;
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r) * F
-                                           + c) =
-            __floats2bfloat162_rn(acc[mi][ni][2 * h] * s0,
-                                  acc[mi][ni][2 * h + 1] * s1);
+        const size_t o = static_cast<size_t>(r) * F + c;
+        const float v0 = acc[mi][ni][2 * h];
+        const float v1 = acc[mi][ni][2 * h + 1];
+        if (ws == nullptr)
+          *reinterpret_cast<__nv_bfloat162*>(out + o) =
+              __floats2bfloat162_rn(v0 * scale[c], v1 * scale[c + 1]);
+        else
+          *reinterpret_cast<float2*>(ws + static_cast<size_t>(split) * R * F
+                                     + o) = make_float2(v0, v1);
       }
     }
 }
 
 // ---------------------------------------------------------------- dispatch
-template <typename WT, typename XT, int RB, int VEC>
-cudaError_t launch_stream(const void* x, const void* wq, const void* scale,
-                          void* out, void* ws, int R, int K, int F,
-                          int splits, int k_per_split, cudaStream_t s) {
-  constexpr int CB = kTX * VEC;
-  const dim3 grid((F + CB - 1) / CB, splits, (R + RB - 1) / RB);
-  quant_gemm_stream_kernel<WT, XT, RB, VEC><<<grid, kThreads, 0, s>>>(
-      static_cast<const XT*>(x), static_cast<const uint8_t*>(wq),
-      static_cast<const float*>(scale), static_cast<XT*>(out),
-      splits > 1 ? static_cast<float*>(ws) : nullptr, R, K, F, k_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
+template <typename XT>
+cudaError_t launch_reduce(const void* ws, const void* scale, void* out,
+                          int R, int F, int splits, cudaStream_t s) {
   const size_t n = static_cast<size_t>(R) * F;
   quant_gemm_reduce_kernel<XT><<<(n + kThreads - 1) / kThreads, kThreads, 0,
                                  s>>>(static_cast<const float*>(ws),
@@ -418,26 +459,81 @@ cudaError_t launch_stream(const void* x, const void* wq, const void* scale,
   return cudaGetLastError();
 }
 
+template <typename WT, typename XT, int RB>
+cudaError_t launch_stream(const void* x, const void* wq, const void* scale,
+                          void* out, void* ws, int R, int K, int F,
+                          int splits, int k_per_split, cudaStream_t s) {
+  constexpr int CB = StreamShape<RB>::kStrip;
+  const dim3 grid((F + CB - 1) / CB, splits, (R + RB - 1) / RB);
+  quant_gemm_stream_kernel<WT, XT, RB><<<grid, kThreads, 0, s>>>(
+      static_cast<const XT*>(x), static_cast<const uint8_t*>(wq),
+      static_cast<const float*>(scale), static_cast<XT*>(out),
+      splits > 1 ? static_cast<float*>(ws) : nullptr, R, K, F, k_per_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_reduce<XT>(ws, scale, out, R, F, splits, s);
+}
+
+template <typename WT>
+cudaError_t launch_tile(const void* x, const void* wq, const void* scale,
+                        void* out, void* ws, int R, int K, int F, int splits,
+                        int k_per_split, cudaStream_t s) {
+  const dim3 grid((F + kBN - 1) / kBN, (R + kBM - 1) / kBM, splits);
+  quant_gemm_tile_kernel<WT><<<grid, kThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wq),
+      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
+      splits > 1 ? static_cast<float*>(ws) : nullptr, R, K, F, k_per_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_reduce<__nv_bfloat16>(ws, scale, out, R, F, splits, s);
+}
+
+// the instance a (w dtype, x dtype, mode, row group) runs, or null
+using Kernel = const void*;
+
+template <typename WT, typename XT>
+Kernel stream_instance(int rows) {
+  switch (rows) {
+    case 1: return reinterpret_cast<Kernel>(quant_gemm_stream_kernel<WT, XT, 1>);
+    case 2: return reinterpret_cast<Kernel>(quant_gemm_stream_kernel<WT, XT, 2>);
+    case 4: return reinterpret_cast<Kernel>(quant_gemm_stream_kernel<WT, XT, 4>);
+    case 8: return reinterpret_cast<Kernel>(quant_gemm_stream_kernel<WT, XT, 8>);
+    case 16: return reinterpret_cast<Kernel>(quant_gemm_stream_kernel<WT, XT, 16>);
+  }
+  return nullptr;
+}
+
+template <typename WT>
+Kernel instance(int x_dtype, int mode, int rows) {
+  if (mode == 1)
+    return x_dtype == 0 ? reinterpret_cast<Kernel>(quant_gemm_tile_kernel<WT>)
+                        : nullptr;
+  if (mode != 0) return nullptr;
+  if (x_dtype == 0) return stream_instance<WT, __nv_bfloat16>(rows);
+  if (x_dtype == 1) return stream_instance<WT, float>(rows);
+  return nullptr;
+}
+
 template <typename WT, typename XT>
 int dispatch_stream(const void* x, const void* wq, const void* scale,
                     void* out, void* ws, int R, int K, int F, int rows,
                     int splits, int k_per_split, cudaStream_t s) {
   switch (rows) {
     case 1:
-      return launch_stream<WT, XT, 1, 16>(x, wq, scale, out, ws, R, K, F,
-                                          splits, k_per_split, s);
+      return launch_stream<WT, XT, 1>(x, wq, scale, out, ws, R, K, F, splits,
+                                      k_per_split, s);
     case 2:
-      return launch_stream<WT, XT, 2, 16>(x, wq, scale, out, ws, R, K, F,
-                                          splits, k_per_split, s);
+      return launch_stream<WT, XT, 2>(x, wq, scale, out, ws, R, K, F, splits,
+                                      k_per_split, s);
     case 4:
-      return launch_stream<WT, XT, 4, 16>(x, wq, scale, out, ws, R, K, F,
-                                          splits, k_per_split, s);
+      return launch_stream<WT, XT, 4>(x, wq, scale, out, ws, R, K, F, splits,
+                                      k_per_split, s);
     case 8:
-      return launch_stream<WT, XT, 8, 16>(x, wq, scale, out, ws, R, K, F,
-                                          splits, k_per_split, s);
+      return launch_stream<WT, XT, 8>(x, wq, scale, out, ws, R, K, F, splits,
+                                      k_per_split, s);
     case 16:
-      return launch_stream<WT, XT, 16, 8>(x, wq, scale, out, ws, R, K, F,
-                                          splits, k_per_split, s);
+      return launch_stream<WT, XT, 16>(x, wq, scale, out, ws, R, K, F, splits,
+                                       k_per_split, s);
   }
   return -1;
 }
@@ -448,12 +544,8 @@ int dispatch(const void* x, const void* wq, const void* scale, void* out,
              int splits, int k_per_split, cudaStream_t s) {
   if (mode == 1) {
     if (x_dtype != 0) return -1;
-    const dim3 grid((F + kBN - 1) / kBN, (R + kBM - 1) / kBM);
-    quant_gemm_tile_kernel<WT><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const uint8_t*>(wq), static_cast<const float*>(scale),
-        static_cast<__nv_bfloat16*>(out), R, K, F);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch_tile<WT>(x, wq, scale, out, ws, R, K, F,
+                                            splits, k_per_split, s));
   }
   if (mode != 0) return -1;
   if (x_dtype == 0)
@@ -467,19 +559,68 @@ int dispatch(const void* x, const void* wq, const void* scale, void* out,
 
 }  // namespace
 
+// How one call runs, written to plan[4] = {mode, rows, splits,
+// k_per_split}: bf16 x with more than 16 rows takes the tile kernel (mode
+// 1), everything else the stream kernel (mode 0) over row groups of
+// `rows` = 1, 2, 4, 8 or 16. The k range is split over blocks (k_per_split
+// rows each, a multiple of 256) until the launch fills the SMs of the
+// current device once, as far as the occupancy of the instance allows;
+// the tile kernel splits only a launch of fewer tiles than SMs. Returns 0,
+// a cudaError_t code, or -1 for an unsupported combination.
+extern "C" int quant_gemm_plan(int R, int K, int F, int w_dtype, int x_dtype,
+                               int* plan) {
+  if (R <= 0 || K <= 0 || F <= 0 || K % 16 != 0 || F % 16 != 0) return -1;
+  const int mode = (x_dtype == 0 && R > 16) ? 1 : 0;
+  int rows = 0;
+  if (mode == 0) {
+    const int want = R < 16 ? R : 16;
+    rows = 1;
+    while (rows < want) rows *= 2;
+  }
+  Kernel k = w_dtype == 0 ? instance<Int8W>(x_dtype, mode, rows)
+             : w_dtype == 1 ? instance<Fp8W>(x_dtype, mode, rows) : nullptr;
+  if (k == nullptr) return -1;
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, k, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks, splits, step;
+  if (mode == 1) {
+    blocks = ((F + kBN - 1) / kBN) * ((R + kBM - 1) / kBM);
+    splits = blocks >= sms ? 1 : (sms + blocks - 1) / blocks;
+    step = kBK;
+  } else {
+    const int strip = rows <= 4 ? kTX * 16 : kTX * 8;
+    blocks = ((F + strip - 1) / strip) * ((R + rows - 1) / rows);
+    splits = occ * sms / blocks;
+    step = kKC;
+  }
+  const int max_splits = (K + step - 1) / step;
+  splits = splits < 1 ? 1 : (splits > max_splits ? max_splits : splits);
+  int k_per = (K + splits - 1) / splits;
+  k_per = (k_per + step - 1) / step * step;
+  plan[0] = mode;
+  plan[1] = rows;
+  plan[2] = (K + k_per - 1) / k_per;
+  plan[3] = k_per;
+  return 0;
+}
+
 // w_dtype: 0 = int8, 1 = float8_e4m3fn. x_dtype: 0 = bfloat16, 1 = float32.
-// mode: 0 = stream (rows = its row group: 1, 2, 4, 8 or 16; splits blocks
-// over k of k_per_split rows each, ws = fp32 [splits, R, F] scratch when
-// splits > 1), 1 = tile (bf16 x only). Returns 0, a cudaError_t code, or -1
-// for an argument combination this library was not built for.
+// mode, rows, splits and k_per_split as quant_gemm_plan gives them; ws =
+// fp32 [splits, R, F] scratch when splits > 1. Returns 0, a cudaError_t
+// code, or -1 for an argument combination this library was not built for.
 extern "C" int quant_gemm_launch(const void* x, const void* wq,
                                  const void* scale, void* out, void* ws,
                                  int R, int K, int F, int w_dtype,
                                  int x_dtype, int mode, int rows, int splits,
                                  int k_per_split, void* stream) {
   if (R <= 0 || F <= 0) return 0;
-  if (K % 16 != 0 || F % 16 != 0) return -1;
-  if (mode == 0 && (splits < 1 || k_per_split <= 0 || k_per_split % 32 != 0))
+  if (K % 16 != 0 || F % 16 != 0 || splits < 1 || k_per_split <= 0 ||
+      (splits > 1 && ws == nullptr))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_dtype == 0)

@@ -37,10 +37,6 @@ from ..models.generation import _matmul
 
 W_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 X_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-# the streaming kernel's row groups; bf16 x with more rows takes the
-# tensor-core tile kernel
-ROW_GROUPS = (1, 2, 4, 8, 16)
-_MODE_STREAM, _MODE_TILE = 0, 1
 
 
 def quant_gemm_plain(x, wq, scale):
@@ -102,6 +98,8 @@ def _library():
     lib.quant_gemm_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.quant_gemm_launch.restype = ctypes.c_int
+    lib.quant_gemm_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.quant_gemm_plan.restype = ctypes.c_int
     lib.quant_gemm_error_string.argtypes = [ctypes.c_int]
     lib.quant_gemm_error_string.restype = ctypes.c_char_p
     return lib
@@ -113,23 +111,20 @@ def build():
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def plan(R, K, F, x_dtype, sms):
-    """How one call runs: (mode, row group, k splits, k rows per split).
-    bf16 x with more than 16 rows takes the tile kernel; everything else
-    streams the weight with R in row groups of up to 16, its k range split
-    over blocks until the launch has about two blocks per SM."""
-    if x_dtype == torch.bfloat16 and R > ROW_GROUPS[-1]:
-        return _MODE_TILE, 0, 1, 0
-    rows = next(g for g in ROW_GROUPS if g >= min(R, ROW_GROUPS[-1]))
-    strip = 8 * (16 if rows <= 8 else 8)
-    blocks = -(-F // strip) * -(-R // rows)
-    splits = max(1, min(-(-2 * sms // blocks), K // 128))
-    k_per = -(-(-(-K // splits)) // 32) * 32      # ceil(K / splits), to 32
-    return _MODE_STREAM, rows, -(-K // k_per), k_per
+def plan(R, K, F, w_dtype, x_dtype, device_index):
+    """How one call runs on the device: (mode, row group, k splits, k rows
+    per split), from the library's ``quant_gemm_plan`` (bf16 x with more
+    than 16 rows takes the tile kernel, everything else the stream kernel;
+    k is split over blocks until the launch fills the SMs once)."""
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        rc = lib.quant_gemm_plan(R, K, F, W_DTYPES[w_dtype],
+                                 X_DTYPES[x_dtype], ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"quant GEMM plan failed ({rc}): "
+                           f"{lib.quant_gemm_error_string(rc).decode()}")
+    return tuple(out)
 
 
 def _check(x, wq, scale):
@@ -175,7 +170,7 @@ def quant_gemm(x, wq, scale, use_kernel=True):
     out = torch.empty((R, F), dtype=x.dtype, device=x.device)
     index = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
-    mode, rows, splits, k_per = plan(R, K, F, x.dtype, _sm_count(index))
+    mode, rows, splits, k_per = plan(R, K, F, wq.dtype, x.dtype, index)
     ws = (torch.empty((splits, R, F), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
     with torch.cuda.device(x.device):

@@ -3,9 +3,8 @@
 
 The reference's observers are eager ``Layer``s over jax arrays; these are
 plain classes over numpy arrays and torch tensors, with the same
-statistics and the same ``bit_length()`` / ``cal_thresholds()`` /
-``scales()`` surface, so ``serving.quant.calibrate`` reads them as the
-reference does. Statistics live on the host as Python floats and numpy
+statistics and the ``observe()`` / ``cal_thresholds()`` / ``scales()`` /
+``bit_length()`` surface that ``serving.quant.calibrate`` reads. Statistics live on the host as Python floats and numpy
 arrays.
 """
 from __future__ import annotations
@@ -31,9 +30,6 @@ class BaseObserver:
     def bit_length(self):
         return self._quant_bits
 
-    def quant_axis(self):
-        return -1  # per-tensor
-
     def observe(self, x):  # pragma: no cover - abstract
         raise NotImplementedError
 
@@ -42,13 +38,6 @@ class BaseObserver:
 
     def scales(self):  # pragma: no cover - abstract
         raise NotImplementedError
-
-    def zero_points(self):
-        return 0.0
-
-    def __call__(self, x):
-        self.observe(x)
-        return x
 
 
 class AbsmaxObserver(BaseObserver):
@@ -78,12 +67,10 @@ class PercentileObserver(BaseObserver):
         self._percentile = float(percentile)
         self._max_samples = int(max_samples)
         self._samples = []
-        self._n_seen = 0
         self._threshold = None
 
     def observe(self, x):
         a = np.abs(_numpy_f32(x)).ravel()
-        self._n_seen += a.size
         if a.size > self._max_samples:
             a = a[:: a.size // self._max_samples + 1]
         self._samples.append(a)
@@ -114,9 +101,6 @@ class PerChannelAbsmaxObserver(BaseObserver):
         super().__init__(quant_bits)
         self._axis = quant_axis
         self._max = None
-
-    def quant_axis(self):
-        return self._axis
 
     def observe(self, x):
         arr = np.abs(_numpy_f32(x))

@@ -202,12 +202,14 @@ class Engine:
         shape = (config.num_layers, self.pool.num_pages, self.page_size, nh, d)
         self._kc = new_pool(shape, store, self.device)
         self._vc = new_pool(shape, store, self.device)
-        # a quantized pool's per-page scales on the device: the pool's
-        # host arrays are the authority; a copy-on-write updates both
-        self._ksc = self._vsc = None
+        # a quantized pool's (k, v) per-page scales [L, P] on the device:
+        # the pool's host arrays are the authority, a copy-on-write updates
+        # both, so no dispatch uploads them
+        self._kv_scales = None
         if self._kv_quant:
-            self._ksc = torch.from_numpy(self.pool.k_scale).to(self.device)
-            self._vsc = torch.from_numpy(self.pool.v_scale).to(self.device)
+            self._kv_scales = tuple(
+                torch.from_numpy(sc).to(self.device)
+                for sc in (self.pool.k_scale, self.pool.v_scale))
         if self._quant is not None:
             scales = _squant.scale_bytes(self.params)
             if self._kv_quant:
@@ -364,8 +366,7 @@ class Engine:
                                self._vc, start_t, valid_t, table_t,
                                self.page_size, self.use_kernel,
                                layers=self._layers,
-                               kv_scales=(self._ksc, self._vsc)
-                               if self._kv_quant else None,
+                               kv_scales=self._kv_scales,
                                wq_kernel=self.quant_kernel)
         nxt = torch.argmax(logits, dim=-1)
         if sample.any():
@@ -388,8 +389,8 @@ class Engine:
                 for pool in (self._kc, self._vc):
                     raw = pool.view(torch.uint8)
                     raw[:, dst] = raw[:, src]
-                self._ksc[:, dst] = self._ksc[:, src]
-                self._vsc[:, dst] = self._vsc[:, src]
+                for sc in self._kv_scales:
+                    sc[:, dst] = sc[:, src]
             else:
                 self._kc[:, dst] = self._kc[:, src]
                 self._vc[:, dst] = self._vc[:, src]

@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from ..models.generation import (_attend, _block, _embed, _final_ln,
-                                 _final_logits, _proj, _weight_proj)
+                                 _final_logits, _weight_proj)
 from ..models.params import layer_params
 from ..ops.quant_gemm import quant_gemm
 from .paged_decode import (attend_quantized, gather_window,
@@ -111,14 +111,11 @@ def paged_attention_read(q, kc_l, vc_l, table, pos, page_size, use_kernel,
 
 
 def _quant_proj(wq_kernel):
-    """The block's projection for a quantized tree: a weight with a
-    ``<name>_s`` scale goes through the quantized GEMM (``wq_kernel``
-    routes CUDA tensors to the kernel), any other through ``x @ w``."""
+    """The block's projection for a quantized tree, whose every block
+    weight has its ``<name>_s`` scale: the quantized GEMM (``wq_kernel``
+    routes CUDA tensors to the kernel)."""
     def proj(x, p, name):
-        s = p.get(name + "_s")
-        if s is None:
-            return _proj(x, p[name])
-        return quant_gemm(x, p[name], s, wq_kernel)
+        return quant_gemm(x, p[name], p[name + "_s"], wq_kernel)
     return proj
 
 

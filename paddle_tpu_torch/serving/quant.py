@@ -84,9 +84,6 @@ class QuantSpec:
     def quantizes_kv(self):
         return self.kv_dtype != "bf16"
 
-    def key(self):
-        return (self.weight_dtype, self.kv_dtype)
-
 
 def resolve(quant, flags):
     """The Engine's ``quant=``: a QuantSpec passes through, a dtype string

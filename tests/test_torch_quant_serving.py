@@ -416,8 +416,8 @@ def test_quant_prefix_sharing_and_cow_keep_pages_and_scales(np_params):
     eng = _engine(_torch(np_params), quant="int8")
     bump = np.linspace(1.0, 1.5, eng.pool.num_pages, dtype=np.float32)
     bump[0] = 1.0
-    for host, dev in ((eng.pool.k_scale, eng._ksc),
-                      (eng.pool.v_scale, eng._vsc)):
+    for host, dev in zip((eng.pool.k_scale, eng.pool.v_scale),
+                         eng._kv_scales):
         host *= bump
         dev.copy_(torch.from_numpy(host))
     copies = []
@@ -437,8 +437,9 @@ def test_quant_prefix_sharing_and_cow_keep_pages_and_scales(np_params):
                                       eng.pool.k_scale[:, src])
         np.testing.assert_array_equal(eng.pool.v_scale[:, dst],
                                       eng.pool.v_scale[:, src])
-    np.testing.assert_array_equal(eng._ksc.numpy(), eng.pool.k_scale)
-    np.testing.assert_array_equal(eng._vsc.numpy(), eng.pool.v_scale)
+    for host, dev in zip((eng.pool.k_scale, eng.pool.v_scale),
+                         eng._kv_scales):
+        np.testing.assert_array_equal(dev.numpy(), host)
 
 
 def test_memory_equal_capacity(np_params):
@@ -479,7 +480,8 @@ def test_flags_drive_the_quant_default(np_params):
         set_flags({"FLAGS_serving_weight_dtype": "fp8",
                    "FLAGS_serving_kv_dtype": "int8"})
         eng = _engine(params)
-        assert eng._quant.key() == ("fp8", "int8")
+        assert (eng._quant.weight_dtype, eng._quant.kv_dtype) == \
+            ("fp8", "int8")
         assert eng._kc.dtype == torch.int8
         assert eng.params["head_w"].dtype == torch.float8_e4m3fn
         assert _engine(params, quant="bf16")._quant is None
