@@ -612,7 +612,7 @@ def phase_quant_report(cfg, params, fp, qs, rng):
     eng = qs["eng"]
     prompt = rng.integers(0, cfg.vocab_size, 128)
     drift, top = squant.max_logit_drift(params, cfg, eng._quant, prompt,
-                                        page_size=PAGE, use_kernel=True)
+                                        page_size=PAGE)
     serving_metrics.observe_logit_drift(drift)
     match = same = total = 0
     for a, b in zip(fp["reqs"], qs["reqs"]):

@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant_convert.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -74,24 +76,13 @@ constexpr int kWarps = kThreads / 32;
 struct Int8W {};
 struct Fp8W {};
 
-// four weights packed in one 32-bit word -> fp32
+// four weights packed in one 32-bit word -> fp32 (quant_convert.cuh)
 __device__ __forceinline__ void word_to_float(Int8W, uint32_t w, float* out) {
-  // biased byte b = v + 128; float(2^23 + b) - (2^23 + 128) = v, exactly
-  const uint32_t u = w ^ 0x80808080u;
-  out[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
-  out[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
-  out[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
-  out[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+  int8x4_to_float(w, out);
 }
 
 __device__ __forceinline__ void word_to_float(Fp8W, uint32_t w, float* out) {
-  __half2_raw lo = __nv_cvt_fp8x2_to_halfraw2(
-      static_cast<__nv_fp8x2_storage_t>(w & 0xffffu), __NV_E4M3);
-  __half2_raw hi = __nv_cvt_fp8x2_to_halfraw2(
-      static_cast<__nv_fp8x2_storage_t>(w >> 16), __NV_E4M3);
-  const float2 a = __half22float2(*reinterpret_cast<__half2*>(&lo));
-  const float2 b = __half22float2(*reinterpret_cast<__half2*>(&hi));
-  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+  fp8x4_to_float(w, out);
 }
 
 // VEC one-byte weights held as raw words

@@ -3,9 +3,10 @@ ctypes.
 
 Each source has a plain C interface and includes no PyTorch headers, so
 ``nvcc`` builds it in seconds. The library goes to ``_build/`` inside the
-package (git-ignored), named by a digest of the source and the flags, so
-an edited source is rebuilt and a stale library is never loaded. Builds
-happen at first use, never at import.
+package (git-ignored), named by a digest of the source, the shared
+headers and the flags, so an edited source or header is rebuilt and a
+stale library is never loaded. Builds happen at first use, never at
+import.
 """
 from __future__ import annotations
 
@@ -46,9 +47,12 @@ def nvcc_path():
 
 def _target(name, source):
     """(source path, library path) of ``csrc/<source>``: the library is
-    named by a digest of the source and the flags."""
+    named by a digest of the source, the shared headers of ``csrc/`` and
+    the flags."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() +
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers +
                             " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -117,16 +117,19 @@ def cast_for_compute(params, config, device=None):
     dt = compute_dtype(config)
     dev = None if device is None else torch.device(device)
 
-    def put(name, t, dtype):
+    def put(tree, name, dtype):
+        t = tree[name]
         if t.dtype in QUANT_DTYPES:
             dtype = t.dtype
-        elif name.endswith("_s"):
-            dtype = torch.float32
+        elif name.endswith("_s") and \
+                getattr(tree.get(name[:-2]), "dtype", None) in QUANT_DTYPES:
+            dtype = torch.float32       # the scale of a quantized weight
         return t.to(dev if dev is not None else t.device, dtype)
 
-    out = {k: put(k, v, torch.float32 if k in FP32_KEYS else dt)
-           for k, v in params.items() if k != "blocks"}
-    out["blocks"] = {k: put(k, v, dt) for k, v in params["blocks"].items()}
+    out = {k: put(params, k, torch.float32 if k in FP32_KEYS else dt)
+           for k in params if k != "blocks"}
+    blocks = params["blocks"]
+    out["blocks"] = {k: put(blocks, k, dt) for k in blocks}
     return out
 
 

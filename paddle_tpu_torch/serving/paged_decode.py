@@ -159,29 +159,47 @@ def _check(q, kc_l, vc_l, table, pos, page_size, dtypes):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _launch(q, kc_l, vc_l, table, pos, page_size, scales=None):
+    """Check the operands and launch the kernel on the current stream: the
+    bf16/fp32 instance, or with ``scales`` = (ksc_l, vsc_l) the int8/fp8
+    one. Returns ctx [B, nh, d] float32."""
+    if q.device.type != "cuda":
+        raise ValueError(f"paged decode attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    dtypes = _POOL_DTYPES if scales is None else _QUANT_POOL_DTYPES
+    _check(q, kc_l, vc_l, table, pos, page_size, dtypes)
+    P = kc_l.shape[0]
+    for name, t in zip(("ksc_l", "vsc_l"), scales or ()):
+        if t.device != q.device or t.dtype != torch.float32 or \
+                tuple(t.shape) != (P,) or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 [{P}] on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    lib = _library()
+    entry = (lib.paged_decode_launch if scales is None
+             else lib.paged_decode_q_launch)
+    B, nh, d = q.shape
+    out = torch.empty((B, nh, d), dtype=torch.float32, device=q.device)
+    ptrs = (q, kc_l, vc_l, table, pos, *(scales or ()), out)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = entry(*(t.data_ptr() for t in ptrs), B, nh, d, page_size,
+                   table.shape[1], dtypes[kc_l.dtype], 1.0 / d ** 0.5,
+                   stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"paged decode kernel launch failed ({rc}): "
+            f"{lib.paged_decode_error_string(rc).decode()}")
+    return out
+
+
 def paged_decode_attention(q, kc_l, vc_l, table, pos, page_size):
     """ctx [B, nh, d] float32 of one-token decode attention through the
     page table. CPU tensors take the plain version; CUDA tensors launch
     the kernel on the current stream."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, kc_l, vc_l, table, pos, page_size)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged decode attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    _check(q, kc_l, vc_l, table, pos, page_size, _POOL_DTYPES)
-    lib = _library()
-    B, nh, d = q.shape
-    out = torch.empty((B, nh, d), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_decode_launch(
-            q.data_ptr(), kc_l.data_ptr(), vc_l.data_ptr(), table.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), B, nh, d, page_size,
-            table.shape[1], _POOL_DTYPES[kc_l.dtype], 1.0 / d ** 0.5, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"paged decode kernel launch failed ({rc}): "
-            f"{lib.paged_decode_error_string(rc).decode()}")
+    out = _launch(q, kc_l, vc_l, table, pos, page_size)
     paged_decode_attention.launches += 1
     return out
 
@@ -198,31 +216,7 @@ def paged_decode_attention_q(q, kc_l, vc_l, table, pos, ksc_l, vsc_l,
     if q.device.type == "cpu":
         return paged_decode_q_plain(q, kc_l, vc_l, table, pos, ksc_l, vsc_l,
                                     page_size)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged decode attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    _check(q, kc_l, vc_l, table, pos, page_size, _QUANT_POOL_DTYPES)
-    P = kc_l.shape[0]
-    for name, t in (("ksc_l", ksc_l), ("vsc_l", vsc_l)):
-        if t.device != q.device or t.dtype != torch.float32 or \
-                tuple(t.shape) != (P,) or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32 [{P}] on "
-                             f"{q.device}, got {t.dtype} {tuple(t.shape)} "
-                             f"on {t.device}")
-    lib = _library()
-    B, nh, d = q.shape
-    out = torch.empty((B, nh, d), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_decode_q_launch(
-            q.data_ptr(), kc_l.data_ptr(), vc_l.data_ptr(), table.data_ptr(),
-            pos.data_ptr(), ksc_l.data_ptr(), vsc_l.data_ptr(),
-            out.data_ptr(), B, nh, d, page_size, table.shape[1],
-            _QUANT_POOL_DTYPES[kc_l.dtype], 1.0 / d ** 0.5, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"paged decode kernel launch failed ({rc}): "
-            f"{lib.paged_decode_error_string(rc).decode()}")
+    out = _launch(q, kc_l, vc_l, table, pos, page_size, (ksc_l, vsc_l))
     paged_decode_attention_q.launches += 1
     return out
 

@@ -324,12 +324,13 @@ def kv_scales_for(spec, num_layers, num_pages):
 
 # -- drift measurement -------------------------------------------------------
 @torch.no_grad()
-def max_logit_drift(params, config, spec, prompt, page_size=8,
-                    use_kernel=False):
+def max_logit_drift(params, config, spec, prompt, page_size=8):
     """Max |logits_fp - logits_quant| of one prefill forward over
     ``prompt`` through the paged serving forward, on the params' device.
-    ``use_kernel`` routes the quantized GEMMs through the CUDA kernel.
+    The quantized GEMMs take the route the engine takes: the CUDA kernel
+    on CUDA tensors unless ``FLAGS_serving_quant_kernel`` is off.
     Returns (max_abs_drift, max_abs_fp_logit)."""
+    from ..flags import get_flags
     from ..models.gpt import compute_dtype
     from ..models.params import cast_for_compute
     from .paged_attention import new_pool, paged_forward
@@ -348,13 +349,15 @@ def max_logit_drift(params, config, spec, prompt, page_size=8,
     start = torch.zeros(1, **i32)
     valid = torch.tensor([T], **i32)
     table = torch.arange(1, MP + 1, **i32)[None]
+    wq_kernel = bool(get_flags("FLAGS_serving_quant_kernel")
+                     ["FLAGS_serving_quant_kernel"])
 
     def run(p, dtype, kv_scales):
         shape = (L, P, page_size, nh, d)
         kc, vc = new_pool(shape, dtype, dev), new_pool(shape, dtype, dev)
         return paged_forward(p, config, ids, kc, vc, start, valid, table,
                              page_size, kv_scales=kv_scales,
-                             wq_kernel=use_kernel).double()
+                             wq_kernel=wq_kernel).double()
 
     ref = run(fp, compute_dtype(config), None)
     qparams = cast_for_compute(quantize_params(params, config, spec), config)

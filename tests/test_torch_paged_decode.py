@@ -67,3 +67,38 @@ def test_unsupported_reason_names_each_problem():
     assert unsupported_reason(64, 8, torch.float32) is None
     why = unsupported_reason(80, 12, torch.float16)
     assert "head_dim 80" in why and "page_size 12" in why and "float16" in why
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_wrappers_refuse_devices_other_than_cuda_and_cpu(quantized):
+    """Both entries share one launcher, which neither falls back nor
+    counts on a device that is neither CPU nor CUDA."""
+    from paddle_tpu_torch.serving.paged_decode import paged_decode_attention_q
+    meta = dict(device="meta")
+    q = torch.empty(2, 2, 64, **meta)
+    table = torch.empty(2, 4, dtype=torch.int32, **meta)
+    pos = torch.empty(2, dtype=torch.int32, **meta)
+    if quantized:
+        kc = torch.empty(9, 8, 2, 64, dtype=torch.int8, **meta)
+        sc = torch.empty(9, **meta)
+        fn, args = paged_decode_attention_q, (q, kc, kc, table, pos, sc, sc, 8)
+    else:
+        kc = torch.empty(9, 8, 2, 64, **meta)
+        fn, args = paged_decode_attention, (q, kc, kc, table, pos, 8)
+    before = fn.launches
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        fn(*args)
+    assert fn.launches == before
+
+
+def test_build_digest_covers_shared_headers(tmp_path, monkeypatch):
+    """A kernel library is named by its source and the shared headers of
+    csrc/, so an edited header rebuilds every source that may include it."""
+    from paddle_tpu_torch import cuda_build
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "conv.cuh"\n')
+    (tmp_path / "conv.cuh").write_text("// one\n")
+    _, first = cuda_build._target("k", "k.cu")
+    assert cuda_build._target("k", "k.cu")[1] == first
+    (tmp_path / "conv.cuh").write_text("// two\n")
+    assert cuda_build._target("k", "k.cu")[1] != first

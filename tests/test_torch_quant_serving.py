@@ -126,6 +126,21 @@ def test_quantize_params_bitwise_and_cast_keeps_them(np_params, dtype):
     assert tquant.scale_bytes(ttree) == jquant.scale_bytes(jtree)
 
 
+def test_cast_keeps_fp32_only_the_scales_of_quantized_weights(np_params):
+    """At bf16 compute, a quantized weight's ``<name>_s`` stays float32;
+    a leaf that merely ends in ``_s`` is cast like any other."""
+    bf16 = GPTConfig(**{**CFG_KW, "compute_dtype": "bfloat16"})
+    tree = tquant.quantize_params(_torch(np_params), TCFG,
+                                  tquant.QuantSpec("int8", "bf16"))
+    tree["blocks"]["extra_s"] = torch.ones(2, 3)
+    out = cast_for_compute(tree, bf16)
+    for name in tquant.BLOCK_WEIGHTS:
+        assert out["blocks"][name].dtype == torch.int8
+        assert out["blocks"][name + "_s"].dtype == torch.float32
+    assert out["head_w_s"].dtype == torch.float32
+    assert out["blocks"]["extra_s"].dtype == torch.bfloat16
+
+
 # ------------------------------------------------------------ calibration
 def test_page_scales_equal_reference():
     clip = np.array([0.5, 3.0, 0.0])
