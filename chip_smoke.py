@@ -51,10 +51,30 @@ Phases, each of which fails the run (nonzero exit, no result line):
    bf16 model at full width, greedy agreement with the bf16 engine,
    decode tokens/s and TTFT against the bf16 engine's, the KV bytes per
    token and pages at equal pool bytes, a profile of one int8 decode
-   step, and each kernel's times at every timed shape.
+   step, and each kernel's times at every timed shape;
+9. tensor-parallel serving, in MP = 4 ranks spawned by
+   ``distributed.env.launch`` (one per card over NCCL when the machine
+   has four cards, else all four on cuda:0 over gloo; the kernels are
+   built above, once): the fused GEMM + all-gather (bf16, int8 and fp8
+   weight shards; the out and down shards at 8 and 256 rows, the
+   vocab-sharded head at 8 fp32 rows, also as an fp32 shard) and the data
+   all-gathers against their plain versions, each rank with its own
+   weight shard and row, the outputs the same bytes on every rank; the
+   16 requests through ``Engine(mp=4, comm_backend="fused")`` at bf16,
+   int8 and fp8 with four cards; on one card bf16 on four of them (two
+   of wave 1, wave 2) and int8 on wave 2 (every request finished with the
+   same tokens
+   on every rank; per dispatch 49 fused GEMM + all-gathers and 49 data
+   all-gathers, per decode dispatch 24 paged-decode launches, 48 local
+   quant GEMMs per quantized dispatch; one decode step's logits against
+   the one-card forward within LOGIT_TOL); with four cards a profile of
+   a decode step; the GEMM kernels' times, and with four cards the NCCL
+   all-gathers'.
 
-The lines before the last carry a ``{"kernels": [...]}`` JSON object and
-the card's name and power limit (nvidia-smi); the last line is
+The lines before the last carry a ``{"kernels": [...], "collectives":
+[...]}`` JSON object (``collectives``: the TPU kernel whose port is the
+library's all-gather, with no hand-written kernel) and the card's name
+and power limit (nvidia-smi); the last line is
 ``{"ok": true, "device": {...}}``. Exits nonzero without printing a
 result when no CUDA device is present.
 """
@@ -77,15 +97,18 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch import cuda_build
+from paddle_tpu_torch.distributed import env, tp_overlap
 from paddle_tpu_torch.models import (GPT_CONFIGS, HybridTrainStep,
                                      cast_for_compute, generate_from_params,
                                      init_gpt_params)
+from paddle_tpu_torch.models.generation import _proj
 from paddle_tpu_torch.models.gpt_hybrid import (flatten_params, gpt_loss,
                                                 unflatten_params)
 from paddle_tpu_torch.models.params import layer_params
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.observability import flops
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_collectives as fc
 from paddle_tpu_torch.ops import quant_gemm as qg
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import (Engine, Request, reset_serving_counters,
@@ -130,6 +153,8 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 PARITY_LOSS_REL = 1e-3
 PARITY_GRAD_REL = 5e-2
 QUANT_DTYPES = ("int8", "fp8")
+MP = 4                      # tensor-parallel ranks of phase 9
+MP_WEIGHTS = ("bf16",) + QUANT_DTYPES
 QUANT_TORCH = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 DECODE_POS = [0, 15, 16, 31, 511, 1023, 1500, 2047]
 FLASH_KERNELS = (  # (name, wrapper, TPU kernel it replaces)
@@ -260,6 +285,20 @@ def gemm_bound(R, K, N, x_dtype):
     t_ops = nflops / rate * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, nflops)
+
+
+def mp_gemm_bound(R, K, F, x_dtype, kind):
+    """Least time (ms) and its limiter for a rank's fused GEMM block: x,
+    the weight shard (two bytes a weight for bf16, one and an fp32 scale
+    per column for int8/fp8) read once, the block written once; 2RKF
+    operations at the peak of x's type."""
+    xb = x_dtype.itemsize
+    w_bytes = K * F * 2 if kind == "bf16" else K * F + F * 4
+    nbytes = R * K * xb + w_bytes + R * F * xb
+    rate = BF16_FLOPS if x_dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * R * K * F / rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def quant_gemm_cases(cfg):
@@ -525,13 +564,14 @@ def phase_logits(cfg, eng, gen, dev):
           "kernel-path logits disagree with the plain path")
 
 
-def phase_profile(cfg, eng, rng, steps=10):
+def phase_profile(cfg, eng, rng, steps=10, rank=0, tag="profile"):
     """Where a decode step's time goes: 8 decoding slots, ``steps``
     boundaries timed on the host, then the same number traced with
     torch.profiler (device kernels only) for kernel time by name and the
     device's busy share of the traced window, then the same number under
     cProfile for the host's time by Python function (cProfile slows the
-    Python it counts, so read its shares, not its milliseconds)."""
+    Python it counts, so read its shares, not its milliseconds). A
+    tensor-parallel rank other than 0 (``rank``) steps along, unmeasured."""
     chunks = serving_counters()["prefill_chunks"] + SLOTS
     for _ in range(SLOTS):   # one 64-token chunk each, then decode only
         eng.submit(Request(rng.integers(0, cfg.vocab_size, 64),
@@ -539,6 +579,9 @@ def phase_profile(cfg, eng, rng, steps=10):
     while serving_counters()["prefill_chunks"] < chunks:
         eng.step()
     check(eng.active_slots == SLOTS, "profile window lost a slot")
+    if rank != 0:
+        eng.run()
+        return
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.step()
@@ -567,25 +610,25 @@ def phase_profile(cfg, eng, rng, steps=10):
     busy = sum(dev_us(e) for e in events) / 1e3 / steps        # ms/step
     config = ("bf16" if eng._quant is None else
               f"w={eng._quant.weight_dtype} kv={eng._quant.kv_dtype}")
-    print(f"[profile] {config} [8, 1] decode boundary: {wall * 1e3:.2f} ms "
+    print(f"[{tag}] {config} [8, 1] decode boundary: {wall * 1e3:.2f} ms "
           f"host wall untraced, {traced * 1e3:.2f} ms traced; device busy "
           f"{busy:.3f} ms/step = {busy / (traced * 1e3):.1%} of the traced "
-          f"wall")
+          f"wall", flush=True)
     ours = [e for e in events if "paged_decode_kernel" in e.key
-            or "quant_gemm" in e.key]
+            or "quant_gemm" in e.key or "nccl" in e.key.lower()]
     for e in events[:8] + [e for e in ours if e not in events[:8]]:
-        print(f"[profile]   {dev_us(e) / 1e3 / steps:8.4f} ms/step "
+        print(f"[{tag}]   {dev_us(e) / 1e3 / steps:8.4f} ms/step "
               f"{e.count // steps:5d} calls/step  {e.key[:90]}")
     rows = pstats.Stats(host).stats
     total = sum(tt for _, _, tt, _, _ in rows.values())
-    print(f"[profile] host under cProfile: {total * 1e3 / steps:.2f} ms/step "
+    print(f"[{tag}] host under cProfile: {total * 1e3 / steps:.2f} ms/step "
           f"in Python functions and the C calls they make; largest own "
           f"times:")
     for (path, line, name), (_, calls, tt, _, _) in sorted(
             rows.items(), key=lambda kv: kv[1][2], reverse=True)[:12]:
         where = f"{pathlib.Path(path).name}:{line}" if line else path
-        print(f"[profile]   {tt / total:6.1%} {calls // steps:5d} calls/step "
-              f" {name} ({where})"[:120])
+        print(f"[{tag}]   {tt / total:6.1%} {calls // steps:5d} calls/step "
+              f" {name} ({where})"[:120], flush=True)
 
 
 def phase_oracle(cfg, params, eng_results, wave1):
@@ -1179,6 +1222,522 @@ def phase_flash_timing(gen, dev, errs, counts):
     return rows
 
 
+# -------------------------------------------------- tensor-parallel serving
+NVLINK_BYTES_PER_S = 450e9  # one direction of one H100's NVLink
+
+
+def mp_layout():
+    """The tensor-parallel phases' layout, from the card count: one rank
+    per card over NCCL when there are MP cards, else all MP ranks on
+    cuda:0 over gloo (NCCL refuses two ranks on one card)."""
+    return "per_card" if torch.cuda.device_count() >= MP else "shared"
+
+
+def mp_gemm_cases(cfg):
+    """(label, K, F/MP, rows, x dtype) of the fused GEMM + all-gather on the
+    mp serving path: the out and down projections at a decode dispatch
+    (SLOTS rows) and a full prefill chunk (CHUNK rows), bf16 x; the
+    vocab-sharded LM head at a decode dispatch, fp32 x."""
+    H, V = cfg.hidden_size, cfg.vocab_size
+    inner = cfg.ffn_mult * H
+    cases = [(label, K, H // MP, R, torch.bfloat16) for R in (SLOTS, CHUNK)
+             for label, K in (("out", H), ("down", inner))]
+    cases.append(("head", H, V // MP, SLOTS, torch.float32))
+    return cases
+
+
+def mp_bucket_cases(cfg):
+    """(rows, cols per rank) of the data all-gathers: the embedding and
+    the attention context ([R, H/MP]) and the FFN activation ([R, I/MP]),
+    at a decode dispatch and a full chunk; bf16."""
+    H = cfg.hidden_size
+    return [(R, F) for R in (SLOTS, CHUNK)
+            for F in (H // MP, cfg.ffn_mult * H // MP)]
+
+
+def _mp_weight(gen, dev, K, F, kind, n=1):
+    """n random [K, F] weight shards of ``kind`` ("bf16", "fp32", "int8",
+    "fp8") with their scales (None for bf16 and fp32)."""
+    ws, ss = [], []
+    for _ in range(n):
+        w = torch.randn(K, F, generator=gen, device=dev) * 0.02
+        if kind in ("bf16", "fp32"):
+            ws.append(w.to(torch.bfloat16) if kind == "bf16" else w)
+            ss.append(None)
+        else:
+            q, sc = squant._quantize_leaf(w, kind)
+            ws.append(q)
+            ss.append(sc)
+    return ws, ss
+
+
+def _same_on_every_rank(group, t):
+    """Whether every rank holds the same bytes as this rank's ``t``."""
+    raw = t.contiguous().view(torch.uint8)
+    return all(torch.equal(o, raw) for o in group.all_gather_list(raw))
+
+
+def phase_mp_gemm_vs_plain(group, gen, seed, cfg, say):
+    """Rows 12-13 at every case of ``mp_gemm_cases`` (bf16, int8, fp8
+    weight shards, and the head shard at fp32 as a head passed at fp32
+    is stored) and row 11 at every case of ``mp_bucket_cases``: the fused
+    wrapper against its plain version on the same inputs, and the
+    gathered output bitwise the same on every rank. x is the same on every
+    rank (``gen``), each rank's weight shard and row its own, so a block
+    gathered into the wrong slot shows. Returns ({case: max abs error},
+    failures)."""
+    dev = group.device
+    wgen = torch.Generator(device=dev).manual_seed(seed + 1000 + group.rank)
+    errs, failed = {}, []
+    cases = [(kind,) + c for kind in MP_WEIGHTS for c in mp_gemm_cases(cfg)]
+    cases += [("fp32",) + c for c in mp_gemm_cases(cfg) if c[0] == "head"]
+    for kind, label, K, Fl, R, x_dtype in cases:
+        (w,), (s,) = _mp_weight(wgen, dev, K, Fl, kind)
+        x = torch.randn(R, K, generator=gen, device=dev).to(x_dtype)
+        got = fc.fused_gemm_ag(x, w, group, s)
+        torch.cuda.synchronize()
+        r = fc.error_vs_plain(got, fc.gemm_ag_plain(x, w, group, s))
+        same = _same_on_every_rank(group, got)
+        errs[(kind, label, R)] = r["max_abs"]
+        ok = bool(torch.isfinite(got).all()) and same and \
+            fc.within_tolerance(r, x_dtype)
+        say(f"[mp-kernel] fused_gemm_ag {kind} {label} R={R} K={K} "
+            f"F/{MP}={Fl} x={str(x_dtype)[6:]}: max abs "
+            f"{r['max_abs']:.2e}, worst element {r['element']:.2e} "
+            f"(gate {fc.ELEMENT_TOL[x_dtype]}), worst row "
+            f"{r['row']:.2e} (gate {fc.ROW_TOL[x_dtype]}), same bytes "
+            f"on every rank: {same}")
+        if not ok:
+            failed.append(f"fused_gemm_ag {kind} {label} R={R}")
+    for R, F in mp_bucket_cases(cfg):
+        row = torch.randn(R * F, generator=wgen, device=dev).to(
+            torch.bfloat16)
+        got = fc.fused_ag_bucket(row, group)
+        torch.cuda.synchronize()
+        want = fc.ag_bucket_plain(row, group)
+        same = _same_on_every_rank(group, got)
+        exact = torch.equal(got, want)
+        errs[("bucket", R, F)] = float((got.float() - want.float())
+                                       .abs().max())
+        say(f"[mp-kernel] fused_ag_bucket {R}x{F} bf16: equal to the plain "
+            f"gather: {exact}, same bytes on every rank: {same}")
+        if not (exact and same):
+            failed.append(f"fused_ag_bucket {R}x{F}")
+    return errs, failed
+
+
+def _scripted_decode(cfg, params, dev, ids, heads, pool_dtype, spec,
+                     mp=None, wq_kernel=False):
+    """One [8, 1] decode step through the kernels after a 100-token prefill
+    of each slot (gather path), on fresh pools of ``heads`` heads:
+    phase_logits' scenario, for any engine layout. Returns the logits."""
+    mpages = 8
+    L = cfg.num_layers
+    d = cfg.hidden_size // cfg.num_heads
+    P = SLOTS * mpages + 1
+    shape = (L, P, PAGE, heads, d)
+    kc, vc = new_pool(shape, pool_dtype, dev), new_pool(shape, pool_dtype,
+                                                        dev)
+    kv = {}
+    if spec is not None and spec.quantizes_kv:
+        kv["kv_scales"] = tuple(torch.from_numpy(sc).to(dev)
+                                for sc in squant.kv_scales_for(spec, L, P))
+    table = (torch.arange(SLOTS * mpages, dtype=torch.int32, device=dev)
+             .view(SLOTS, mpages) + 1)
+    layers = layer_params(params)
+    i32 = dict(dtype=torch.int32, device=dev)
+    plen = ids.shape[1] - 1
+    for b in range(SLOTS):
+        window = torch.zeros(1, 128, dtype=torch.int64, device=dev)
+        window[0, :plen] = ids[b, :plen]
+        paged_forward(params, cfg, window, kc, vc, torch.zeros(1, **i32),
+                      torch.full((1,), plen, **i32), table[b:b + 1], PAGE,
+                      use_kernel=False, layers=layers, wq_kernel=wq_kernel,
+                      mp=mp, **kv)
+    return paged_forward(params, cfg, ids[:, plen:],
+                         kc, vc, torch.full((SLOTS,), plen, **i32),
+                         torch.ones(SLOTS, **i32), table, PAGE,
+                         use_kernel=True, layers=layers, wq_kernel=wq_kernel,
+                         mp=mp, **kv)
+
+
+MP_KERNELS = {"fused_gemm_ag": fc.fused_gemm_ag,
+              "fused_ag_bucket": fc.fused_ag_bucket,
+              "paged_decode": paged_decode_attention,
+              "paged_decode_q": paged_decode_attention_q,
+              "quant_gemm": qg.quant_gemm}
+
+
+def phase_mp_serve(group, cfg, params, seed, quant, gen, say, wave1=None):
+    """The 16 requests of phase_serve (or the first ``wave1`` of its 14
+    wave-1 requests and the two of wave 2) through Engine(mp=MP,
+    comm_backend="fused") on this rank. Gates (the failures returned):
+    every request finishes with the same tokens on every rank, the pool
+    balances, and per dispatch 2L + 1 fused GEMM + all-gathers, 2L + 1
+    data all-gathers, per decode dispatch L paged-decode launches and, when
+    quantized, 2L local quant GEMMs per dispatch; one decode step's logits
+    against the one-card forward on the same weights (rank 0) within
+    LOGIT_TOL of max |logit|. Returns the stats, rank 0's tokens, the
+    indices of the requests served among the 16 and the launches by
+    shape."""
+    tag = f"mp-serve-{quant or 'bf16'}"
+    failed = []
+    t0 = time.perf_counter()
+    eng = Engine(params=params, config=cfg, num_slots=SLOTS,
+                 prefill_chunk=CHUNK, page_size=PAGE, quant=quant, mp=MP,
+                 comm_backend="fused", group=group)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    first, wave2 = make_requests(cfg, np.random.default_rng(seed))
+    keep = len(first) if wave1 is None else wave1
+    served = list(range(keep)) + [len(first) + i for i in range(len(wave2))]
+    wave1 = first[:keep]
+    group.barrier()
+    # the main path: counts start at 0 here and are read right after
+    reset_serving_counters()
+    for wrapper in MP_KERNELS.values():
+        wrapper.launches = 0
+    fc.fused_gemm_ag.shapes.clear()
+    fc.fused_ag_bucket.shapes.clear()
+    t0 = time.perf_counter()
+    results = eng.run(wave1) if wave1 else {}
+    results.update(eng.run(wave2))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in MP_KERNELS.items()}
+    shapes = {"fused_gemm_ag": dict(fc.fused_gemm_ag.shapes),
+              "fused_ag_bucket": dict(fc.fused_ag_bucket.shapes)}
+    c = serving_counters()
+    reqs = wave1 + wave2
+    tokens = [results[r.request_id].tokens if r.request_id in results
+              else [] for r in reqs]
+    finished = len(results) == len(reqs) and all(
+        results[r.request_id].finish_reason in ("length", "stop")
+        for r in reqs)
+    flat = torch.tensor([len(t) for t in tokens] + sum(tokens, []),
+                        dtype=torch.int64, device=group.device)
+    lens = group.all_gather_list(torch.tensor([flat.numel()],
+                                              device=group.device))
+    same = len({int(n) for n in lens}) == 1 and \
+        _same_on_every_rank(group, flat)
+    say(f"[{tag}] {MP} ranks, engine built in {build_s:.1f}s; "
+        f"{serving_summary()}")
+    if not (finished and same):
+        failed.append(f"{tag}: finished {finished}, same tokens on every "
+                      f"rank {same}")
+    bal = eng.pool.balance()
+    if not (bal["conserved"] and bal["refcounts_accounted"]):
+        failed.append(f"{tag}: page pool does not balance: {bal}")
+    L = cfg.num_layers
+    steps, decode = c["paged_steps"], c["decode_dispatches"]
+    want = {"fused_gemm_ag": steps * (2 * L + 1),
+            "fused_ag_bucket": steps * (2 * L + 1),
+            "paged_decode": 0 if quant else decode * L,
+            "paged_decode_q": decode * L if quant else 0,
+            "quant_gemm": steps * 2 * L if quant else 0}
+    say(f"[{tag}] launches on rank {group.rank}: {counts} (want {want}: "
+        f"{steps} dispatches x ({2 * L + 1} fused GEMM + all-gathers, "
+        f"{2 * L + 1} data all-gathers{', 2 x L local quant GEMMs' if quant else ''}), "
+        f"{decode} decode dispatches x {L} paged decodes)")
+    if counts != want or decode == 0:
+        failed.append(f"{tag}: launches {counts}, want {want}")
+
+    # one decode step: the mp forward against the one-card forward
+    ids = torch.randint(0, cfg.vocab_size, (SLOTS, 101), generator=gen,
+                        device=group.device)
+    spec = eng._quant
+    logits = _scripted_decode(cfg, eng.params, group.device, ids,
+                              cfg.num_heads // MP, eng._kc.dtype, spec,
+                              mp=(group, eng._mp_cfg),
+                              wq_kernel=eng.quant_kernel)
+    torch.cuda.synchronize()
+    same_logits = _same_on_every_rank(group, logits)
+    logit_diff = None
+    if group.rank == 0:
+        one = params
+        if spec is not None and spec.quantizes_weights:
+            one = squant.quantize_params(one, cfg, spec)
+        one = cast_for_compute(one, cfg, group.device)
+        ref = _scripted_decode(cfg, one, group.device, ids, cfg.num_heads,
+                               eng._kc.dtype, spec, wq_kernel=quant is not None)
+        torch.cuda.synchronize()
+        logit_diff = float((logits - ref).abs().max())
+        scale = float(ref.abs().max())
+        agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+        say(f"[{tag}] decode step, mp={MP} forward vs the one-card forward "
+            f"on the same weights: max abs diff {logit_diff:.4e} of max "
+            f"|logit| {scale:.4e} (tolerance {LOGIT_TOL} x max), argmax "
+            f"agreement {agree:.3f}; logits the same bytes on every rank: "
+            f"{same_logits}")
+        if not (bool(torch.isfinite(logits).all())
+                and logit_diff <= LOGIT_TOL * scale):
+            failed.append(f"{tag}: logits disagree with the one-card "
+                          f"forward")
+        del one, ref
+    if not same_logits:
+        failed.append(f"{tag}: logits differ between ranks")
+    if quant in (None, "int8") and group.backend == "nccl":
+        group.barrier()
+        phase_profile(cfg, eng, np.random.default_rng(seed + 7),
+                      rank=group.rank, tag=f"mp-profile-{quant or 'bf16'}")
+    rec = tp_overlap.serving_step_record(cfg, eng._mp_cfg, SLOTS, 1)
+    decode_tokens = c["tokens_out"] - len(reqs)
+    stats = {
+        "quant": quant, "mp": MP, "layout": mp_layout(),
+        "kv_bytes_per_token": eng.kv_bytes_per_token(),  # per rank
+        "kv_pool_bytes_per_rank": 2 * eng.kv_shard_bytes(),
+        "pages_per_rank": eng.pool.num_pages,
+        "requests": len(reqs), "tokens_out": c["tokens_out"],
+        "wall_s": wall, "tokens_per_s_wall": c["tokens_out"] / wall,
+        "decode_dispatches": decode,
+        "decode_tokens_per_s": decode_tokens / c["decode_time_s"],
+        "ttft_p50_ms": c["ttft_p50"] * 1e3, "ttft_p99_ms": c["ttft_p99"] * 1e3,
+        "token_latency_p50_ms": c["token_latency_p50"] * 1e3,
+        "decode_dispatch_gather_bytes_per_rank": rec.ag_bytes,
+        "decode_dispatch_all_gathers": rec.collectives,
+        "mp_wire_bytes_per_rank": c["mp_wire_bytes"],
+        "logit_diff_vs_one_card": logit_diff,
+    }
+    say(f"[{tag}] {json.dumps(stats)}")
+    del eng
+    torch.cuda.empty_cache()
+    return {"stats": stats, "tokens": tokens, "served": served,
+            "counts": counts, "shapes": shapes}, failed
+
+
+def phase_mp_timing(group, cfg, gen, say):
+    """Rows 11-13 at every case: the GEMM kernel into the gather buffer's
+    slot by CUDA-graph replay (rank 0, the other ranks waiting; each call
+    on the next of 24 weight shards, as the layers are), the plain GEMM,
+    cuBLAS on the shard (int8/fp8: dequantized beforehand); with a card
+    per rank also the in-place all-gather, the plain gather, and the whole
+    wrapper, by CUDA events over eager calls on every rank, and row 11's
+    gathers. Returns {(kind, label, R) | ("bucket", R, F): timings}."""
+    dev = group.device
+    per_card = group.backend == "nccl"
+    out = {}
+
+    def eager_ms(fn, iters):
+        group.barrier()
+        return cuda_ms(fn, iters=iters, warmup=5)
+
+    for kind in MP_WEIGHTS:
+        for label, K, Fl, R, x_dtype in mp_gemm_cases(cfg):
+            nw = 1 if label == "head" else cfg.num_layers
+            ws, ss = _mp_weight(gen, dev, K, Fl, kind, nw)
+            x = torch.randn(R, K, generator=gen, device=dev).to(x_dtype)
+            buf = torch.empty((MP * R, Fl), dtype=x_dtype, device=dev)
+            slot = buf[group.rank * R:(group.rank + 1) * R]
+            layer = itertools.cycle(range(nw))
+            t = {}
+            if group.rank == 0:
+                def kernel():
+                    i = next(layer)
+                    qg.gemm_into(x, ws[i], ss[i], slot)
+
+                def plain():
+                    i = next(layer)
+                    if ss[i] is None:
+                        _proj(x, ws[i].to(x_dtype))
+                    else:
+                        qg.quant_gemm_plain(x, ws[i], ss[i])
+
+                deq = [w.to(x_dtype) if sc is None else
+                       (w.float() * sc).to(x_dtype) for w, sc in zip(ws, ss)]
+
+                def library():
+                    torch.matmul(x, deq[next(layer)])
+
+                p1 = graph_ms(plain, iters=nw, replays=3)
+                k1 = graph_ms(kernel, iters=4 * nw)
+                k2 = graph_ms(kernel, iters=4 * nw)
+                p2 = graph_ms(plain, iters=nw, replays=3)
+                t.update(gemm_ms=min(k1, k2), gemm_ms_runs=(k1, k2),
+                         plain_gemm_ms=min(p1, p2),
+                         library_gemm_ms=graph_ms(library, iters=4 * nw))
+                del deq
+            group.barrier()
+            if per_card:
+                w0, s0 = ws[0], ss[0]
+                t["gather_ms"] = eager_ms(
+                    lambda: group.all_gather_into(buf, slot), 100)
+                t["plain_gather_ms"] = eager_ms(
+                    lambda: group.all_gather_list(slot), 100)
+                t["wrapper_ms"] = eager_ms(
+                    lambda: fc.fused_gemm_ag(x, w0, group, s0), 100)
+                t["plain_wrapper_ms"] = eager_ms(
+                    lambda: fc.gemm_ag_plain(x, w0, group, s0), 50)
+            out[(kind, label, R)] = t
+            if group.rank == 0:
+                say(f"[mp-timing] fused_gemm_ag {kind} {label} R={R} K={K} "
+                    f"F/{MP}={Fl}: " + ", ".join(
+                        f"{k} {v:.4f}" if isinstance(v, float) else
+                        f"{k} {v[0]:.4f}/{v[1]:.4f}"
+                        for k, v in t.items()) + " ms")
+            del ws, ss, x, buf
+    if not per_card:
+        say(f"[mp-timing] the all-gathers (fused_ag_bucket and the gathers "
+            f"of fused_gemm_ag) are timed with a card per rank only: {MP} "
+            f"ranks sharing one card over gloo time the host's copies")
+        return out
+    for R, F in mp_bucket_cases(cfg):
+        row = torch.randn(R * F, generator=gen, device=dev).to(torch.bfloat16)
+        t = {"gather_ms": eager_ms(lambda: fc.all_gather_stack(row, group),
+                                   100),
+             "plain_ms": eager_ms(lambda: fc.ag_bucket_plain(row, group),
+                                  100),
+             "wrapper_ms": eager_ms(lambda: fc.fused_ag_bucket(row, group),
+                                    100)}
+        out[("bucket", R, F)] = t
+        say(f"[mp-timing] fused_ag_bucket {R}x{F} bf16 ({group.backend}): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in t.items()) + " ms")
+    return out
+
+
+def mp_serve_plan(backend):
+    """What phase_mp_serve serves, (dtype, wave-1 requests kept; None: all
+    16 requests): bf16, int8 and fp8 on all 16 with a card per rank. When
+    the four ranks share one card over gloo, every all-gather waits on the
+    other ranks' time slices of the card (~3-6 ms each, 98 a dispatch:
+    ~100 s for the 16 requests), so there bf16 serves the first two
+    wave-1 requests and wave 2 (its prefix hits and copy-on-write) and
+    int8 wave 2, without the profiles."""
+    if backend == "nccl":
+        return [(q, None) for q in (None,) + QUANT_DTYPES]
+    return [(None, 2), ("int8", 0)]
+
+
+def mp_rank_main(group, seed):
+    """One rank of the tensor-parallel phases (spawned by
+    ``distributed.env.launch``): the fused kernels against their plain
+    versions, GPT-3 1.3B served at mp=MP at bf16, int8 and fp8, and the
+    timings. Rank 0 prints; every rank returns its readings and the
+    failures it saw."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # MP processes share the host's cores: one intra-op thread each, so
+    # spinning CPU threads do not starve the collectives
+    torch.set_num_threads(1)
+    say = (lambda *a: print(*a, flush=True)) if group.rank == 0 else \
+        (lambda *a: None)
+    gen = torch.Generator(device=group.device).manual_seed(seed + 1)
+    cfg = GPT_CONFIGS[MODEL]
+    errs, failed = phase_mp_gemm_vs_plain(group, gen, seed, cfg, say)
+    params = init_gpt_params(cfg, seed=seed, device=group.device,
+                             dtype=torch.bfloat16)
+    serve = {}
+    for quant, wave1 in mp_serve_plan(group.backend):
+        serve[quant or "bf16"], f = phase_mp_serve(group, cfg, params, seed,
+                                                   quant, gen, say, wave1)
+        failed += f
+    del params
+    torch.cuda.empty_cache()
+    timing = phase_mp_timing(group, cfg, gen, say)
+    return {"rank": group.rank, "errs": errs, "failed": failed,
+            "serve": serve, "timing": timing}
+
+
+def one_card(served):
+    """What phase 9 compares with from a one-card ``phase_serve`` run: the
+    tokens of each request and the stats."""
+    return {"tokens": [served["results"][r.request_id].tokens
+                       for r in served["reqs"]], "stats": served["stats"]}
+
+
+def phase_mp(seed, single):
+    """The tensor-parallel phases in MP spawned ranks (the layout from the
+    card count), after the parent has built every kernel. Fails on any
+    rank's failure. Prints token agreement and the serving rates against
+    the one-card engines of phase_serve on the same requests in this run
+    (``single``: dtype -> ``one_card``); returns rank 0's readings."""
+    layout = mp_layout()
+    count = torch.cuda.device_count()
+    print(f"[mp] {MP} ranks, layout {layout}: "
+          + ("one rank per card, NCCL" if layout == "per_card" else
+             f"all on cuda:0 of {count} card(s), gloo") + "; the four-card "
+          "layout times the all-gathers", flush=True)
+    t0 = time.perf_counter()
+    outs = env.launch(MP, mp_rank_main, seed, layout=layout, timeout_s=900)
+    print(f"[mp] the ranks ran in {time.perf_counter() - t0:.1f}s")
+    failed = [f"rank {o['rank']}: {f}" for o in outs for f in o["failed"]]
+    check(not failed, "tensor-parallel phases failed:\n" + "\n".join(failed))
+    r0 = outs[0]
+    for dtype, run in r0["serve"].items():
+        one = single[dtype]
+        same = total = 0
+        for a, i in zip(run["tokens"], run["served"]):
+            b = one["tokens"][i]
+            same += sum(x == y for x, y in zip(a, b))
+            total += min(len(a), len(b))
+        m, o = run["stats"], one["stats"]
+        ratio = ({k: m[k] / o[k] for k in (
+            "decode_tokens_per_s", "tokens_per_s_wall", "ttft_p50_ms",
+            "ttft_p99_ms", "kv_bytes_per_token")}
+            if len(run["served"]) == o["requests"] else
+            "not compared: a subset of the requests")
+        print(f"[mp-serve-{dtype}] greedy and sampled tokens equal to the "
+              f"one-card engine's on {same}/{total} positions of "
+              f"{len(run['served'])} requests (not gated: the GEMMs sum in "
+              f"another order); mp={MP} over one card: {json.dumps(ratio)}")
+    return r0, layout
+
+
+def mp_rows(r0, layout, cfg):
+    """The ``kernels`` rows of rows 12-13 and the ``collectives`` rows of
+    row 11 (no hand-written kernel: the library's all-gather, route
+    "nccl", or "gloo" on one card) from rank 0's readings. With one card
+    (layout "shared") no all-gather is timed: rows 12-13's ms, plain and
+    library cover the GEMM and the bound its bytes and operations only;
+    row 11's times are null."""
+    per_card = layout == "per_card"
+    rows = []
+    errs, timing = r0["errs"], r0["timing"]
+    for kind in (k for k in MP_WEIGHTS if k in r0["serve"]):
+        run = r0["serve"][kind]
+        for label, K, Fl, R, x_dtype in mp_gemm_cases(cfg):
+            t = timing[(kind, label, R)]
+            bound, bound_by = mp_gemm_bound(R, K, Fl, x_dtype, kind)
+            ms, plain, lib = (t["gemm_ms"], t["plain_gemm_ms"],
+                              t["library_gemm_ms"])
+            if per_card:
+                recv = (MP - 1) * R * Fl * x_dtype.itemsize
+                bound += recv / NVLINK_BYTES_PER_S * 1e3
+                ms += t["gather_ms"]
+                plain += t["plain_gather_ms"]
+                lib += t["gather_ms"]
+            replaces = ("paddle_tpu/ops/pallas_kernels/fused_collectives.py:"
+                        + ("448" if kind == "bf16" else "498"))
+            rows.append({
+                "name": f"fused_gemm_ag[{kind} {label} R={R}]",
+                "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/quant_gemm.cu",
+                "replaces": replaces,
+                "launches": run["shapes"]["fused_gemm_ag"].get(
+                    (R, K, Fl, "bfloat16" if kind == "bf16" else
+                     str(QUANT_TORCH[kind])[6:]), 0),
+                "max_abs_err": errs[(kind, label, R)], "ms": ms,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": lib,
+                "covers": "gemm+all_gather" if per_card else "gemm"})
+    bf16 = r0["serve"]["bf16"]["shapes"]["fused_ag_bucket"]
+    collectives = []
+    for R, F in mp_bucket_cases(cfg):
+        t = timing.get(("bucket", R, F), {})
+        nbytes = R * F * 2
+        bound = ((MP - 1) * nbytes / NVLINK_BYTES_PER_S if per_card else
+                 (nbytes + MP * nbytes) / HBM_BYTES_PER_S) * 1e3
+        collectives.append({
+            "name": f"fused_ag_bucket[{R}x{F}={R * F}]",
+            "route": "nccl" if per_card else "gloo",
+            "source": "paddle_tpu_torch/ops/fused_collectives.py",
+            "replaces": "paddle_tpu/ops/pallas_kernels/fused_collectives.py:409",
+            "launches": bf16.get(R * F, 0),
+            "max_abs_err": errs[("bucket", R, F)],
+            "ms": t.get("wrapper_ms"), "plain_ms": t.get("plain_ms"),
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None})
+    return rows, collectives
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1213,6 +1772,7 @@ def main(argv=None):
           f"random weights (seed {args.seed}) in "
           f"{time.perf_counter() - t0:.1f}s")
     fp = phase_serve(cfg, params, np.random.default_rng(args.seed))
+    single = {"bf16": one_card(fp)}
     phase_logits(cfg, fp["eng"], gen, dev)
     phase_profile(cfg, fp["eng"], rng)
     phase_oracle(cfg, params, fp["results"], fp["wave1"])
@@ -1223,6 +1783,7 @@ def main(argv=None):
         # the same 16 requests as the bf16 run
         qs = phase_serve(cfg, params, np.random.default_rng(args.seed),
                          quant=dtype)
+        single[dtype] = one_card(qs)
         phase_logits(cfg, qs["eng"], gen, dev)
         phase_quant_report(cfg, params, fp, qs, rng)
         if dtype == "int8":
@@ -1233,6 +1794,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
+    mp_r0, layout = phase_mp(args.seed, single)
     row = phase_timing(gen, dev, max_abs, fp["counts"]["paged_decode"],
                        cfg.num_layers)
 
@@ -1244,13 +1806,20 @@ def main(argv=None):
     torch.cuda.empty_cache()
     rows = [row] + quant_rows + phase_flash_timing(gen, dev, flash_errs,
                                                    counts)
+    mp_kernels, collectives = mp_rows(mp_r0, layout, cfg)
+    return finish(rows + mp_kernels, collectives, t_start)
 
+
+def finish(rows, collectives, t_start):
+    """The result lines: the kernels (and, apart, the library collectives
+    that stand for a TPU kernel), the card's name and power limit, and
+    the contract line last."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "collectives": collectives}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,10 @@ _FLAGS = {
     # Route quantized weight GEMMs through the hand-written CUDA kernel
     # (ops/quant_gemm.py) on CUDA tensors.
     "FLAGS_serving_quant_kernel": True,
+    # Collective schedule per mesh axis, "axis=backend,..." or a bare
+    # backend for every axis (distributed/comm_backend.py). Serving reads
+    # the mp axis: "gspmd" (default), "ring" or "fused".
+    "FLAGS_comm_backend": "",
 }
 
 

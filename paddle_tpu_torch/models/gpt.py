@@ -87,8 +87,10 @@ def gpt_block_fn(config):
     with the residual ``x + (gact @ down_w + down_b)``."""
     if config.qkv_head_major:
         raise NotImplementedError(
-            "qkv_head_major (the explicit tensor-parallel layout) is not "
-            "ported yet (ROADMAP Queue A item 11)")
+            "qkv_head_major (the training tensor-parallel layout) comes "
+            "with the training tensor-parallel slice (ROADMAP Queue A item "
+            "11); serving permutes its own shards head-major "
+            "(serving/mp_forward.py)")
     nh = config.num_heads
     eps = config.layer_norm_epsilon
 

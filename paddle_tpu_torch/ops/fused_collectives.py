@@ -1,0 +1,195 @@
+"""Fused GEMM + all-gather for tensor-parallel serving (counterpart of
+``paddle_tpu/ops/pallas_kernels/fused_collectives.py:409-728`` and its
+``gemm_ag_reference``, :1014).
+
+Replaces three TPU kernels:
+
+* ``_gemm_ag_kernel`` (:448, through ``fused_gemm_ag``, the pallas_call at
+  :699): a rank's full-contraction column block ``x @ w_r`` of a
+  column-parallel projection, the blocks all-gathered in rank order, so
+  the result is ``x @ w`` with w's columns in their logical order;
+* ``_gemm_ag_q_kernel`` (:498, ``fused_gemm_ag(scale=)``, :710): the same
+  over an int8/fp8 weight shard, ``(x @ wq_r) * s_r``;
+* ``_ag_bucket_kernel`` (:409, ``fused_ag_bucket``, :667): the all-gather
+  of a flat row, (cols,) -> (n, cols).
+
+The TPU kernels keep a rank's GEMM output block out of device memory
+between the epilogue and the transfer, and move it around a ring with
+in-kernel remote DMAs. On Hopper the transfer is NCCL's all-gather
+outside the kernel (``torch.distributed``); the arithmetic is the
+hand-written GEMM of ``csrc/quant_gemm.cu`` (bf16 weights without a
+scale against bf16 or fp32 x, fp32 weights against fp32 x for an LM
+head passed at fp32; int8/fp8 weights with their scale), whose epilogue
+stores the block straight into this rank's slot of the gather buffer
+``[n * R, F/n]`` (concatenated along dim 0). The gather then runs in
+place on that buffer, so no copy is made between the GEMM and the
+collective, the property the TPU kernel has. The relayout of the
+gathered ``[n, R, F/n]`` to ``[R, F]`` (``transpose(1, 0, 2)`` in the
+reference too, :722) is PyTorch. ``fused_ag_bucket``'s TPU kernel is the
+ring of remote copies and nothing else, so its port has no hand-written
+kernel: it is the library's all-gather of the row (``all_gather_stack``,
+the function the gspmd rung's data gathers call too), and the wrapper
+adds its launch counter.
+
+What bounds them on an H100: at decode (R = 8 rows) the GEMM reads its
+weight shard once (bytes: 2048 x 512 bf16 is 2.1 MB, 0.6 us at 3.35
+TB/s), and the all-gather moves R x F x (n - 1) / n elements per rank,
+a few KB: latency, not NVLink's 450 GB/s. Fusing the two into one kernel
+whose epilogue stores into the peers' buffers over NVLink (CUDA IPC,
+flag synchronisation) is later work (ROADMAP Queue B 11-13).
+
+Beside each: the plain version (``gemm_ag_plain``, ``ag_bucket_plain``):
+the plain GEMM (``generation._matmul``, or the quantized GEMM's plain
+algebra) and an out-of-place all-gather of the blocks concatenated in
+rank order, ``gemm_ag_reference``'s algebra. The wrappers take the plain
+version for CPU tensors only; for CUDA tensors they launch the kernel or
+raise. ``fused_gemm_ag.launches`` and ``fused_ag_bucket.launches`` count
+launches (``.shapes`` the same by shape).
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from ..models.generation import _proj
+from . import quant_gemm as _qg
+
+# the kernel against its plain version: quant_gemm's readings and
+# tolerances, per element relative to (|plain| + the row's rms) and per
+# row in L2; the two sum in different orders and, at bf16 with a scale,
+# round a different number of times (ops/quant_gemm.py)
+error_vs_plain = _qg.error_vs_plain
+within_tolerance = _qg.within_tolerance
+ELEMENT_TOL = _qg.ELEMENT_TOL
+ROW_TOL = _qg.ROW_TOL
+
+
+def unsupported_reason(K, F, w_dtype, x_dtype):
+    """Why the fused GEMM cannot take a [K, F] shard of ``w_dtype`` against
+    ``x_dtype`` rows, or None: bf16 weights (no scale) and int8/fp8
+    weights (with a scale) against bf16 or fp32 x; fp32 weights (no
+    scale, an LM head passed at fp32) against fp32 x."""
+    reasons = []
+    if K % 16:
+        reasons.append(f"contraction dim {K} not a multiple of 16")
+    if F % 16:
+        reasons.append(f"shard width {F} not a multiple of 16")
+    if w_dtype not in _qg.LIB_W_DTYPES:
+        reasons.append(f"weight dtype {w_dtype} not bfloat16/float32/int8/"
+                       f"float8_e4m3fn")
+    if x_dtype not in _qg.X_DTYPES:
+        reasons.append(f"x dtype {x_dtype} not bfloat16/float32")
+    elif w_dtype == torch.float32 and x_dtype != torch.float32:
+        reasons.append(f"float32 weights need float32 x, not {x_dtype}")
+    return "; ".join(reasons) or None
+
+
+def _gather_cat(group, y):
+    """Every rank's block y [..., F] concatenated along the last axis in
+    rank order (out of place): the plain versions' gather."""
+    return torch.cat(group.all_gather_list(y.contiguous()), dim=-1)
+
+
+def gemm_ag_plain(x, w, group, scale=None):
+    """``x [..., K] @ w_r [K, F/n]`` (times ``scale`` [F/n] for an int8/fp8
+    shard), every rank's block gathered along the last axis: [..., F]."""
+    if scale is None:
+        y = _proj(x, w.to(x.dtype))
+    else:
+        y = _qg.quant_gemm_plain(x, w, scale)
+    return _gather_cat(group, y)
+
+
+def ag_bucket_plain(row, group):
+    """(cols,) on every rank -> (n, cols) in rank order."""
+    return torch.stack(group.all_gather_list(row))
+
+
+def all_gather_stack(t, group):
+    """Every rank's ``t`` stacked in rank order, [n, *t.shape]: one
+    all-gather into a buffer concatenated along dim 0 (the layout gloo
+    also takes)."""
+    n = group.n
+    buf = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+    group.all_gather_into(buf, t.contiguous())
+    return buf.view((n,) + tuple(t.shape))
+
+
+def _check_gemm(x, w, scale):
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused GEMM + all-gather runs on cuda or cpu, not "
+                         f"{dev}")
+    for name, t in (("w", w), ("scale", scale)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    if w.dim() != 2 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"x [..., K] and w [K, F] disagree: "
+                         f"{tuple(x.shape)} / {tuple(w.shape)}")
+    why = unsupported_reason(w.shape[0], w.shape[1], w.dtype, x.dtype)
+    if w.dtype in _qg.FULL_W_DTYPES and scale is not None:
+        why = (why + "; " if why else "") + \
+            f"a {str(w.dtype)[6:]} weight takes no scale"
+    if w.dtype in _qg.W_DTYPES and (
+            scale is None or scale.dtype != torch.float32
+            or tuple(scale.shape) != (w.shape[1],)):
+        why = (why + "; " if why else "") + \
+            f"an int8/fp8 weight needs a float32 scale [{w.shape[1]}]"
+    for name, t in (("x", x), ("w", w), ("scale", scale)):
+        if t is None:
+            continue
+        if not t.is_contiguous():
+            why = (why + "; " if why else "") + f"{name} is not contiguous"
+        elif t.data_ptr() % 16:
+            why = (why + "; " if why else "") + f"{name} is not 16-byte " \
+                "aligned"
+    if why:
+        raise ValueError(f"fused GEMM + all-gather kernel: {why}")
+
+
+def fused_gemm_ag(x, w, group, scale=None):
+    """Column-parallel projection ``x [..., K] @ w`` from this rank's column
+    shard ``w_r [K, F/n]`` (bf16, fp32 against fp32 x; or int8/fp8 with
+    ``scale`` [F/n] fp32):
+    the kernel writes ``x @ w_r`` into this rank's slot of the gather
+    buffer, which is gathered in place; returns [..., F] in x's dtype, the
+    blocks in rank order. CPU tensors take ``gemm_ag_plain``."""
+    if x.device.type == "cpu":
+        return gemm_ag_plain(x, w, group, scale)
+    _check_gemm(x, w, scale)
+    lead = x.shape[:-1]
+    K, Fl = w.shape
+    x2 = x.reshape(-1, K)
+    R = x2.shape[0]
+    n, r = group.n, group.rank
+    buf = torch.empty((n * R, Fl), dtype=x.dtype, device=x.device)
+    slot = buf[r * R:(r + 1) * R]
+    _qg.gemm_into(x2, w, scale, slot)
+    fused_gemm_ag.launches += 1
+    fused_gemm_ag.shapes[(R, K, Fl, str(w.dtype)[6:])] += 1
+    group.all_gather_into(buf, slot)
+    return buf.view(n, R, Fl).transpose(0, 1).reshape(lead + (n * Fl,))
+
+
+def fused_ag_bucket(row, group):
+    """All-gather of a flat row: (cols,) on every rank -> (n, cols) in rank
+    order, through the library's collective (``all_gather_stack``). CPU
+    tensors take ``ag_bucket_plain``."""
+    if row.device.type == "cpu":
+        return ag_bucket_plain(row, group)
+    if row.device.type != "cuda":
+        raise ValueError(f"fused all-gather runs on cuda or cpu, not "
+                         f"{row.device}")
+    if row.dim() != 1:
+        raise ValueError(f"fused_ag_bucket takes a flat row, got shape "
+                         f"{tuple(row.shape)}")
+    fused_ag_bucket.launches += 1
+    fused_ag_bucket.shapes[row.shape[0]] += 1
+    return all_gather_stack(row, group)
+
+
+fused_gemm_ag.launches = 0
+fused_gemm_ag.shapes = collections.Counter()
+fused_ag_bucket.launches = 0
+fused_ag_bucket.shapes = collections.Counter()

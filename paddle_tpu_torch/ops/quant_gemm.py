@@ -23,6 +23,12 @@ raises: a shape the kernel does not take is refused, never served by the
 plain version. ``quant_gemm.launches`` counts the kernel's launches and
 ``quant_gemm.shapes`` the same launches by (R, K, F).
 ``lora_delta``/``compose_delta`` come with adapters (ROADMAP Queue A 9).
+
+``gemm_into`` is the library's launcher for both callers: this module's
+quantized GEMM and the tensor-parallel projections of
+``ops/fused_collectives.py``, which also run bf16 (and, for an LM head
+passed at fp32, fp32) weights without a scale and store the block into a
+slot of their all-gather buffer.
 """
 from __future__ import annotations
 
@@ -37,6 +43,11 @@ from ..models.generation import _matmul
 
 W_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 X_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# the weight types the library takes: the quantized ones (with a scale)
+# and the tensor-parallel projections' full-precision weights (no scale):
+# bf16, and fp32 against fp32 x only (an LM head passed at fp32)
+FULL_W_DTYPES = {torch.bfloat16: 2, torch.float32: 3}
+LIB_W_DTYPES = {**W_DTYPES, **FULL_W_DTYPES}
 
 
 def quant_gemm_plain(x, wq, scale):
@@ -96,7 +107,7 @@ def unsupported_reason(K, F, w_dtype, x_dtype):
 def _library():
     lib = load_library("quant_gemm", "quant_gemm.cu")
     lib.quant_gemm_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.quant_gemm_launch.restype = ctypes.c_int
     lib.quant_gemm_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.quant_gemm_plan.restype = ctypes.c_int
@@ -119,7 +130,7 @@ def plan(R, K, F, w_dtype, x_dtype, device_index):
     lib = _library()
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
-        rc = lib.quant_gemm_plan(R, K, F, W_DTYPES[w_dtype],
+        rc = lib.quant_gemm_plan(R, K, F, LIB_W_DTYPES[w_dtype],
                                  X_DTYPES[x_dtype], ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"quant GEMM plan failed ({rc}): "
@@ -162,29 +173,43 @@ def quant_gemm(x, wq, scale, use_kernel=True):
     if x.device.type != "cuda":
         raise ValueError(f"quant GEMM runs on cuda or cpu, not {x.device}")
     _check(x, wq, scale)
-    lib = _library()
     lead = x.shape[:-1]
     K, F = wq.shape
     x2 = x.reshape(-1, K)
-    R = x2.shape[0]
-    out = torch.empty((R, F), dtype=x.dtype, device=x.device)
-    index = x.device.index if x.device.index is not None \
+    out = torch.empty((x2.shape[0], F), dtype=x.dtype, device=x.device)
+    gemm_into(x2, wq, scale, out)
+    quant_gemm.launches += 1
+    quant_gemm.shapes[(x2.shape[0], K, F)] += 1
+    return out.reshape(lead + (F,))
+
+
+def gemm_into(x2, w, scale, out):
+    """Launch the library's GEMM ``out = (x2 @ w) * scale`` on the current
+    stream of x2's CUDA device: x2 [R, K] bf16/fp32 contiguous, w [K, F]
+    int8/fp8 with scale fp32 [F], or bf16 (fp32 against fp32 x) with
+    ``scale=None``; ``out`` an
+    [R, F] view in x2's dtype whose rows may be strided (``out.stride(0)``
+    >= F, unit column stride), written in place. The caller has checked
+    the operands; raises when the library refuses the launch."""
+    lib = _library()
+    R, K = x2.shape
+    F = w.shape[1]
+    index = x2.device.index if x2.device.index is not None \
         else torch.cuda.current_device()
-    mode, rows, splits, k_per = plan(R, K, F, wq.dtype, x.dtype, index)
-    ws = (torch.empty((splits, R, F), dtype=torch.float32, device=x.device)
+    mode, rows, splits, k_per = plan(R, K, F, w.dtype, x2.dtype, index)
+    ws = (torch.empty((splits, R, F), dtype=torch.float32, device=x2.device)
           if splits > 1 else None)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
         rc = lib.quant_gemm_launch(
-            x2.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            0 if ws is None else ws.data_ptr(), R, K, F, W_DTYPES[wq.dtype],
-            X_DTYPES[x.dtype], mode, rows, splits, k_per, stream)
+            x2.data_ptr(), w.data_ptr(),
+            0 if scale is None else scale.data_ptr(), out.data_ptr(),
+            0 if ws is None else ws.data_ptr(), R, K, F, out.stride(0),
+            LIB_W_DTYPES[w.dtype], X_DTYPES[x2.dtype], mode, rows, splits,
+            k_per, stream)
     if rc != 0:
         raise RuntimeError(f"quant GEMM kernel launch failed ({rc}): "
                            f"{lib.quant_gemm_error_string(rc).decode()}")
-    quant_gemm.launches += 1
-    quant_gemm.shapes[(R, K, F)] += 1
-    return out.reshape(lead + (F,))
 
 
 quant_gemm.launches = 0

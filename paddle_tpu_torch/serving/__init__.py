@@ -1,6 +1,8 @@
 """Serving: the paged continuous-batching engine (counterpart of
-``paddle_tpu/serving``), with quantized serving (``quant``)."""
-from . import quant
+``paddle_tpu/serving``), with quantized serving (``quant``) and
+tensor-parallel serving (``mp_forward``; ``Engine(mp=, comm_backend=,
+group=)``)."""
+from . import mp_forward, quant
 from .engine import Engine
 from .metrics import (reset_serving_counters, serving_counters,
                       serving_summary)
@@ -12,6 +14,6 @@ from .scheduler import QueueFullError, Scheduler
 
 __all__ = ["Engine", "GenerationResult", "Request", "QueueFullError",
            "Scheduler", "PagedKVPool", "PagePoolExhausted", "pages_for",
-           "QuantSpec", "QuantSpecError", "quant",
+           "QuantSpec", "QuantSpecError", "quant", "mp_forward",
            "serving_counters", "serving_summary", "reset_serving_counters",
            "QUEUED", "RUNNING", "FINISHED", "STOP", "LENGTH", "EXPIRED"]

@@ -34,15 +34,29 @@ compute casts; missing KV clip ranges are calibrated by one fp forward at
 build. A quantized engine keeps the promises above at its dtype config
 (against itself, not against the fp oracle); the bf16/bf16 config
 resolves to None and runs none of that code.
+
+Tensor-parallel serving (serving/mp_forward.py) is SPMD: each rank of a
+``distributed.env.MPGroup`` builds ``Engine(..., mp=n, comm_backend=...,
+group=group)`` with the same full params and submits the same requests,
+and every rank returns the same results. The rank holds its column
+shards of the weights and a pool of its nh/n heads; the page table,
+scheduler and sampling state stay whole and identical on every rank,
+because the schedule only gathers, so the logits, and with the same
+seeded generators the tokens, are the same everywhere. Decisions read
+from a clock (deadlines) are rank 0's, broadcast, and ``on_token``
+callbacks fire on rank 0 only. ``mesh=`` (the reference's single
+controller) raises and points to ``group=``.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed import tp_overlap as _tpov
 from ..flags import get_flags
 from ..models.generation import _mask_logits, _sample
 from ..models.gpt import compute_dtype
@@ -51,6 +65,7 @@ from ..ops import quant_gemm as _qgemm
 from . import metrics
 from . import paged_decode
 from . import quant as _squant
+from .mp_forward import shard_serving_params
 from .paged_attention import new_pool, paged_forward
 from .paged_kv import PagedKVPool, pages_for
 from .request import (EXPIRED, FINISHED, LENGTH, QUEUED, RUNNING, STOP,
@@ -77,9 +92,6 @@ _LATER_SLICES = {
     "trace": "Queue A item 10 (observability/tracing.py)",
     "tag": "Queue A item 10 (serving state and fleet)",
     "params_version": "Queue A item 10 (serving state and fleet)",
-    "mesh": "Queue A item 11 (serving mp)",
-    "mp": "Queue A item 11 (serving mp)",
-    "comm_backend": "Queue A item 11 (serving mp)",
 }
 
 
@@ -94,13 +106,25 @@ class Engine:
     ``params`` is an ``init_gpt_params``-layout tree (any device/dtype; it
     is cast once for the compute dtype and moved to ``device``). Defaults
     come from FLAGS_serving_* (flags.py); keyword arguments override.
-    ``device=None`` means CUDA."""
+    ``device=None`` means CUDA, the group's device with ``group=``.
+
+    Tensor-parallel: ``group`` (``distributed.env.MPGroup``; the degree is
+    its size, and ``mp``, when given, must equal it) and ``comm_backend``
+    ("gspmd" | "ring" | "fused"; default from FLAGS_comm_backend)."""
 
     def __init__(self, params=None, *, config=None, num_slots=None,
                  max_seq_len=None, max_queue=None, top_k=None,
                  kv_layout=None, page_size=None, num_pages=None,
                  prefill_chunk=None, prefix_cache=None, device=None,
-                 quant=None, **later):
+                 quant=None, mp=None, comm_backend=None, group=None,
+                 mesh=None, **later):
+        if mesh is not None:
+            raise NotImplementedError(
+                "Engine(mesh=...) is the reference's single-controller "
+                "API; the port's tensor-parallel serving (ROADMAP Queue A "
+                "item 11) is SPMD over torch.distributed: run one Engine "
+                "per rank with group= (distributed.env.launch or "
+                "init_mp_group) and mp=")
         for name, value in later.items():
             if name not in _LATER_SLICES:
                 raise TypeError(f"Engine() got an unexpected keyword "
@@ -121,8 +145,11 @@ class Engine:
         if self.kv_layout != "paged":
             raise ValueError(f"kv_layout must be 'paged', got "
                              f"{self.kv_layout!r}")
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            group.device if device is None and group is not None
+            else device)
         self.config = config
+        self._init_mp(config, mp, comm_backend, group)
         # quantized serving: resolve the dtype config first; it decides the
         # stored weight leaves, the pool's storage dtype and its scales.
         # The weights quantize as the caller passed them, before the
@@ -130,11 +157,19 @@ class Engine:
         self._quant = _squant.resolve(quant, flags)
         if self._quant is not None:
             _squant.validate(self._quant, params, config)
-            self._quant = _squant.ensure_kv_clips(self._quant, params,
-                                                  config)
-            if self._quant.quantizes_weights:
+            if self.group is None:
+                self._quant = _squant.ensure_kv_clips(self._quant, params,
+                                                      config)
+            elif self._quant.quantizes_kv:
+                self._quant = self._rank0_kv_clips(params, config)
+        if self.mp > 1:
+            self.params = shard_serving_params(
+                params, config, self.mp, group.rank,
+                self._mp_cfg.shard_vocab, self.device, self._quant)
+        else:
+            if self._quant is not None and self._quant.quantizes_weights:
                 params = _squant.quantize_params(params, config, self._quant)
-        self.params = cast_for_compute(params, config, self.device)
+            self.params = cast_for_compute(params, config, self.device)
         self._layers = layer_params(self.params)
         self.num_slots = int(num_slots or flags["FLAGS_serving_slots"])
         self.max_seq_len = int(max_seq_len or
@@ -180,6 +215,7 @@ class Engine:
 
         nh = config.num_heads
         d = config.hidden_size // nh
+        nh_l = nh // self.mp             # the heads of this rank's pool
         dtype = compute_dtype(config)
         store = _squant.STORE_DTYPES[kv_dtype] if self._kv_quant else dtype
         self.use_kernel = bool(flags["FLAGS_serving_paged_kernel"])
@@ -197,9 +233,18 @@ class Engine:
         if self.quant_kernel and self.device.type == "cuda":
             self._check_quant_gemm_shapes(dtype)
             _qgemm.build()
+        if self.mp > 1 and self._mp_cfg.backend == "fused" and \
+                self.device.type == "cuda":
+            blocks = self.params["blocks"]
+            _tpov.resolve_serving(config, self.mp, "fused", self.device, {
+                "out_w": blocks["out_w"].dtype,
+                "down_w": blocks["down_w"].dtype,
+                "head_w": self.params["head_w"].dtype})
+            _qgemm.build()
         # zero-initialized: masked keys of unwritten pages are read as
         # 0 * V, which must stay finite
-        shape = (config.num_layers, self.pool.num_pages, self.page_size, nh, d)
+        shape = (config.num_layers, self.pool.num_pages, self.page_size,
+                 nh_l, d)
         self._kc = new_pool(shape, store, self.device)
         self._vc = new_pool(shape, store, self.device)
         # a quantized pool's (k, v) per-page scales [L, P] on the device:
@@ -234,6 +279,50 @@ class Engine:
         self._admit_count = 0
         self._results = {}                # request_id -> GenerationResult
 
+    def _rank0_kv_clips(self, params, config):
+        """The KV clip ranges of a quantized pool under mp: rank 0's
+        (calibrated on rank 0 where the spec has none), broadcast, so that
+        every rank's page scales are the same bits."""
+        spec = self._quant
+        if self.group.rank == 0:
+            spec = _squant.ensure_kv_clips(spec, params, config)
+            clips = np.stack([np.broadcast_to(np.asarray(c, np.float64),
+                                              (config.num_layers,))
+                              for c in (spec.kv_k_clip, spec.kv_v_clip)])
+        else:
+            clips = np.zeros((2, config.num_layers))
+        t = self.group.broadcast(torch.from_numpy(clips).to(self.device))
+        k_clip, v_clip = t.cpu().numpy()
+        return dataclasses.replace(spec, kv_k_clip=k_clip, kv_v_clip=v_clip)
+
+    def _init_mp(self, config, mp, comm_backend, group):
+        """Resolve the tensor-parallel degree and rung: the degree is the
+        group's size (1 without a group); ``mp``, when given, is checked
+        against it."""
+        if mp is None:
+            mp = group.n if group is not None else 1
+        mp = max(int(mp), 1)
+        if mp > 1 and group is None:
+            raise ValueError(
+                f"mp={mp} needs group= (a distributed.env.MPGroup of {mp} "
+                f"ranks: distributed.env.launch or init_mp_group); the "
+                f"port's tensor-parallel serving is SPMD, one Engine per "
+                f"rank")
+        if group is not None and group.n != mp:
+            raise ValueError(f"mp={mp} but the group has {group.n} ranks")
+        if group is not None:
+            if self.device.type != group.device.type or \
+                    self.device.index not in (None, group.device.index):
+                raise ValueError(f"the engine's device {self.device} is "
+                                 f"not the group's {group.device}")
+            self.device = group.device
+        self.mp = mp
+        self.group = group if mp > 1 else None
+        self._mp_cfg = _tpov.resolve_serving(config, mp, comm_backend)
+        self._mp_records = {}           # dispatch shape -> MpStepRecord
+        if self._mp_cfg is not None:
+            metrics.set_mp_info(mp, self._mp_cfg.backend)
+
     def _check_quant_gemm_shapes(self, dtype):
         """Refuse, at build, a config whose quantized GEMMs the kernel
         cannot take (the blocks' x is the compute dtype, the head's fp32)."""
@@ -259,6 +348,8 @@ class Engine:
         if request.state != QUEUED:
             raise ValueError(f"request {request.request_id} already "
                              f"{request.state}; requests are single-use")
+        if self.group is not None and self.group.rank != 0:
+            request.on_token = None       # callbacks fire on rank 0 only
         metrics.bump("submitted")
         plen = request.prompt_len
         if plen + request.max_new_tokens > self.max_seq_len:
@@ -305,15 +396,15 @@ class Engine:
         requests, admit queued ones into free slots (page-aware), advance
         prefill chunks and decode one token for every decoding slot.
         Returns True while any work remains."""
-        now = time.perf_counter()
+        is_expired = self._deadline_check()
         for b, req in enumerate(self._slots):
-            if req is not None and req.expired(now):
+            if req is not None and is_expired(req):
                 self._free_slot(b)
                 self._resolve(req, EXPIRED, count="expired")
-        expired = self.scheduler.expire(now)
+        expired = self.scheduler.expire(is_expired=is_expired)
         free = [b for b, r in enumerate(self._slots) if r is None]
         admitted, admit_expired = self.scheduler.admit(
-            len(free), now, fits=self._try_reserve)
+            len(free), fits=self._try_reserve, is_expired=is_expired)
         for req in expired + admit_expired:
             self._resolve(req, EXPIRED, count="expired")
         for req, b in zip(admitted, free):
@@ -328,6 +419,25 @@ class Engine:
             self._iterate_paged()
         return self.scheduler.qsize() > 0 or \
             any(r is not None for r in self._slots)
+
+    def _deadline_check(self):
+        """The boundary's deadline predicate. With mp, rank 0's clock
+        decides for every rank: when any request in a slot or the queue
+        has a deadline (the same requests on every rank), rank 0's verdicts
+        are broadcast once, so no rank frees a slot the others keep."""
+        now = time.perf_counter()
+        if self.mp <= 1:
+            return lambda req: req.expired(now)
+        live = [r for r in self._slots if r is not None] + \
+            self.scheduler.pending()
+        timed = [r for r in live if r.deadline_s is not None]
+        if not timed:
+            return lambda req: False
+        verdict = torch.tensor([r.expired(now) for r in timed],
+                               dtype=torch.uint8, device=self.device)
+        self.group.broadcast(verdict, src=0)
+        gone = {id(r) for r, v in zip(timed, verdict.tolist()) if v}
+        return lambda req: id(req) in gone
 
     def _upload(self, arr):
         """One host->device copy of a packed operand: pinned and
@@ -367,7 +477,10 @@ class Engine:
                                self.page_size, self.use_kernel,
                                layers=self._layers,
                                kv_scales=self._kv_scales,
-                               wq_kernel=self.quant_kernel)
+                               wq_kernel=self.quant_kernel,
+                               mp=None if self.mp <= 1
+                               else (self.group, self._mp_cfg))
+        self._record_mp(R, T)
         nxt = torch.argmax(logits, dim=-1)
         if sample.any():
             nucleus = top_p_t if (self._top_p[rows][sample] < 1.0).any() \
@@ -378,6 +491,21 @@ class Engine:
         if not emit.any():
             return None
         return nxt.cpu().numpy()
+
+    def _record_mp(self, B, T):
+        """The mp counters of one dispatch at window [B, T]: its static
+        wire record (tp_overlap.serving_step_record) into the serving
+        ledger. Nothing at mp == 1."""
+        if self.mp <= 1:
+            return
+        rec = self._mp_records.get((B, T))
+        if rec is None:
+            rec = _tpov.serving_step_record(self.config, self._mp_cfg, B, T)
+            self._mp_records[(B, T)] = rec
+        metrics.bump("mp_steps")
+        metrics.bump("mp_collectives", rec.collectives)
+        metrics.bump("mp_wire_bytes", rec.ag_bytes)
+        metrics.bump("mp_fused_dispatches", rec.fused_dispatches)
 
     def _cow(self, b, start, end):
         """Copy-on-write guard: split any shared page in [start, end) of
@@ -593,20 +721,22 @@ class Engine:
 
     # -- introspection -------------------------------------------------------
     def kv_bytes_per_token(self):
-        """KV bytes one token position costs at this engine's dtype
-        config: K + V over all layers and heads, plus a quantized pool's
-        two fp32 scales per (layer, page) shared by page_size tokens
-        (rounded up)."""
+        """KV bytes one token position costs this rank at its dtype config:
+        K + V over all layers and this rank's heads (all of them at
+        mp == 1, nh/mp under mp), plus a quantized pool's two fp32 scales
+        per (layer, page) shared by page_size tokens (rounded up;
+        replicated on every rank)."""
         cfg = self.config
-        per_tok = 2 * cfg.num_layers * cfg.hidden_size * \
+        per_tok = 2 * cfg.num_layers * (cfg.hidden_size // self.mp) * \
             self._kc.element_size()
         if self._kv_quant:
             per_tok += -(-2 * cfg.num_layers * 4 // self.page_size)
         return per_tok
 
     def kv_shard_bytes(self):
-        """Bytes of one of the two KV pool arrays at the pool's storage
-        dtype (the whole pool: the port serves on one device)."""
+        """Bytes of one of the two KV pool arrays on this rank at the pool's
+        storage dtype: the whole pool at mp == 1, its head shard (1/mp)
+        under mp."""
         return self._kc.numel() * self._kc.element_size()
 
     @property

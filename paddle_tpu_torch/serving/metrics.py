@@ -45,6 +45,12 @@ def _zero():
         # quantized serving (serving/quant.py): the largest logit drift
         # against the fp engine a harness measured (0.0 until one runs)
         "quant_logit_drift_max": 0.0,
+        # tensor-parallel serving (serving/mp_forward.py): per dispatch the
+        # static collective schedule of the mp rung on this rank: wire
+        # bytes sent, all-gathers, fused kernel launches
+        # (distributed/tp_overlap.py:serving_step_record)
+        "mp_steps": 0, "mp_collectives": 0, "mp_wire_bytes": 0,
+        "mp_fused_dispatches": 0,
     }
 
 
@@ -54,6 +60,9 @@ _C = _zero()
 # counters: it survives reset_serving_counters, and serving_counters()
 # reports the two gauges as quant_scale_bytes / quant_kv_bytes_per_token.
 _quant_info = {}
+# the last tensor-parallel engine's degree and rung (configuration, not a
+# counter: it survives reset_serving_counters)
+_mp_info = {}
 _MAX_SAMPLES = 65536       # rings: percentiles follow the latest traffic
 _ttft = deque(maxlen=_MAX_SAMPLES)      # seconds
 _tok_lat = deque(maxlen=_MAX_SAMPLES)   # per-token decode latency (seconds)
@@ -62,6 +71,12 @@ _tok_lat = deque(maxlen=_MAX_SAMPLES)   # per-token decode latency (seconds)
 def bump(name, n=1):
     with _lock:
         _C[name] += n
+
+
+def set_mp_info(mp, backend):
+    """Record a tensor-parallel engine's degree and rung; set at build."""
+    with _lock:
+        _mp_info.update(mp=int(mp), backend=str(backend))
 
 
 def set_quant_info(weight_dtype, kv_dtype, scale_bytes=0,
@@ -152,6 +167,8 @@ def serving_counters():
         if out["page_boundaries"] and out["pages_total"] else 0.0)
     out["prefix_hit_rate"] = (out["prefix_hits"] / out["prefix_lookups"]
                               if out["prefix_lookups"] else 0.0)
+    out["mp_bytes_per_dispatch"] = (out["mp_wire_bytes"] / out["mp_steps"]
+                                    if out["mp_steps"] else 0.0)
     out["prefill_waste_mean"] = (
         out["prefill_padded_tokens"] / out["prefill_padded_reqs"]
         if out["prefill_padded_reqs"] else 0.0)
@@ -189,6 +206,15 @@ def serving_summary():
                  f"kv={qinfo['kv_dtype']}  "
                  f"scales: {c['quant_scale_bytes']}B  "
                  f"kv-bytes/tok: {c['quant_kv_bytes_per_token']}{drift}")
+    mp = ""
+    if c["mp_steps"]:
+        with _lock:
+            info = dict(_mp_info)
+        mp = (f"  mp: {info.get('backend', '?')}x{info.get('mp', '?')}  "
+              f"wire: {c['mp_wire_bytes'] / 1e6:.2f}MB over "
+              f"{c['mp_collectives']} collectives in {c['mp_steps']} "
+              f"dispatches ({c['mp_bytes_per_dispatch'] / 1e6:.2f}MB "
+              f"each)  fused-dispatches: {c['mp_fused_dispatches']}")
     waste = ""
     if c["prefill_padded_reqs"]:
         waste = (f"  prefill-waste: {c['prefill_waste_mean']:.1f} "
@@ -198,4 +224,4 @@ def serving_summary():
             f"tokens: {c['tokens_out']}  tokens/s: {c['tokens_per_s']:.1f}  "
             f"ttft p50/p99: {ttft}  occupancy: {c['occupancy'] * 100:.1f}%  "
             f"queue: {c['queue_depth_mean']:.1f} avg/"
-            f"{c['queue_depth_max']} max{paged}{quant}{waste}")
+            f"{c['queue_depth_max']} max{paged}{quant}{mp}{waste}")

@@ -32,6 +32,10 @@ at T=1. Quantized weight leaves carry ``<name>_s`` per-output-channel
 scales and go through ``ops.quant_gemm``, the LM head too (its x is the
 fp32 final LayerNorm). Without scales none of this runs and the math is
 the unquantized engine's.
+
+Tensor-parallel serving (serving/mp_forward.py): ``paged_forward(...,
+mp=(group, mp_cfg))`` runs the same step on this rank's shards, its pools
+holding nh/n heads, through ``mp_forward.mp_paged_forward``.
 """
 from __future__ import annotations
 
@@ -136,7 +140,7 @@ def _layer_paged(p, h, kc_l, vc_l, table, pos, valid, nh, eps, page_size,
 
 def paged_forward(params, config, ids, kc, vc, start, valid, table,
                   page_size, use_kernel=False, layers=None, kv_scales=None,
-                  wq_kernel=False):
+                  wq_kernel=False, mp=None):
     """Fused chunk/decode forward: ids [B, T] is each slot's token window
     at absolute positions start[b]..start[b]+T-1 (valid[b] of them real).
     Writes the window's K/V into the pools kc/vc [L, P, page_size, nh, d]
@@ -145,7 +149,15 @@ def paged_forward(params, config, ids, kc, vc, start, valid, table,
     ``models.cast_for_compute``; ``layers`` its ``layer_params`` views.
     ``kv_scales`` = (k_scale, v_scale) [L, P] float32 of a quantized pool;
     ``wq_kernel`` routes the quantized GEMMs of a quantized tree through
-    the CUDA kernel (CPU tensors take the plain version)."""
+    the CUDA kernel (CPU tensors take the plain version). ``mp`` =
+    (``distributed.env.MPGroup``, ``ServingMPConfig``) routes the step
+    through the tensor-parallel forward on this rank's shards."""
+    if mp is not None:
+        from .mp_forward import mp_paged_forward
+        return mp_paged_forward(params, config, ids, kc, vc, start, valid,
+                                table, page_size, use_kernel, mp[0], mp[1],
+                                layers=layers, kv_scales=kv_scales,
+                                wq_kernel=wq_kernel)
     B, T = ids.shape
     pos = start[:, None] + torch.arange(T, device=ids.device,
                                         dtype=start.dtype)[None, :]

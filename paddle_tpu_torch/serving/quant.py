@@ -182,16 +182,22 @@ def _quantize_leaf(w, dtype, scale=None):
     return q, scale.float()
 
 
-def quantize_params(params, config, spec):
+def quantize_params(params, config, spec, qkv_perm=None):
     """The serving GEMM weights of an ``init_gpt_params`` tree quantized to
     ``spec.weight_dtype``, each with a fp32 ``<name>_s`` scale leaf. Pinned
     ``spec.weight_scales`` are honored, otherwise fresh absmax scales.
-    Other leaves are passed through as they are."""
+    ``qkv_perm`` (the tensor-parallel engine, whose tree the caller has
+    permuted head-major) relabels the pinned qkv scales, which are
+    recorded on the logical layout, with the columns. Other leaves are
+    passed through as they are."""
     del config
     if not spec.quantizes_weights:
         return params
     pinned = spec.weight_scales or {}
-    pinned_blocks = pinned.get("blocks", {})
+    pinned_blocks = dict(pinned.get("blocks", {}))
+    if qkv_perm is not None and "qkv_w" in pinned_blocks:
+        pinned_blocks["qkv_w"] = np.asarray(
+            pinned_blocks["qkv_w"])[..., qkv_perm]
     blocks = dict(params["blocks"])
     for name in BLOCK_WEIGHTS:
         blocks[name], blocks[name + "_s"] = _quantize_leaf(

@@ -46,31 +46,44 @@ class Scheduler:
     def qsize(self):
         return len(self._q)
 
-    def expire(self, now=None):
+    def pending(self):
+        """The queued requests in arrival order (a copy)."""
+        return list(self._q)
+
+    @staticmethod
+    def _predicate(now, is_expired):
+        """``is_expired`` (a caller's verdict per request, e.g. rank 0's
+        under tensor parallelism) or the deadline against ``now``."""
+        if is_expired is not None:
+            return is_expired
+        now = time.perf_counter() if now is None else now
+        return lambda req: req.expired(now)
+
+    def expire(self, now=None, is_expired=None):
         """Remove and return every queued request whose deadline passed
         (marked EXPIRED), at every boundary, so dead entries never count
         toward backpressure."""
-        now = time.perf_counter() if now is None else now
+        is_expired = self._predicate(now, is_expired)
         expired = [r for r in self._q if r.state != FINISHED
-                   and r.expired(now)]
+                   and is_expired(r)]
         for req in expired:
             self._q.remove(req)
             req._finish(EXPIRED)
         return expired
 
-    def admit(self, free_slots, now=None, fits=None):
+    def admit(self, free_slots, now=None, fits=None, is_expired=None):
         """Pop up to ``free_slots`` requests in arrival order. Requests
         whose deadline passed are popped, marked EXPIRED and returned
         separately. ``fits`` is the paged engine's page-aware predicate: a
         head that does not fit STOPS admission (no bypass), so the order
         stays deterministic and no request starves."""
-        now = time.perf_counter() if now is None else now
+        is_expired = self._predicate(now, is_expired)
         admitted, expired = [], []
         if free_slots > 0:
             for req in [r for r in self._q if r.state != FINISHED]:
                 if len(admitted) >= free_slots:
                     break
-                if req.expired(now):
+                if is_expired(req):
                     self._q.remove(req)
                     req._finish(EXPIRED)
                     expired.append(req)

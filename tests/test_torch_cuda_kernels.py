@@ -388,3 +388,189 @@ def test_quantized_engine_launches_both_kernels_on_card(cuda_device, dtype):
         set_flags(old)
     for a, b in zip(*runs):
         assert len(a) == len(b) == 6 and a[0] == b[0]
+
+
+# the tensor-parallel serving slice's GEMMs at mp = 4 over GPT-3 1.3B:
+# (K, F/4) of the out and down projections (bf16 x) and the LM head shard
+# (fp32 x)
+MP_GEMM_SHAPES = [(2048, 512), (8192, 512)]
+MP_HEAD_SHAPE = (2048, 12576)
+# a launch with enough output tiles (256 rows x 8192) for the tile kernel
+# to store without a k split, so its own epilogue writes the strided slot
+MP_DIRECT_SHAPE = (2048, 8192)
+
+
+class _StubGroup:
+    """A rank of an n-rank group without a process group: rank r's block
+    is this rank's times (r + 1), so every block differs and a block in
+    the wrong place shows."""
+
+    def __init__(self, n, rank):
+        self.n, self.rank = n, rank
+
+    def _block(self, inp, r):
+        return inp * (r + 1)
+
+    def all_gather_into(self, out, inp):
+        src = inp.clone()
+        rows = src.shape[0]
+        for r in range(self.n):
+            out[r * rows:(r + 1) * rows].copy_(self._block(src, r))
+        return out
+
+    def all_gather_list(self, inp):
+        return [self._block(inp, r) for r in range(self.n)]
+
+
+def _mp_weight(rng, K, F, w_dtype, device):
+    w = torch.from_numpy((rng.standard_normal((K, F)) * 0.02).astype(
+        np.float32)).to(device)
+    if w_dtype == "bf16":
+        return w.to(torch.bfloat16), None
+    from paddle_tpu_torch.serving.quant import _quantize_leaf
+    return _quantize_leaf(w, w_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", ["bf16", "int8", "fp8"])
+def test_fused_gemm_slot_matches_plain_on_card(cuda_device, w_dtype):
+    """The bf16 instances (no scale) and the quantized ones, writing into
+    a strided slot (row stride > F) and into a rank's slot of the dim-0
+    gather buffer, at the slice's shapes (R = 8 and 256 bf16 rows; the
+    head shard at 8 fp32 rows) and one launch whose tiles fill the card
+    without a k split: per element and per row against the plain GEMM;
+    the rest of the buffer untouched."""
+    from paddle_tpu_torch.models.generation import _proj
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    from paddle_tpu_torch.ops.quant_gemm import gemm_into, quant_gemm_plain
+    rng = np.random.default_rng(12)
+    cases = [(K, F, R, torch.bfloat16) for K, F in MP_GEMM_SHAPES
+             for R in (8, 256)] + [MP_HEAD_SHAPE + (8, torch.float32),
+                                   MP_DIRECT_SHAPE + (256, torch.bfloat16)]
+    for K, F, R, xdt in cases:
+        w, s = _mp_weight(rng, K, F, w_dtype, cuda_device)
+        x = torch.from_numpy(rng.standard_normal((R, K)).astype(
+            np.float32)).to(cuda_device, xdt)
+        want = (_proj(x, w.to(xdt)) if s is None
+                else quant_gemm_plain(x, w, s))
+        wide = torch.full((R, F + 48), 7.0, dtype=xdt, device=cuda_device)
+        gemm_into(x, w, s, wide[:, 16:16 + F])
+        buf = torch.full((4 * R, F), 7.0, dtype=xdt, device=cuda_device)
+        gemm_into(x, w, s, buf[2 * R:3 * R])
+        torch.cuda.synchronize()
+        for got in (wide[:, 16:16 + F], buf[2 * R:3 * R]):
+            readings = fc.error_vs_plain(got, want)
+            assert fc.within_tolerance(readings, xdt), (K, F, R, readings)
+        assert bool((wide[:, :16] == 7).all() and (wide[:, 16 + F:] == 7)
+                    .all())
+        assert bool((buf[:2 * R] == 7).all() and (buf[3 * R:] == 7).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", ["bf16", "int8", "fp8"])
+def test_fused_gemm_ag_wrapper_on_card(cuda_device, w_dtype):
+    """The wrapper: the kernel's block in the rank's slot, gathered (a stub
+    group here) and laid out as [R, n * F] in rank order; launches
+    counted; refusals for what the kernel does not take."""
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    rng = np.random.default_rng(13)
+    K, F = MP_GEMM_SHAPES[0]
+    w, s = _mp_weight(rng, K, F, w_dtype, cuda_device)
+    x = torch.from_numpy(rng.standard_normal((2, 4, K)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    group = _StubGroup(4, 1)
+    before = fc.fused_gemm_ag.launches
+    got = fc.fused_gemm_ag(x, w, group, s)
+    torch.cuda.synchronize()
+    assert fc.fused_gemm_ag.launches == before + 1
+    assert got.shape == (2, 4, 4 * F)
+    want = fc.gemm_ag_plain(x, w, group, s)
+    assert fc.within_tolerance(fc.error_vs_plain(got, want), torch.bfloat16)
+    # the [R, n * F] columns in rank order: block r is (r + 1) x the
+    # rank's own (rank 1's slot is the kernel's output, times 2)
+    own = got[..., F:2 * F] / 2
+    for r in range(4):
+        assert fc.within_tolerance(fc.error_vs_plain(
+            got[..., r * F:(r + 1) * F], own * (r + 1)), torch.bfloat16), r
+    with pytest.raises(ValueError, match="not contiguous"):
+        fc.fused_gemm_ag(x.transpose(0, 1), w, group, s)
+    if s is None:
+        with pytest.raises(ValueError, match="takes no scale"):
+            fc.fused_gemm_ag(x, w, group, torch.ones(F, device=cuda_device))
+    else:
+        with pytest.raises(ValueError, match="needs a float32 scale"):
+            fc.fused_gemm_ag(x, w, group, None)
+    row = torch.arange(24, dtype=torch.bfloat16, device=cuda_device)
+    out = fc.fused_ag_bucket(row, group)
+    assert out.shape == (4, 24)
+    for r in range(4):
+        assert bool((out[r] == row * (r + 1)).all()), r
+
+
+@pytest.mark.cuda
+def test_fp32_head_instance_matches_plain_on_card(cuda_device):
+    """An LM head shard passed at fp32: fp32 weights against fp32 x (the
+    stream kernel, no scale) at the head shard of mp = 4 and at one row,
+    into a strided slot, per element and per row against the plain GEMM;
+    fp32 weights against bf16 x are refused."""
+    from paddle_tpu_torch.models.generation import _proj
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    from paddle_tpu_torch.ops.quant_gemm import gemm_into
+    rng = np.random.default_rng(14)
+    K, F = MP_HEAD_SHAPE
+    w = torch.from_numpy((rng.standard_normal((K, F)) * 0.02).astype(
+        np.float32)).to(cuda_device)
+    for R in (8, 1):
+        x = torch.from_numpy(rng.standard_normal((R, K)).astype(
+            np.float32)).to(cuda_device)
+        want = _proj(x, w)
+        wide = torch.full((R, F + 32), 7.0, device=cuda_device)
+        gemm_into(x, w, None, wide[:, 16:16 + F])
+        torch.cuda.synchronize()
+        got = wide[:, 16:16 + F]
+        readings = fc.error_vs_plain(got, want)
+        assert fc.within_tolerance(readings, torch.float32), (R, readings)
+        assert bool((wide[:, :16] == 7).all() and (wide[:, 16 + F:] == 7)
+                    .all())
+    assert fc.unsupported_reason(K, F, torch.float32, torch.float32) is None
+    with pytest.raises(ValueError, match="float32 weights need float32 x"):
+        fc.fused_gemm_ag(x.to(torch.bfloat16), w, _StubGroup(4, 0))
+
+
+@pytest.mark.cuda
+def test_fused_engine_serves_an_fp32_head_on_card(cuda_device, tmp_path):
+    """``Engine(mp=2, comm_backend="fused")`` from fp32 params at a bf16
+    compute dtype, whose LM head is not bf16-exact: the two ranks share
+    the card over gloo. The head stays fp32 and runs the fp32 instance;
+    tokens and logits are the same on both ranks, and one step's logits
+    agree with the one-card engine's within 5 % of max |logit| (the bf16
+    blocks sum in another order)."""
+    import torch_mp_ranks as ranks
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.ops import quant_gemm
+    from paddle_tpu_torch.serving import Engine, paged_decode
+    # built here, once, so that the ranks only load the libraries
+    quant_gemm.build()
+    paged_decode.build()
+    params = ranks.card_params(cuda_device)
+    head = params["head_w"]
+    assert not torch.equal(head.to(torch.bfloat16).float(), head)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (5, 40, 77)]
+    max_new = [4, 4, 4]
+    outs = env.launch(2, ranks.fp32_head_engine, prompts, max_new,
+                      layout="shared", timeout_s=300, init_dir=tmp_path)
+    K, V = 256, 512
+    for o in outs:
+        assert o["head_dtype"] == "torch.float32"
+        assert o["shapes"].get((1, K, V // 2, "float32"), 0) > 0
+        assert o["shapes"].get((4, K, V // 2, "float32"), 0) > 0
+        assert o["tokens"] == outs[0]["tokens"]
+        np.testing.assert_array_equal(o["logits"], outs[0]["logits"])
+    single = Engine(params=params, config=GPTConfig(**ranks.CARD_CFG_KW),
+                    device=cuda_device, **ranks.CARD_ENGINE_KW)
+    want = ranks._step_logits(single, prompts)
+    got = outs[0]["logits"]
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 0.05 * np.abs(want).max()
