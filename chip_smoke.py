@@ -71,6 +71,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
    a decode step; the GEMM kernels' times, and with four cards the NCCL
    all-gathers'.
 
+10. tensor-parallel training, in MP = 4 ranks laid out as in phase 9: the
+   ring all-gather + GEMM, GEMM + ring reduce-scatter and ring weight-
+   gradient kernels (``ops/ring_gemm.py``) against their plain versions
+   at every shape of the main path (B=8, S=2048, each rank its own
+   shards; row 7's output the same bytes on every rank); GPT-3 1.3B
+   trained through ``HybridTrainStep(group=, comm_backend="fused")`` with
+   phase 5's recipe, at full depth (2 warm-up and 5 timed steps) with a
+   card per rank, at 2 layers (1 + 2 steps) on one card: finite losses,
+   the last below the first, the same on every rank, and per step 6L /
+   6L / 4L calls of the three kernels, MP launches each; one fused step
+   of the 2-layer copy (B=2) against the one-card step on the same
+   weights within phase 6's tolerances (loss and every gradient leaf over
+   all shards); with a card per rank a profile of one step, the step
+   time, tokens/s and MFU over the four cards; each kernel's times.
+
 The lines before the last carry a ``{"kernels": [...], "collectives":
 [...]}`` JSON object (``collectives``: the TPU kernel whose port is the
 library's all-gather, with no hand-written kernel) and the card's name
@@ -104,12 +119,13 @@ from paddle_tpu_torch.models import (GPT_CONFIGS, HybridTrainStep,
 from paddle_tpu_torch.models.generation import _proj
 from paddle_tpu_torch.models.gpt_hybrid import (flatten_params, gpt_loss,
                                                 unflatten_params)
-from paddle_tpu_torch.models.params import layer_params
+from paddle_tpu_torch.models.params import layer_params, shard_params
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.observability import flops
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_collectives as fc
 from paddle_tpu_torch.ops import quant_gemm as qg
+from paddle_tpu_torch.ops import ring_gemm as rg
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import (Engine, Request, reset_serving_counters,
                                       serving_counters, serving_summary)
@@ -320,11 +336,13 @@ def phase_build():
     t0 = time.perf_counter()
     sources = {"paged_decode": "paged_decode.cu",
                "flash_attention": "flash_attention.cu",
-               "quant_gemm": "quant_gemm.cu"}
+               "quant_gemm": "quant_gemm.cu",
+               "ring_gemm": "ring_gemm.cu"}
     cuda_build.build_all(sources)
     paged_decode.build()
     fa.build()
     qg.build()
+    rg.build()
     print(f"[build] {len(sources)} sources in parallel: "
           f"{time.perf_counter() - t0:.2f}s")
     for name, source in sources.items():
@@ -1738,6 +1756,548 @@ def mp_rows(r0, layout, cfg):
     return rows, collectives
 
 
+# ------------------------------------------- tensor-parallel training (10)
+TP_KERNELS = (  # (kernel, wrapper, TPU kernel it replaces)
+    ("ring_ag_gemm", rg.ring_ag_gemm,
+     "paddle_tpu/ops/pallas_kernels/fused_collectives.py:201"),
+    ("ring_gemm_rs", rg.ring_gemm_rs,
+     "paddle_tpu/ops/pallas_kernels/fused_collectives.py:249"),
+    ("ring_ag_accum", rg.ring_ag_accum,
+     "paddle_tpu/ops/pallas_kernels/fused_collectives.py:307"),
+)
+TP_PLAIN = {"ring_ag_gemm": rg.ag_gemm_plain, "ring_gemm_rs": rg.gemm_rs_plain,
+            "ring_ag_accum": rg.ag_accum_plain}
+TP_PARITY_B = 2             # the 2-layer copy's batch (phase 6's)
+
+
+def tp_step_calls(L):
+    """Calls per step of each ring kernel under the fused rung with remat
+    "full" over L layers: ``fused_ag_gemm`` runs qkv and up in the forward
+    (2L) and again in the recompute (2L), and its kernel also gives the
+    input gradient of ``fused_gemm_rs`` (2L): 6L; ``fused_gemm_rs`` the
+    same, out and down (2L + 2L) plus the input gradient of
+    ``fused_ag_gemm`` (2L): 6L; the weight-gradient kernel once per fused
+    call in the backward: 4L. Each call launches its kernel MP times, one
+    per ring step."""
+    return {"ring_ag_gemm": 6 * L, "ring_gemm_rs": 6 * L,
+            "ring_ag_accum": 4 * L}
+
+
+def tp_cases(cfg):
+    """(kernel, label, shapes, flag) of every ring-kernel call on the
+    main path at B=TRAIN_B, S=TRAIN_S, one rank of MP: the operands'
+    shapes and ``transpose_w`` / ``transpose``. Row 7 runs the qkv and up
+    projections (forward) and the out and down input gradients (w read
+    transposed); row 8 out and down (forward) and the qkv and up input
+    gradients; row 9 the four weight gradients."""
+    H = cfg.hidden_size
+    inner = cfg.ffn_mult * H
+    B, S, n = TRAIN_B, TRAIN_S, MP
+    s = S // n
+    cols = {"qkv": 3 * H // n, "up": inner // n, "out": H // n,
+            "down": inner // n}
+    cases = []
+    for lab in ("qkv", "up"):
+        cases.append(("ring_ag_gemm", lab, ((B, s, H), (H, cols[lab])),
+                      False))
+    for lab in ("out", "down"):
+        cases.append(("ring_ag_gemm", f"{lab} dx", ((B, s, H),
+                                                  (cols[lab], H)), True))
+    for lab in ("out", "down"):
+        cases.append(("ring_gemm_rs", lab, ((B, S, cols[lab]),
+                                            (cols[lab], H)), False))
+    for lab in ("qkv", "up"):
+        cases.append(("ring_gemm_rs", f"{lab} dx", ((B, S, cols[lab]),
+                                                   (H, cols[lab])), True))
+    for lab in ("qkv", "up"):
+        cases.append(("ring_ag_accum", f"{lab} dw", ((B, s, H),
+                                                    (B, S, cols[lab])),
+                      False))
+    for lab in ("out", "down"):
+        cases.append(("ring_ag_accum", f"{lab} dw", ((B, s, H),
+                                                    (B, S, cols[lab])),
+                      True))
+    return cases
+
+
+def tp_shape_key(kernel, shapes, flag):
+    """The wrapper's ``.shapes`` key of a case."""
+    a, b = shapes
+    if kernel == "ring_ag_gemm":
+        F_ = b[0] if flag else b[1]
+        return (a[0] * a[1], a[2], F_, flag)
+    if kernel == "ring_gemm_rs":
+        A_ = b[0] if flag else b[1]
+        return (a[0] * a[1] // MP, a[2], A_, flag)
+    M, N = (b[2], a[2]) if flag else (a[2], b[2])
+    return (a[0] * a[1], M, N, flag)
+
+
+def tp_work(kernel, shapes, flag):
+    """(flops, HBM bytes, NVLink bytes received) of one call per rank: the
+    products of every ring step; each input read once and each output
+    written once; MP - 1 chunks received (fp32 partials for row 8, as
+    the TPU kernel's wire)."""
+    (a, b), n = shapes, MP
+    if kernel == "ring_ag_gemm":
+        B, s, A = a
+        F_ = b[0] if flag else b[1]
+        rows = B * s * n
+        return (2 * rows * A * F_, 2 * (rows * A + A * F_ + rows * F_),
+                (n - 1) * B * s * A * 2)
+    if kernel == "ring_gemm_rs":
+        B, S, F_ = a
+        A = b[0] if flag else b[1]
+        return (2 * B * S * F_ * A, 2 * (B * S * F_ + F_ * A) +
+                2 * B * S // n * A, (n - 1) * B * S // n * A * 4)
+    B, s, A = a
+    Bf = b[2]
+    rows = B * s * n
+    return (2 * rows * A * Bf, 2 * (rows * A + rows * Bf) + 4 * A * Bf,
+            (n - 1) * B * s * A * 2)
+
+
+def tp_bound(kernel, shapes, flag, per_card):
+    """(ms, by): the larger of the operations over the bf16 tensor-core
+    peak, the bytes over HBM and, across cards, the received bytes over
+    one direction of NVLink."""
+    ops, hbm, wire = tp_work(kernel, shapes, flag)
+    times = {"operations": ops / BF16_FLOPS, "bytes": hbm / HBM_BYTES_PER_S}
+    if per_card:
+        times["nvlink bytes"] = wire / NVLINK_BYTES_PER_S
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def _tp_inputs(gen, dev, kernel, shapes, flag):
+    a = torch.randn(shapes[0], generator=gen, device=dev)
+    b = torch.randn(shapes[1], generator=gen, device=dev)
+    if kernel != "ring_ag_accum":
+        b = b * shapes[1][1 if flag else 0] ** -0.5      # unit-scale output
+    return a.to(torch.bfloat16), b.to(torch.bfloat16)
+
+
+def _tp_call(kernel, wrapper, a, b, flag, group):
+    key = "transpose" if kernel == "ring_ag_accum" else "transpose_w"
+    return wrapper(a, b, group, **{key: flag})
+
+
+def phase_tp_kernels(group, gen, seed, cfg, say):
+    """Rows 7-9 at every main-path shape of ``tp_cases``: each wrapper
+    against its plain version on this rank's own inputs (row 7 with the
+    weight the same on every rank, so its gathered output must be the
+    same bytes on every rank). Returns ({case: readings}, failures)."""
+    dev = group.device
+    own = torch.Generator(device=dev).manual_seed(seed + 2000 + group.rank)
+    errs, failed = {}, []
+    for kernel, label, shapes, flag in tp_cases(cfg):
+        wrapper = dict((k, w) for k, w, _ in TP_KERNELS)[kernel]
+        a, b = _tp_inputs(own, dev, kernel, shapes, flag)
+        if kernel == "ring_ag_gemm":
+            _, b = _tp_inputs(gen, dev, kernel, shapes, flag)
+        got = _tp_call(kernel, wrapper, a, b, flag, group)
+        want = _tp_call(kernel, TP_PLAIN[kernel], a, b, flag, group)
+        torch.cuda.synchronize()
+        r = rg.error_vs_plain(got, want)
+        ok = bool(torch.isfinite(got).all()) and \
+            rg.within_tolerance(r, got.dtype)
+        same = _same_on_every_rank(group, got) \
+            if kernel == "ring_ag_gemm" else None
+        ok = ok and same is not False
+        errs[(kernel, label)] = r
+        say(f"[tp-kernel] {kernel} {label} {shapes[0]} x {shapes[1]}"
+            f"{' (w transposed)' if flag and kernel != 'ring_ag_accum' else ''}"
+            f"{' (transposed)' if flag and kernel == 'ring_ag_accum' else ''}"
+            f" -> {tuple(got.shape)} {str(got.dtype)[6:]}: max abs "
+            f"{r['max_abs']:.2e}, worst element {r['element']:.2e} (gate "
+            f"{rg.ELEMENT_TOL[got.dtype]}), worst 128-row tile "
+            f"{r['tile']:.2e} (gate {rg.TILE_TOL[got.dtype]})"
+            + (f", same bytes on every rank: {same}" if same is not None
+               else ""))
+        if not ok:
+            failed.append(f"{kernel} {label}")
+        del a, b, got, want
+    return errs, failed
+
+
+def tp_counts():
+    return {name: (w.calls, w.launches) for name, w, _ in TP_KERNELS}
+
+
+def tp_train_step(cfg, group, params=None, seed=0):
+    opt = AdamW(2e-4, grad_clip=ClipGradByGlobalNorm(1.0),
+                moment_dtype="bfloat16")
+    return HybridTrainStep(cfg, opt, param_dtype=torch.bfloat16, seed=seed,
+                           params=params, group=group, comm_backend="fused")
+
+
+def phase_tp_train(group, seed, say, num_layers=None,
+                   warmup=WARMUP_STEPS, timed=TIMED_STEPS):
+    """GPT-3 1.3B at full width (and depth, unless ``num_layers``) through
+    HybridTrainStep(group=, comm_backend="fused"): ``warmup`` and
+    ``timed`` steps on one batch, the main path of phase 10: finite losses,
+    the last below the first, the same on every rank, and each ring
+    kernel's calls and launches as ``tp_step_calls`` says. Returns (step,
+    ids, readings, failures)."""
+    cfg = train_config(num_layers)
+    dev = group.device
+    t0 = time.perf_counter()
+    step = tp_train_step(cfg, group, seed=seed)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed + 3), device=dev)
+    torch.cuda.synchronize()
+    say(f"[tp-train] {MODEL}, {cfg.num_layers} layers: "
+        f"{step.num_params():,} params bf16 over "
+        f"mp={group.n} ({group.backend}), AdamW(2e-4, clip 1.0, bf16 "
+        f"moments), remat full, ids [{TRAIN_B}, {TRAIN_S}], rung fused; "
+        f"set up in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    tp_overlap.reset_mp_counters()
+    # the main path: counts start at 0 here and are read right after
+    rg.reset_counts()
+    losses = []
+    group.barrier()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        losses.append(step(ids))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        losses.append(step(ids))
+    stop.record()
+    losses = [float(x) for x in losses]
+    step_s = start.elapsed_time(stop) / 1e3 / timed
+    counts = tp_counts()
+    shapes = {name: dict(w.shapes) for name, w, _ in TP_KERNELS}
+    steps = warmup + timed
+    want = {k: (v * steps, v * steps * group.n)
+            for k, v in tp_step_calls(cfg.num_layers).items()}
+    failed = []
+    if not all(np.isfinite(losses)):
+        failed.append(f"a tp train loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        failed.append(f"tp loss did not fall: {losses[0]} -> {losses[-1]}")
+    every = group.all_gather_list(torch.tensor(losses, device=dev))
+    same = all(torch.equal(every[0], o) for o in every)
+    if not same:
+        failed.append("the ranks' losses differ")
+    if counts != want:
+        failed.append(f"ring kernel (calls, launches) {counts} != {want}")
+    fpt, _ = flops.model_flops_per_token(cfg, TRAIN_S)
+    tokens = TRAIN_B * TRAIN_S
+    peak = flops.peak_flops_bf16(torch.cuda.get_device_name(dev))
+    stats = {"step_s": step_s, "tokens_per_s": tokens / step_s,
+             "mfu_over_cards": flops.mfu(fpt * tokens, step_s, peak,
+                                         cards=group.n),
+             "cards": group.n, "layers": cfg.num_layers,
+             "layout": group.backend, "warmup_s": warm,
+             "first_loss": losses[0],
+             "last_loss": losses[-1],
+             "peak_mem_gb_rank": torch.cuda.max_memory_allocated(dev) / 1e9,
+             "mp_counters": tp_overlap.mp_counters()}
+    say(f"[tp-train] losses {[round(x, 4) for x in losses]} (the same on "
+        f"every rank: {same})")
+    say(f"[tp-train] (calls, launches) over {steps} steps: {counts} (want "
+        f"{want}: per step {tp_step_calls(cfg.num_layers)} calls of "
+        f"{group.n} ring steps each)")
+    say(f"[tp-train] {json.dumps(stats)}")
+    return step, ids, {"stats": stats, "counts": counts,
+                       "shapes": shapes}, failed
+
+
+def phase_tp_profile(group, step, ids, say):
+    """Where a tensor-parallel step's time goes on rank 0: torch.profiler
+    (device kernels) over one step, grouped by kind. Every rank runs the
+    step; rank 0 traces it."""
+    step(ids)
+    torch.cuda.synchronize()
+    group.barrier()
+    if group.rank != 0:
+        step(ids)
+        torch.cuda.synchronize()
+        return None
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        t0 = time.perf_counter()
+        float(step(ids))
+        traced = time.perf_counter() - t0
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    events = sorted((e for e in prof.key_averages() if dev_us(e) > 0),
+                    key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in events) / 1e3
+    kinds = {"ring GEMM kernels": ("ring_gemm",),
+             "NCCL": ("nccl",), "flash kernels": ("flash_",),
+             "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "sm90_xmma",
+                              "Kernel2"),
+             "reductions": ("reduce",),
+             "elementwise": ("elementwise", "vectorized", "unrolled"),
+             "copies": ("copy", "Memcpy", "cat")}
+    by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
+    for e in events:
+        kind = next((k for k, pats in kinds.items()
+                     if any(p in e.key for p in pats)), "other")
+        by_kind[kind] += dev_us(e) / 1e3
+    say(f"[tp-profile] rank 0, one step: {traced * 1e3:.1f} ms host wall "
+        f"traced; device busy {busy:.1f} ms = {busy / (traced * 1e3):.1%}"
+        f" (NCCL kernels count while they wait for the peers)")
+    say(f"[tp-profile] device ms by kind: "
+        f"{json.dumps({k: round(v, 3) for k, v in by_kind.items()})}")
+    for e in events[:12]:
+        say(f"[tp-profile]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} calls  "
+            f"{e.key[:90]}")
+    return {"traced_ms": traced * 1e3, "busy_ms": busy, "by_kind": by_kind}
+
+
+def phase_tp_parity(group, seed, say):
+    """One fused step of a 2-layer copy at full width (B=2, S=2048) against
+    the one-card step on the same weights and ids (every rank computes
+    it): the loss and every gradient leaf, sharded leaves compared over
+    all ranks' shards, within phase 6's tolerances. Returns failures."""
+    cfg = train_config(num_layers=2)
+    dev = group.device
+    params = init_gpt_params(cfg, seed=seed + 1, device=dev,
+                             dtype=torch.bfloat16)
+    ids = torch.randint(0, cfg.vocab_size, (TP_PARITY_B, TRAIN_S),
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed + 4), device=dev)
+    step = tp_train_step(cfg, group, params=params)
+    loss, grads = step.loss_and_grads(ids)
+    loss = float(loss)
+    flat = {n: t.detach().clone().requires_grad_(True)
+            for n, t in flatten_params(params).items()}
+    ref_loss = gpt_loss(unflatten_params(flat), ids, cfg)
+    ref = dict(zip(flat, torch.autograd.grad(ref_loss, list(flat.values()))))
+    ref_loss = float(ref_loss.detach())
+    ref = unflatten_params(ref)
+    ref["blocks"] = tp_overlap.to_qkv_head_major(
+        ref["blocks"], cfg.hidden_size, cfg.num_heads)
+    ref = flatten_params(shard_params(ref, group.rank, group.n))
+    names = sorted(grads)
+    sq = torch.stack([torch.stack([(grads[n].float() - ref[n].float())
+                                   .square().sum(),
+                                   ref[n].float().square().sum()])
+                      for n in names])
+    sharded = torch.tensor([n not in step._replicated for n in names],
+                           device=dev)
+    total = group.all_reduce_(torch.where(sharded[:, None], sq, 0.0))
+    sq = torch.where(sharded[:, None], total, sq)
+    rel = {n: float(sq[i, 0].sqrt() / sq[i, 1].sqrt().clamp(min=1e-30))
+           for i, n in enumerate(names)}
+    worst = max(rel, key=rel.get)
+    say(f"[tp-parity] 2-layer {MODEL} width, B={TP_PARITY_B} S={TRAIN_S} "
+        f"bf16, mp={group.n} fused: loss {loss:.6f} vs the one-card step "
+        f"{ref_loss:.6f} (|diff| {abs(loss - ref_loss):.2e}); gradient "
+        f"leaves over all shards: max ||dg||/||g|| {rel[worst]:.3e} "
+        f"({worst}), median {sorted(rel.values())[len(rel) // 2]:.3e} "
+        f"(gates: loss {PARITY_LOSS_REL} rel, leaves {PARITY_GRAD_REL})")
+    failed = []
+    if not (np.isfinite(loss) and
+            abs(loss - ref_loss) <= PARITY_LOSS_REL * abs(ref_loss)):
+        failed.append(f"tp loss {loss} vs one-card {ref_loss}")
+    bad = {n: v for n, v in rel.items()
+           if not (np.isfinite(v) and v <= PARITY_GRAD_REL)}
+    if bad:
+        failed.append(f"tp gradient leaves off the one-card step: {bad}")
+    return failed
+
+
+def phase_tp_timing(group, gen, cfg, say):
+    """Each ring kernel at every main-path shape, per rank. With a card per
+    rank: the whole wrapper call (MP GEMM launches and MP - 1 NCCL hops)
+    by CUDA events over eager calls on every rank, its plain version, and
+    the library yardstick (row 7: ``all_gather_into_tensor`` + ``torch.mm``;
+    row 8: ``torch.mm`` + ``reduce_scatter_tensor``; row 9: the gathered
+    ``torch.mm(r^T, stat)``). With the ranks sharing one card (gloo hops
+    through host memory): the MP step GEMMs alone, one launch per step by
+    CUDA-graph replay on rank 0, against the plain version's and
+    ``torch.mm``'s products. Returns {(kernel, label): timings}."""
+    dev = group.device
+    per_card = group.backend == "nccl"
+    out = {}
+    for kernel, label, shapes, flag in tp_cases(cfg):
+        wrapper = dict((k, w) for k, w, _ in TP_KERNELS)[kernel]
+        a, b = _tp_inputs(gen, dev, kernel, shapes, flag)
+        t = {}
+        if per_card:
+            def run(fn, iters):
+                group.barrier()
+                return cuda_ms(fn, iters=iters, warmup=2)
+
+            bb = b.t() if flag and kernel != "ring_ag_accum" else b
+            if kernel == "ring_ag_gemm":
+                buf = a.new_empty((MP * a.shape[0] * a.shape[1], a.shape[2]))
+
+                def library():
+                    group.all_gather_into(buf, a.reshape(-1, a.shape[2]))
+                    torch.mm(buf, bb)
+            elif kernel == "ring_gemm_rs":
+                red = a.new_empty((a.shape[0] * a.shape[1] // MP,
+                                   bb.shape[1]))
+
+                def library():
+                    group.reduce_scatter_into(
+                        red, torch.mm(a.reshape(-1, a.shape[2]), bb))
+            else:
+                buf = a.new_empty((MP * a.shape[0] * a.shape[1], a.shape[2]))
+
+                def library():
+                    group.all_gather_into(buf, a.reshape(-1, a.shape[2]))
+                    torch.mm(buf.t(), b.reshape(-1, b.shape[2]))
+
+            k1 = run(lambda: _tp_call(kernel, wrapper, a, b, flag, group), 10)
+            p1 = run(lambda: _tp_call(kernel, TP_PLAIN[kernel], a, b, flag,
+                                      group), 3)
+            lib = run(library, 10)
+            k2 = run(lambda: _tp_call(kernel, wrapper, a, b, flag, group), 10)
+            t.update(ms=min(k1, k2), ms_runs=(k1, k2), plain_ms=p1,
+                     library_ms=lib, covers="call: MP GEMMs + hops")
+        elif group.rank == 0:
+            t.update(tp_gemm_only(kernel, a, b, flag))
+        group.barrier()
+        out[(kernel, label)] = t
+        if group.rank == 0:
+            say(f"[tp-timing] {kernel} {label}: " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in t.items()) + " ms")
+        del a, b
+    return out
+
+
+def tp_gemm_only(kernel, a, b, flag):
+    """One rank's MP step GEMMs of a call without its hops: the kernel's
+    step launch, the plain version's fp32 product and torch.mm, each by
+    CUDA-graph replay, times MP."""
+    dev = a.device
+    n = MP
+    if kernel == "ring_ag_gemm":
+        B, s, A = a.shape
+        F_ = b.shape[0] if flag else b.shape[1]
+        out = torch.empty((B, n * s, F_), dtype=a.dtype, device=dev)
+        mode = "NT" if flag else "NN"
+
+        def kern():
+            rg.launch(mode, rg._rows(a), rg._rows(b),
+                      rg._rows(out, 0, F_, n * s * F_, s), B * s, F_, A,
+                      True, None, dev)
+        x2, w2 = a.reshape(-1, A), (b.t() if flag else b)
+    elif kernel == "ring_gemm_rs":
+        B, S, F_ = a.shape
+        A = b.shape[0] if flag else b.shape[1]
+        s = S // n
+        acc = torch.empty((B * s, A), dtype=torch.float32, device=dev)
+        mode = "NT" if flag else "NN"
+
+        def kern():
+            rg.launch(mode, rg._rows(a, 0, F_, S * F_, s), rg._rows(b),
+                      rg._rows(acc, 0, A), B * s, A, F_, False,
+                      acc.data_ptr(), dev)
+        x2, w2 = a[:, :s].reshape(-1, F_), (b.t() if flag else b)
+    else:
+        B, s, A = a.shape
+        S, Bf = b.shape[1], b.shape[2]
+        M, N = (Bf, A) if flag else (A, Bf)
+        acc = torch.empty((M, N), dtype=torch.float32, device=dev)
+        ring, stat = rg._rows(a), rg._rows(b, 0, Bf, S * Bf, s)
+        pa, pb = (stat, ring) if flag else (ring, stat)
+
+        def kern():
+            rg.launch("TN", pa, pb, rg._rows(acc), M, N, B * s, False,
+                      acc.data_ptr(), dev)
+        r2, s2 = a.reshape(-1, A), b[:, :s].reshape(-1, Bf)
+        x2, w2 = (s2.t(), r2) if flag else (r2.t(), s2)
+    k1 = graph_ms(kern, iters=8)
+    p = graph_ms(lambda: x2.float() @ w2.float(), iters=2, replays=2)
+    lib = graph_ms(lambda: torch.mm(x2, w2), iters=8)
+    k2 = graph_ms(kern, iters=8)
+    return {"ms": n * min(k1, k2), "ms_runs": (n * k1, n * k2),
+            "plain_ms": n * p, "library_ms": n * lib,
+            "covers": "MP step GEMMs, no hops"}
+
+
+def tp_rank_main(group, seed):
+    """One rank of phase 10 (spawned by ``distributed.env.launch``): the
+    ring kernels against their plain versions, the main path (GPT-3 1.3B
+    at full depth with a card per rank; 2 layers on one card), the
+    profile (a card per rank), the 2-layer parity and the timings. Rank 0
+    prints; every rank returns its readings and failures."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    say = (lambda *a: print(*a, flush=True)) if group.rank == 0 else \
+        (lambda *a: None)
+    gen = torch.Generator(device=group.device).manual_seed(seed + 5)
+    cfg = GPT_CONFIGS[MODEL]
+    errs, failed = phase_tp_kernels(group, gen, seed, cfg, say)
+    out = {"rank": group.rank, "errs": errs}
+    per_card = group.backend == "nccl"
+    # the main path: full depth with a card per rank; on one card, where
+    # every hop goes through host memory, 2 layers and 1 + 2 steps
+    step, ids, out["train"], f = phase_tp_train(
+        group, seed, say, *(() if per_card else (2, 1, 2)))
+    failed += f
+    if per_card:
+        out["profile"] = phase_tp_profile(group, step, ids, say)
+    del step, ids
+    torch.cuda.empty_cache()
+    failed += phase_tp_parity(group, seed, say)
+    torch.cuda.empty_cache()
+    out["timing"] = phase_tp_timing(group, gen, cfg, say)
+    out["failed"] = failed
+    return out
+
+
+def phase_tp(seed):
+    """Phase 10 in MP spawned ranks (the layout from the card count), after
+    the parent has built every kernel. Fails on any rank's failure;
+    returns rank 0's readings and the layout."""
+    layout = mp_layout()
+    print(f"[tp] {MP} ranks, layout {layout}: "
+          + ("one rank per card, NCCL" if layout == "per_card" else
+             f"all on cuda:0 of {torch.cuda.device_count()} card(s), gloo")
+          + "; GPT-3 1.3B trained at mp=4 through the ring kernels",
+          flush=True)
+    t0 = time.perf_counter()
+    outs = env.launch(MP, tp_rank_main, seed, layout=layout, timeout_s=900)
+    print(f"[tp] the ranks ran in {time.perf_counter() - t0:.1f}s")
+    failed = [f"rank {o['rank']}: {f}" for o in outs for f in o["failed"]]
+    check(not failed, "tensor-parallel training failed:\n" +
+          "\n".join(failed))
+    return outs[0], layout
+
+
+def tp_rows(r0, layout, cfg):
+    """The ``kernels`` rows of rows 7-9, one per main-path shape, from rank
+    0's readings: launches from the main path's run at that shape (calls
+    times MP ring steps; on one card the 2-layer run); ms, plain and
+    library as ``phase_tp_timing`` took them (``covers`` says what)."""
+    per_card = layout == "per_card"
+    rows = []
+    replaces = {k: r for k, _, r in TP_KERNELS}
+    for kernel, label, shapes, flag in tp_cases(cfg):
+        t = r0["timing"][(kernel, label)]
+        bound, by = tp_bound(kernel, shapes, flag, per_card)
+        calls = r0["train"]["shapes"][kernel].get(
+            tp_shape_key(kernel, shapes, flag), 0)
+        rows.append({
+            "name": f"{kernel}[{label}]", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/ring_gemm.cu",
+            "replaces": replaces[kernel], "launches": calls * MP,
+            "max_abs_err": r0["errs"][(kernel, label)]["max_abs"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound,
+            "bound_by": by, "library_ms": t["library_ms"],
+            "covers": t["covers"]})
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1806,8 +2366,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     rows = [row] + quant_rows + phase_flash_timing(gen, dev, flash_errs,
                                                    counts)
+    torch.cuda.empty_cache()
+    tp_r0, tp_layout = phase_tp(args.seed)
     mp_kernels, collectives = mp_rows(mp_r0, layout, cfg)
-    return finish(rows + mp_kernels, collectives, t_start)
+    return finish(rows + mp_kernels + tp_rows(tp_r0, tp_layout, cfg),
+                  collectives, t_start)
 
 
 def finish(rows, collectives, t_start):

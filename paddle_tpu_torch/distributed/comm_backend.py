@@ -1,6 +1,7 @@
 """Per-axis collective-schedule selection, ``FLAGS_comm_backend``
-(counterpart of ``paddle_tpu/distributed/comm_backend.py:54-110``; the
-serving part: ``parse``, ``requested``, ``serving_requested``).
+(counterpart of ``paddle_tpu/distributed/comm_backend.py:54-110`` and
+``tp_overlap.py:76-98``: ``parse``, ``requested``, ``serving_requested``,
+``train_requested``).
 
 ``FLAGS_comm_backend`` is a comma-separated ``axis=backend`` list
 (``"mp=fused,dp=ring"``); a bare backend name applies to every axis. The
@@ -8,7 +9,7 @@ backends are the rungs of one schedule: ``gspmd`` (whole collectives),
 ``ring`` (n - 1 point-to-point hops) and ``fused`` (the hand-written
 kernels of ``ops/fused_collectives.py``). Unknown backends warn once and
 are dropped, as in the reference. The dp and pp axes' schedules come with
-the training slices (ROADMAP Queue A 11).
+later slices (ROADMAP Queue A 11).
 """
 from __future__ import annotations
 
@@ -67,6 +68,26 @@ def requested(axis):
     """The backend ``FLAGS_comm_backend`` names for ``axis``, or None."""
     return parse(get_flags("FLAGS_comm_backend")["FLAGS_comm_backend"]
                  ).get(axis)
+
+
+def train_requested():
+    """The training step's mp rung from the flags, as the reference's
+    ``tp_overlap.mp_backend_requested`` resolves it: None (no explicit
+    schedule), 'rsag' (sequence-parallel layout, whole reduce-scatters and
+    all-gathers), 'ring' (n - 1 point-to-point hops) or 'fused' (the
+    hand-written kernels of ``ops/ring_gemm.py``). Naming mp=ring or
+    mp=fused in ``FLAGS_comm_backend`` implies the sequence-parallel
+    layout; mp=gspmd keeps it only under ``FLAGS_sequence_parallel``."""
+    flags = get_flags(["FLAGS_sequence_parallel", "FLAGS_mp_overlap"])
+    sp = bool(flags["FLAGS_sequence_parallel"])
+    req = requested("mp")
+    if req is None:
+        if not sp:
+            return None
+        return "ring" if flags["FLAGS_mp_overlap"] else "rsag"
+    if req == "gspmd":
+        return "rsag" if sp else None
+    return req
 
 
 def serving_requested():

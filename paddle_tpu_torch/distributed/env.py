@@ -1,13 +1,15 @@
-"""Process groups for tensor-parallel serving (counterpart of
+"""Process groups for tensor parallelism (counterpart of
 ``paddle_tpu/distributed/env.py``'s ``create_single_axis_mesh`` and of
 ``serving/mp_forward.py:396`` ``replica_mesh``).
 
 The reference is single-controller: one process drives every chip through
 a 1-D ``('mp',)`` mesh. The port is SPMD in PyTorch's idiom: one process
 per rank, each running the same program on its own shards, joined by a
-``torch.distributed`` process group. ``MPGroup`` is what the serving code
-holds: the group, this rank, the degree, the device and the few
-collectives the gather-only schedule uses.
+``torch.distributed`` process group. ``MPGroup`` is what the serving
+engine and the training step hold: the group, this rank, the degree, the
+device and the few collectives their schedules use (all-gathers and ring
+hops for serving; also all-reduces, reduce-scatters and ring hops posted
+ahead of a GEMM for training).
 
 Layouts (the caller chooses; nothing here falls back from one to another):
 
@@ -16,7 +18,8 @@ Layouts (the caller chooses; nothing here falls back from one to another):
   machine with fewer cards than ranks (NCCL refuses two ranks on one
   card). gloo's all-gathers take the CUDA tensors as they are (they copy
   through host memory inside gloo; checked on an H100 with torch 2.11);
-  its broadcast and point-to-point ops are given host copies here;
+  its broadcast, all-reduce, reduce-scatter and point-to-point ops are
+  given host copies here;
 * ``"per_card"``: rank r on ``cuda:r``, NCCL; needs a card per rank.
 
 ``launch(n, fn, *args, layout=...)`` spawns the ranks, each of which runs
@@ -72,18 +75,50 @@ class MPGroup:
         dist.all_gather(outs, inp)
         return outs
 
-    def ring_shift(self, send):
+    def ring_shift(self, send, reverse=False):
         """One ring hop: send ``send`` to rank + 1, return what rank - 1
-        sent (same shape and dtype)."""
-        right, left = (self.rank + 1) % self.n, (self.rank - 1) % self.n
+        sent (same shape and dtype); ``reverse`` hops the other way."""
+        return self.ring_shift_async(send, reverse).wait()
+
+    def ring_shift_async(self, send, reverse=False):
+        """Post one ring hop (as ``ring_shift``) and return its
+        ``RingHop`` at once; ``.wait()`` gives the received tensor. Under
+        NCCL the hop runs on NCCL's stream while the caller's stream goes
+        on (a GEMM launched now overlaps it), and ``wait`` makes the
+        caller's current stream wait for the receive. The hop holds its
+        send and receive buffers until it has been waited on."""
+        step = -1 if reverse else 1
+        right, left = (self.rank + step) % self.n, (self.rank - step) % self.n
         staged = self.stage_host
         src = send.cpu() if staged else send.contiguous()
         recv = torch.empty(src.shape, dtype=src.dtype, device=src.device)
         ops = [dist.P2POp(dist.isend, src, right),
                dist.P2POp(dist.irecv, recv, left)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return recv.to(self.device) if staged else recv
+        return RingHop(dist.batch_isend_irecv(ops), src, recv,
+                       self.device if staged else None)
+
+    # -- the collectives of the training schedule --------------------------
+    def all_reduce_(self, t, op="sum"):
+        """``t`` summed (or ``op="max"``: the maximum) over the ranks, in
+        place; returned."""
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        if self.stage_host:
+            host = t.cpu()
+            dist.all_reduce(host, red)
+            return t.copy_(host)
+        dist.all_reduce(t, red)
+        return t
+
+    def reduce_scatter_into(self, out, inp):
+        """``out`` [rows, ...] <- the sum over the ranks of block ``rank``
+        of every rank's ``inp`` [n * rows, ...] (blocks concatenated along
+        dim 0)."""
+        if self.stage_host:
+            host = torch.empty(out.shape, dtype=out.dtype)
+            _reduce_scatter(host, inp.cpu())
+            return out.copy_(host)
+        _reduce_scatter(out, inp.contiguous())
+        return out
 
     def broadcast(self, t, src=0):
         """``t`` from rank ``src`` on every rank (in place, returned)."""
@@ -100,6 +135,27 @@ class MPGroup:
             dist.barrier(device_ids=[self.device.index])
         else:
             dist.barrier()
+
+
+# the library's reduce-scatter into one tensor (torch >= 2.12 names it
+# reduce_scatter_single and deprecates the older name)
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+
+
+class RingHop:
+    """One posted ring hop (``MPGroup.ring_shift_async``)."""
+
+    def __init__(self, works, send, recv, to_device):
+        self._works, self._send, self._recv = works, send, recv
+        self._to = to_device          # gloo over CUDA: the host copy goes back
+
+    def wait(self):
+        for w in self._works:
+            w.wait()
+        recv = self._recv
+        self._works = self._send = self._recv = None
+        return recv.to(self._to) if self._to is not None else recv
 
 
 def init_mp_group(rank, n, init_file, layout="cpu", timeout_s=300):

@@ -1,7 +1,7 @@
 """Runtime flags the port reads (counterpart of ``paddle_tpu/flags.py``).
 
-Only the serving defaults the paged engine reads exist here, with the
-reference's values; flags of later slices are added with the code that
+Only the flags the ported slices read exist here (the serving defaults
+and the tensor-parallel schedules), with the reference's values; flags of later slices are added with the code that
 reads them. ``set_flags`` refuses names it does not know, so a flag meant
 for an unported feature cannot be set and silently ignored.
 """
@@ -38,8 +38,15 @@ _FLAGS = {
     "FLAGS_serving_quant_kernel": True,
     # Collective schedule per mesh axis, "axis=backend,..." or a bare
     # backend for every axis (distributed/comm_backend.py). Serving reads
-    # the mp axis: "gspmd" (default), "ring" or "fused".
+    # the mp axis: "gspmd" (default), "ring" or "fused"; the training step
+    # too (comm_backend.train_requested: "ring"/"fused" imply the
+    # sequence-parallel layout).
     "FLAGS_comm_backend": "",
+    # Training tensor parallelism: activations between blocks seq-sharded,
+    # each block's all-reduces as reduce-scatter + all-gather ("rsag");
+    # with FLAGS_mp_overlap, ring-decomposed ("ring").
+    "FLAGS_sequence_parallel": False,
+    "FLAGS_mp_overlap": False,
 }
 
 

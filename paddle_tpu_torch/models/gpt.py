@@ -79,20 +79,25 @@ def ln_fp32(x, g, b, eps):
         + b.to(x.dtype)
 
 
+def attention(q, k, v, config):
+    """Causal attention over [B, S, nh, d] q, k, v (strided views are
+    fine): the flash kernels when ``config.use_flash`` (their plain
+    versions for CPU tensors), else the plain blockwise attention."""
+    if config.use_flash:
+        return flash_attention_bshd(q, k, v, causal=True)
+    return blockwise_attention(q, k, v, causal=True)
+
+
 def gpt_block_fn(config):
     """(p, x) -> x of one pre-LN block over x [B, S, H]: fp32 LayerNorm,
-    qkv GEMM, causal attention (the flash kernels when
-    ``config.use_flash``, their plain versions for CPU tensors; else the
-    plain blockwise attention), out GEMM, fp32 LayerNorm, tanh-GELU MLP,
-    with the residual ``x + (gact @ down_w + down_b)``."""
-    if config.qkv_head_major:
-        raise NotImplementedError(
-            "qkv_head_major (the training tensor-parallel layout) comes "
-            "with the training tensor-parallel slice (ROADMAP Queue A item "
-            "11); serving permutes its own shards head-major "
-            "(serving/mp_forward.py)")
+    qkv GEMM, causal attention (``attention``), out GEMM, fp32 LayerNorm,
+    tanh-GELU MLP, with the residual ``x + (gact @ down_w + down_b)``.
+    With ``config.qkv_head_major`` the qkv columns are stored head-major,
+    [nh, 3, d] (``distributed.tp_overlap.to_qkv_head_major``), and read
+    so: a relabeling, the same function bit for bit."""
     nh = config.num_heads
     eps = config.layer_norm_epsilon
+    head_major = config.qkv_head_major
 
     def block(p, x):
         B, S, H = x.shape
@@ -101,11 +106,11 @@ def gpt_block_fn(config):
         qkv = h1 @ p["qkv_w"].to(dt) + p["qkv_b"].to(dt)
         # unbind: strided views the flash kernels read in place, whose
         # backward is one stack into d(qkv)
-        q, k, v = qkv.view(B, S, 3, nh, H // nh).unbind(2)
-        if config.use_flash:
-            ctx = flash_attention_bshd(q, k, v, causal=True)
+        if head_major:
+            q, k, v = qkv.view(B, S, nh, 3, H // nh).unbind(3)
         else:
-            ctx = blockwise_attention(q, k, v, causal=True)
+            q, k, v = qkv.view(B, S, 3, nh, H // nh).unbind(2)
+        ctx = attention(q, k, v, config)
         x = x + (ctx.reshape(B, S, H) @ p["out_w"].to(dt) + p["out_b"].to(dt))
         h2 = ln_fp32(x, p["ln2_g"], p["ln2_b"], eps)
         up = F.gelu(h2 @ p["up_w"].to(dt) + p["up_b"].to(dt),

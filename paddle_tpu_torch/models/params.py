@@ -139,3 +139,73 @@ def layer_params(params):
     blocks = params["blocks"]
     L = blocks["qkv_w"].shape[0]
     return [{k: v[i] for k, v in blocks.items()} for i in range(L)]
+
+
+def gpt_param_specs(config=None):
+    """The sharded dim of every leaf under tensor parallelism (None:
+    replicated), the reference's ``gpt_param_specs(zero_stage=1, pp=1)``
+    (``gpt_hybrid.py:81-111``): ``wte`` vocab rows and ``head_w`` vocab
+    columns over mp; per block the qkv and up projections (and their
+    biases) by columns, out and down by rows, on the stacked [L, ...]
+    leaves one dim later; LayerNorms, the row-parallel biases, ``wpe``
+    and ``lnf_*`` replicated."""
+    from ..distributed.tp_overlap import SP_BLOCK_PARAM_SPECS
+    return {"wte": 0, "wpe": None, "lnf_g": None, "lnf_b": None,
+            "head_w": 1,
+            "blocks": {k: None if d is None else d + 1
+                       for k, d in SP_BLOCK_PARAM_SPECS.items()}}
+
+
+def _leaves(tree):
+    yield from ((k, v) for k, v in tree.items() if k != "blocks")
+    yield from ((("blocks", k), v) for k, v in tree["blocks"].items())
+
+
+def _put(tree, key, value):
+    if isinstance(key, tuple):
+        tree.setdefault("blocks", {})[key[1]] = value
+    else:
+        tree[key] = value
+
+
+def _spec(specs, key):
+    return specs["blocks"][key[1]] if isinstance(key, tuple) else specs[key]
+
+
+def shard_params(params, rank, n):
+    """Rank ``rank``'s shards of a full tree for an ``n``-rank group
+    (``gpt_param_specs``): each sharded leaf's 1/n block along its dim,
+    replicated leaves as they are (views of ``params``, not copies; a
+    block is made contiguous where it is not). The qkv leaves must
+    be head-major already (``tp_overlap.to_qkv_head_major``), so that a
+    block of columns is whole heads."""
+    specs = gpt_param_specs()
+    out = {}
+    for key, t in _leaves(params):
+        d = _spec(specs, key)
+        if d is not None:
+            if t.shape[d] % n:
+                raise ValueError(f"param {key} dim {d} ({t.shape[d]}) is "
+                                 f"not divisible by {n}")
+            w = t.shape[d] // n
+            t = t.narrow(d, rank * w, w).contiguous()
+        _put(out, key, t)
+    return out
+
+
+def gather_params(shards, n):
+    """The full tree from the ``n`` ranks' shards (a list in rank order):
+    sharded leaves concatenated along their dim, replicated leaves from
+    rank 0. Inverse of ``shard_params``."""
+    if len(shards) != n:
+        raise ValueError(f"need {n} shards, got {len(shards)}")
+    specs = gpt_param_specs()
+    out = {}
+    for key, t in _leaves(shards[0]):
+        d = _spec(specs, key)
+        if d is not None:
+            parts = [s[key[0]][key[1]] if isinstance(key, tuple) else s[key]
+                     for s in shards]
+            t = torch.cat(parts, dim=d)
+        _put(out, key, t)
+    return out

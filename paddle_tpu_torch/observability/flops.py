@@ -42,8 +42,10 @@ def train_step_flops(cfg, batch, seq_len):
     return fpt * batch * seq_len, n_params
 
 
-def mfu(flops, wall_s, peak_flops):
-    """Achieved / peak; None when any input is missing or degenerate."""
-    if not flops or not wall_s or not peak_flops:
+def mfu(flops, wall_s, peak_flops, cards=1):
+    """Achieved / peak over ``cards`` cards (a tensor-parallel step's whole
+    model FLOPs over its step time on n cards: ``flops / (wall_s * n *
+    peak)``); None when any input is missing or degenerate."""
+    if not flops or not wall_s or not peak_flops or not cards:
         return None
-    return (flops / wall_s) / peak_flops
+    return (flops / wall_s) / (peak_flops * cards)

@@ -1,6 +1,23 @@
-"""Fused GEMM + all-gather for tensor-parallel serving (counterpart of
-``paddle_tpu/ops/pallas_kernels/fused_collectives.py:409-728`` and its
+"""Fused GEMM + collective ops for tensor parallelism (counterpart of
+``paddle_tpu/ops/pallas_kernels/fused_collectives.py:409-779`` and its
 ``gemm_ag_reference``, :1014).
+
+Training (sequence parallelism): ``fused_ag_gemm`` and ``fused_gemm_rs``,
+the differentiable ring all-gather + GEMM (ColumnParallel forward) and
+GEMM + ring reduce-scatter (RowParallel forward) of
+``fused_collectives.py:731-779``. Each one's backward is the other's
+kernel plus the ring weight-gradient kernel (``ops/ring_gemm.py``):
+
+* ``fused_ag_gemm(x, w)``: ``dx = gemm_rs(g, w^T)``, ``dw = ag_accum(x,
+  g)``;
+* ``fused_gemm_rs(y, w)``: ``dy = ag_gemm(g, w^T)``, ``dw = ag_accum(g,
+  y)^T``.
+
+The forward saves the seq shard x (not the gathered sequence), and the
+backward rings it again, as the TPU kernel does. CPU tensors take the
+plain versions; CUDA tensors the kernels, or raise.
+
+Serving:
 
 Replaces three TPU kernels:
 
@@ -54,6 +71,7 @@ import torch
 
 from ..models.generation import _proj
 from . import quant_gemm as _qg
+from . import ring_gemm as _rg
 
 # the kernel against its plain version: quant_gemm's readings and
 # tolerances, per element relative to (|plain| + the row's rms) and per
@@ -193,3 +211,53 @@ fused_gemm_ag.launches = 0
 fused_gemm_ag.shapes = collections.Counter()
 fused_ag_bucket.launches = 0
 fused_ag_bucket.shapes = collections.Counter()
+
+
+# ------------------------------------------------- training (rows 7 - 9)
+class _FusedAgGemm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.save_for_backward(x, w)
+        ctx.group = group
+        return _rg.ring_ag_gemm(x.contiguous(), w, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = _rg.ring_gemm_rs(g, w, ctx.group, transpose_w=True)
+        dw = _rg.ring_ag_accum(x.contiguous(), g, ctx.group).to(w.dtype)
+        return dx, dw, None
+
+
+class _FusedGemmRs(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, y, w, group):
+        ctx.save_for_backward(y, w)
+        ctx.group = group
+        return _rg.ring_gemm_rs(y.contiguous(), w, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w = ctx.saved_tensors
+        g = g.contiguous()
+        dy = _rg.ring_ag_gemm(g, w, ctx.group, transpose_w=True)
+        dw = _rg.ring_ag_accum(g, y.contiguous(), ctx.group,
+                               transpose=True).to(w.dtype)
+        return dy, dw, None
+
+
+def fused_ag_gemm(x, w, group):
+    """ColumnParallel forward: the seq shard x [B, s, A] all-gathered over
+    the ring while each chunk is GEMMed with the column shard w [A, F]:
+    [B, n*s, F] (differentiable)."""
+    return _FusedAgGemm.apply(x, w, group)
+
+
+def fused_gemm_rs(y, w, group):
+    """RowParallel forward: the partial y [B, S, F] GEMMed with the row shard
+    w [F, A] and reduce-scattered over the ring in fp32: this rank's seq
+    shard [B, S/n, A] (differentiable)."""
+    return _FusedGemmRs.apply(y, w, group)

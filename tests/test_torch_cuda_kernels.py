@@ -574,3 +574,42 @@ def test_fused_engine_serves_an_fp32_head_on_card(cuda_device, tmp_path):
     got = outs[0]["logits"]
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() <= 0.05 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_ring_kernels_match_plain_on_card(cuda_device, tmp_path):
+    """The ring all-gather + GEMM, GEMM + ring reduce-scatter and ring
+    weight-gradient kernels (``ops/ring_gemm.py``), each plain and with its
+    weight read transposed, against their plain versions on two ranks
+    sharing the card over gloo: per element and per 128-row tile, at a
+    shape with ragged tiles and one of several tiles; n launches per
+    call."""
+    import torch_tp_train_ranks as ranks
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.ops import ring_gemm
+    ring_gemm.build()            # once, here: the ranks only load it
+    outs = env.launch(2, ranks.card_kernels, 3, layout="shared",
+                      timeout_s=300, init_dir=tmp_path)
+    calls = 2 * len(ranks.CARD_SHAPES)       # plain and transposed
+    for o in outs:
+        for case, readings, ok in o["readings"]:
+            assert ok, (case, readings)
+        for name in ("ring_ag_gemm", "ring_gemm_rs", "ring_ag_accum"):
+            assert o["counts"][name] == (calls, 2 * calls), name
+
+
+@pytest.mark.cuda
+def test_ring_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
+    """fp32 operands, a width that is not a multiple of 16 and a
+    non-contiguous operand raise (one rank: nothing reaches a hop)."""
+    from paddle_tpu_torch.ops import ring_gemm
+    group = _StubGroup(2, 0)
+    x = torch.zeros(2, 16, 64, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros(64, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not bfloat16"):
+        ring_gemm.ring_ag_gemm(x.float(), w.float(), group)
+    with pytest.raises(ValueError, match="columns 40 not a multiple of 16"):
+        ring_gemm.ring_ag_gemm(x, torch.zeros_like(w[:, :8]).repeat(1, 5),
+                               group)
+    with pytest.raises(ValueError, match="not contiguous"):
+        ring_gemm.ring_ag_gemm(x.transpose(0, 1), w, group)

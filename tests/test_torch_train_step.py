@@ -11,6 +11,7 @@ gradient leaf (fp32, summation order only); 1e-4 relative per step on the
 10-step loss trajectory.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ from paddle_tpu.models.gpt_hybrid import gpt_hidden as jax_gpt_hidden
 from paddle_tpu.nn.clip import ClipGradByGlobalNorm as JaxGlobalNorm
 from paddle_tpu.ops.fused_ce import fused_lm_loss as jax_fused_lm_loss
 from paddle_tpu.optimizer import AdamW as JaxAdamW
+from paddle_tpu_torch.distributed.tp_overlap import to_qkv_head_major
 from paddle_tpu_torch.models import params_from_numpy
 from paddle_tpu_torch.models.gpt_hybrid import (HybridTrainStep,
                                                 flatten_params, gpt_forward,
@@ -150,13 +152,23 @@ def test_unported_step_options_raise(kwargs, match):
 
 
 def test_unknown_remat_policy_and_head_major_qkv_raise():
+    """An unknown remat policy raises. Head-major qkv storage is ported (the
+    same hidden states bit for bit on the permuted params); what raises
+    is a tensor-parallel schedule over logical storage, where a column
+    shard would not be whole heads."""
     ids = torch.zeros(1, 8, dtype=torch.long)
     with pytest.raises(ValueError, match="unknown remat_policy"):
         gpt_hidden(torch_params(), ids,
                    dataclasses.replace(TCFG, remat_policy="bogus"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gpt_hidden(torch_params(), ids,
-                   dataclasses.replace(TCFG, qkv_head_major=True))
+    params = torch_params()
+    hm = dict(params, blocks=to_qkv_head_major(
+        params["blocks"], TCFG.hidden_size, TCFG.num_heads))
+    assert torch.equal(
+        gpt_hidden(hm, ids, dataclasses.replace(TCFG, qkv_head_major=True)),
+        gpt_hidden(params, ids, TCFG))
+    two_ranks = types.SimpleNamespace(n=2, rank=0)
+    with pytest.raises(ValueError, match="head-major"):
+        gpt_hidden(params, ids, TCFG, group=two_ranks, comm_backend="rsag")
 
 
 def test_step_defaults_to_the_card():
