@@ -49,12 +49,16 @@
 // overlap, no extra pass over the partials.
 //
 // Design of the GEMM: a 128 x 128 output tile per block of 8 warps (each
-// warp 64 x 32), k steps of 32, a two-stage cp.async ring of shared-memory
-// tiles (the next step's tiles load while this one computes), fragments by
-// ldmatrix (.trans for a k-major operand), mma.sync m16n8k16 bf16 with fp32
-// accumulators (the fragment layouts of quant_gemm.cu). wgmma, TMA, a
-// deeper ring, split k for the few-tile weight gradients, and an NVLink
-// design whose epilogue stores into the peers' buffers are later work.
+// warp 64 x 32), k steps of 32, a four-stage cp.async ring of shared-memory
+// tiles (80 KB of dynamic shared memory, two blocks an SM: three k steps
+// load while one computes), fragments by ldmatrix (.trans for a k-major
+// operand), mma.sync m16n8k16 bf16 with fp32 accumulators (the fragment
+// layouts of quant_gemm.cu). The row map's division is done once per
+// thread: a load walks its k rows with a cursor. This PR's first version
+// (two stages, the division in the loop) ran these GEMMs at 110-185
+// TFLOP/s, this one at 190-280 (PERF.md). wgmma, TMA, split k for the
+// few-tile weight gradients, and an NVLink design whose epilogue stores
+// into the peers' buffers are later work.
 //
 // Built by paddle_tpu_torch/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -75,6 +79,8 @@ constexpr int kPad = 8;                        // bf16 elements added to a row
 constexpr int kTileElems = kBM * (kBK + kPad);  // the larger of a tile's two
                                                 // shared layouts
 static_assert(kBK * (kBN + kPad) <= kTileElems, "tile layout");
+constexpr int kStages = 4;                      // the cp.async ring
+constexpr int kSmemBytes = kStages * 2 * kTileElems * 2;   // 81,920
 
 // operand modes: A [M, K] or its k-major storage, B [K, N] or [N, K]
 constexpr int kNN = 0;   // A row-major [M][K], B row-major [K][N]
@@ -93,6 +99,26 @@ struct RowMap {
 __device__ __forceinline__ long long row_off(const RowMap& m, int r) {
   return static_cast<long long>(r / m.rpb) * m.bstride +
          static_cast<long long>(r % m.rpb) * m.ld;
+}
+
+// the offset of storage row r and its place in its batch, moved kBK rows
+// on by `advance`
+struct Cursor {
+  long long off;
+  int rem;
+};
+
+__device__ __forceinline__ Cursor cursor_at(const RowMap& m, int r) {
+  return Cursor{row_off(m, r), r % m.rpb};
+}
+
+__device__ __forceinline__ void advance(Cursor& c, const RowMap& m) {
+  c.off += kBK * m.ld;
+  c.rem += kBK;
+  while (c.rem >= m.rpb) {
+    c.rem -= m.rpb;
+    c.off += m.bstride - static_cast<long long>(m.rpb) * m.ld;
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -158,7 +184,8 @@ __global__ void __launch_bounds__(kThreads)
 ring_gemm_tile_kernel(const __nv_bfloat16* a, RowMap am,
                       const __nv_bfloat16* b, RowMap bm, void* c, RowMap cm,
                       const float* addend, int M, int N, int K) {
-  __shared__ __align__(16) __nv_bfloat16 smem[2][2][kTileElems];
+  // kStages x {A tile, B tile}, dynamic: above the 48 KB of static memory
+  extern __shared__ __align__(16) __nv_bfloat16 smem[];
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -179,48 +206,68 @@ ring_gemm_tile_kernel(const __nv_bfloat16* a, RowMap am,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
-  // each tile is 4096 bf16 = 512 chunks of 16 bytes, two a thread
-  auto load = [&](int stage, int k0) {
-    __nv_bfloat16* As = smem[stage][0];
-    __nv_bfloat16* Bs = smem[stage][1];
+  // each tile is 4096 bf16 = 512 chunks of 16 bytes, two a thread. A
+  // chunk whose storage row is fixed (an m row of A [M][K], an n row of B
+  // [N][K]) has its row's offset computed once; a chunk on a k row (A
+  // [K][M], B [K][N]) walks the k rows with a cursor, kBK rows a load:
+  // no integer division in the loop
+  long long fixed_a[2], fixed_b[2];
+  Cursor ka[2], kb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int ch = tid + i * kThreads;
+    if constexpr (MODE == kTN) ka[i] = cursor_at(am, ch / 16);
+    else fixed_a[i] = row0 + ch / 4 < M ? row_off(am, row0 + ch / 4) : 0;
+    if constexpr (MODE == kNT)
+      fixed_b[i] = col0 + ch / 4 < N ? row_off(bm, col0 + ch / 4) : 0;
+    else kb[i] = cursor_at(bm, ch / 16);
+  }
+  auto load = [&](int stage, int k0) {      // k steps in order, from 0
+    __nv_bfloat16* As = smem + stage * 2 * kTileElems;
+    __nv_bfloat16* Bs = As + kTileElems;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int ch = tid + i * kThreads;
       if constexpr (MODE == kTN) {          // A stored [K][M]: 32 x 128
         const int k = ch / 16, m = (ch % 16) * 8;
         const bool ok = k0 + k < K && row0 + m < M;
-        cp_async16(&As[k * kLdA + m],
-                   ok ? a + row_off(am, k0 + k) + row0 + m : a, ok);
+        cp_async16(&As[k * kLdA + m], ok ? a + ka[i].off + row0 + m : a, ok);
+        advance(ka[i], am);
       } else {                              // A [M][K]: 128 x 32
         const int m = ch / 4, k = (ch % 4) * 8;
         const bool ok = row0 + m < M && k0 + k < K;
-        cp_async16(&As[m * kLdA + k],
-                   ok ? a + row_off(am, row0 + m) + k0 + k : a, ok);
+        cp_async16(&As[m * kLdA + k], ok ? a + fixed_a[i] + k0 + k : a, ok);
       }
       if constexpr (MODE == kNT) {          // B stored [N][K]: 128 x 32
         const int n = ch / 4, k = (ch % 4) * 8;
         const bool ok = col0 + n < N && k0 + k < K;
-        cp_async16(&Bs[n * kLdB + k],
-                   ok ? b + row_off(bm, col0 + n) + k0 + k : b, ok);
+        cp_async16(&Bs[n * kLdB + k], ok ? b + fixed_b[i] + k0 + k : b, ok);
       } else {                              // B [K][N]: 32 x 128
         const int k = ch / 16, n = (ch % 16) * 8;
         const bool ok = k0 + k < K && col0 + n < N;
-        cp_async16(&Bs[k * kLdB + n],
-                   ok ? b + row_off(bm, k0 + k) + col0 + n : b, ok);
+        cp_async16(&Bs[k * kLdB + n], ok ? b + kb[i].off + col0 + n : b, ok);
+        advance(kb[i], bm);
       }
     }
   };
 
+  // a ring of kStages tiles: kStages - 1 k steps in flight while one is
+  // computed; one (possibly empty) commit group per k step keeps the
+  // wait count uniform
   const int nk = (K + kBK - 1) / kBK;
-  load(0, 0);
-  cp_async_commit();
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nk) load(st, st * kBK);
+    cp_async_commit();
+  }
   for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) & 1, (kt + 1) * kBK);
-    cp_async_commit();                      // possibly empty: uniform count
-    cp_async_wait<1>();                     // this step's tiles have landed
-    __syncthreads();
-    const __nv_bfloat16* As = smem[kt & 1][0];
-    const __nv_bfloat16* Bs = smem[kt & 1][1];
+    cp_async_wait<kStages - 2>();           // this step's tiles have landed
+    __syncthreads();                        // and step kt-1's stage is free
+    const int next = kt + kStages - 1;
+    if (next < nk) load(next % kStages, next * kBK);
+    cp_async_commit();
+    const __nv_bfloat16* As = smem + (kt % kStages) * 2 * kTileElems;
+    const __nv_bfloat16* Bs = As + kTileElems;
     const int i = lane >> 3, r = lane & 7;
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
@@ -251,7 +298,6 @@ ring_gemm_tile_kernel(const __nv_bfloat16* a, RowMap am,
         }
       }
     }
-    __syncthreads();                        // the stage is free to refill
   }
 
   // epilogue: v = addend + part in fp32 (the reference's recv + part), one
@@ -290,8 +336,19 @@ template <int MODE, bool OUT_BF16>
 cudaError_t launch(const void* a, RowMap am, const void* b, RowMap bm,
                    void* c, RowMap cm, const void* addend, int M, int N,
                    int K, cudaStream_t s) {
+  static bool opted_in[64] = {};            // above 48 KB: opt in once
+  int dev = 0;                              // per device
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !opted_in[dev]) {
+    err = cudaFuncSetAttribute(ring_gemm_tile_kernel<MODE, OUT_BF16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) opted_in[dev] = true;
+  }
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  ring_gemm_tile_kernel<MODE, OUT_BF16><<<grid, kThreads, 0, s>>>(
+  ring_gemm_tile_kernel<MODE, OUT_BF16><<<grid, kThreads, kSmemBytes, s>>>(
       static_cast<const __nv_bfloat16*>(a), am,
       static_cast<const __nv_bfloat16*>(b), bm, c, cm,
       static_cast<const float*>(addend), M, N, K);
