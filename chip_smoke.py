@@ -1765,6 +1765,7 @@ TP_KERNELS = (  # (kernel, wrapper, TPU kernel it replaces)
     ("ring_ag_accum", rg.ring_ag_accum,
      "paddle_tpu/ops/pallas_kernels/fused_collectives.py:307"),
 )
+TP_WRAPPERS = {name: wrapper for name, wrapper, _ in TP_KERNELS}
 TP_PLAIN = {"ring_ag_gemm": rg.ag_gemm_plain, "ring_gemm_rs": rg.gemm_rs_plain,
             "ring_ag_accum": rg.ag_accum_plain}
 TP_PARITY_B = 2             # the 2-layer copy's batch (phase 6's)
@@ -1891,7 +1892,7 @@ def phase_tp_kernels(group, gen, seed, cfg, say):
     own = torch.Generator(device=dev).manual_seed(seed + 2000 + group.rank)
     errs, failed = {}, []
     for kernel, label, shapes, flag in tp_cases(cfg):
-        wrapper = dict((k, w) for k, w, _ in TP_KERNELS)[kernel]
+        wrapper = TP_WRAPPERS[kernel]
         a, b = _tp_inputs(own, dev, kernel, shapes, flag)
         if kernel == "ring_ag_gemm":
             _, b = _tp_inputs(gen, dev, kernel, shapes, flag)
@@ -2124,7 +2125,7 @@ def phase_tp_timing(group, gen, cfg, say):
     per_card = group.backend == "nccl"
     out = {}
     for kernel, label, shapes, flag in tp_cases(cfg):
-        wrapper = dict((k, w) for k, w, _ in TP_KERNELS)[kernel]
+        wrapper = TP_WRAPPERS[kernel]
         a, b = _tp_inputs(gen, dev, kernel, shapes, flag)
         t = {}
         if per_card:

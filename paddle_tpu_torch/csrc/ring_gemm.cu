@@ -54,9 +54,9 @@
 // load while one computes), fragments by ldmatrix (.trans for a k-major
 // operand), mma.sync m16n8k16 bf16 with fp32 accumulators (the fragment
 // layouts of quant_gemm.cu). The row map's division is done once per
-// thread: a load walks its k rows with a cursor. This PR's first version
-// (two stages, the division in the loop) ran these GEMMs at 110-185
-// TFLOP/s, this one at 190-280 (PERF.md). wgmma, TMA, split k for the
+// thread: a load walks its k rows with a cursor. With two stages and the
+// division in the loop the same GEMMs ran at 55-188 TFLOP/s on an H100,
+// with these changes at 111-284 (PERF.md). wgmma, TMA, split k for the
 // few-tile weight gradients, and an NVLink design whose epilogue stores
 // into the peers' buffers are later work.
 //

@@ -226,7 +226,7 @@ def _check(what, ts, M, N, K):
     if dev.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {dev}")
     why = unsupported_reason(M, N, K, ts[0].dtype)
-    for name, t in zip("xw", ts):
+    for t in ts:
         if t.device != dev:
             raise ValueError(f"{what}: operands on {dev} and {t.device}")
         if t.dtype != ts[0].dtype:

@@ -15,7 +15,7 @@ from paddle_tpu_torch.ops import ring_gemm as rg
 from paddle_tpu_torch.optimizer import AdamW
 
 # the reference's own tensor-parallel test config (tests/test_tp_overlap.py
-# _mini_cfg) at the issue's batch: B=4, S=32
+# _mini_cfg), run at B=4, S=32
 CFG_KW = dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
               max_seq_len=64, dropout=0.0, use_flash=False,
               compute_dtype="float32", remat=True)
