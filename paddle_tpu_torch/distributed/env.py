@@ -137,8 +137,8 @@ class MPGroup:
             dist.barrier()
 
 
-# the library's reduce-scatter into one tensor (torch >= 2.12 names it
-# reduce_scatter_single and deprecates the older name)
+# the library's reduce-scatter into one tensor (newer torch names it
+# reduce_scatter_single and deprecates reduce_scatter_tensor)
 _reduce_scatter = getattr(dist, "reduce_scatter_single",
                           dist.reduce_scatter_tensor)
 

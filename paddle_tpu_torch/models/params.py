@@ -141,7 +141,7 @@ def layer_params(params):
     return [{k: v[i] for k, v in blocks.items()} for i in range(L)]
 
 
-def gpt_param_specs(config=None):
+def gpt_param_specs():
     """The sharded dim of every leaf under tensor parallelism (None:
     replicated), the reference's ``gpt_param_specs(zero_stage=1, pp=1)``
     (``gpt_hybrid.py:81-111``): ``wte`` vocab rows and ``head_w`` vocab

@@ -287,6 +287,15 @@ def test_flags_choose_the_rung(run, one_device):
 
 
 @pytest.mark.parametrize("rung", ranks.RUNGS)
+def test_loss_only_is_the_first_steps_loss(run, rung):
+    """``loss_only`` before any update computes the first step's forward."""
+    _, outs = run
+    for o in outs:
+        res = o["steps"][rung]
+        assert res["loss_only"] == res["losses"][0]
+
+
+@pytest.mark.parametrize("rung", ranks.RUNGS)
 def test_counters_are_steps_times_the_step_record(run, rung):
     n, outs = run
     for o in outs:

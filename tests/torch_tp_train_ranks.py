@@ -90,9 +90,10 @@ def steps(group, params, ids, rung):
     tp.reset_mp_counters()
     step = HybridTrainStep(config(), optimizer(), device="cpu",
                            params=params, group=group, comm_backend=rung)
+    before = float(step.loss_only(ids))
     losses = [float(step(ids)) for _ in range(STEPS)]
     rec = step._record(tuple(ids.shape))
-    return {"losses": losses,
+    return {"losses": losses, "loss_only": before,
             "shards": {k: _np(v) for k, v in
                        flatten_params(step.params).items()},
             "counters": tp.mp_counters(),
