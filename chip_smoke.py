@@ -84,7 +84,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
    of the 2-layer copy (B=2) against the one-card step on the same
    weights within phase 6's tolerances (loss and every gradient leaf over
    all shards); with a card per rank a profile of one step, the step
-   time, tokens/s and MFU over the four cards; each kernel's times.
+   time, tokens/s and MFU over the four cards; each kernel's times; and
+   with a card per rank the rsag rung at full depth from the same
+   weights and ids (its losses printed beside the fused rung's, gated as
+   above but for the ring kernels: none launched).
+11. pipeline-parallel training, in PP = 4 ranks (stages) laid out as in
+   phase 9: the boundary kernels (``ops/pp_boundary.py``: row 14, y = r +
+   (x @ w + b), and row 15, dr = gy + gwire, dx and dw) against their
+   plain versions at the main path's shapes (R=2048, K=8192, F=2048,
+   bf16, each rank its own operands: per element and per 128-row tile,
+   dr and db bit for bit, y arriving on the next rank byte for byte);
+   GPT-3 1.3B trained through ``HybridTrainStep(pp_group=,
+   num_microbatches=8)`` with phase 5's recipe on ``comm_backend=
+   "pp=fused"`` (the main path) and then on ``"pp=ring"`` GPipe and
+   1F1B, at full depth (6 layers a stage; 2 warm-up and 5 timed steps)
+   with a card per rank, at 4 layers (1 + 2 steps) on one card: finite
+   losses, the last below the first, the same on every rank, rows 14 and
+   15 called once per microbatch on every stage but the last on the fused
+   rung and never on the ring rungs; step time, tokens/s, MFU over the
+   cards, the schedule's bubble, peak memory and boundary bytes per rank;
+   one fused step of a 4-layer copy (B=2, one layer a stage) against the
+   one-card step on the same weights within phase 6's tolerances; rows
+   14-15's times alone, and with a card per rank with their hops.
 
 The lines before the last carry a ``{"kernels": [...], "collectives":
 [...]}`` JSON object (``collectives``: the TPU kernel whose port is the
@@ -113,17 +134,20 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch import cuda_build
 from paddle_tpu_torch.distributed import env, tp_overlap
+from paddle_tpu_torch.distributed import pipeline as pl
 from paddle_tpu_torch.models import (GPT_CONFIGS, HybridTrainStep,
                                      cast_for_compute, generate_from_params,
                                      init_gpt_params)
 from paddle_tpu_torch.models.generation import _proj
 from paddle_tpu_torch.models.gpt_hybrid import (flatten_params, gpt_loss,
                                                 unflatten_params)
-from paddle_tpu_torch.models.params import layer_params, shard_params
+from paddle_tpu_torch.models.params import (layer_params, shard_params,
+                                            stage_params)
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.observability import flops
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_collectives as fc
+from paddle_tpu_torch.ops import pp_boundary as ppb
 from paddle_tpu_torch.ops import quant_gemm as qg
 from paddle_tpu_torch.ops import ring_gemm as rg
 from paddle_tpu_torch.optimizer import AdamW
@@ -343,6 +367,7 @@ def phase_build():
     fa.build()
     qg.build()
     rg.build()
+    ppb.build()
     print(f"[build] {len(sources)} sources in parallel: "
           f"{time.perf_counter() - t0:.2f}s")
     for name, source in sources.items():
@@ -1015,18 +1040,26 @@ def flash_counts():
     return {name: wrapper.launches for name, wrapper, _ in FLASH_KERNELS}
 
 
-def phase_train(seed, gen, dev):
+def train_ids(cfg, seed, dev):
+    """The one batch of the training phases (5, 10 and 11): the same ids
+    on every rank and in every phase, so their trajectories from the same
+    weights compare."""
+    return torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed + 3), device=dev)
+
+
+def phase_train(seed, dev):
     """GPT-3 1.3B through HybridTrainStep with bench.py's recipe: 2
     warm-up and 5 timed steps on one batch. Returns (step, ids, launch
-    counts of the run)."""
+    counts of the run, losses)."""
     cfg = train_config()
     t0 = time.perf_counter()
     opt = AdamW(2e-4, grad_clip=ClipGradByGlobalNorm(1.0),
                 moment_dtype="bfloat16")
     step = HybridTrainStep(cfg, opt, param_dtype=torch.bfloat16, seed=seed,
                            device=dev)
-    ids = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
-                        generator=gen, device=dev)
+    ids = train_ids(cfg, seed, dev)
     torch.cuda.synchronize()
     print(f"[train] {MODEL}: H={cfg.hidden_size} L={cfg.num_layers} "
           f"nh={cfg.num_heads} V={cfg.vocab_size}, {step.num_params():,} "
@@ -1075,7 +1108,7 @@ def phase_train(seed, gen, dev):
              "warmup_s": warm, "first_loss": losses[0], "last_loss": last,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(f"[train] {json.dumps(stats)}")
-    return step, ids, counts
+    return step, ids, counts, losses
 
 
 def phase_train_profile(step, ids):
@@ -1925,33 +1958,31 @@ def tp_counts():
     return {name: (w.calls, w.launches) for name, w, _ in TP_KERNELS}
 
 
-def tp_train_step(cfg, group, params=None, seed=0):
+def tp_train_step(cfg, group, params=None, seed=0, rung="fused"):
     opt = AdamW(2e-4, grad_clip=ClipGradByGlobalNorm(1.0),
                 moment_dtype="bfloat16")
     return HybridTrainStep(cfg, opt, param_dtype=torch.bfloat16, seed=seed,
-                           params=params, group=group, comm_backend="fused")
+                           params=params, group=group, comm_backend=rung)
 
 
 def phase_tp_train(group, seed, say, num_layers=None,
-                   warmup=WARMUP_STEPS, timed=TIMED_STEPS):
+                   warmup=WARMUP_STEPS, timed=TIMED_STEPS, rung="fused"):
     """GPT-3 1.3B at full width (and depth, unless ``num_layers``) through
-    HybridTrainStep(group=, comm_backend="fused"): ``warmup`` and
-    ``timed`` steps on one batch, the main path of phase 10: finite losses,
-    the last below the first, the same on every rank, and each ring
-    kernel's calls and launches as ``tp_step_calls`` says. Returns (step,
-    ids, readings, failures)."""
+    HybridTrainStep(group=, comm_backend=rung): ``warmup`` and ``timed``
+    steps on one batch, the main path of phase 10 on the fused rung:
+    finite losses, the last below the first, the same on every rank, and
+    each ring kernel's calls and launches as ``tp_step_calls`` says (none
+    on the rsag rung). Returns (step, ids, readings, failures)."""
     cfg = train_config(num_layers)
     dev = group.device
     t0 = time.perf_counter()
-    step = tp_train_step(cfg, group, seed=seed)
-    ids = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
-                        generator=torch.Generator(device=dev).manual_seed(
-                            seed + 3), device=dev)
+    step = tp_train_step(cfg, group, seed=seed, rung=rung)
+    ids = train_ids(cfg, seed, dev)
     torch.cuda.synchronize()
     say(f"[tp-train] {MODEL}, {cfg.num_layers} layers: "
         f"{step.num_params():,} params bf16 over "
         f"mp={group.n} ({group.backend}), AdamW(2e-4, clip 1.0, bf16 "
-        f"moments), remat full, ids [{TRAIN_B}, {TRAIN_S}], rung fused; "
+        f"moments), remat full, ids [{TRAIN_B}, {TRAIN_S}], rung {rung}; "
         f"set up in {time.perf_counter() - t0:.1f}s")
     torch.cuda.reset_peak_memory_stats(dev)
     tp_overlap.reset_mp_counters()
@@ -1975,8 +2006,8 @@ def phase_tp_train(group, seed, say, num_layers=None,
     counts = tp_counts()
     shapes = {name: dict(w.shapes) for name, w, _ in TP_KERNELS}
     steps = warmup + timed
-    want = {k: (v * steps, v * steps * group.n)
-            for k, v in tp_step_calls(cfg.num_layers).items()}
+    want = {k: (v * steps, v * steps * group.n) if rung == "fused"
+            else (0, 0) for k, v in tp_step_calls(cfg.num_layers).items()}
     failed = []
     if not all(np.isfinite(losses)):
         failed.append(f"a tp train loss is not finite: {losses}")
@@ -1997,7 +2028,7 @@ def phase_tp_train(group, seed, say, num_layers=None,
              "cards": group.n, "layers": cfg.num_layers,
              "layout": group.backend, "warmup_s": warm,
              "first_loss": losses[0],
-             "last_loss": losses[-1],
+             "last_loss": losses[-1], "losses": losses,
              "peak_mem_gb_rank": torch.cuda.max_memory_allocated(dev) / 1e9,
              "mp_counters": tp_overlap.mp_counters()}
     say(f"[tp-train] losses {[round(x, 4) for x in losses]} (the same on "
@@ -2010,10 +2041,10 @@ def phase_tp_train(group, seed, say, num_layers=None,
                        "shapes": shapes}, failed
 
 
-def phase_tp_profile(group, step, ids, say):
-    """Where a tensor-parallel step's time goes on rank 0: torch.profiler
-    (device kernels) over one step, grouped by kind. Every rank runs the
-    step; rank 0 traces it."""
+def phase_tp_profile(group, step, ids, say, tag="tp-profile"):
+    """Where a tensor- or pipeline-parallel step's time goes on rank 0:
+    torch.profiler (device kernels) over one step, grouped by kind. Every
+    rank runs the step; rank 0 traces it."""
     step(ids)
     torch.cuda.synchronize()
     group.barrier()
@@ -2047,13 +2078,13 @@ def phase_tp_profile(group, step, ids, say):
         kind = next((k for k, pats in kinds.items()
                      if any(p in e.key for p in pats)), "other")
         by_kind[kind] += dev_us(e) / 1e3
-    say(f"[tp-profile] rank 0, one step: {traced * 1e3:.1f} ms host wall "
+    say(f"[{tag}] rank 0, one step: {traced * 1e3:.1f} ms host wall "
         f"traced; device busy {busy:.1f} ms = {busy / (traced * 1e3):.1%}"
         f" (NCCL kernels count while they wait for the peers)")
-    say(f"[tp-profile] device ms by kind: "
+    say(f"[{tag}] device ms by kind: "
         f"{json.dumps({k: round(v, 3) for k, v in by_kind.items()})}")
     for e in events[:12]:
-        say(f"[tp-profile]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} calls  "
+        say(f"[{tag}]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} calls  "
             f"{e.key[:90]}")
     return {"traced_ms": traced * 1e3, "busy_ms": busy, "by_kind": by_kind}
 
@@ -2249,6 +2280,19 @@ def tp_rank_main(group, seed):
         out["profile"] = phase_tp_profile(group, step, ids, say)
     del step, ids
     torch.cuda.empty_cache()
+    if per_card:
+        # the rsag rung at full depth from the same weights and ids: is
+        # the full-depth gap to one card (PERF.md, PR 5) bf16 noise?
+        rsag, _, out["train_rsag"], f = phase_tp_train(group, seed, say,
+                                                       rung="rsag")
+        failed += f
+        del rsag
+        torch.cuda.empty_cache()
+        a = out["train"]["stats"]
+        b = out["train_rsag"]["stats"]
+        say(f"[tp-train] fused vs rsag from the same weights and ids: "
+            f"losses {a['losses']} vs {b['losses']}, max |diff| "
+            f"{max(abs(x - y) for x, y in zip(a['losses'], b['losses'])):.4f}")
     failed += phase_tp_parity(group, seed, say)
     torch.cuda.empty_cache()
     out["timing"] = phase_tp_timing(group, gen, cfg, say)
@@ -2297,6 +2341,453 @@ def tp_rows(r0, layout, cfg):
             "bound_by": by, "library_ms": t["library_ms"],
             "covers": t["covers"]})
     return rows
+
+
+# ------------------------------------------ pipeline-parallel training (11)
+PP = 4                      # pipeline stages of phase 11
+PP_M = 8                    # microbatches (tools_mfu_sweep.py:244)
+PP_PARITY_LAYERS, PP_PARITY_B, PP_PARITY_M = 4, 2, 2
+PP_KERNELS = (  # (kernel, wrapper, TPU kernel it replaces)
+    ("gemm_ppsend", ppb.gemm_ppsend,
+     "paddle_tpu/ops/pallas_kernels/fused_collectives.py:792"),
+    ("gemm_pprecv", ppb.gemm_pprecv,
+     "paddle_tpu/ops/pallas_kernels/fused_collectives.py:826"),
+)
+# (name, comm_backend, pp_schedule); the fused rung is the main path
+PP_RUNGS = (("fused", "pp=fused", "gpipe"), ("ring-gpipe", "pp=ring", "gpipe"),
+            ("ring-1f1b", "pp=ring", "1f1b"))
+
+
+def pp_shapes(cfg):
+    """(R, K, F) of rows 14-15 on the main path: a microbatch's rows
+    (TRAIN_B / PP_M sequences of TRAIN_S), the FFN width, the hidden
+    width."""
+    return TRAIN_B // PP_M * TRAIN_S, cfg.ffn_mult * cfg.hidden_size, \
+        cfg.hidden_size
+
+
+def pp_bound(kernel, R, K, F, per_card):
+    """(ms, by) of one call: the larger of the operations over the bf16
+    peak, the HBM bytes (each input read once, each output written once)
+    and, across cards, the hop's bytes over one direction of NVLink. Row
+    14 reads x, w, b, r and writes y; row 15 reads gy, gwire, x, w and
+    writes dr, dx (bf16), dw (fp32) and db."""
+    if kernel == "gemm_ppsend":
+        ops = 2 * R * K * F
+        hbm = 2 * (R * K + K * F + F + 2 * R * F)
+    else:
+        ops = 4 * R * K * F
+        hbm = 2 * (2 * R * F + R * K + K * F) + 2 * (R * F + R * K + F) + \
+            4 * K * F
+    times = {"operations": ops / BF16_FLOPS, "bytes": hbm / HBM_BYTES_PER_S}
+    if per_card:
+        times["nvlink bytes"] = 2 * R * F / NVLINK_BYTES_PER_S
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def _pp_operands(gen, dev, R, K, F):
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+    return {"x": rand(R, K), "w": rand(K, F, scale=K ** -0.5),
+            "b": rand(F), "r": rand(R, F), "gy": rand(R, F),
+            "gw": rand(R, F)}
+
+
+def phase_pp_kernels(group, seed, cfg, say):
+    """Rows 14-15 at the main path's shapes, each rank with its own
+    operands: y, dx (bf16) and dw (fp32) against the plain versions per
+    element and per 128-row tile, dr and db bit for bit, and the boundary
+    op's hop: rank r's y arrives on rank r + 1 byte for byte. Returns
+    ({output: readings}, failures)."""
+    dev = group.device
+    R, K, F = pp_shapes(cfg)
+    own = torch.Generator(device=dev).manual_seed(seed + 3000 + group.rank)
+    o = _pp_operands(own, dev, R, K, F)
+    y = ppb.gemm_ppsend(o["x"], o["w"], o["b"], o["r"])
+    dx, dw, db, dr = ppb.gemm_pprecv(o["gy"], o["gw"], o["x"], o["w"])
+    pdx, pdw, pdb, pdr = ppb.gemm_pprecv_plain(o["gy"], o["gw"], o["x"],
+                                               o["w"])
+    yp = ppb.gemm_ppsend_plain(o["x"], o["w"], o["b"], o["r"])
+    torch.cuda.synchronize()
+    errs, failed = {}, []
+    for name, got, want in (("y", y, yp), ("dx", dx, pdx), ("dw", dw, pdw)):
+        r = ppb.error_vs_plain(got, want)
+        ok = bool(torch.isfinite(got).all()) and got.dtype == want.dtype \
+            and ppb.within_tolerance(r, got.dtype)
+        errs[name] = r
+        say(f"[pp-kernel] {name} {tuple(got.shape)} {str(got.dtype)[6:]}: "
+            f"max abs {r['max_abs']:.2e}, worst element {r['element']:.2e} "
+            f"(gate {ppb.ELEMENT_TOL[got.dtype]}), worst 128-row tile "
+            f"{r['tile']:.2e} (gate {ppb.TILE_TOL[got.dtype]})")
+        if not ok:
+            failed.append(f"pp kernel {name}")
+    same = torch.equal(dr, pdr) and torch.equal(db, pdb)
+    say(f"[pp-kernel] dr and db bit for bit: {same}")
+    if not same:
+        failed.append("pp kernel dr/db")
+    # the hop: y to the next rank through the boundary op
+    pending = []
+    if group.rank < group.n - 1:
+        ppb.fused_gemm_ppsend(o["x"], o["w"], o["b"], o["r"], group,
+                              pending.append)
+    got = group.stage_hops_async(recv_prev=((R, F), torch.bfloat16)).wait()[
+        0] if group.rank > 0 else None
+    for h in pending:
+        h.wait()
+    sent = group.all_gather_list(y)
+    arrived = got is None or torch.equal(
+        got.view(torch.uint8), sent[group.rank - 1].view(torch.uint8))
+    every = group.all_gather_list(torch.tensor([int(arrived)], device=dev))
+    arrived = all(int(t) == 1 for t in every)
+    say(f"[pp-kernel] y arrives on the next rank byte for byte: {arrived}")
+    if not arrived:
+        failed.append("pp hop bytes")
+    return errs, failed
+
+
+def pp_counts():
+    return {name: (w.calls, w.launches) for name, w, _ in PP_KERNELS}
+
+
+def pp_train_step(cfg, group, comm_backend, schedule, params=None, seed=0,
+                  microbatches=PP_M):
+    opt = AdamW(2e-4, grad_clip=ClipGradByGlobalNorm(1.0),
+                moment_dtype="bfloat16")
+    return HybridTrainStep(dataclasses.replace(cfg, pp_schedule=schedule),
+                           opt, param_dtype=torch.bfloat16, seed=seed,
+                           params=params, pp_group=group,
+                           num_microbatches=microbatches,
+                           comm_backend=comm_backend)
+
+
+def pp_step_calls(rung, stage, n, M):
+    """Row 14 and 15 calls per step on ``stage``: once per microbatch on
+    every stage that sends (all but the last) on the fused rung; none on
+    the ring rung. Row 14 launches one kernel a call, row 15 three (the
+    add, dx, dw)."""
+    calls = M if rung == "fused" and stage < n - 1 else 0
+    return {"gemm_ppsend": (calls, calls), "gemm_pprecv": (calls, 3 * calls)}
+
+
+def phase_pp_train(group, seed, say, rung, comm_backend, schedule,
+                   num_layers=None, warmup=WARMUP_STEPS, timed=TIMED_STEPS):
+    """GPT-3 1.3B at full width (and depth, unless ``num_layers``) through
+    HybridTrainStep(pp_group=, num_microbatches=PP_M, comm_backend=) on
+    one rung: ``warmup`` and ``timed`` steps on one batch. Gates: finite
+    losses, the last below the first, the same on every rank, and rows
+    14-15's calls and launches as ``pp_step_calls`` says. Returns (step,
+    ids, readings, failures)."""
+    cfg = train_config(num_layers)
+    dev = group.device
+    t0 = time.perf_counter()
+    step = pp_train_step(cfg, group, comm_backend, schedule, seed=seed)
+    ids = train_ids(cfg, seed, dev)
+    torch.cuda.synchronize()
+    say(f"[pp-train {rung}] {MODEL}, {cfg.num_layers} layers "
+        f"({cfg.num_layers // group.n} a stage): {step.num_params():,} "
+        f"params bf16 over pp={group.n} ({group.backend}), M={PP_M}, "
+        f"schedule {step._ppc.schedule}, AdamW(2e-4, clip 1.0, bf16 "
+        f"moments), remat full, ids [{TRAIN_B}, {TRAIN_S}]; set up in "
+        f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    pl.reset_pp_counters()
+    # the main path: counts start at 0 here and are read right after
+    ppb.reset_counts()
+    losses = []
+    group.barrier()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        losses.append(step(ids))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        losses.append(step(ids))
+    stop.record()
+    losses = [float(x) for x in losses]
+    step_s = start.elapsed_time(stop) / 1e3 / timed
+    counts = pp_counts()
+    steps = warmup + timed
+    want = {k: (c * steps, n * steps) for k, (c, n) in pp_step_calls(
+        rung, group.rank, group.n, PP_M).items()}
+    failed = []
+    if not all(np.isfinite(losses)):
+        failed.append(f"a pp train loss is not finite ({rung}): {losses}")
+    if not losses[-1] < losses[0]:
+        failed.append(f"pp loss did not fall ({rung}): {losses[0]} -> "
+                      f"{losses[-1]}")
+    every = group.all_gather_list(torch.tensor(losses, device=dev))
+    same = all(torch.equal(every[0], o) for o in every)
+    if not same:
+        failed.append(f"the ranks' losses differ ({rung})")
+    if counts != want:
+        failed.append(f"rank {group.rank} {rung}: rows 14-15 (calls, "
+                      f"launches) {counts} != {want}")
+    per_rank = group.all_gather_list(torch.tensor(
+        [step_s, torch.cuda.max_memory_allocated(dev) / 1e9,
+         pl.pp_counters()["boundary_bytes"] / steps], device=dev,
+        dtype=torch.float64))
+    step_max = max(float(t[0]) for t in per_rank)
+    fpt, _ = flops.model_flops_per_token(cfg, TRAIN_S)
+    tokens = TRAIN_B * TRAIN_S
+    peak = flops.peak_flops_bf16(torch.cuda.get_device_name(dev))
+    sched = step._ppc.schedule
+    stats = {"rung": rung, "schedule": sched, "step_s": step_max,
+             "step_s_by_rank": [float(t[0]) for t in per_rank],
+             "tokens_per_s": tokens / step_max,
+             "mfu_over_cards": flops.mfu(fpt * tokens, step_max, peak,
+                                         cards=group.n),
+             "bubble_fraction": pl.bubble_fraction(sched, group.n, PP_M),
+             "cards": group.n, "layers": cfg.num_layers,
+             "microbatches": PP_M, "layout": group.backend,
+             "warmup_s": warm, "losses": losses,
+             "peak_mem_gb_by_rank": [float(t[1]) for t in per_rank],
+             "boundary_bytes_per_step_by_rank": [int(t[2])
+                                                 for t in per_rank]}
+    say(f"[pp-train {rung}] losses {[round(x, 4) for x in losses]} (the "
+        f"same on every rank: {same})")
+    say(f"[pp-train {rung}] rank 0 rows 14-15 (calls, launches) over "
+        f"{steps} steps: {counts} (want {want})")
+    say(f"[pp-train {rung}] {json.dumps(stats)}")
+    return step, ids, {"stats": stats, "counts": counts}, failed
+
+
+def phase_pp_parity(group, seed, say):
+    """One fused step of a PP_PARITY_LAYERS-layer copy at full width
+    (B=PP_PARITY_B, S=2048, one layer a stage) against the one-card step
+    on the same weights and ids, every rank computing the one-card step
+    and comparing its own stage's leaves: the loss and every gradient leaf
+    within phase 6's tolerances. Returns failures."""
+    cfg = train_config(num_layers=PP_PARITY_LAYERS)
+    dev = group.device
+    params = init_gpt_params(cfg, seed=seed + 1, device=dev,
+                             dtype=torch.bfloat16)
+    ids = torch.randint(0, cfg.vocab_size, (PP_PARITY_B, TRAIN_S),
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed + 4), device=dev)
+    step = pp_train_step(cfg, group, "pp=fused", "gpipe", params=params,
+                         microbatches=PP_PARITY_M)
+    loss, grads = step.loss_and_grads(ids)
+    loss = float(loss)
+    flat = {n: t.detach().clone().requires_grad_(True)
+            for n, t in flatten_params(params).items()}
+    ref_loss = gpt_loss(unflatten_params(flat), ids, cfg)
+    ref = dict(zip(flat, torch.autograd.grad(ref_loss, list(flat.values()))))
+    ref_loss = float(ref_loss.detach())
+    ref = flatten_params(stage_params(unflatten_params(ref), group.rank,
+                                      group.n))
+    rel = {n: float((grads[n].float() - ref[n].float()).norm() /
+                    ref[n].float().norm().clamp(min=1e-30)) for n in grads}
+    every = group.all_gather_list(torch.tensor(
+        [max(rel.values())], device=dev, dtype=torch.float64))
+    worst = max(rel, key=rel.get)
+    say(f"[pp-parity] {PP_PARITY_LAYERS}-layer {MODEL} width, "
+        f"B={PP_PARITY_B} S={TRAIN_S} bf16, pp={group.n} fused, "
+        f"M={PP_PARITY_M}: loss {loss:.6f} vs the one-card step "
+        f"{ref_loss:.6f} (|diff| {abs(loss - ref_loss):.2e}); gradient "
+        f"leaves: worst ||dg||/||g|| by rank "
+        f"{[round(float(t[0]), 5) for t in every]} (rank 0: {worst}) "
+        f"(gates: loss {PARITY_LOSS_REL} rel, leaves {PARITY_GRAD_REL})")
+    failed = []
+    if not (np.isfinite(loss) and
+            abs(loss - ref_loss) <= PARITY_LOSS_REL * abs(ref_loss)):
+        failed.append(f"pp loss {loss} vs one-card {ref_loss}")
+    bad = {n: v for n, v in rel.items()
+           if not (np.isfinite(v) and v <= PARITY_GRAD_REL)}
+    if bad:
+        failed.append(f"pp gradient leaves off the one-card step: {bad}")
+    return failed
+
+
+def phase_pp_timing(group, seed, cfg, say):
+    """Rows 14-15 at the main path's shapes. On rank 0, by CUDA-graph
+    replay: the kernels alone (row 15 with db's sum), the plain versions,
+    and the library calls (row 14: ``torch.addmm`` + add; row 15: add + two
+    ``torch.mm``). With a card per rank, on every rank by CUDA events over
+    eager calls, the slowest rank reported: each with its hop as a
+    pipeline posts it (row 14: y to the next stage, its input from the
+    previous one; row 15: a cotangent from the next stage, one to the
+    previous one), and the hop alone. Returns {kernel: timings}."""
+    dev = group.device
+    per_card = group.backend == "nccl"
+    R, K, F = pp_shapes(cfg)
+    g = torch.Generator(device=dev).manual_seed(seed + 4000 + group.rank)
+    o = _pp_operands(g, dev, R, K, F)
+    x, w, b, r, gy, gw = (o[k] for k in ("x", "w", "b", "r", "gy", "gw"))
+    spec = ((R, F), torch.bfloat16)
+    s, n = group.rank, group.n
+    row14 = {"kernel": lambda: ppb.gemm_ppsend(x, w, b, r),
+             "plain": lambda: ppb.gemm_ppsend_plain(x, w, b, r),
+             "library": lambda: torch.addmm(b, x, w) + r}
+    row15 = {"kernel": lambda: ppb.gemm_pprecv(gy, gw, x, w),
+             "plain": lambda: ppb.gemm_pprecv_plain(gy, gw, x, w),
+             "library": lambda: (torch.mm(gy + gw, w.t()),
+                                 torch.mm(x.t(), gy + gw))}
+    out = {"gemm_ppsend": {}, "gemm_pprecv": {}}
+    if s == 0:
+        for name, fns in (("gemm_ppsend", row14), ("gemm_pprecv", row15)):
+            t = out[name]
+            k1 = graph_ms(fns["kernel"], iters=8)
+            t["plain_alone_ms"] = graph_ms(fns["plain"], iters=8)
+            t["library_alone_ms"] = graph_ms(fns["library"], iters=8)
+            k2 = graph_ms(fns["kernel"], iters=8)
+            t["kernel_alone_ms"] = min(k1, k2)
+            t["kernel_alone_runs"] = (k1, k2)
+    group.barrier()
+    if per_card:
+        def fwd_hop(y):
+            return group.stage_hops_async(
+                send_next=y if s < n - 1 else None,
+                recv_prev=spec if s > 0 else None).wait()
+
+        def bwd_hop():
+            got = group.stage_hops_async(
+                send_prev=gy if s > 0 else None,
+                recv_next=spec if s < n - 1 else None).wait()[1]
+            return gw if got is None else got
+
+        calls = {
+            "gemm_ppsend": {
+                "kernel": lambda: fwd_hop(row14["kernel"]()),
+                "plain": lambda: fwd_hop(row14["plain"]()),
+                "library": lambda: fwd_hop(row14["library"]())},
+            "gemm_pprecv": {
+                "kernel": lambda: ppb.gemm_pprecv(gy, bwd_hop(), x, w),
+                "plain": lambda: ppb.gemm_pprecv_plain(gy, bwd_hop(), x, w),
+                "library": lambda: (lambda d: (torch.mm(d, w.t()),
+                                               torch.mm(x.t(), d)))(
+                                                   gy + bwd_hop())}}
+        group.barrier()
+        hop = cuda_ms(lambda: fwd_hop(r), iters=10, warmup=2)
+        for name, fns in calls.items():
+            mine = {}
+            for what in ("kernel", "plain", "library", "kernel"):
+                group.barrier()
+                v = cuda_ms(fns[what], iters=10, warmup=2)
+                mine[what] = min(v, mine.get(what, v))
+            every = group.all_gather_list(torch.tensor(
+                [mine["kernel"], mine["plain"], mine["library"], hop],
+                device=dev, dtype=torch.float64))
+            worst = [max(float(t[i]) for t in every) for i in range(4)]
+            out[name].update(call_ms=worst[0], plain_call_ms=worst[1],
+                             library_call_ms=worst[2], hop_ms=worst[3])
+    if s == 0:
+        for name, t in out.items():
+            say(f"[pp-timing] {name} R={R} K={K} F={F}: " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in t.items()) + " ms")
+    return out
+
+
+def pp_rank_main(group, seed):
+    """One rank (stage) of phase 11 (spawned by ``distributed.env.launch``):
+    the boundary kernels against their plain versions, the main path on
+    the fused rung and the two ring rungs (GPT-3 1.3B at full depth with a
+    card per rank, and a profile of one fused step; 4 layers, 1 + 2 steps
+    on one card), the parity copy and the timings. Rank 0 prints; every rank returns its readings and
+    failures."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    say = (lambda *a: print(*a, flush=True)) if group.rank == 0 else \
+        (lambda *a: None)
+    group.barrier()           # the group's first collective: every rank
+    cfg = GPT_CONFIGS[MODEL]
+    errs, failed = phase_pp_kernels(group, seed, cfg, say)
+    out = {"rank": group.rank, "errs": errs, "train": {}}
+    per_card = group.backend == "nccl"
+    depth = () if per_card else (PP, 1, 2)
+    for rung, comm_backend, schedule in PP_RUNGS:
+        step, ids, out["train"][rung], f = phase_pp_train(
+            group, seed, say, rung, comm_backend, schedule, *depth)
+        failed += f
+        if per_card and rung == "fused":
+            out["profile"] = phase_tp_profile(group, step, ids, say,
+                                              tag="pp-profile")
+        del step, ids
+        torch.cuda.empty_cache()
+    failed += phase_pp_parity(group, seed, say)
+    torch.cuda.empty_cache()
+    out["timing"] = phase_pp_timing(group, seed, cfg, say)
+    out["failed"] = failed
+    return out
+
+
+def phase_pp(seed):
+    """Phase 11 in PP spawned ranks (the layout from the card count), after
+    the parent has built every kernel. Fails on any rank's failure;
+    returns every rank's readings and the layout."""
+    layout = mp_layout()
+    print(f"[pp] {PP} stages, layout {layout}: "
+          + ("one rank per card, NCCL" if layout == "per_card" else
+             f"all on cuda:0 of {torch.cuda.device_count()} card(s), gloo")
+          + "; GPT-3 1.3B trained at pp=4 through the boundary kernels",
+          flush=True)
+    t0 = time.perf_counter()
+    outs = env.launch(PP, pp_rank_main, seed, layout=layout, timeout_s=900)
+    print(f"[pp] the ranks ran in {time.perf_counter() - t0:.1f}s")
+    failed = [f"rank {o['rank']}: {f}" for o in outs for f in o["failed"]]
+    check(not failed, "pipeline-parallel training failed:\n" +
+          "\n".join(failed))
+    return outs, layout
+
+
+def pp_rows(outs, layout, cfg):
+    """The ``kernels`` rows of rows 14-15 from the ranks' readings:
+    launches summed over the stages in the fused main path's run; ms the
+    call with its hop (a card per rank) or the kernels alone (one card,
+    ``covers`` says which), plain and library likewise."""
+    per_card = layout == "per_card"
+    R, K, F = pp_shapes(cfg)
+    r0 = outs[0]
+    rows = []
+    for kernel, _, replaces in PP_KERNELS:
+        t = r0["timing"][kernel]
+        bound, by = pp_bound(kernel, R, K, F, per_card)
+        err = r0["errs"]["y" if kernel == "gemm_ppsend" else "dx"]
+        row = {"name": f"{kernel}[R={R} K={K} F={F}]", "route": "cuda",
+               "source": "paddle_tpu_torch/csrc/ring_gemm.cu",
+               "replaces": replaces,
+               "launches": sum(o["train"]["fused"]["counts"][kernel][1]
+                               for o in outs),
+               "max_abs_err": err["max_abs"], "bound_ms": bound,
+               "bound_by": by, "kernel_alone_ms": t["kernel_alone_ms"]}
+        if per_card:
+            row.update(ms=t["call_ms"], plain_ms=t["plain_call_ms"],
+                       library_ms=t["library_call_ms"], hop_ms=t["hop_ms"],
+                       covers="kernels + hop, slowest rank")
+        else:
+            row.update(ms=t["kernel_alone_ms"], plain_ms=t["plain_alone_ms"],
+                       library_ms=t["library_alone_ms"],
+                       covers="kernels alone, CUDA-graph replay")
+        if kernel == "gemm_pprecv":
+            row["max_abs_err_dw"] = r0["errs"]["dw"]["max_abs"]
+        rows.append(row)
+    return rows
+
+
+def phase_trajectories(one_card, tp_r0, pp_r0, layout):
+    """The training phases' loss trajectories from the same weights and
+    ids, side by side (printed, not gated): one card (phase 5), mp=4 on
+    the fused and rsag rungs (phase 10) and pp=4 on each rung (phase 11).
+    Only full-depth runs (a card per rank) compare with phase 5."""
+    if layout != "per_card":
+        print("[trajectories] one card: the mp and pp phases ran cut "
+              "depths; nothing to compare with phase 5")
+        return
+    runs = {"one card": one_card,
+            "mp=4 fused": tp_r0["train"]["stats"]["losses"],
+            "mp=4 rsag": tp_r0["train_rsag"]["stats"]["losses"]}
+    runs.update({f"pp=4 {k}": v["stats"]["losses"]
+                 for k, v in pp_r0["train"].items()})
+    for name, losses in runs.items():
+        print(f"[trajectories] {name:>16}: "
+              f"{[round(x, 4) for x in losses]}, last - one card's "
+              f"{losses[-1] - one_card[-1]:+.4f}")
 
 
 def main(argv=None):
@@ -2359,7 +2850,7 @@ def main(argv=None):
     row = phase_timing(gen, dev, max_abs, fp["counts"]["paged_decode"],
                        cfg.num_layers)
 
-    step, ids, counts = phase_train(args.seed, gen, dev)
+    step, ids, counts, one_card_losses = phase_train(args.seed, dev)
     phase_train_profile(step, ids)
     del step, ids
     torch.cuda.empty_cache()
@@ -2369,9 +2860,11 @@ def main(argv=None):
                                                    counts)
     torch.cuda.empty_cache()
     tp_r0, tp_layout = phase_tp(args.seed)
+    pp_outs, pp_layout = phase_pp(args.seed)
+    phase_trajectories(one_card_losses, tp_r0, pp_outs[0], tp_layout)
     mp_kernels, collectives = mp_rows(mp_r0, layout, cfg)
-    return finish(rows + mp_kernels + tp_rows(tp_r0, tp_layout, cfg),
-                  collectives, t_start)
+    return finish(rows + mp_kernels + tp_rows(tp_r0, tp_layout, cfg) +
+                  pp_rows(pp_outs, pp_layout, cfg), collectives, t_start)
 
 
 def finish(rows, collectives, t_start):

@@ -1,9 +1,10 @@
-// The local GEMMs of the ring collectives of sequence-parallel training, for
-// Hopper (sm_90a).
+// The local GEMMs of the ring collectives of sequence-parallel training and
+// of the pipeline boundary, for Hopper (sm_90a).
 //
-// Replaces three TPU kernels of paddle_tpu/ops/pallas_kernels/
-// fused_collectives.py, each a ring of n steps in which a chunk of the
-// sequence moves to the right neighbour while the chunk in hand is GEMMed:
+// Replaces five TPU kernels of paddle_tpu/ops/pallas_kernels/
+// fused_collectives.py. Three are a ring of n steps in which a chunk of
+// the sequence moves to the right neighbour while the chunk in hand is
+// GEMMed:
 //
 // * _ag_gemm_kernel (:201, the pallas_call at :590): ring all-gather of the
 //   seq shard x [B, s, A] with each arriving chunk GEMMed against the
@@ -15,12 +16,20 @@
 // * _ag_accum_kernel (:307, :631): the weight gradient of both, sum over
 //   the ring steps of r_c^T @ stat_c in fp32, [A, Bf].
 //
-// The TPU kernels move the chunks with in-kernel remote DMAs. Hopper has
-// no in-kernel remote copy this port may write, so the ring is NCCL
-// point-to-point hops outside the kernel (paddle_tpu_torch/ops/
-// ring_gemm.py), and each ring step launches one kernel of this file on
-// the chunk in hand: a tile GEMM with bf16 operands, fp32 accumulation on
-// the tensor cores, and an epilogue that does the ring's own work:
+// Two are the last GEMM of a pipeline stage and its backward:
+//
+// * _gemm_ppsend_kernel (:792, the pallas_call at :886): the stage tail
+//   y = r + (x @ w + b) (x the last block's gelu activation [R, 4H], w
+//   its down projection, r the residual [R, H]), y sent to the next stage;
+// * _gemm_pprecv_kernel (:826, :904): its backward, dr = gy + gwire as
+//   the next stage's cotangent lands, then dx = dr @ w^T and dw = x^T @ dr.
+//
+// The TPU kernels move data with in-kernel remote DMAs. Hopper has no
+// in-kernel remote copy this port may write, so every hop is an NCCL
+// point-to-point pair outside the kernel (paddle_tpu_torch/ops/
+// ring_gemm.py, ops/pp_boundary.py), and each step launches kernels of
+// this file: a tile GEMM with bf16 operands, fp32 accumulation on the
+// tensor cores, and an epilogue that does the schedule's own work:
 //
 // * row 7, mode NN (and NT for the backward's w^T): stores the bf16 block
 //   straight into the chunk's rows of the [B, n*s, F] output (a row map:
@@ -35,18 +44,39 @@
 //   (the ring chunk, and the rows of the stationary operand belonging to
 //   chunk src, read in place through the row map); the transposed operand
 //   comes from shared memory by ldmatrix.trans. fp32 output, with
-//   out += part after the first step.
+//   out += part after the first step;
+// * row 14, mode NN with the bias + residual epilogue: y = r + (acc + b)
+//   in fp32 (the reference's association; one rounding to bf16 where the
+//   reference rounds after each op), one launch over all R rows (a launch
+//   per 256-row chunk would have 32 tiles for 132 SMs). The wrapper then
+//   posts y's hop on NCCL's stream;
+// * row 15: pp_add_kernel, dr = gy + gwire elementwise in fp32 rounded to
+//   bf16 (the bits of PyTorch's bf16 add), once the received cotangent has
+//   landed; then this GEMM in mode NT for dx = dr @ w^T (bf16) and in mode
+//   TN for dw = x^T @ dr (fp32). db is a sum of dr outside the kernel.
+//   The TPU kernel keeps one full-matrix product so that the fused rung
+//   equals the unfused one bit for bit (:805-807); here every output
+//   element is summed over k in the same order whatever rows a launch
+//   covers, so one launch over all rows keeps that property.
 //
-// What bounds them on an H100, per rank at GPT-3 1.3B, B=8, S=2048, n=4
-// (chunk rows B*s = 4096): one qkv chunk GEMM is 2*4096*2048*1536 = 25.8
-// GFLOP, 26 us at 989 TFLOP/s (operations: ~1,900 flops per byte moved);
-// the hop beside it moves a 16.8 MB bf16 chunk (rows 7, 9) or 33.5 MB of
-// fp32 partials (row 8), 37 / 75 us at 450 GB/s NVLink. Row 7 posts hop
-// t+1 before launching step t's GEMM, so the transfer runs under the
-// GEMM, as the TPU kernel's double buffer does; row 9 likewise. Row 8's
-// step needs the partial that arrives with the hop, and this first version
-// waits for it and then launches the GEMM with it as its fp32 addend: no
-// overlap, no extra pass over the partials.
+// What bounds them on an H100. Rows 7-9, per rank at GPT-3 1.3B, B=8,
+// S=2048, n=4 (chunk rows B*s = 4096): one qkv chunk GEMM is
+// 2*4096*2048*1536 = 25.8 GFLOP, 26 us at 989 TFLOP/s (operations: ~1,900
+// flops per byte moved); the hop beside it moves a 16.8 MB bf16 chunk
+// (rows 7, 9) or 33.5 MB of fp32 partials (row 8), 37 / 75 us at 450 GB/s
+// NVLink. Row 7 posts hop t+1 before launching step t's GEMM, so the
+// transfer runs under the GEMM, as the TPU kernel's double buffer does;
+// row 9 likewise. Row 8's step needs the partial that arrives with the
+// hop, and this first version waits for it and then launches the GEMM
+// with it as its fp32 addend: no overlap, no extra pass over the partials.
+// Row 14 at pp=4, M=8 (R = 2048 rows a microbatch, K = 8192, F = 2048):
+// 2*2048*8192*2048 = 68.7 GFLOP, 69.5 us at 989 TFLOP/s, against ~84 MB
+// of HBM traffic (25 us) and an 8.39 MB hop (18.6 us at 450 GB/s): bound
+// by operations. Row 15: two such GEMMs, 137.4 GFLOP, 139 us. The TPU
+// kernel sends y in chunks from its epilogue so that the hop overlaps the
+// GEMM; here the hop follows the launch on NCCL's stream and overlaps the
+// next microbatch's work instead. An epilogue that stores into the next
+// card's buffer (CUDA IPC) is the NVLink design of later work.
 //
 // Design of the GEMM: a 128 x 128 output tile per block of 8 warps (each
 // warp 64 x 32), k steps of 32, a four-stage cp.async ring of shared-memory
@@ -63,7 +93,8 @@
 // Built by paddle_tpu_torch/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
-// and bound with ctypes (paddle_tpu_torch/ops/ring_gemm.py).
+// and bound with ctypes (paddle_tpu_torch/ops/ring_gemm.py,
+// ops/pp_boundary.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,6 +117,12 @@ constexpr int kSmemBytes = kStages * 2 * kTileElems * 2;   // 81,920
 constexpr int kNN = 0;   // A row-major [M][K], B row-major [K][N]
 constexpr int kNT = 1;   // A row-major [M][K], B stored [N][K] (B = W^T)
 constexpr int kTN = 2;   // A stored [K][M] (A = P^T), B row-major [K][N]
+
+// epilogues: v = acc in fp32, then
+constexpr int kEpiAddend = 0;     // v = addend + v (addend fp32 [M][N], or
+                                  // none)
+constexpr int kEpiBiasResid = 1;  // v = resid + (v + bias): bias bf16 [N],
+                                  // resid bf16 [M][N] (row 14)
 
 // Where storage row r of an operand lies: rows come in batches of `rpb`
 // rows, `bstride` elements apart, rows of a batch `ld` elements apart. A
@@ -179,11 +216,12 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
 //   A [k][m], trans:      matrix i = (k 8*(i/2), m 8*(i%2))
 //   B [k][n], trans:      matrix i = (k 8*(i%2), n 8*(i/2))
 //   B [n][k], no trans:   matrix i = (n 8*(i/2), k 8*(i%2))
-template <int MODE, bool OUT_BF16>
+template <int MODE, bool OUT_BF16, int EPI>
 __global__ void __launch_bounds__(kThreads)
 ring_gemm_tile_kernel(const __nv_bfloat16* a, RowMap am,
                       const __nv_bfloat16* b, RowMap bm, void* c, RowMap cm,
-                      const float* addend, int M, int N, int K) {
+                      const float* addend, const __nv_bfloat16* bias,
+                      const __nv_bfloat16* resid, int M, int N, int K) {
   // kStages x {A tile, B tile}, dynamic: above the 48 KB of static memory
   extern __shared__ __align__(16) __nv_bfloat16 smem[];
   const int tid = threadIdx.x;
@@ -300,8 +338,9 @@ ring_gemm_tile_kernel(const __nv_bfloat16* a, RowMap am,
     }
   }
 
-  // epilogue: v = addend + part in fp32 (the reference's recv + part), one
-  // rounding to bf16 or stored in fp32
+  // epilogue: v = addend + part in fp32 (the reference's recv + part), or
+  // v = resid + (part + bias) (its stage tail), one rounding to bf16 or
+  // stored in fp32
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -314,7 +353,15 @@ ring_gemm_tile_kernel(const __nv_bfloat16* a, RowMap am,
         if (row >= M) continue;
         float v0 = acc[mi][ni][2 * h];
         float v1 = acc[mi][ni][2 * h + 1];
-        if (addend != nullptr) {
+        if constexpr (EPI == kEpiBiasResid) {
+          const float2 bb = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(bias + col));
+          const float2 rr = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  resid + static_cast<long long>(row) * N + col));
+          v0 = rr.x + (v0 + bb.x);
+          v1 = rr.y + (v1 + bb.y);
+        } else if (addend != nullptr) {
           const float2 s = *reinterpret_cast<const float2*>(
               addend + static_cast<long long>(row) * N + col);
           v0 = s.x + v0;
@@ -332,27 +379,53 @@ ring_gemm_tile_kernel(const __nv_bfloat16* a, RowMap am,
     }
 }
 
-template <int MODE, bool OUT_BF16>
+template <int MODE, bool OUT_BF16, int EPI = kEpiAddend>
 cudaError_t launch(const void* a, RowMap am, const void* b, RowMap bm,
                    void* c, RowMap cm, const void* addend, int M, int N,
-                   int K, cudaStream_t s) {
+                   int K, cudaStream_t s, const void* bias = nullptr,
+                   const void* resid = nullptr) {
   static bool opted_in[64] = {};            // above 48 KB: opt in once
   int dev = 0;                              // per device
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 64 || !opted_in[dev]) {
-    err = cudaFuncSetAttribute(ring_gemm_tile_kernel<MODE, OUT_BF16>,
+    err = cudaFuncSetAttribute(ring_gemm_tile_kernel<MODE, OUT_BF16, EPI>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemBytes);
     if (err != cudaSuccess) return err;
     if (dev < 64) opted_in[dev] = true;
   }
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  ring_gemm_tile_kernel<MODE, OUT_BF16><<<grid, kThreads, kSmemBytes, s>>>(
-      static_cast<const __nv_bfloat16*>(a), am,
-      static_cast<const __nv_bfloat16*>(b), bm, c, cm,
-      static_cast<const float*>(addend), M, N, K);
+  ring_gemm_tile_kernel<MODE, OUT_BF16, EPI>
+      <<<grid, kThreads, kSmemBytes, s>>>(
+          static_cast<const __nv_bfloat16*>(a), am,
+          static_cast<const __nv_bfloat16*>(b), bm, c, cm,
+          static_cast<const float*>(addend),
+          static_cast<const __nv_bfloat16*>(bias),
+          static_cast<const __nv_bfloat16*>(resid), M, N, K);
   return cudaGetLastError();
+}
+
+// dr = gy + gwire over n bf16 values, eight (16 bytes) a thread: each sum
+// in fp32, rounded once to bf16
+__global__ void __launch_bounds__(kThreads)
+pp_add_kernel(const uint4* a, const uint4* b, uint4* out, long long n8) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n8; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const uint4 va = a[i], vb = b[i];
+    uint4 vo;
+    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&va);
+    const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&vb);
+    __nv_bfloat162* po = reinterpret_cast<__nv_bfloat162*>(&vo);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 fa = __bfloat1622float2(pa[j]);
+      const float2 fb = __bfloat1622float2(pb[j]);
+      po[j] = __floats2bfloat162_rn(fa.x + fb.x, fa.y + fb.y);
+    }
+    out[i] = vo;
+  }
 }
 
 template <int MODE>
@@ -401,6 +474,36 @@ extern "C" int ring_gemm_launch(int mode, const void* a, long long lda,
                               s);
   }
   return -1;
+}
+
+// Row 14: y[M, N] = resid + (x @ w + bias) stored bf16, one launch on
+// `stream`; x [M][K], w [K][N], resid [M][N] and y contiguous, bias [N];
+// all bf16. M, N, K multiples of 16, 16-byte aligned. Returns as
+// ring_gemm_launch does.
+extern "C" int pp_gemm_launch(const void* x, const void* w, const void* bias,
+                              const void* resid, void* y, int M, int N, int K,
+                              void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return 0;
+  if (M % 16 || N % 16 || K % 16 || resid == y) return -1;
+  const int all = 1 << 30;                  // one batch of rows
+  return launch<kNN, true, kEpiBiasResid>(
+      x, RowMap{K, 0, all}, w, RowMap{N, 0, all}, y, RowMap{N, 0, all},
+      nullptr, M, N, K, static_cast<cudaStream_t>(stream), bias, resid);
+}
+
+// Row 15's elementwise part: out[n] = a + b, bf16, n a multiple of 8,
+// every pointer 16-byte aligned (out may be a or b).
+extern "C" int pp_add_launch(const void* a, const void* b, void* out,
+                             long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (n % 8) return -1;
+  const long long n8 = n / 8;
+  const long long want = (n8 + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  pp_add_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(a), static_cast<const uint4*>(b),
+      static_cast<uint4*>(out), n8);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* ring_gemm_error_string(int code) {

@@ -1,4 +1,4 @@
-"""Process groups for tensor parallelism (counterpart of
+"""Process groups for tensor and pipeline parallelism (counterpart of
 ``paddle_tpu/distributed/env.py``'s ``create_single_axis_mesh`` and of
 ``serving/mp_forward.py:396`` ``replica_mesh``).
 
@@ -9,7 +9,9 @@ per rank, each running the same program on its own shards, joined by a
 engine and the training step hold: the group, this rank, the degree, the
 device and the few collectives their schedules use (all-gathers and ring
 hops for serving; also all-reduces, reduce-scatters and ring hops posted
-ahead of a GEMM for training).
+ahead of a GEMM for training; and, for a pipeline whose ranks are its
+stages, hops to the next and the previous stage with no wrap-around,
+``stage_hops_async``).
 
 Layouts (the caller chooses; nothing here falls back from one to another):
 
@@ -136,11 +138,70 @@ class MPGroup:
         else:
             dist.barrier()
 
+    def stage_hops_async(self, send_next=None, send_prev=None,
+                         recv_prev=None, recv_next=None):
+        """Post one batch of pipeline stage hops and return its
+        ``StageHops`` at once: ``send_next`` (a tensor or None) to rank +
+        1, ``send_prev`` to rank - 1, and receives from rank - 1 and rank +
+        1 of ``recv_prev`` / ``recv_next`` = (shape, dtype) (or None). No
+        hop wraps around: naming a rank outside [0, n) raises. Every op of
+        a batch is in flight at once (one NCCL group), so a stage may send
+        and receive in both directions in one batch without deadlock; a
+        peer must post the matching op in its batch of the same tick.
+        Under NCCL ``wait`` makes the caller's current stream wait for the
+        batch; under gloo it blocks the host."""
+        ops, recvs = [], [None, None]
+        staged = self.stage_host
+        host = torch.device("cpu") if staged else self.device
+        for t, peer in ((send_next, self.rank + 1),
+                        (send_prev, self.rank - 1)):
+            if t is None:
+                continue
+            self._peer(peer)
+            t = t.detach()
+            ops.append(dist.P2POp(dist.isend, t.cpu() if staged else
+                                  t.contiguous(), peer))
+        for i, (spec, peer) in enumerate(((recv_prev, self.rank - 1),
+                                          (recv_next, self.rank + 1))):
+            if spec is None:
+                continue
+            self._peer(peer)
+            shape, dtype = spec
+            recvs[i] = torch.empty(shape, dtype=dtype, device=host)
+            ops.append(dist.P2POp(dist.irecv, recvs[i], peer))
+        works = dist.batch_isend_irecv(ops) if ops else []
+        return StageHops(works, ops, recvs, self.device if staged else None)
+
+    def _peer(self, peer):
+        if not 0 <= peer < self.n:
+            raise ValueError(f"rank {self.rank} of {self.n} has no stage "
+                             f"{peer}: stage hops do not wrap around")
+
 
 # the library's reduce-scatter into one tensor (newer torch names it
 # reduce_scatter_single and deprecates reduce_scatter_tensor)
 _reduce_scatter = getattr(dist, "reduce_scatter_single",
                           dist.reduce_scatter_tensor)
+
+
+class StageHops:
+    """One posted batch of stage hops (``MPGroup.stage_hops_async``)."""
+
+    def __init__(self, works, ops, recvs, to_device):
+        self._works, self._ops, self._recvs = works, ops, recvs
+        self._to = to_device          # gloo over CUDA: host copies go back
+
+    def wait(self):
+        """(received from rank - 1, received from rank + 1), None where
+        nothing was received; every send of the batch is done on return
+        (under NCCL: on the caller's stream)."""
+        for w in self._works:
+            w.wait()
+        out = tuple(None if r is None else
+                    r.to(self._to) if self._to is not None else r
+                    for r in self._recvs)
+        self._works = self._ops = self._recvs = None
+        return out
 
 
 class RingHop:

@@ -1,7 +1,7 @@
 """Runtime flags the port reads (counterpart of ``paddle_tpu/flags.py``).
 
 Only the flags the ported slices read exist here (the serving defaults
-and the tensor-parallel schedules), with the reference's values; flags of later slices are added with the code that
+and the tensor- and pipeline-parallel schedules), with the reference's values; flags of later slices are added with the code that
 reads them. ``set_flags`` refuses names it does not know, so a flag meant
 for an unported feature cannot be set and silently ignored.
 """
@@ -47,6 +47,10 @@ _FLAGS = {
     # with FLAGS_mp_overlap, ring-decomposed ("ring").
     "FLAGS_sequence_parallel": False,
     "FLAGS_mp_overlap": False,
+    # Pipeline boundary wire dtype of the explicit pp schedule
+    # (comm_backend.resolve_pp): "auto" (the compute dtype), "float32" or
+    # "bfloat16"; the fused rung ignores it.
+    "FLAGS_pp_wire_dtype": "auto",
 }
 
 

@@ -7,10 +7,14 @@ the reference's TPU and pipeline paths read (flash tiles, pp) are carried
 unchanged.
 
 ``gpt_block_fn`` is the block the training step runs over a
-``{name: tensor}`` dict of one layer's params. It keeps the reference's
-association of the MLP residual, ``x + (up @ down_w + down_b)``, which is
-not the serving block's ``(h + up @ down_w) + down_b``
-(``generation._block``): each side keeps its own reference's rounding.
+``{name: tensor}`` dict of one layer's params: ``gpt_block_prelude_fn``
+(everything up to the MLP's down projection) and the tail
+``resid + (gact @ down_w + down_b)``. It keeps the reference's
+association of the MLP residual, which is not the serving block's
+``(h + up @ down_w) + down_b`` (``generation._block``): each side keeps
+its own reference's rounding. ``gpt_fused_boundary`` is the last block of
+a pipeline stage on the fused pp rung: the prelude, and the tail through
+the boundary kernel that posts the stage's output to the next stage.
 """
 from __future__ import annotations
 
@@ -19,8 +23,10 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..distributed.recompute import remat
 from ..ops.blockwise_attention import blockwise_attention
 from ..ops.flash_attention import flash_attention_bshd
+from ..ops.pp_boundary import fused_gemm_ppsend
 
 
 @dataclass
@@ -88,18 +94,19 @@ def attention(q, k, v, config):
     return blockwise_attention(q, k, v, causal=True)
 
 
-def gpt_block_fn(config):
-    """(p, x) -> x of one pre-LN block over x [B, S, H]: fp32 LayerNorm,
-    qkv GEMM, causal attention (``attention``), out GEMM, fp32 LayerNorm,
-    tanh-GELU MLP, with the residual ``x + (gact @ down_w + down_b)``.
-    With ``config.qkv_head_major`` the qkv columns are stored head-major,
+def gpt_block_prelude_fn(config):
+    """(p, x) -> (resid, gact) of one pre-LN block over x [B, S, H]: fp32
+    LayerNorm, qkv GEMM, causal attention (``attention``), out GEMM and
+    the post-attention residual ``resid``; fp32 LayerNorm, up GEMM and
+    tanh-GELU ``gact`` [B, S, 4H] (reference gpt.py:273). With
+    ``config.qkv_head_major`` the qkv columns are stored head-major,
     [nh, 3, d] (``distributed.tp_overlap.to_qkv_head_major``), and read
     so: a relabeling, the same function bit for bit."""
     nh = config.num_heads
     eps = config.layer_norm_epsilon
     head_major = config.qkv_head_major
 
-    def block(p, x):
+    def prelude(p, x):
         B, S, H = x.shape
         dt = x.dtype
         h1 = ln_fp32(x, p["ln1_g"], p["ln1_b"], eps)
@@ -115,6 +122,40 @@ def gpt_block_fn(config):
         h2 = ln_fp32(x, p["ln2_g"], p["ln2_b"], eps)
         up = F.gelu(h2 @ p["up_w"].to(dt) + p["up_b"].to(dt),
                     approximate="tanh")
+        return x, up
+
+    return prelude
+
+
+def gpt_block_fn(config):
+    """(p, x) -> x of one pre-LN block over x [B, S, H]:
+    ``gpt_block_prelude_fn``, then the residual
+    ``resid + (gact @ down_w + down_b)``."""
+    prelude = gpt_block_prelude_fn(config)
+
+    def block(p, x):
+        x, up = prelude(p, x)
+        dt = x.dtype
         return x + (up @ p["down_w"].to(dt) + p["down_b"].to(dt))
 
     return block
+
+
+def gpt_fused_boundary(config, group, remat_policy=None):
+    """``boundary(last_layer_params, h, post) -> y`` for
+    ``distributed.pipeline.run_pipeline(boundary=...)`` on the fused pp
+    rung (reference gpt.py:326): the stage's last block as the prelude
+    (under ``remat_policy``, ``distributed.recompute``) and the tail
+    ``resid + (gact @ down_w + down_b)`` through the boundary kernel
+    (``ops.pp_boundary.FusedGemmPpSend``), which posts y to ``group``'s
+    next rank and hands the hop to ``post``. The hop stays outside the
+    checkpoint."""
+    prelude = remat(gpt_block_prelude_fn(config), remat_policy)
+
+    def boundary(p, h, post):
+        resid, gact = prelude(p, h)
+        dt = h.dtype
+        return fused_gemm_ppsend(gact, p["down_w"].to(dt),
+                                 p["down_b"].to(dt), resid, group, post)
+
+    return boundary

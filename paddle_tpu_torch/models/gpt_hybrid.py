@@ -36,10 +36,23 @@ replicated leaves are per-rank partial sums and are all-reduced; the
 clip's global norm counts every shard once and every replicated leaf
 once; AdamW updates each rank's shards.
 
-Meshes raise and point to ``group=``; dp and pp, ZeRO stage 3, host
-offload and the reference's non-sequence-parallel GSPMD all-reduce
-schedule are ROADMAP Queue A items 11 and 13. The reference's live step
-telemetry (``StepSampler``) waits for item 10.
+Pipeline parallel (``pp_group=``, ``num_microbatches=``, the SPMD
+counterpart of the reference's ``mesh=create_hybrid_mesh(pp=n)`` under
+``FLAGS_comm_backend='pp=ring'|'pp=fused'``): every rank is a stage
+holding its L/n layers (``params.stage_params``); stage 0 embeds, the
+blocks run through ``distributed.pipeline.run_pipeline`` on the schedule
+``comm_backend.resolve_pp`` picks (GPipe or 1F1B on the ring rung, GPipe
+with the boundary kernels of ``ops/pp_boundary.py`` on the fused rung),
+and the last stage gathers the M microbatch outputs and runs the final
+fp32 LayerNorm and the fused head + CE on the whole batch (the
+reference's mp=1 loss, gpt_hybrid.py:445-450). The loss is broadcast from
+the last stage, so every rank returns it; the clip's global norm sums
+each stage's leaves once; AdamW updates each stage's own leaves.
+
+Meshes raise and point to ``group=`` / ``pp_group=``; pp x mp, dp, ZeRO
+stage 3 and the reference's non-sequence-parallel GSPMD all-reduce
+schedule are ROADMAP Queue A steps 2-3; host offload is item 13. The
+reference's live step telemetry (``StepSampler``) waits for item 10.
 """
 from __future__ import annotations
 
@@ -51,12 +64,14 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..device import resolve_device
+from ..distributed import pipeline as pl
 from ..distributed import tp_overlap as tp
+from ..distributed.comm_backend import resolve_pp
 from ..distributed.recompute import remat
 from ..ops.fused_ce import fused_lm_loss
-from .gpt import compute_dtype, gpt_block_fn
+from .gpt import compute_dtype, gpt_block_fn, gpt_fused_boundary
 from .params import (gpt_param_specs, init_gpt_params, param_shapes,
-                     shard_params)
+                     shard_params, stage_params)
 
 
 def _lm_loss(logits, ids):
@@ -98,9 +113,10 @@ def _lm_loss_sharded(logits, ids, group):
 def _no_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
-            "the port is SPMD: pass group= (a distributed.env.MPGroup from "
-            "distributed.env.launch or init_mp_group, one process per rank) "
-            "instead of a mesh; dp and pp are ROADMAP Queue A item 11")
+            "the port is SPMD: pass group= (tensor parallel) or pp_group= "
+            "(pipeline parallel), a distributed.env.MPGroup from "
+            "distributed.env.launch or init_mp_group, one process per rank, "
+            "instead of a mesh; dp is ROADMAP Queue A item 11, steps 2-3")
 
 
 def _schedule(config, group, comm_backend, device, seq):
@@ -134,8 +150,8 @@ def gpt_hidden(params, ids, config, mesh=None, num_microbatches=1,
     [B, S, H], or with a ``group`` of n > 1 ranks this rank's seq shard
     [B, S/n, H] of the sequence-parallel schedule (rung
     ``comm_backend``; ``params`` this rank's shards).
-    ``num_microbatches`` only matters to the pipeline, which is not
-    ported."""
+    ``num_microbatches`` is the pipeline's (``HybridTrainStep(pp_group=)``,
+    which runs the blocks stage by stage); it is not read here."""
     _no_mesh(mesh)
     dt = compute_dtype(config)
     sp = _schedule(config, group, comm_backend, params["wte"].device,
@@ -208,8 +224,7 @@ class HybridTrainStep:
     ``params``: a full tree in the logical qkv layout from
     ``params_from_numpy`` (or the port's ``init_gpt_params``), copied to
     ``device`` in ``param_dtype``; without it, ``init_gpt_params(config,
-    seed)`` draws the weights. ``num_microbatches`` only matters to the
-    pipeline, which is not ported.
+    seed)`` draws the weights.
 
     Tensor parallel: ``group`` (a ``distributed.env.MPGroup`` of n > 1
     ranks; every rank builds the step with the same params or seed and
@@ -218,13 +233,28 @@ class HybridTrainStep:
     ``comm_backend.train_requested``). The step stores its qkv head-major
     (on a private copy of the config) and keeps this rank's shards in
     ``params``; ``device=None`` means the group's device. ``num_params``
-    counts the whole model."""
+    counts the whole model.
+
+    Pipeline parallel: ``pp_group`` (an ``MPGroup`` of n > 1 ranks, rank =
+    stage; every rank builds the step with the same params or seed and
+    calls it with the same ids), ``num_microbatches`` M (it must divide
+    the batch) and ``comm_backend`` ``"pp=ring"`` or ``"pp=fused"``
+    (``comm_backend.resolve_pp``: None reads the flags, and with no pp
+    rung named anywhere the step runs ``"ring"`` with
+    ``config.pp_schedule``). ``params`` then keeps this stage's leaves
+    only (``params.stage_params``); ``device=None`` means the group's
+    device. ``pp_group`` with ``group`` raises: pp x mp is ROADMAP Queue
+    A step 3."""
 
     def __init__(self, config, optimizer, mesh=None, num_microbatches=1,
                  param_dtype=torch.float32, seed=0, zero_stage=1,
                  offload=False, device=None, params=None, group=None,
-                 comm_backend=None):
+                 comm_backend=None, pp_group=None):
         _no_mesh(mesh)
+        if pp_group is not None and group is not None:
+            raise NotImplementedError(
+                "pp_group= with group= (pipeline x tensor parallel) is "
+                "ROADMAP Queue A step 3; pass one of them")
         if zero_stage >= 3:
             raise NotImplementedError(
                 "zero_stage >= 3 shards params over dp (ROADMAP Queue A "
@@ -235,6 +265,10 @@ class HybridTrainStep:
                 "(ROADMAP Queue A item 13)")
         self.optimizer = optimizer
         self.group = group if group is not None and group.n > 1 else None
+        self.pp_group = pp_group if pp_group is not None and \
+            pp_group.n > 1 else None
+        self.num_microbatches = int(num_microbatches)
+        group = group if group is not None else pp_group
         self.device = resolve_device(
             group.device if device is None and group is not None
             else device)
@@ -244,7 +278,11 @@ class HybridTrainStep:
             raise ValueError(f"the step's device {self.device} is not the "
                              f"group's {group.device}")
         head_major = config.qkv_head_major
-        self._sp = None
+        self._sp = self._ppc = None
+        if self.pp_group is not None:
+            self._ppc = resolve_pp(config, self.pp_group.n, comm_backend,
+                                   num_microbatches=self.num_microbatches,
+                                   device=self.device)
         if self.group is not None:
             config = dataclasses.replace(config, qkv_head_major=True)
             self._sp = tp.resolve_gpt(config, self.group.n, comm_backend,
@@ -277,6 +315,11 @@ class HybridTrainStep:
             specs = flatten_params(gpt_param_specs())
             self._replicated = {n for n in flat if specs[n] is None}
             copy = True               # the shards may be views of params
+        if self.pp_group is not None:
+            flat = flatten_params(stage_params(
+                unflatten_params(flat), self.pp_group.rank,
+                self.pp_group.n))
+            copy = True               # the stage's blocks are views
         self._flat = {name: t.detach().to(self.device, param_dtype,
                                           copy=copy).requires_grad_(True)
                       for name, t in flat.items()}
@@ -284,6 +327,10 @@ class HybridTrainStep:
         self.opt_state = optimizer.init_state(self._flat)
         self._wd_mask = {n: decays(n) for n in self._flat}
         self._records = {}
+        if self.pp_group is not None:
+            # the group's first collective involves every rank (NCCL's
+            # batched point-to-point ops need that of a group's first call)
+            self.pp_group.barrier()
 
     def _ids(self, ids):
         return torch.as_tensor(ids).to(self.device, torch.long)
@@ -292,8 +339,19 @@ class HybridTrainStep:
         return None if self._sp is None else self._sp.backend
 
     def _record(self, shape):
-        """The step's mp wire record for ids of ``shape`` (None on one
-        device); raises where the schedule cannot take the sequence."""
+        """The step's mp wire record (``group``) or pp ledger
+        (``pp_group``) for ids of ``shape`` (None on one device); raises
+        where the schedule cannot take the sequence or the batch."""
+        if self.pp_group is not None:
+            if shape not in self._records:
+                B, S = shape
+                g = self.pp_group
+                resolve_pp(self.config, g.n, self._ppc.backend, batch=B,
+                           num_microbatches=self.num_microbatches)
+                self._records[shape] = pl.gpt_pp_step_record(
+                    self.config, self._ppc, B, S, self.num_microbatches,
+                    g.rank)
+            return self._records[shape]
         if self.group is None:
             return None
         if shape not in self._records:
@@ -309,6 +367,8 @@ class HybridTrainStep:
         (no clip, no update)."""
         ids = self._ids(ids)
         self._record(tuple(ids.shape))
+        if self.pp_group is not None:
+            return self._pp_loss_and_grads(ids)
         names = list(self._flat)
         # the record_function ranges name the step's parts in a
         # torch.profiler trace (chip_smoke.py's train profiles read them);
@@ -323,6 +383,55 @@ class HybridTrainStep:
             with record_function("train_step/grad_sync"):
                 self._sync_replicated(grads)
         return loss.detach(), grads
+
+    def _pp_loss(self, ids):
+        """This stage's part of the pipelined forward: (loss on the last
+        stage, else None; the root every stage differentiates)."""
+        g, cfg, ppc = self.pp_group, self.config, self._ppc
+        first, last = g.rank == 0, g.rank == g.n - 1
+        dt = compute_dtype(cfg)
+        B, S = ids.shape
+        if first:
+            x = _embed(self.params, ids, cfg, None, None)
+        else:                         # only stage 0's values are read
+            x = torch.zeros((), dtype=dt, device=self.device).expand(
+                B, S, cfg.hidden_size)
+        if ppc.schedule == "gpipe":   # blocks checkpointed, hops outside
+            block, pol = remat(gpt_block_fn(cfg), cfg.remat_policy), None
+        else:                         # the stage-input recompute is "full"
+            block = gpt_block_fn(cfg)
+            pol = None if cfg.remat_policy in (None, "full") else \
+                cfg.remat_policy
+        boundary = gpt_fused_boundary(cfg, g, cfg.remat_policy) \
+            if ppc.backend == "fused" else None
+        out = pl.run_pipeline(block, self.params["blocks"], x,
+                              self.num_microbatches, g,
+                              schedule=ppc.schedule, backend=ppc.backend,
+                              wire_dtype=ppc.wire_dtype, boundary=boundary,
+                              remat_policy=pol)
+        if not last:
+            return None, out.sum()
+        hidden = final_ln_fp32(out, self.params["lnf_g"],
+                               self.params["lnf_b"],
+                               cfg.layer_norm_epsilon).to(dt)
+        loss = fused_lm_loss(hidden, self.params["head_w"].to(dt), ids)
+        return loss, loss
+
+    def _pp_broadcast_loss(self, loss):
+        """The last stage's loss on every rank (fp32, 0-dim)."""
+        g = self.pp_group
+        buf = loss.detach().float().reshape(()) if loss is not None else \
+            torch.empty((), dtype=torch.float32, device=self.device)
+        return g.broadcast(buf, src=g.n - 1)
+
+    def _pp_loss_and_grads(self, ids):
+        names = list(self._flat)
+        with torch.enable_grad():
+            with record_function("train_step/forward"):
+                loss, root = self._pp_loss(ids)
+            grads = dict(zip(names, torch.autograd.grad(
+                root, [self._flat[n] for n in names])))
+        return self._pp_broadcast_loss(loss), grads
 
     def _sync_replicated(self, grads):
         """All-reduce the replicated leaves' gradients (per-rank partial sums
@@ -340,7 +449,10 @@ class HybridTrainStep:
         clip = getattr(self.optimizer, "_grad_clip", None)
         if clip is not None:
             with record_function("train_step/clip"):
-                if self.group is None:
+                if self.pp_group is not None:
+                    clipped = clip.apply_arrays([grads[n] for n in names],
+                                                group=self.pp_group)
+                elif self.group is None:
                     clipped = clip.apply_arrays([grads[n] for n in names])
                 else:
                     clipped = clip.apply_arrays(
@@ -351,16 +463,25 @@ class HybridTrainStep:
             self.optimizer.apply_gradients(
                 self._flat, grads, self.opt_state, self.optimizer.get_lr(),
                 wd_mask=self._wd_mask)
-        tp.record_step(self._record(tuple(self._ids(ids).shape)))
+        rec = self._record(tuple(self._ids(ids).shape))
+        if self.pp_group is not None:
+            pl.record_pp_step(rec)
+        else:
+            tp.record_step(rec)
         return loss
 
     @torch.no_grad()
     def loss_only(self, ids):
         """Forward-only loss on the current params (no grads, no
         update)."""
-        return gpt_loss(self.params, self._ids(ids), self.config,
-                        self.group, self._backend())
+        ids = self._ids(ids)
+        if self.pp_group is not None:
+            self._record(tuple(ids.shape))
+            return self._pp_broadcast_loss(self._pp_loss(ids)[0])
+        return gpt_loss(self.params, ids, self.config, self.group,
+                        self._backend())
 
     def num_params(self):
-        """The whole model's parameter count (every rank's shards)."""
+        """The whole model's parameter count (every rank's shards or
+        stages)."""
         return int(self._num_params)

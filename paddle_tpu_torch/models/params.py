@@ -209,3 +209,40 @@ def gather_params(shards, n):
             t = torch.cat(parts, dim=d)
         _put(out, key, t)
     return out
+
+
+# leaves outside the blocks, by the pipeline stage that owns them
+FIRST_STAGE_KEYS = ("wte", "wpe")
+LAST_STAGE_KEYS = ("lnf_g", "lnf_b", "head_w")
+
+
+def stage_params(params, stage, n):
+    """Stage ``stage``'s part of a full tree for an ``n``-stage pipeline:
+    the blocks' layers [stage L/n, (stage + 1) L/n) (views of ``params``),
+    ``wte`` and ``wpe`` on stage 0, ``lnf_*`` and ``head_w`` on stage
+    n - 1. The reference keeps those non-block leaves replicated on every
+    stage (its GSPMD partitioner places their use); here only the stage
+    that runs the embedding or the loss holds them, so no stage stores,
+    updates or synchronises a leaf it never reads."""
+    L = params["blocks"]["qkv_w"].shape[0]
+    if L % n:
+        raise ValueError(f"{L} layers do not split into {n} stages")
+    per = L // n
+    out = {k: params[k] for k in FIRST_STAGE_KEYS if stage == 0}
+    out.update({k: params[k] for k in LAST_STAGE_KEYS if stage == n - 1})
+    out["blocks"] = {k: v[stage * per:(stage + 1) * per]
+                     for k, v in params["blocks"].items()}
+    return out
+
+
+def gather_stage_params(shards, n):
+    """The full tree from the ``n`` stages' parts (a list in stage order):
+    blocks concatenated on the layer axis, the other leaves from the stage
+    that owns them. Inverse of ``stage_params``."""
+    if len(shards) != n:
+        raise ValueError(f"need {n} stages, got {len(shards)}")
+    out = {k: shards[0][k] for k in FIRST_STAGE_KEYS}
+    out.update({k: shards[-1][k] for k in LAST_STAGE_KEYS})
+    out["blocks"] = {k: torch.cat([s["blocks"][k] for s in shards])
+                     for k in shards[0]["blocks"]}
+    return out

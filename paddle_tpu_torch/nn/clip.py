@@ -12,6 +12,10 @@ shard of a leaf (else a replicated leaf whose gradient every rank holds
 alike, already summed over the group). A norm then counts every shard
 once, summing their squares over the group, and every replicated leaf
 once, as the reference's GSPMD norm over the global leaves does.
+Pipeline parallel: ``apply_arrays(grads, group=)`` with ``sharded=None``
+takes one stage's gradients, each rank holding whole leaves no other rank
+holds; the global norm sums every rank's squares once (one all-reduce of
+a scalar), a per-leaf norm needs none.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ def _sq_norms(grads, group, sharded):
     """fp32 [len(grads)] squared norms; with a group, each sharded leaf's
     summed over the ranks (one all-reduce)."""
     sq = torch.stack([_sq_norm(g) for g in grads])
-    if group is not None:
+    if group is not None and sharded is not None:
         mask = torch.tensor(sharded, device=sq.device)
         part = group.all_reduce_(torch.where(mask, sq, 0.0))
         sq = torch.where(mask, part, sq)
@@ -74,6 +78,9 @@ class ClipGradByGlobalNorm:
     def apply_arrays(self, grads, group=None, sharded=None):
         if group is None:
             norm = torch.sqrt(sum(_sq_norm(g) for g in grads))
+        elif sharded is None:        # whole leaves, each on one rank
+            norm = torch.sqrt(group.all_reduce_(
+                sum(_sq_norm(g) for g in grads)))
         else:
             norm = torch.sqrt(_sq_norms(grads, group, sharded).sum())
         scale = torch.clamp(self.clip_norm / torch.clamp(norm, min=1e-12),

@@ -613,3 +613,48 @@ def test_ring_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
                                group)
     with pytest.raises(ValueError, match="not contiguous"):
         ring_gemm.ring_ag_gemm(x.transpose(0, 1), w, group)
+
+
+@pytest.mark.cuda
+def test_pp_boundary_kernels_match_plain_on_card(cuda_device, tmp_path):
+    """Rows 14 (y = r + (x @ w + b)) and 15 (dr = gy + gwire, dx, dw) of
+    ``ops/pp_boundary.py`` against their plain versions on two ranks
+    sharing the card over gloo: per element and per 128-row tile, dr and
+    db bit for bit, at a shape with ragged tiles and one of several
+    tiles; the boundary op's hop delivers y byte for byte; one launch a
+    row-14 call, three a row-15 call."""
+    import torch_pp_train_ranks as ranks
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.ops import pp_boundary
+    pp_boundary.build()          # once, here: the ranks only load it
+    outs = env.launch(2, ranks.card_kernels, 4, layout="shared",
+                      timeout_s=300, init_dir=tmp_path)
+    n = len(ranks.CARD_SHAPES)
+    for o in outs:
+        for case, readings, ok in o["readings"]:
+            assert ok, (case, readings)
+    assert outs[1]["hops"] == [True] * n
+    assert outs[0]["counts"]["gemm_ppsend"] == (2 * n, 2 * n)
+    assert outs[1]["counts"]["gemm_ppsend"] == (n, n)
+    for o in outs:
+        assert o["counts"]["gemm_pprecv"] == (n, 3 * n)
+
+
+@pytest.mark.cuda
+def test_pp_boundary_wrappers_refuse_what_the_kernels_do_not_take(
+        cuda_device):
+    """fp32 operands, a width that is not a multiple of 16 and a
+    non-contiguous operand raise; nothing falls back to the plain path."""
+    from paddle_tpu_torch.ops import pp_boundary as ppb
+    bf = dict(device=cuda_device, dtype=torch.bfloat16)
+    x, w = torch.zeros(32, 64, **bf), torch.zeros(64, 48, **bf)
+    b, r = torch.zeros(48, **bf), torch.zeros(32, 48, **bf)
+    before = (ppb.gemm_ppsend.launches, ppb.gemm_pprecv.launches)
+    with pytest.raises(ValueError, match="not bfloat16"):
+        ppb.gemm_ppsend(x.float(), w.float(), b.float(), r.float())
+    with pytest.raises(ValueError, match="columns 40 not a multiple of 16"):
+        ppb.gemm_ppsend(x, w[:, :40].contiguous(), b[:40].contiguous(),
+                        r[:, :40].contiguous())
+    with pytest.raises(ValueError, match="not contiguous"):
+        ppb.gemm_pprecv(r, r, x, w.t().contiguous().t())
+    assert (ppb.gemm_ppsend.launches, ppb.gemm_pprecv.launches) == before
