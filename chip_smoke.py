@@ -2290,9 +2290,10 @@ def tp_rank_main(group, seed):
         torch.cuda.empty_cache()
         a = out["train"]["stats"]
         b = out["train_rsag"]["stats"]
+        diff = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
         say(f"[tp-train] fused vs rsag from the same weights and ids: "
             f"losses {a['losses']} vs {b['losses']}, max |diff| "
-            f"{max(abs(x - y) for x, y in zip(a['losses'], b['losses'])):.4f}")
+            f"{diff:.4f}")
     failed += phase_tp_parity(group, seed, say)
     torch.cuda.empty_cache()
     out["timing"] = phase_tp_timing(group, gen, cfg, say)
@@ -2354,7 +2355,8 @@ PP_KERNELS = (  # (kernel, wrapper, TPU kernel it replaces)
      "paddle_tpu/ops/pallas_kernels/fused_collectives.py:826"),
 )
 # (name, comm_backend, pp_schedule); the fused rung is the main path
-PP_RUNGS = (("fused", "pp=fused", "gpipe"), ("ring-gpipe", "pp=ring", "gpipe"),
+PP_RUNGS = (("fused", "pp=fused", "gpipe"),
+            ("ring-gpipe", "pp=ring", "gpipe"),
             ("ring-1f1b", "pp=ring", "1f1b"))
 
 
@@ -2468,7 +2470,8 @@ def pp_step_calls(rung, stage, n, M):
     the ring rung. Row 14 launches one kernel a call, row 15 three (the
     add, dx, dw)."""
     calls = M if rung == "fused" and stage < n - 1 else 0
-    return {"gemm_ppsend": (calls, calls), "gemm_pprecv": (calls, 3 * calls)}
+    return {"gemm_ppsend": (calls, calls),
+            "gemm_pprecv": (calls, 3 * calls)}
 
 
 def phase_pp_train(group, seed, say, rung, comm_backend, schedule,
@@ -2688,8 +2691,8 @@ def pp_rank_main(group, seed):
     the boundary kernels against their plain versions, the main path on
     the fused rung and the two ring rungs (GPT-3 1.3B at full depth with a
     card per rank, and a profile of one fused step; 4 layers, 1 + 2 steps
-    on one card), the parity copy and the timings. Rank 0 prints; every rank returns its readings and
-    failures."""
+    on one card), the parity copy and the timings. Rank 0 prints; every
+    rank returns its readings and failures."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(1)
@@ -2761,7 +2764,8 @@ def pp_rows(outs, layout, cfg):
                        library_ms=t["library_call_ms"], hop_ms=t["hop_ms"],
                        covers="kernels + hop, slowest rank")
         else:
-            row.update(ms=t["kernel_alone_ms"], plain_ms=t["plain_alone_ms"],
+            row.update(ms=t["kernel_alone_ms"],
+                       plain_ms=t["plain_alone_ms"],
                        library_ms=t["library_alone_ms"],
                        covers="kernels alone, CUDA-graph replay")
         if kernel == "gemm_pprecv":

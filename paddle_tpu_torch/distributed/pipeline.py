@@ -84,7 +84,6 @@ class _Plan:
         return h
 
 
-
 def _accumulate(acc, grads):
     return [g if a is None else a + g for a, g in zip(acc, grads)]
 

@@ -64,10 +64,10 @@ def gemm_ppsend_plain(x, w, b, r):
 
 def gemm_pprecv_plain(gy, gwire, x, w, rows=None):
     """The backward of the tail from its two cotangents: (dx, dw, db, dr)
-    with ``dr = gy + gwire``, ``dx = dr @ w^T`` in the operands' dtype, ``dw = x^T @ dr`` with fp32
-    products and sums (a no-op cast in fp32), and ``db`` = dr summed over
-    the leading dims of ``rows`` (default: all but the last) in dr's
-    dtype. x [..., K], w [K, F], gwire [..., F]."""
+    with ``dr = gy + gwire``, ``dx = dr @ w^T`` in the operands' dtype,
+    ``dw = x^T @ dr`` with fp32 products and sums (a no-op cast in fp32),
+    and ``db`` = dr summed over the leading dims of ``rows`` (default: all
+    but the last) in dr's dtype. x [..., K], w [K, F], gwire [..., F]."""
     dr = gy + gwire
     dr2 = _rows2(dr)
     dx = dr2.mm(w.t()).view(x.shape)
