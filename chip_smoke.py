@@ -107,6 +107,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
    one-card step on the same weights within phase 6's tolerances; rows
    14-15's times alone, and with a card per rank with their hops.
 
+12. data-parallel training, in DP = 4 replicas laid out as in phase 9:
+   row 10, the bucketed ring reduce-scatter (``ops/fused_collectives.py:
+   fused_rs_bucket``, ``csrc/rs_bucket.cu``), with real hops against its
+   plain ring bit for bit on fp32 and bf16 wires at 512-25,755,648 cols
+   (GPT-3 1.3B's bucket widths at n=4, each rank its own bucket) and
+   against NCCL's reduce-scatter of the same fp32 bucket; GPT-3 1.3B
+   (the eager ``GPTForCausalLM``, fp32 params, bf16 compute, remat
+   dots_no_batch) trained through ``jit.TrainStep(group=)`` with phase
+   5's weights, ids, lr, clip and moment dtype on the rungs
+   ``dp=fused`` with weight-update sharding at an fp32 wire (the main
+   path) and a bf16 wire, ``dp=ring``, the int8 wire and the flags off,
+   at full depth (2 warm-up and 5 timed steps) with a card per rank, at
+   2 layers (1 + 2 steps) on one card: finite losses, the last below the
+   first, the same on every rank, row 10 called once per float bucket
+   per step (196 at full depth) on the fused fp32 and bf16 rungs and
+   never on the others; step time, tokens/s, MFU over the cards, peak
+   memory and the comm ledger per step; one fused step of a 2-layer copy
+   (B=4) against the one-device step on the same weights and ids within
+   phase 6's tolerances; with a card per rank a profile of one fused
+   step; row 10's times (one step's pass alone, and with a card per rank
+   the whole call with its hops beside NCCL's reduce-scatter).
+
 The lines before the last carry a ``{"kernels": [...], "collectives":
 [...]}`` JSON object (``collectives``: the TPU kernel whose port is the
 library's all-gather, with no hand-written kernel) and the card's name
@@ -134,10 +156,15 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch import cuda_build
 from paddle_tpu_torch.distributed import env, tp_overlap
+from paddle_tpu_torch.distributed import grad_comm as gcomm
 from paddle_tpu_torch.distributed import pipeline as pl
-from paddle_tpu_torch.models import (GPT_CONFIGS, HybridTrainStep,
-                                     cast_for_compute, generate_from_params,
-                                     init_gpt_params)
+from paddle_tpu_torch.flags import set_flags
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.models import (GPT_CONFIGS, GPTForCausalLM,
+                                     HybridTrainStep, cast_for_compute,
+                                     generate_from_params, gpt_loss_fn,
+                                     init_gpt_params, layer_params_from_numpy,
+                                     layer_params_from_tree)
 from paddle_tpu_torch.models.generation import _proj
 from paddle_tpu_torch.models.gpt_hybrid import (flatten_params, gpt_loss,
                                                 unflatten_params)
@@ -361,13 +388,15 @@ def phase_build():
     sources = {"paged_decode": "paged_decode.cu",
                "flash_attention": "flash_attention.cu",
                "quant_gemm": "quant_gemm.cu",
-               "ring_gemm": "ring_gemm.cu"}
+               "ring_gemm": "ring_gemm.cu",
+               "rs_bucket": "rs_bucket.cu"}
     cuda_build.build_all(sources)
     paged_decode.build()
     fa.build()
     qg.build()
     rg.build()
     ppb.build()
+    fc.build_rs_bucket()
     print(f"[build] {len(sources)} sources in parallel: "
           f"{time.perf_counter() - t0:.2f}s")
     for name, source in sources.items():
@@ -2067,6 +2096,7 @@ def phase_tp_profile(group, step, ids, say, tag="tp-profile"):
                     key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events) / 1e3
     kinds = {"ring GEMM kernels": ("ring_gemm",),
+             "row 10 (rs_step_kernel)": ("rs_step_kernel",),
              "NCCL": ("nccl",), "flash kernels": ("flash_",),
              "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "sm90_xmma",
                               "Kernel2"),
@@ -2774,13 +2804,454 @@ def pp_rows(outs, layout, cfg):
     return rows
 
 
-def phase_trajectories(one_card, tp_r0, pp_r0, layout):
+# ------------------------------------------ data-parallel training (12)
+DP = 4                      # data-parallel replicas of phase 12
+DP_KERNEL = ("fused_rs_bucket", fc.fused_rs_bucket,
+             "paddle_tpu/ops/pallas_kernels/fused_collectives.py:361")
+# row 10 against its plain ring at these widths (GPT-3 1.3B's buckets at
+# n=4: LayerNorm / bias rows of 512 and 1,536 cols, 3,072 cols, out and
+# wpe 1,048,576, up and down 4,194,304, wte and head 25,755,648)
+DP_CHECK_COLS = (512, 1536, 3072, 1_048_576, 4_194_304, 25_755_648)
+DP_TIMED_COLS = (512, 1_048_576, 4_194_304, 25_755_648)
+# row 10's fp32 wire against NCCL's reduce-scatter of the same bucket:
+# four N(0, 1) rows summed in another order, a few fp32 ulps of |sum| < 10
+DP_LIB_TOL = 1e-5
+DP_DEFAULT_FLAGS = {"FLAGS_grad_comm": "auto",
+                    "FLAGS_weight_update_sharding": False,
+                    "FLAGS_allreduce_dtype": "float32",
+                    "FLAGS_grad_bucket_bytes": 16 * 2 ** 20,
+                    "FLAGS_comm_backend": ""}
+DP_FUSED = {"FLAGS_comm_backend": "dp=fused",
+            "FLAGS_weight_update_sharding": True}
+# (name, flags); the fused fp32 rung is the main path
+DP_RUNGS = (("fused", DP_FUSED),
+            ("fused-bf16", dict(DP_FUSED, FLAGS_allreduce_dtype="bfloat16")),
+            ("ring", {"FLAGS_comm_backend": "dp=ring",
+                      "FLAGS_weight_update_sharding": True}),
+            ("int8", dict(DP_FUSED, FLAGS_allreduce_dtype="int8")),
+            ("off", {}))
+DP_PARITY_LAYERS, DP_PARITY_B = 2, 4
+
+
+def dp_model(cfg, dev, params):
+    """The eager GPTForCausalLM of ``cfg`` on ``dev`` (fp32 params, the
+    Layer's) holding the functional tree ``params``'s values (phases 5, 10
+    and 11's weights, through the Layer-name map)."""
+    with torch.device(dev):
+        model = GPTForCausalLM(cfg)
+    return layer_params_from_numpy(model, layer_params_from_tree(params))
+
+
+def dp_rs_calls(rung, float_buckets):
+    """Row 10 calls per step on ``rung``: one per float bucket on the fused
+    rungs with an fp32 or bf16 wire; none on the ring, int8 and flags-off
+    rungs."""
+    return float_buckets if rung in ("fused", "fused-bf16") else 0
+
+
+def dp_bound(cols, n, per_card, wire_bytes=4):
+    """(ms, by) of row 10 on an (n, cols) fp32 bucket. A card per rank:
+    the whole call, the larger of the HBM bytes (x read, n - 1 received
+    rows read and sent rows written, the fp32 row written) and the bytes
+    received over one direction of NVLink (n - 1 rows at the wire). One
+    card: one middle step's pass alone (part and received row read, the
+    next send written)."""
+    if per_card:
+        hbm = 4 * n * cols + 2 * (n - 1) * wire_bytes * cols + 4 * cols
+        times = {"bytes": hbm / HBM_BYTES_PER_S,
+                 "nvlink bytes": (n - 1) * wire_bytes * cols /
+                 NVLINK_BYTES_PER_S}
+    else:
+        times = {"bytes": (4 + 2 * wire_bytes) * cols / HBM_BYTES_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def phase_dp_kernels(group, seed, say):
+    """Row 10 with real hops at ``DP_CHECK_COLS``, each rank its own (n,
+    cols) fp32 bucket: the kernel ring against the plain ring bit for bit
+    on fp32 and bf16 wires, and its fp32 row against NCCL's (gloo's on one
+    card) reduce-scatter of the same bucket within ``DP_LIB_TOL``. Returns
+    ({(cols, wire): max abs error}, failures)."""
+    dev, n = group.device, group.n
+    own = torch.Generator(device=dev).manual_seed(seed + 5000 + group.rank)
+    errs, failed = {}, []
+    for cols in DP_CHECK_COLS:
+        x = torch.randn((n, cols), generator=own, device=dev)
+        for wire in (torch.float32, torch.bfloat16):
+            got = fc.fused_rs_bucket(x, group, wire)
+            want = fc.rs_bucket_plain(x, group, wire)
+            torch.cuda.synchronize()
+            name = str(wire)[6:]
+            errs[(cols, name)] = float((got - want).abs().max())
+            if not (torch.equal(got, want) and got.dtype == torch.float32):
+                failed.append(f"row 10 vs plain, {cols} cols, {name} wire: "
+                              f"max abs {errs[(cols, name)]:.3e}")
+            if wire == torch.float32:
+                lib = group.reduce_scatter_into(
+                    torch.empty(cols, device=dev), x.view(-1))
+                errs[(cols, "library")] = float((got - lib).abs().max())
+                if not errs[(cols, "library")] <= DP_LIB_TOL:
+                    failed.append(f"row 10 vs reduce-scatter, {cols} cols: "
+                                  f"{errs[(cols, 'library')]:.3e}")
+        del x
+    say(f"[dp-kernel] row 10 vs its plain ring, bit for bit (fp32 and bf16 "
+        f"wires) at {list(DP_CHECK_COLS)} cols, on every rank's own bucket: "
+        f"{not failed}; vs the library reduce-scatter (fp32), max abs "
+        f"{max(v for (c, k), v in errs.items() if k == 'library'):.2e} "
+        f"(gate {DP_LIB_TOL})")
+    return errs, failed
+
+
+def phase_dp_train(group, seed, say, rung, flags, num_layers=None,
+                   warmup=WARMUP_STEPS, timed=TIMED_STEPS):
+    """GPT-3 1.3B at full width (and depth, unless ``num_layers``) through
+    ``jit.TrainStep(GPTForCausalLM, gpt_loss_fn, AdamW, group=)`` at dp=n
+    on one rung: phase 5's weights, lr, clip and moment dtype, fp32 params
+    and bf16 compute, remat dots_no_batch, the global batch of phase 5
+    (``train_ids``) split over the ranks. Gates: finite losses, the last
+    below the first, the same on every rank, row 10's calls and launches
+    as ``dp_rs_calls`` says. Returns (step, this rank's ids, readings,
+    failures)."""
+    cfg = train_config(num_layers)
+    dev, n = group.device, group.n
+    set_flags(dict(DP_DEFAULT_FLAGS))
+    set_flags(flags)
+    t0 = time.perf_counter()
+    model = dp_model(cfg, dev, init_gpt_params(cfg, seed=seed, device=dev,
+                                               dtype=torch.bfloat16))
+    opt = AdamW(2e-4, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0), moment_dtype="bfloat16")
+    step = TrainStep(model, gpt_loss_fn, opt, group=group)
+    b = TRAIN_B // n
+    mine = train_ids(cfg, seed, dev)[group.rank * b:(group.rank + 1) * b]
+    torch.cuda.synchronize()
+    say(f"[dp-train {rung}] {MODEL}, {cfg.num_layers} layers: "
+        f"{model.num_params():,} params fp32 (bf16 compute) over dp={n} "
+        f"({group.backend}), flags {flags}, AdamW(2e-4, clip 1.0, bf16 "
+        f"moments), remat dots_no_batch, ids [{b}, {TRAIN_S}] a rank; set "
+        f"up in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    gcomm.reset_comm_counters()
+    # the main path: counts start at 0 here and are read right after
+    fc.reset_rs_bucket_counts()
+    fc.fused_ag_bucket.launches = 0
+    losses = []
+    group.barrier()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        losses.append(step(mine, mine))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        losses.append(step(mine, mine))
+    stop.record()
+    losses = [float(x) for x in losses]
+    step_s = start.elapsed_time(stop) / 1e3 / timed
+    counts = (fc.fused_rs_bucket.calls, fc.fused_rs_bucket.launches)
+    shapes = {f"{c}/{w}": k for (c, w), k in fc.fused_rs_bucket.shapes.items()}
+    gathers = fc.fused_ag_bucket.launches
+    steps = warmup + timed
+    cfg_gc = step._gc_cfg
+    plan = None if cfg_gc is None else cfg_gc.plan
+    floats = 0 if plan is None else sum(bk.dtype.is_floating_point
+                                        for bk in plan.buckets)
+    calls = dp_rs_calls(rung, floats) * steps
+    want = (calls, n * calls)
+    failed = []
+    if not all(np.isfinite(losses)):
+        failed.append(f"a dp train loss is not finite ({rung}): {losses}")
+    if not losses[-1] < losses[0]:
+        failed.append(f"dp loss did not fall ({rung}): {losses[0]} -> "
+                      f"{losses[-1]}")
+    every = group.all_gather_list(torch.tensor(losses, device=dev))
+    same = all(torch.equal(every[0], o) for o in every)
+    if not same:
+        failed.append(f"the ranks' losses differ ({rung})")
+    if counts != want:
+        failed.append(f"rank {group.rank} {rung}: row 10 (calls, launches) "
+                      f"{counts} != {want}")
+    per_rank = group.all_gather_list(torch.tensor(
+        [step_s, torch.cuda.max_memory_allocated(dev) / 1e9], device=dev,
+        dtype=torch.float64))
+    step_max = max(float(t[0]) for t in per_rank)
+    fpt, _ = flops.model_flops_per_token(cfg, TRAIN_S)
+    tokens = TRAIN_B * TRAIN_S
+    peak = flops.peak_flops_bf16(torch.cuda.get_device_name(dev))
+    comm = gcomm.comm_counters()
+    per_step = {k: comm[k] / steps for k in
+                ("reduce_bytes", "gather_bytes", "collectives", "buckets")}
+    stats = {"rung": rung, "step_s": step_max,
+             "step_s_by_rank": [float(t[0]) for t in per_rank],
+             "tokens_per_s": tokens / step_max,
+             "mfu_over_cards": flops.mfu(fpt * tokens, step_max, peak,
+                                         cards=n),
+             "cards": n, "layers": cfg.num_layers, "layout": group.backend,
+             "warmup_s": warm, "losses": losses,
+             "peak_mem_gb_by_rank": [float(t[1]) for t in per_rank],
+             "comm_per_step": per_step,
+             "reduce_bytes_by_dtype_per_step": {
+                 k: v / steps for k, v in comm["reduce_bytes_by_dtype"].items()},
+             "bucket_fill": comm["bucket_fill"],
+             "backend": comm["backend"], "row10_calls_per_step": calls / steps,
+             "row11_gathers_per_step": gathers / steps}
+    say(f"[dp-train {rung}] losses {[round(x, 4) for x in losses]} (the "
+        f"same on every rank: {same})")
+    say(f"[dp-train {rung}] rank 0 row 10 (calls, launches) over {steps} "
+        f"steps: {counts} (want {want}); by (cols/wire): {shapes}")
+    say(f"[dp-train {rung}] {json.dumps(stats)}")
+    set_flags(dict(DP_DEFAULT_FLAGS))
+    return step, mine, {"stats": stats, "counts": counts,
+                        "shapes": dict(fc.fused_rs_bucket.shapes)}, failed
+
+
+def phase_dp_profile(group, step, mine, say):
+    """Where a fused dp step's time goes on rank 0: device ms by kind of
+    kernel (``phase_tp_profile``) and under the step's record_function
+    ranges (a second trace that records host ops too; the backward is
+    what the ranges leave). Every rank runs both steps."""
+    out = phase_tp_profile(group, lambda ids: step(ids, ids), mine, say,
+                           tag="dp-profile")
+    group.barrier()
+    if group.rank != 0:
+        step(mine, mine)
+        torch.cuda.synchronize()
+        return out
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        float(step(mine, mine))
+    ranges = ("train_step/forward", "grad_comm/reduce_scatter",
+              "train_step/clip", "train_step/optimizer",
+              "grad_comm/all_gather")
+    cpu = torch.autograd.DeviceType.CPU
+    spans = {r: sum(getattr(e, "device_time_total", 0) for e in prof.events()
+                    if e.name == r and e.device_type == cpu) / 1e3
+             for r in ranges}
+    spans["backward (the rest)"] = out["busy_ms"] - sum(spans.values())
+    say(f"[dp-profile] device ms by part of the step (NCCL kernels count "
+        f"while they wait): "
+        f"{json.dumps({k: round(v, 3) for k, v in spans.items()})}")
+    out["spans"] = spans
+    return out
+
+
+def phase_dp_parity(group, seed, say):
+    """One dp=n fused step of a DP_PARITY_LAYERS-layer copy at full width
+    (B=DP_PARITY_B, S=2048) against the one-device TrainStep on the same
+    weights and ids (rank 0): the loss, and every param's update, within
+    phase 6's tolerances. AdamW(1.0, epsilon=1.0, no decay, no clip)
+    makes the first update g / (|g| + 1), the gradient to within |g|, so
+    the update compares the reduced gradient leaf by leaf. Returns
+    failures (rank 0's)."""
+    cfg = train_config(num_layers=DP_PARITY_LAYERS)
+    dev, n = group.device, group.n
+    params = init_gpt_params(cfg, seed=seed + 1, device=dev,
+                             dtype=torch.bfloat16)
+    ids = torch.randint(0, cfg.vocab_size, (DP_PARITY_B, TRAIN_S),
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed + 4), device=dev)
+
+    def one_step(grp, x):
+        model = dp_model(cfg, dev, params)
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        opt = AdamW(1.0, parameters=model.parameters(), epsilon=1.0,
+                    weight_decay=0.0)
+        loss = float(TrainStep(model, gpt_loss_fn, opt, group=grp,
+                               device=None if grp else dev)(x, x))
+        return loss, {k: p.detach() - before[k]
+                      for k, p in model.named_parameters()}
+
+    set_flags(dict(DP_DEFAULT_FLAGS))
+    set_flags(DP_FUSED)
+    b = DP_PARITY_B // n
+    loss, delta = one_step(group, ids[group.rank * b:(group.rank + 1) * b])
+    set_flags(dict(DP_DEFAULT_FLAGS))
+    failed = []
+    if group.rank == 0:
+        ref_loss, ref = one_step(None, ids)
+        rel = {k: float((delta[k] - ref[k]).norm() /
+                        ref[k].norm().clamp(min=1e-30)) for k in ref}
+        worst = max(rel, key=rel.get)
+        say(f"[dp-parity] {DP_PARITY_LAYERS}-layer {MODEL} width, "
+            f"B={DP_PARITY_B} S={TRAIN_S} bf16 compute, dp={n} fused: loss "
+            f"{loss:.6f} vs the one-device step {ref_loss:.6f} (|diff| "
+            f"{abs(loss - ref_loss):.2e}); param updates: worst "
+            f"||du||/||u|| {rel[worst]:.3e} ({worst}), median "
+            f"{sorted(rel.values())[len(rel) // 2]:.3e} (gates: loss "
+            f"{PARITY_LOSS_REL} rel, leaves {PARITY_GRAD_REL})")
+        if not (np.isfinite(loss) and
+                abs(loss - ref_loss) <= PARITY_LOSS_REL * abs(ref_loss)):
+            failed.append(f"dp loss {loss} vs one-device {ref_loss}")
+        bad = {k: v for k, v in rel.items()
+               if not (np.isfinite(v) and v <= PARITY_GRAD_REL)}
+        if bad:
+            failed.append(f"dp param updates off the one-device step: {bad}")
+    group.barrier()
+    return failed
+
+
+def phase_dp_timing(group, seed, say):
+    """Row 10 at ``DP_TIMED_COLS`` (fp32 buckets). On rank 0, by
+    CUDA-graph replay: one middle ring step's pass alone (received row +
+    part into the next send) on fp32 and bf16 wires, its plain ops and
+    ``torch.add(recv, part, out=send)`` (fp32: the same function in one
+    library call). With a card per rank, on every rank by CUDA events
+    over 10 eager calls, the slowest rank reported: the whole call with
+    its hops (fp32 and bf16 wires), the plain ring and NCCL's
+    reduce-scatter of the same bucket. Returns {cols: timings}."""
+    dev, n = group.device, group.n
+    per_card = group.backend == "nccl"
+    g = torch.Generator(device=dev).manual_seed(seed + 6000 + group.rank)
+    out = {}
+    for cols in DP_TIMED_COLS:
+        x = torch.randn((n, cols), generator=g, device=dev)
+        t = {}
+        if group.rank == 0:
+            part = x[0]
+            recv = torch.randn(cols, generator=g, device=dev)
+            recv16, send = recv.bfloat16(), torch.empty_like(recv)
+            f32, bf16 = torch.float32, torch.bfloat16
+            k1 = graph_ms(lambda: fc.rs_bucket_step(part, recv, f32,
+                                                    out=False), iters=20)
+            t["plain_alone_ms"] = graph_ms(
+                lambda: fc.rs_bucket_step_plain(part, recv, f32), iters=20)
+            t["library_alone_ms"] = graph_ms(
+                lambda: torch.add(recv, part, out=send), iters=20)
+            t["bf16_alone_ms"] = graph_ms(
+                lambda: fc.rs_bucket_step(part, recv16, bf16, out=False),
+                iters=20)
+            k2 = graph_ms(lambda: fc.rs_bucket_step(part, recv, f32,
+                                                    out=False), iters=20)
+            t["kernel_alone_ms"] = min(k1, k2)
+            t["kernel_alone_runs"] = (k1, k2)
+        group.barrier()
+        if per_card:
+            lib = torch.empty(cols, device=dev)
+            calls = {
+                "kernel": lambda: fc.fused_rs_bucket(x, group, torch.float32),
+                "bf16": lambda: fc.fused_rs_bucket(x, group, torch.bfloat16),
+                "plain": lambda: fc.rs_bucket_plain(x, group, torch.float32),
+                "library": lambda: group.reduce_scatter_into(lib, x.view(-1))}
+            mine = {}
+            for what in ("kernel", "plain", "library", "bf16", "kernel"):
+                group.barrier()
+                v = cuda_ms(calls[what], iters=10, warmup=2)
+                mine[what] = min(v, mine.get(what, v))
+            every = group.all_gather_list(torch.tensor(
+                [mine[k] for k in ("kernel", "plain", "library", "bf16")],
+                device=dev, dtype=torch.float64))
+            worst = [max(float(e[i]) for e in every) for i in range(4)]
+            t.update(call_ms=worst[0], plain_call_ms=worst[1],
+                     library_call_ms=worst[2], bf16_call_ms=worst[3])
+        out[cols] = t
+        del x
+    if group.rank == 0:
+        for cols, t in out.items():
+            say(f"[dp-timing] row 10, ({n}, {cols}) fp32 bucket: " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in t.items()) + " ms")
+    return out
+
+
+def dp_rank_main(group, seed):
+    """One rank of phase 12 (spawned by ``distributed.env.launch``): row 10
+    against its plain ring and the library's reduce-scatter, the main path
+    on every rung (GPT-3 1.3B at full depth with a card per rank, and a
+    profile of one fused step; 2 layers, 1 + 2 steps on one card), the
+    parity copy and the timings. Rank 0 prints; every rank returns its
+    readings and failures."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    say = (lambda *a: print(*a, flush=True)) if group.rank == 0 else \
+        (lambda *a: None)
+    group.barrier()           # the group's first collective: every rank
+    errs, failed = phase_dp_kernels(group, seed, say)
+    out = {"rank": group.rank, "errs": errs, "train": {}}
+    per_card = group.backend == "nccl"
+    depth = () if per_card else (2, 1, 2)
+    for rung, flags in DP_RUNGS:
+        step, mine, out["train"][rung], f = phase_dp_train(
+            group, seed, say, rung, flags, *depth)
+        failed += f
+        if per_card and rung == "fused":
+            out["profile"] = phase_dp_profile(group, step, mine, say)
+        del step, mine
+        torch.cuda.empty_cache()
+    failed += phase_dp_parity(group, seed, say)
+    torch.cuda.empty_cache()
+    out["timing"] = phase_dp_timing(group, seed, say)
+    out["failed"] = failed
+    return out
+
+
+def phase_dp(seed):
+    """Phase 12 in DP spawned ranks (the layout from the card count), after
+    the parent has built every kernel. Fails on any rank's failure;
+    returns rank 0's readings and the layout."""
+    layout = "per_card" if torch.cuda.device_count() >= DP else "shared"
+    print(f"[dp] {DP} replicas, layout {layout}: "
+          + ("one rank per card, NCCL" if layout == "per_card" else
+             f"all on cuda:0 of {torch.cuda.device_count()} card(s), gloo")
+          + "; GPT-3 1.3B trained at dp=4 through jit.TrainStep and row 10",
+          flush=True)
+    t0 = time.perf_counter()
+    outs = env.launch(DP, dp_rank_main, seed, layout=layout, timeout_s=900)
+    print(f"[dp] the ranks ran in {time.perf_counter() - t0:.1f}s")
+    failed = [f"rank {o['rank']}: {f}" for o in outs for f in o["failed"]]
+    check(not failed, "data-parallel training failed:\n" + "\n".join(failed))
+    return outs[0], layout
+
+
+def dp_rows(r0, layout):
+    """The ``kernels`` rows of row 10, one per timed bucket width, from rank
+    0's readings: launches from the main path's run (the fused fp32 rung)
+    at that width (calls times DP ring steps); ms the whole call with its
+    hops (a card per rank) or one ring step's pass alone (one card),
+    plain and library likewise (``covers`` says which)."""
+    per_card = layout == "per_card"
+    rows = []
+    for cols in DP_TIMED_COLS:
+        t = r0["timing"][cols]
+        bound, by = dp_bound(cols, DP, per_card)
+        calls = r0["train"]["fused"]["shapes"].get((cols, "float32"), 0)
+        row = {"name": f"{DP_KERNEL[0]}[{DP}x{cols} fp32]", "route": "cuda",
+               "source": "paddle_tpu_torch/csrc/rs_bucket.cu",
+               "replaces": DP_KERNEL[2], "launches": calls * DP,
+               "max_abs_err": r0["errs"][(cols, "float32")],
+               "max_abs_err_bf16_wire": r0["errs"][(cols, "bfloat16")],
+               "bound_ms": bound, "bound_by": by,
+               "kernel_alone_ms": t["kernel_alone_ms"],
+               "bf16_alone_ms": t["bf16_alone_ms"]}
+        if per_card:
+            row.update(ms=t["call_ms"], plain_ms=t["plain_call_ms"],
+                       library_ms=t["library_call_ms"],
+                       bf16_ms=t["bf16_call_ms"],
+                       covers="whole call: 4 passes + 3 hops, slowest rank")
+        else:
+            row.update(ms=t["kernel_alone_ms"],
+                       plain_ms=t["plain_alone_ms"],
+                       library_ms=t["library_alone_ms"],
+                       covers="one ring step's pass alone, CUDA-graph "
+                              "replay")
+        rows.append(row)
+    return rows
+
+
+def phase_trajectories(one_card, tp_r0, pp_r0, dp_r0, layout):
     """The training phases' loss trajectories from the same weights and
     ids, side by side (printed, not gated): one card (phase 5), mp=4 on
-    the fused and rsag rungs (phase 10) and pp=4 on each rung (phase 11).
-    Only full-depth runs (a card per rank) compare with phase 5."""
+    the fused and rsag rungs (phase 10), pp=4 on each rung (phase 11) and
+    dp=4 on each rung (phase 12: the eager model, whose loss is the
+    unfused CE over fp32 logits and whose AdamW decays every param). Only
+    full-depth runs (a card per rank) compare with phase 5."""
     if layout != "per_card":
-        print("[trajectories] one card: the mp and pp phases ran cut "
+        print("[trajectories] one card: the mp, pp and dp phases ran cut "
               "depths; nothing to compare with phase 5")
         return
     runs = {"one card": one_card,
@@ -2788,6 +3259,8 @@ def phase_trajectories(one_card, tp_r0, pp_r0, layout):
             "mp=4 rsag": tp_r0["train_rsag"]["stats"]["losses"]}
     runs.update({f"pp=4 {k}": v["stats"]["losses"]
                  for k, v in pp_r0["train"].items()})
+    runs.update({f"dp=4 {k}": v["stats"]["losses"]
+                 for k, v in dp_r0["train"].items()})
     for name, losses in runs.items():
         print(f"[trajectories] {name:>16}: "
               f"{[round(x, 4) for x in losses]}, last - one card's "
@@ -2865,10 +3338,12 @@ def main(argv=None):
     torch.cuda.empty_cache()
     tp_r0, tp_layout = phase_tp(args.seed)
     pp_outs, pp_layout = phase_pp(args.seed)
-    phase_trajectories(one_card_losses, tp_r0, pp_outs[0], tp_layout)
+    dp_r0, dp_layout = phase_dp(args.seed)
+    phase_trajectories(one_card_losses, tp_r0, pp_outs[0], dp_r0, tp_layout)
     mp_kernels, collectives = mp_rows(mp_r0, layout, cfg)
     return finish(rows + mp_kernels + tp_rows(tp_r0, tp_layout, cfg) +
-                  pp_rows(pp_outs, pp_layout, cfg), collectives, t_start)
+                  pp_rows(pp_outs, pp_layout, cfg) +
+                  dp_rows(dp_r0, dp_layout), collectives, t_start)
 
 
 def finish(rows, collectives, t_start):

@@ -13,5 +13,6 @@ Entry points run on the CUDA device unless the caller passes
 falling back to the CPU.
 """
 from .device import resolve_device
+from .tensor import to_tensor
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "to_tensor"]

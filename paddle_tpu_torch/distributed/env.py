@@ -9,9 +9,10 @@ per rank, each running the same program on its own shards, joined by a
 engine and the training step hold: the group, this rank, the degree, the
 device and the few collectives their schedules use (all-gathers and ring
 hops for serving; also all-reduces, reduce-scatters and ring hops posted
-ahead of a GEMM for training; and, for a pipeline whose ranks are its
+ahead of a GEMM for training; for a pipeline whose ranks are its
 stages, hops to the next and the previous stage with no wrap-around,
-``stage_hops_async``).
+``stage_hops_async``; and for data parallelism, whose ranks are the
+replicas, the exchange of equal row blocks, ``all_to_all_rows``).
 
 Layouts (the caller chooses; nothing here falls back from one to another):
 
@@ -20,8 +21,8 @@ Layouts (the caller chooses; nothing here falls back from one to another):
   machine with fewer cards than ranks (NCCL refuses two ranks on one
   card). gloo's all-gathers take the CUDA tensors as they are (they copy
   through host memory inside gloo; checked on an H100 with torch 2.11);
-  its broadcast, all-reduce, reduce-scatter and point-to-point ops are
-  given host copies here;
+  its broadcast, all-reduce, reduce-scatter, all-to-all and
+  point-to-point ops are given host copies here;
 * ``"per_card"``: rank r on ``cuda:r``, NCCL; needs a card per rank.
 
 ``launch(n, fn, *args, layout=...)`` spawns the ranks, each of which runs
@@ -122,6 +123,19 @@ class MPGroup:
         _reduce_scatter(out, inp.contiguous())
         return out
 
+    def all_to_all_rows(self, out, inp):
+        """``out`` [n * rows, ...] <- block ``rank`` of every rank's ``inp``
+        [n * rows, ...] in rank order (block i of ``out`` is rank i's
+        block ``rank``): the exchange of equal row blocks of the
+        compressed gradient wire. The blocks move as bytes, so any dtype
+        goes."""
+        if self.stage_host:
+            host = torch.empty(out.shape, dtype=out.dtype)
+            dist.all_to_all_single(_bytes(host), _bytes(inp.cpu()))
+            return out.copy_(host)
+        dist.all_to_all_single(_bytes(out), _bytes(inp.contiguous()))
+        return out
+
     def broadcast(self, t, src=0):
         """``t`` from rank ``src`` on every rank (in place, returned)."""
         if self.stage_host:
@@ -176,6 +190,11 @@ class MPGroup:
         if not 0 <= peer < self.n:
             raise ValueError(f"rank {self.rank} of {self.n} has no stage "
                              f"{peer}: stage hops do not wrap around")
+
+
+def _bytes(t):
+    """A contiguous tensor as uint8 [rows, row bytes] (dim 0 kept)."""
+    return t.reshape(t.shape[0], -1).view(torch.uint8)
 
 
 # the library's reduce-scatter into one tensor (newer torch names it

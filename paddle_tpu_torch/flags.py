@@ -1,8 +1,9 @@
 """Runtime flags the port reads (counterpart of ``paddle_tpu/flags.py``).
 
-Only the flags the ported slices read exist here (the serving defaults
-and the tensor- and pipeline-parallel schedules), with the reference's values; flags of later slices are added with the code that
-reads them. ``set_flags`` refuses names it does not know, so a flag meant
+Only the flags the ported slices read exist here (the serving defaults,
+the tensor- and pipeline-parallel schedules and the data-parallel
+gradient communication), with the reference's values; flags of later
+slices are added with the code that reads them. ``set_flags`` refuses names it does not know, so a flag meant
 for an unported feature cannot be set and silently ignored.
 """
 from __future__ import annotations
@@ -40,7 +41,9 @@ _FLAGS = {
     # backend for every axis (distributed/comm_backend.py). Serving reads
     # the mp axis: "gspmd" (default), "ring" or "fused"; the training step
     # too (comm_backend.train_requested: "ring"/"fused" imply the
-    # sequence-parallel layout).
+    # sequence-parallel layout); jit.TrainStep the dp axis
+    # (grad_comm.resolve: "ring" or "fused" activate the explicit
+    # gradient schedule, "gspmd" keeps the plain all-reduce).
     "FLAGS_comm_backend": "",
     # Training tensor parallelism: activations between blocks seq-sharded,
     # each block's all-reduces as reduce-scatter + all-gather ("rsag");
@@ -51,6 +54,20 @@ _FLAGS = {
     # (comm_backend.resolve_pp): "auto" (the compute dtype), "float32" or
     # "bfloat16"; the fused rung ignores it.
     "FLAGS_pp_wire_dtype": "auto",
+    # Explicit data-parallel gradient communication of jit.TrainStep
+    # (distributed/grad_comm.py): "auto" (on when weight-update sharding
+    # or a compressed wire asks for it, or FLAGS_comm_backend names
+    # dp=ring/fused), True/"on" or False/"off".
+    "FLAGS_grad_comm": "auto",
+    # Reduce-scatter the gradients, update each replica's 1/n flat shard
+    # (optimizer slots stored packed), all-gather the params.
+    "FLAGS_weight_update_sharding": False,
+    # Wire dtype of the gradient reduction: "float32", "bfloat16" or
+    # "int8" (per-chunk scales); accumulation stays fp32.
+    "FLAGS_allreduce_dtype": "float32",
+    # Target bytes of one gradient bucket (same-dtype params packed
+    # along columns).
+    "FLAGS_grad_bucket_bytes": 16 * 2 ** 20,
 }
 
 

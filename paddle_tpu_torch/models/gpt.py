@@ -15,6 +15,15 @@ association of the MLP residual, which is not the serving block's
 its own reference's rounding. ``gpt_fused_boundary`` is the last block of
 a pipeline stage on the fused pp rung: the prelude, and the tail through
 the boundary kernel that posts the stage's output to the next stage.
+
+The eager model (``GPTAttention``, ``GPTMLP``, ``GPTBlock``, ``GPTModel``,
+``GPTForCausalLM``, ``gpt_loss_fn``; reference gpt.py:100-258) is the
+``torch.nn.Module`` form that ``jit.TrainStep`` trains: the reference
+Layer's parameter names, shapes and ``named_parameters`` order, fp32
+parameters cast to the compute dtype at each use, the block the algebra
+of ``gpt_block_fn``, each block under the ``dots_no_batch`` remat preset
+when ``config.remat`` is set, and fp32 logits [B, S, V] from the fp32
+final hidden states.
 """
 from __future__ import annotations
 
@@ -22,8 +31,12 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ..distributed.recompute import remat
+from ..nn.functional import cross_entropy, linear
+from ..nn.layer import (Dropout, Embedding, LayerNorm, Linear,
+                        layer_named_parameters)
 from ..ops.blockwise_attention import blockwise_attention
 from ..ops.flash_attention import flash_attention_bshd
 from ..ops.pp_boundary import fused_gemm_ppsend
@@ -159,3 +172,107 @@ def gpt_fused_boundary(config, group, remat_policy=None):
                                  p["down_b"].to(dt), resid, group, post)
 
     return boundary
+
+
+# ------------------------------------------------------------ eager model
+class GPTAttention(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        self.cfg = config
+        h = config.hidden_size
+        self.qkv_proj = Linear(h, 3 * h)
+        self.out_proj = Linear(h, h)
+
+    def forward(self, x):
+        B, S, H = x.shape
+        nh = self.cfg.num_heads
+        q, k, v = self.qkv_proj(x).view(B, S, 3, nh, H // nh).unbind(2)
+        return self.out_proj(attention(q, k, v, self.cfg).reshape(B, S, H))
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        h = config.hidden_size
+        self.up_proj = Linear(h, config.ffn_mult * h)
+        self.down_proj = Linear(config.ffn_mult * h, h)
+
+    def forward(self, x):
+        return self.down_proj(F.gelu(self.up_proj(x), approximate="tanh"))
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        h, eps = config.hidden_size, config.layer_norm_epsilon
+        self.ln_1 = LayerNorm(h, epsilon=eps)
+        self.attn = GPTAttention(config)
+        self.ln_2 = LayerNorm(h, epsilon=eps)
+        self.mlp = GPTMLP(config)
+        self.dropout = Dropout(config.dropout)
+
+    def forward(self, x):
+        x = x + self.dropout(self.attn(self.ln_1(x)))
+        return x + self.dropout(self.mlp(self.ln_2(x)))
+
+
+class GPTModel(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        self.config = config
+        self.wte = Embedding(config.vocab_size, config.hidden_size)
+        self.wpe = Embedding(config.max_seq_len, config.hidden_size)
+        for emb in (self.wte, self.wpe):
+            nn.init.normal_(emb.weight, 0.0, config.initializer_range)
+        self.drop = Dropout(config.dropout)
+        self.h = nn.ModuleList(GPTBlock(config)
+                               for _ in range(config.num_layers))
+        self.ln_f = LayerNorm(config.hidden_size,
+                              epsilon=config.layer_norm_epsilon)
+
+    def forward(self, input_ids):
+        S = input_ids.shape[1]
+        pos = torch.arange(S, device=input_ids.device)[None, :]
+        x = self.wte(input_ids) + self.wpe(pos)
+        x = self.drop(x.to(compute_dtype(self.config)))
+        for block in self.h:
+            x = remat(block, "dots_no_batch")(x) if self.config.remat \
+                else block(x)
+        return self.ln_f(x)
+
+
+class GPTForCausalLM(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        self.config = config
+        self.gpt = GPTModel(config)
+        self.lm_head = None
+        if not config.tie_embeddings:
+            self.lm_head = Linear(config.hidden_size, config.vocab_size,
+                                  bias_attr=False)
+            nn.init.normal_(self.lm_head.weight, 0.0,
+                            config.initializer_range)
+
+    def named_parameters(self, prefix="", recurse=True,
+                         remove_duplicate=True):
+        """The reference Layer's order (``nn.layer.layer_named_parameters``):
+        ``lm_head.weight``, the embeddings and ``ln_f``, every block's
+        LayerNorms, then every block's projections."""
+        return layer_named_parameters(self, prefix)
+
+    def forward(self, input_ids):
+        hidden = self.gpt(input_ids).float()
+        if self.lm_head is None:
+            return linear(hidden, self.gpt.wte.weight.t())
+        return self.lm_head(hidden)
+
+    def num_params(self):
+        return sum(p.numel() for p in self.parameters())
+
+
+def gpt_loss_fn(logits, labels):
+    """Next-token cross-entropy: logits [B, S, V] at positions 0 .. S-2
+    against the labels at 1 .. S-1, the mean over them."""
+    V = logits.shape[-1]
+    return cross_entropy(logits[:, :-1, :].reshape(-1, V),
+                         labels[:, 1:].reshape(-1))

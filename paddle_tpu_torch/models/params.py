@@ -246,3 +246,62 @@ def gather_stage_params(shards, n):
     out["blocks"] = {k: torch.cat([s["blocks"][k] for s in shards])
                      for k in shards[0]["blocks"]}
     return out
+
+
+# the eager GPTForCausalLM's parameter names (the reference Layer's) and
+# the functional tree's keys: per block, "gpt.h.<l>.<name>" is
+# blocks[key][l]
+OUTER_LAYER_NAMES = {"lm_head.weight": "head_w", "gpt.wte.weight": "wte",
+                     "gpt.wpe.weight": "wpe", "gpt.ln_f.weight": "lnf_g",
+                     "gpt.ln_f.bias": "lnf_b"}
+BLOCK_LAYER_NAMES = {
+    "ln_1.weight": "ln1_g", "ln_1.bias": "ln1_b",
+    "attn.qkv_proj.weight": "qkv_w", "attn.qkv_proj.bias": "qkv_b",
+    "attn.out_proj.weight": "out_w", "attn.out_proj.bias": "out_b",
+    "ln_2.weight": "ln2_g", "ln_2.bias": "ln2_b",
+    "mlp.up_proj.weight": "up_w", "mlp.up_proj.bias": "up_b",
+    "mlp.down_proj.weight": "down_w", "mlp.down_proj.bias": "down_b"}
+
+
+def layer_params_from_tree(tree):
+    """{Layer name: tensor} of a functional tree (views of its leaves):
+    the weights and ids of the functional phases carried to the eager
+    model (the inverse of ``tree_from_layer_params``)."""
+    out = {name: tree[key] for name, key in OUTER_LAYER_NAMES.items()}
+    L = tree["blocks"]["qkv_w"].shape[0]
+    for layer in range(L):
+        for name, key in BLOCK_LAYER_NAMES.items():
+            out[f"gpt.h.{layer}.{name}"] = tree["blocks"][key][layer]
+    return out
+
+
+def tree_from_layer_params(named, config):
+    """The functional tree of a ``{Layer name: tensor}`` dict (blocks
+    stacked on a leading [L] axis)."""
+    out = {key: named[name] for name, key in OUTER_LAYER_NAMES.items()}
+    out["blocks"] = {key: torch.stack([named[f"gpt.h.{layer}.{name}"]
+                                       for layer in range(config.num_layers)])
+                     for name, key in BLOCK_LAYER_NAMES.items()}
+    return out
+
+
+@torch.no_grad()
+def layer_params_from_numpy(model, arrays):
+    """Copy ``{name: array}`` (the reference Layer's ``named_parameters``,
+    handed over as numpy arrays or tensors) into ``model``'s parameters of
+    those names, in place, cast to each parameter's dtype. The names and
+    shapes must be the model's, all of them."""
+    params = dict(model.named_parameters())
+    if set(arrays) != set(params):
+        raise KeyError(f"names differ: missing "
+                       f"{sorted(set(params) - set(arrays))}, unknown "
+                       f"{sorted(set(arrays) - set(params))}")
+    for name, p in params.items():
+        a = arrays[name]
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.array(a, np.float32))
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"param {name} has shape {tuple(t.shape)}, the "
+                             f"model needs {tuple(p.shape)}")
+        p.copy_(t)
+    return model

@@ -1,6 +1,11 @@
-"""Fused GEMM + collective ops for tensor parallelism (counterpart of
-``paddle_tpu/ops/pallas_kernels/fused_collectives.py:409-779`` and its
-``gemm_ag_reference``, :1014).
+"""Fused GEMM + collective ops for tensor parallelism, and the bucketed
+ring reduce-scatter of data-parallel gradient communication (counterpart
+of ``paddle_tpu/ops/pallas_kernels/fused_collectives.py:361-779`` and its
+``gemm_ag_reference`` and ``rs_bucket_reference``, :1014 and :1032).
+
+Data parallelism: ``fused_rs_bucket``, row 10 (below, after the training
+ops), the reduce-scatter of one gradient bucket of
+``distributed/grad_comm.py`` on the fused dp rung.
 
 Training (sequence parallelism): ``fused_ag_gemm`` and ``fused_gemm_rs``,
 the differentiable ring all-gather + GEMM (ColumnParallel forward) and
@@ -66,8 +71,12 @@ launches (``.shapes`` the same by shape).
 from __future__ import annotations
 
 import collections
+import ctypes
+import functools
 
 import torch
+
+from ..cuda_build import load_library
 
 from ..models.generation import _proj
 from . import quant_gemm as _qg
@@ -261,3 +270,140 @@ def fused_gemm_rs(y, w, group):
     w [F, A] and reduce-scattered over the ring in fp32: this rank's seq
     shard [B, S/n, A] (differentiable)."""
     return _FusedGemmRs.apply(y, w, group)
+
+
+# ------------------------------------------------- data parallel (row 10)
+# Replaces ``_rs_bucket_kernel`` (:361, through ``fused_rs_bucket`` :642):
+# grad_comm's ring reduce-scatter of an (n, cols) bucket of this replica's
+# flat gradients into its reduced (cols,) fp32 row, each hop's traveling
+# accumulator on a fp32 or bf16 wire, accumulated in fp32 on receipt
+# ("part + received"). The hops are NCCL send/recv pairs
+# (``MPGroup.ring_shift_async``); each ring step launches the hand-written
+# elementwise pass of ``csrc/rs_bucket.cu``, which writes the next hop's
+# send buffer (and, at the last step, the output row) from the received
+# row and this step's part. It is the same IEEE fp32 add and the same
+# round-to-nearest-even cast as the plain version's, so the two are equal
+# bit for bit. The ``/ n`` mean and the cast back to the bucket dtype stay
+# with the caller, as in the reference (grad_comm.py:306-309).
+RS_PART_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+RS_WIRE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def rs_bucket_step_plain(part, recv, wire_dtype):
+    """One ring step: (acc, acc cast to the wire) with acc = part in fp32
+    at the first step (``recv`` None), else float(recv) + part."""
+    acc = part.float() if recv is None else recv.float() + part.float()
+    return acc, acc.to(wire_dtype)
+
+
+def rs_bucket_plain(x, group, wire_dtype=None):
+    """The ring of ``rs_bucket_reference`` over ``group``'s blocking hops:
+    (n, cols) local rows -> this rank's (cols,) fp32 row, summed over the
+    ranks with each hop's accumulator cast to ``wire_dtype`` (None:
+    fp32)."""
+    wire = wire_dtype or torch.float32
+    n, idx = group.n, group.rank
+    acc = x[(idx - 1) % n].float()
+    for t in range(1, n):
+        recv = group.ring_shift(acc.to(wire))
+        acc, _ = rs_bucket_step_plain(x[(idx - t - 1) % n], recv, wire)
+    return acc
+
+
+@functools.lru_cache(maxsize=None)
+def _rs_library():
+    lib = load_library("rs_bucket", "rs_bucket.cu")
+    p = ctypes.c_void_p
+    lib.rs_bucket_step_launch.argtypes = [ctypes.c_int, ctypes.c_int, p, p,
+                                          p, p, ctypes.c_longlong, p]
+    lib.rs_bucket_step_launch.restype = ctypes.c_int
+    lib.rs_bucket_error_string.argtypes = [ctypes.c_int]
+    lib.rs_bucket_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_rs_bucket():
+    """Build (or load the cached build of) row 10's kernel library now."""
+    _rs_library()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def rs_bucket_step(part, recv, wire_dtype, out=True, send=True):
+    """One ring step through the kernel on CUDA tensors: part (cols,) fp32
+    or bf16, recv (cols,) in the wire dtype or None; returns (out fp32 or
+    None, send in the wire dtype or None) as ``rs_bucket_step_plain``
+    computes them. Raises for what the kernel does not take."""
+    why = []
+    if part.device.type != "cuda":
+        why.append(f"part on {part.device}, not cuda")
+    if part.dtype not in RS_PART_DTYPES:
+        why.append(f"part dtype {part.dtype} not float32/bfloat16")
+    if wire_dtype not in RS_WIRE_DTYPES:
+        why.append(f"wire dtype {wire_dtype} not float32/bfloat16")
+    if part.dim() != 1 or not part.is_contiguous():
+        why.append("part is not a contiguous row")
+    if recv is not None and (recv.dtype != wire_dtype or
+                             recv.shape != part.shape or
+                             recv.device != part.device or
+                             not recv.is_contiguous()):
+        why.append("recv is not a contiguous row of the wire dtype beside "
+                   "part")
+    if not (out or send):
+        why.append("neither out nor send asked for")
+    if why:
+        raise ValueError("rs_bucket kernel: " + "; ".join(why))
+    o = torch.empty(part.shape, dtype=torch.float32, device=part.device) \
+        if out else None
+    s = torch.empty(part.shape, dtype=wire_dtype, device=part.device) \
+        if send else None
+    lib = _rs_library()
+    with torch.cuda.device(part.device):
+        rc = lib.rs_bucket_step_launch(
+            RS_PART_DTYPES[part.dtype], RS_WIRE_DTYPES[wire_dtype],
+            part.data_ptr(), _ptr(recv), _ptr(o), _ptr(s), part.numel(),
+            torch.cuda.current_stream(part.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rs_bucket kernel launch failed ({rc}): "
+                           f"{lib.rs_bucket_error_string(rc).decode()}")
+    fused_rs_bucket.launches += 1
+    return o, s
+
+
+def fused_rs_bucket(x, group, wire_dtype=None):
+    """Row 10: (n, cols) local gradient rows -> this rank's (cols,) fp32
+    row summed over ``group``'s n ranks, each hop at ``wire_dtype`` (None:
+    fp32; or bf16). CUDA tensors run the ring: n kernel launches (one per
+    ring step) and n - 1 NCCL hops; CPU tensors take ``rs_bucket_plain``.
+    Counts its calls (``.calls``), launches (``.launches``) and calls by
+    (cols, wire) (``.shapes``)."""
+    if x.device.type == "cpu":
+        return rs_bucket_plain(x, group, wire_dtype)
+    wire = wire_dtype or torch.float32
+    if x.dim() != 2 or x.shape[0] != group.n or not x.is_contiguous():
+        raise ValueError(f"fused_rs_bucket takes a contiguous ({group.n}, "
+                         f"cols) bucket, got {tuple(x.shape)}")
+    n, idx = group.n, group.rank
+    out, hop = None, None
+    for t in range(n):
+        part = x[(idx - t - 1) % n]
+        recv = hop.wait() if hop is not None else None
+        last = t == n - 1
+        out, send = rs_bucket_step(part, recv, wire, out=last,
+                                   send=not last)
+        if not last:
+            hop = group.ring_shift_async(send)
+    fused_rs_bucket.calls += 1
+    fused_rs_bucket.shapes[(x.shape[1], str(wire)[6:])] += 1
+    return out
+
+
+def reset_rs_bucket_counts():
+    fused_rs_bucket.launches = 0
+    fused_rs_bucket.calls = 0
+    fused_rs_bucket.shapes = collections.Counter()
+
+
+reset_rs_bucket_counts()

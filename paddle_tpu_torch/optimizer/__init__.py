@@ -1,7 +1,9 @@
 """Adam and AdamW on the functional path (counterpart of
 ``paddle_tpu/optimizer/__init__.py``): ``init_state`` and an in-place
-``apply_gradients`` over ``{name: tensor}`` dicts, as the training step
-uses them.
+``apply_gradients`` over ``{name: tensor}`` dicts, as the training steps
+use them. ``parameters=`` sits in the reference's argument position; the
+steps name the params themselves (``jit.TrainStep`` by the model's
+``named_parameters``).
 
 ``moment_dtype`` is the storage dtype of both moments; the update math is
 fp32. ``"bfloat16"`` halves the optimizer state, as bench.py uses it for
@@ -23,9 +25,10 @@ def _dtype(name):
 
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-08, weight_decay=None, grad_clip=None,
-                 multi_precision=False, moment_dtype="float32"):
-        super().__init__(learning_rate, weight_decay, grad_clip,
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=False,
+                 moment_dtype="float32"):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision)
         self._beta1 = beta1
         self._beta2 = beta2
@@ -55,14 +58,16 @@ class Adam(Optimizer):
 
 class AdamW(Adam):
     """Decoupled weight decay: ``p * (1 - lr * wd)`` before the Adam step,
-    for params the decay mask admits."""
+    for params the decay mask admits: ``apply_decay_param_fun(name)``, or,
+    when it is None, every param (the reference's rule; ``HybridTrainStep``
+    passes its own mask)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-08, weight_decay=0.01,
+                 epsilon=1e-08, parameters=None, weight_decay=0.01,
                  apply_decay_param_fun=None, grad_clip=None,
                  multi_precision=False, moment_dtype="float32"):
-        super().__init__(learning_rate, beta1, beta2, epsilon, None,
-                         grad_clip, multi_precision, moment_dtype)
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         None, grad_clip, multi_precision, moment_dtype)
         self._wd = float(weight_decay)
         self._apply_decay_param_fun = apply_decay_param_fun
 

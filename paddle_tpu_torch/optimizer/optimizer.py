@@ -16,8 +16,17 @@ import torch
 
 
 class Optimizer:
-    def __init__(self, learning_rate=0.001, weight_decay=None,
-                 grad_clip=None, multi_precision=False):
+    """``parameters`` is taken in the reference's argument position and
+    not read: the training steps name the params they update."""
+
+    # whether the rule is elementwise, so that it may update flat shards of
+    # params, gradients and slots (weight-update sharding,
+    # distributed/grad_comm.py): shard-then-update is then update-then-shard
+    # bit for bit
+    _elementwise_update = True
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False):
         if not isinstance(learning_rate, (int, float)):
             raise NotImplementedError(
                 "LR schedulers are not ported yet (ROADMAP Queue A item 4); "
@@ -32,6 +41,9 @@ class Optimizer:
 
     def get_lr(self):
         return self._learning_rate
+
+    def supports_sharded_update(self):
+        return self._elementwise_update
 
     def _create_slots(self, p):
         raise NotImplementedError

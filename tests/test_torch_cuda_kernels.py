@@ -658,3 +658,86 @@ def test_pp_boundary_wrappers_refuse_what_the_kernels_do_not_take(
     with pytest.raises(ValueError, match="not contiguous"):
         ppb.gemm_pprecv(r, r, x, w.t().contiguous().t())
     assert (ppb.gemm_ppsend.launches, ppb.gemm_pprecv.launches) == before
+
+
+# row 10 at the main path's bucket widths (GPT-3 1.3B at n=4: biases and
+# LayerNorms, qkv, up/down, out/wpe, wte/head) and at odd tails
+RS_STEP_COLS = (3, 512, 1536, 2560, 4099, 1_048_576, 3_145_728, 4_194_304,
+                25_755_648)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+@pytest.mark.parametrize("part_dtype", ["float32", "bfloat16"])
+def test_rs_bucket_step_matches_plain_on_card(cuda_device, part_dtype, wire):
+    """Row 10's per-step pass (``fused_collectives.rs_bucket_step``): the
+    first step (part cast to the wire), a middle step (received wire row
+    plus part into the next send) and the last (into the fp32 row), bit
+    for bit against the plain ops at every width, on 16-byte aligned rows
+    and on a row that is not (the scalar path)."""
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    pdt, wdt = getattr(torch, part_dtype), getattr(torch, wire)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    before = fc.fused_rs_bucket.launches
+    launches = 0
+    for cols in RS_STEP_COLS:
+        x = torch.randn((2, cols + 1), generator=g, device=cuda_device)
+        for part in (x[0, :cols].to(pdt), x[1, 1:].to(pdt)[:cols]):
+            recv = torch.randn(cols, generator=g, device=cuda_device).to(wdt)
+            _, s0 = fc.rs_bucket_step(part, None, wdt, out=False)
+            _, s1 = fc.rs_bucket_step(part, recv, wdt, out=False)
+            o2, _ = fc.rs_bucket_step(part, recv, wdt, send=False)
+            launches += 3
+            torch.cuda.synchronize()
+            _, p0 = fc.rs_bucket_step_plain(part, None, wdt)
+            a1, p1 = fc.rs_bucket_step_plain(part, recv, wdt)
+            assert s0.dtype == wdt and o2.dtype == torch.float32
+            assert torch.equal(s0, p0), cols
+            assert torch.equal(s1, p1), cols
+            assert torch.equal(o2, a1), cols
+    # the unaligned row: x[1, 1:] of a bf16 cast is a fresh tensor, so
+    # make one by slicing after the cast
+    y = torch.randn(4099 + 1, generator=g, device=cuda_device)[1:]
+    assert y.data_ptr() % 16
+    o, _ = fc.rs_bucket_step(y, None, torch.float32, send=False)
+    assert torch.equal(o, y)
+    assert fc.fused_rs_bucket.launches == before + launches + 1
+
+
+@pytest.mark.cuda
+def test_rs_bucket_ring_matches_plain_on_card(cuda_device, tmp_path):
+    """Row 10's whole ring (``fused_rs_bucket``) on two ranks sharing the
+    card over gloo: the kernel ring's row equals the plain ring's bit for
+    bit at every width, fp32 and bf16 wires; one call and n launches per
+    ring."""
+    import torch_dp_train_ranks as ranks
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    fc.build_rs_bucket()         # once, here: the ranks only load it
+    outs = env.launch(2, ranks.card_ring, 6, layout="shared",
+                      timeout_s=300, init_dir=tmp_path)
+    calls = 2 * len(ranks.CARD_COLS)
+    for o in outs:
+        for case, same in o["readings"]:
+            assert same, case
+        assert o["counts"] == (calls, 2 * calls)
+
+
+@pytest.mark.cuda
+def test_rs_bucket_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    """An fp16 part, an int8 wire, a received row of another dtype and a
+    strided part raise; nothing falls back to the plain path."""
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    part = torch.zeros(64, device=cuda_device)
+    before = fc.fused_rs_bucket.launches
+    with pytest.raises(ValueError, match="part dtype"):
+        fc.rs_bucket_step(part.half(), None, torch.float32)
+    with pytest.raises(ValueError, match="wire dtype"):
+        fc.rs_bucket_step(part, None, torch.int8)
+    with pytest.raises(ValueError, match="recv"):
+        fc.rs_bucket_step(part, part.bfloat16(), torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.rs_bucket_step(torch.zeros(64, 2, device=cuda_device)[:, 0],
+                          None, torch.float32)
+    assert fc.fused_rs_bucket.launches == before
