@@ -26,8 +26,8 @@ Held, fp32:
 * ``_quantized_reduce_row`` (bf16, int8 with 2,048-element chunk scales)
   against the reference's under its shard_map on n of the 8 virtual
   devices: the same wire values, sums within 1e-6;
-* ``dots_no_batch``: the gradients of ``full`` within 1e-6, four saved
-  projection outputs a block;
+* ``dots_no_batch``: the gradients of ``full`` and of no remat within
+  1e-6, four saved projection outputs a block;
 * the eager GPT's loss against the port's functional ``gpt_forward`` + CE
   on the same weights (the Layer-name map) and against the reference's
   eager loss, within 1e-5.
@@ -327,28 +327,55 @@ def test_quantized_reduce_row_matches_the_reference(collective_runs, n, case,
 
 
 # ---------------------------------------------------- the eager GPT, remat
-def test_dots_no_batch_saves_the_projections_and_keeps_the_gradients():
-    """The eager GPT under dots_no_batch (config.remat) against no remat:
-    the same loss, gradients within 1e-6; a forward saves the qkv, out,
-    up and down outputs of each block and nothing else."""
+@pytest.mark.parametrize("other", ["full", "nothing"])
+def test_dots_no_batch_saves_the_projections_and_keeps_the_gradients(other):
+    """The eager GPT's blocks under dots_no_batch (config.remat) against
+    the same blocks under ``other``: the same loss, gradients within 1e-6;
+    a dots_no_batch forward saves the qkv, out, up and down outputs of
+    each block and nothing else."""
     cfg = dict(PLAN_GPT, num_layers=3)
     ref, _ = _models("gpt", num_layers=3)
     init = {n: np.asarray(p.numpy()) for n, p in ref.named_parameters()}
     ids = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg["vocab_size"], (2, 16)))
+    # remat off in the config: the wrappers below choose each policy
+    model = GPTForCausalLM(GPTConfig(**dict(cfg, remat=False)))
+    layer_params_from_numpy(model, init)
+    blocks = model.gpt.h
     out = {}
-    for remat in (True, False):
-        model = GPTForCausalLM(GPTConfig(**dict(cfg, remat=remat)))
-        layer_params_from_numpy(model, init)
+    for policy in ("dots_no_batch", other):
+        # GPTModel.forward with each block under ``policy``
+        model.gpt.h = torch.nn.ModuleList(
+            _Remat(b, policy) for b in blocks)
         recompute.saved_dots["count"] = 0
         loss = gpt_loss_fn(model(ids), ids)
         saved = recompute.saved_dots["count"]
         grads = torch.autograd.grad(loss, list(model.parameters()))
-        out[remat] = (float(loss), grads, saved)
-    assert out[True][0] == out[False][0]
-    assert out[True][2] == 4 * cfg["num_layers"] and out[False][2] == 0
-    for a, b in zip(out[True][1], out[False][1]):
+        out[policy] = (float(loss), grads, saved)
+    model.gpt.h = blocks
+    # config.remat runs every block under dots_no_batch itself
+    eager = GPTForCausalLM(GPTConfig(**cfg))
+    layer_params_from_numpy(eager, init)
+    recompute.saved_dots["count"] = 0
+    assert float(gpt_loss_fn(eager(ids), ids)) == out["dots_no_batch"][0]
+    assert recompute.saved_dots["count"] == 4 * cfg["num_layers"]
+    assert out["dots_no_batch"][0] == out[other][0]
+    assert out["dots_no_batch"][2] == 4 * cfg["num_layers"]
+    assert out[other][2] == 0
+    for a, b in zip(out["dots_no_batch"][1], out[other][1]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+class _Remat(torch.nn.Module):
+    """A block run under a remat policy (its parameters stay the
+    block's)."""
+
+    def __init__(self, block, policy):
+        super().__init__()
+        self.block, self.policy = block, policy
+
+    def forward(self, x):
+        return recompute.remat(self.block, self.policy)(x)
 
 
 def test_eager_gpt_loss_matches_functional_and_reference():
