@@ -58,18 +58,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
    built above, once): the fused GEMM + all-gather (bf16, int8 and fp8
    weight shards; the out and down shards at 8 and 256 rows, the
    vocab-sharded head at 8 fp32 rows, also as an fp32 shard) and the data
-   all-gathers against their plain versions, each rank with its own
+   all-gathers (row 11, ``fused_ag_bucket``: NCCL hops and the
+   hand-written copy of ``csrc/ag_bucket.cu`` per ring step) against
+   their plain versions, each rank with its own
    weight shard and row, the outputs the same bytes on every rank; the
    16 requests through ``Engine(mp=4, comm_backend="fused")`` at bf16,
    int8 and fp8 with four cards; on one card bf16 on four of them (two
    of wave 1, wave 2) and int8 on wave 2 (every request finished with the
-   same tokens
-   on every rank; per dispatch 49 fused GEMM + all-gathers and 49 data
-   all-gathers, per decode dispatch 24 paged-decode launches, 48 local
+   same tokens on every rank; per dispatch 49 fused GEMM + all-gathers
+   and 49 data all-gathers of 4 row-11 launches each, per decode
+   dispatch 24 paged-decode launches, 48 local
    quant GEMMs per quantized dispatch; one decode step's logits against
    the one-card forward within LOGIT_TOL); with four cards a profile of
-   a decode step; the GEMM kernels' times, and with four cards the NCCL
-   all-gathers'.
+   a decode step; the GEMM kernels' times and row 11's ring step alone,
+   and with four cards the gathers' whole calls.
 
 10. tensor-parallel training, in MP = 4 ranks laid out as in phase 9: the
    ring all-gather + GEMM, GEMM + ring reduce-scatter and ring weight-
@@ -112,7 +114,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    fused_rs_bucket``, ``csrc/rs_bucket.cu``), with real hops against its
    plain ring bit for bit on fp32 and bf16 wires at 512-25,755,648 cols
    (GPT-3 1.3B's bucket widths at n=4, each rank its own bucket) and
-   against NCCL's reduce-scatter of the same fp32 bucket; GPT-3 1.3B
+   against NCCL's reduce-scatter of the same fp32 bucket, and row 11's
+   ring all-gather of a bucket row against its plain ring and NCCL's
+   all-gather, bit for bit; GPT-3 1.3B
    (the eager ``GPTForCausalLM``, fp32 params, bf16 compute, remat
    dots_no_batch) trained through ``jit.TrainStep(group=)`` with phase
    5's weights, ids, lr, clip and moment dtype on the rungs
@@ -120,19 +124,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    path) and a bf16 wire, ``dp=ring``, the int8 wire and the flags off,
    at full depth (2 warm-up and 5 timed steps) with a card per rank, at
    2 layers (1 + 2 steps) on one card: finite losses, the last below the
-   first, the same on every rank, row 10 called once per float bucket
-   per step (196 at full depth) on the fused fp32 and bf16 rungs and
-   never on the others; step time, tokens/s, MFU over the cards, peak
+   first, the same on every rank, the step resolved to the rung's
+   schedule, row 10 called once per float bucket per step (196 at full
+   depth, counted from a bucket plan built apart from the step) on the
+   fused fp32 and bf16 rungs and never on the others, row 11 once per
+   bucket per step on the three fused rungs (int8 included) and never on
+   the others; step time, tokens/s, MFU over the cards, peak
    memory and the comm ledger per step; one fused step of a 2-layer copy
    (B=4) against the one-device step on the same weights and ids within
    phase 6's tolerances; with a card per rank a profile of one fused
-   step; row 10's times (one step's pass alone, and with a card per rank
-   the whole call with its hops beside NCCL's reduce-scatter).
+   step, which must show rows 10 and 11 at work; rows 10 and 11's times
+   (one ring step's pass alone over operands rotating through twice the
+   L2, and with a card per rank the whole call with its hops beside
+   NCCL's reduce-scatter or all-gather).
 
-The lines before the last carry a ``{"kernels": [...], "collectives":
-[...]}`` JSON object (``collectives``: the TPU kernel whose port is the
-library's all-gather, with no hand-written kernel) and the card's name
-and power limit (nvidia-smi); the last line is
+The lines before the last carry a ``{"kernels": [...]}`` JSON object and
+the card's name and power limit (nvidia-smi); the last line is
 ``{"ok": true, "device": {...}}``. Exits nonzero without printing a
 result when no CUDA device is present.
 """
@@ -141,6 +148,7 @@ from __future__ import annotations
 import argparse
 import cProfile
 import dataclasses
+import functools
 import itertools
 import json
 import pathlib
@@ -196,6 +204,9 @@ from paddle_tpu_torch.serving.paged_decode import (gather_window,
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+# the H100 SXM's L2: a pass timed over operands that fit in it reads them
+# from L2, which the main path's buckets never do (rotating_ms)
+L2_BYTES = 50 * 2 ** 20
 
 MODEL = "gpt3-1.3B"
 SLOTS, PAGE, CHUNK = 8, 16, 256
@@ -279,6 +290,16 @@ def graph_ms(fn, iters, replays=5):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / (iters * replays)
+
+
+def rotating_ms(make, set_bytes, iters=20, most=256):
+    """``graph_ms`` of one call per operand set, the sets rotating through
+    enough copies (``make(i)`` returns the call on the i-th; at most
+    ``most``) that together they span twice the L2, so a pass reads its
+    operands from HBM as it does on the main path."""
+    k = min(most, max(1, -(-2 * L2_BYTES // set_bytes)))
+    calls = [make(i) for i in range(k)]
+    return graph_ms(lambda: [c() for c in calls], max(1, iters // k)) / k
 
 
 def decode_inputs(gen, dev, pos, layers=1, nh=16, d=128, mp=128):
@@ -389,7 +410,8 @@ def phase_build():
                "flash_attention": "flash_attention.cu",
                "quant_gemm": "quant_gemm.cu",
                "ring_gemm": "ring_gemm.cu",
-               "rs_bucket": "rs_bucket.cu"}
+               "rs_bucket": "rs_bucket.cu",
+               "ag_bucket": "ag_bucket.cu"}
     cuda_build.build_all(sources)
     paged_decode.build()
     fa.build()
@@ -397,6 +419,7 @@ def phase_build():
     rg.build()
     ppb.build()
     fc.build_rs_bucket()
+    fc.build_ag_bucket()
     print(f"[build] {len(sources)} sources in parallel: "
           f"{time.perf_counter() - t0:.2f}s")
     for name, source in sources.items():
@@ -1043,7 +1066,8 @@ def phase_card_tests():
     root = pathlib.Path(__file__).resolve().parent
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q",
-         "-p", "no:cacheprovider", "tests/test_torch_cuda_kernels.py"],
+         "-p", "no:cacheprovider", "-p", "no:warnings",
+         "tests/test_torch_cuda_kernels.py"],
         cwd=root, capture_output=True, text=True, timeout=600)
     lines = proc.stdout.strip().splitlines()
     print(f"[card-tests] {lines[-1] if lines else proc.stderr[-500:]}")
@@ -1335,6 +1359,72 @@ def mp_bucket_cases(cfg):
             for F in (H // MP, cfg.ffn_mult * H // MP)]
 
 
+AG_KERNEL = ("paddle_tpu_torch/csrc/ag_bucket.cu",
+             "paddle_tpu/ops/pallas_kernels/fused_collectives.py:409")
+
+
+def ag_step_alone(elems, dtype, gen, dev):
+    """Row 11's ring-step pass alone on this card (``rotating_ms``): the
+    kernel's copy of a row of ``elems`` into its slot, and ``copy_`` (the
+    plain step, which is also the one library call for a copy)."""
+    ops = {}
+
+    def operands(i):
+        if i not in ops:
+            src = torch.randn(elems, generator=gen, device=dev).to(dtype)
+            ops[i] = (src, torch.empty_like(src))
+        return ops[i]
+
+    def kernel(i):
+        src, dst = operands(i)
+        return lambda: fc.ag_bucket_step(src, dst)
+
+    def plain(i):
+        src, dst = operands(i)
+        return lambda: dst.copy_(src)
+
+    nbytes = 2 * elems * torch.finfo(dtype).bits // 8
+    return {"kernel_alone_ms": rotating_ms(kernel, nbytes),
+            "plain_alone_ms": rotating_ms(plain, nbytes)}
+
+
+def ag_bound(nbytes, n, per_card):
+    """(ms, by) of row 11 on a row of ``nbytes``. A card per rank: the
+    whole call, the larger of the HBM bytes (the kernel reads the n rows
+    and writes them into their slots; the hops write n - 1 received rows
+    and read n - 1 sent ones) and the bytes received over one direction
+    of NVLink (n - 1 rows). One card: one ring step's pass alone (a row
+    read and written)."""
+    if per_card:
+        times = {"bytes": (4 * n - 2) * nbytes / HBM_BYTES_PER_S,
+                 "nvlink bytes": (n - 1) * nbytes / NVLINK_BYTES_PER_S}
+    else:
+        times = {"bytes": 2 * nbytes / HBM_BYTES_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def ag_row(label, t, nbytes, n, per_card, launches, err):
+    """A ``kernels`` row of row 11 over a row of ``nbytes`` from its
+    timings ``t`` (``ag_step_alone``'s, and with a card per rank the whole
+    call's ``wrapper_ms``, ``plain_ms`` and ``gather_ms``)."""
+    bound, by = ag_bound(nbytes, n, per_card)
+    row = {"name": f"fused_ag_bucket[{label}]", "route": "cuda",
+           "source": AG_KERNEL[0], "replaces": AG_KERNEL[1],
+           "launches": launches, "max_abs_err": err, "bound_ms": bound,
+           "bound_by": by, "kernel_alone_ms": t["kernel_alone_ms"]}
+    if per_card:
+        row.update(ms=t["wrapper_ms"], plain_ms=t["plain_ms"],
+                   library_ms=t["gather_ms"],
+                   covers=f"whole call: {n} passes + {n - 1} hops")
+    else:
+        row.update(ms=t["kernel_alone_ms"], plain_ms=t["plain_alone_ms"],
+                   library_ms=t["plain_alone_ms"],
+                   covers="one ring step's pass alone, CUDA-graph replay "
+                          "over rotating operands")
+    return row
+
+
 def _mp_weight(gen, dev, K, F, kind, n=1):
     """n random [K, F] weight shards of ``kind`` ("bf16", "fp32", "int8",
     "fp8") with their scales (None for bf16 and fp32)."""
@@ -1478,7 +1568,7 @@ def phase_mp_serve(group, cfg, params, seed, quant, gen, say, wave1=None):
     for wrapper in MP_KERNELS.values():
         wrapper.launches = 0
     fc.fused_gemm_ag.shapes.clear()
-    fc.fused_ag_bucket.shapes.clear()
+    fc.reset_ag_bucket_counts()
     t0 = time.perf_counter()
     results = eng.run(wave1) if wave1 else {}
     results.update(eng.run(wave2))
@@ -1511,13 +1601,14 @@ def phase_mp_serve(group, cfg, params, seed, quant, gen, say, wave1=None):
     L = cfg.num_layers
     steps, decode = c["paged_steps"], c["decode_dispatches"]
     want = {"fused_gemm_ag": steps * (2 * L + 1),
-            "fused_ag_bucket": steps * (2 * L + 1),
+            "fused_ag_bucket": steps * (2 * L + 1) * MP,
             "paged_decode": 0 if quant else decode * L,
             "paged_decode_q": decode * L if quant else 0,
             "quant_gemm": steps * 2 * L if quant else 0}
     say(f"[{tag}] launches on rank {group.rank}: {counts} (want {want}: "
         f"{steps} dispatches x ({2 * L + 1} fused GEMM + all-gathers, "
-        f"{2 * L + 1} data all-gathers{', 2 x L local quant GEMMs' if quant else ''}), "
+        f"{2 * L + 1} data all-gathers of {MP} ring steps each"
+        f"{', 2 x L local quant GEMMs' if quant else ''}), "
         f"{decode} decode dispatches x {L} paged decodes)")
     if counts != want or decode == 0:
         failed.append(f"{tag}: launches {counts}, want {want}")
@@ -1655,22 +1746,28 @@ def phase_mp_timing(group, cfg, gen, say):
                         f"{k} {v[0]:.4f}/{v[1]:.4f}"
                         for k, v in t.items()) + " ms")
             del ws, ss, x, buf
-    if not per_card:
-        say(f"[mp-timing] the all-gathers (fused_ag_bucket and the gathers "
-            f"of fused_gemm_ag) are timed with a card per rank only: {MP} "
-            f"ranks sharing one card over gloo time the host's copies")
-        return out
     for R, F in mp_bucket_cases(cfg):
-        row = torch.randn(R * F, generator=gen, device=dev).to(torch.bfloat16)
-        t = {"gather_ms": eager_ms(lambda: fc.all_gather_stack(row, group),
+        t = ag_step_alone(R * F, torch.bfloat16, gen, dev) \
+            if group.rank == 0 else {}
+        group.barrier()
+        if per_card:
+            row = torch.randn(R * F, generator=gen, device=dev).to(
+                torch.bfloat16)
+            t.update(
+                gather_ms=eager_ms(lambda: fc.all_gather_stack(row, group),
                                    100),
-             "plain_ms": eager_ms(lambda: fc.ag_bucket_plain(row, group),
+                plain_ms=eager_ms(lambda: fc.ag_bucket_plain(row, group),
                                   100),
-             "wrapper_ms": eager_ms(lambda: fc.fused_ag_bucket(row, group),
-                                    100)}
+                wrapper_ms=eager_ms(lambda: fc.fused_ag_bucket(row, group),
+                                    100))
         out[("bucket", R, F)] = t
         say(f"[mp-timing] fused_ag_bucket {R}x{F} bf16 ({group.backend}): "
             + ", ".join(f"{k} {v:.4f}" for k, v in t.items()) + " ms")
+    if not per_card:
+        say(f"[mp-timing] the all-gathers' whole calls (fused_ag_bucket's "
+            f"ring and the gathers of fused_gemm_ag) are timed with a card "
+            f"per rank only: {MP} ranks sharing one card over gloo time the "
+            f"host's copies")
     return out
 
 
@@ -1763,12 +1860,11 @@ def phase_mp(seed, single):
 
 
 def mp_rows(r0, layout, cfg):
-    """The ``kernels`` rows of rows 12-13 and the ``collectives`` rows of
-    row 11 (no hand-written kernel: the library's all-gather, route
-    "nccl", or "gloo" on one card) from rank 0's readings. With one card
-    (layout "shared") no all-gather is timed: rows 12-13's ms, plain and
-    library cover the GEMM and the bound its bytes and operations only;
-    row 11's times are null."""
+    """The ``kernels`` rows of rows 11-13 from rank 0's readings (row 11:
+    the data all-gathers' ring, ``ag_row``). With one card (layout
+    "shared") no all-gather is timed: rows 12-13's ms, plain and library
+    cover the GEMM and the bound its bytes and operations only, and row
+    11's its ring step's pass alone."""
     per_card = layout == "per_card"
     rows = []
     errs, timing = r0["errs"], r0["timing"]
@@ -1800,22 +1896,11 @@ def mp_rows(r0, layout, cfg):
                 "library_ms": lib,
                 "covers": "gemm+all_gather" if per_card else "gemm"})
     bf16 = r0["serve"]["bf16"]["shapes"]["fused_ag_bucket"]
-    collectives = []
     for R, F in mp_bucket_cases(cfg):
-        t = timing.get(("bucket", R, F), {})
-        nbytes = R * F * 2
-        bound = ((MP - 1) * nbytes / NVLINK_BYTES_PER_S if per_card else
-                 (nbytes + MP * nbytes) / HBM_BYTES_PER_S) * 1e3
-        collectives.append({
-            "name": f"fused_ag_bucket[{R}x{F}={R * F}]",
-            "route": "nccl" if per_card else "gloo",
-            "source": "paddle_tpu_torch/ops/fused_collectives.py",
-            "replaces": "paddle_tpu/ops/pallas_kernels/fused_collectives.py:409",
-            "launches": bf16.get(R * F, 0),
-            "max_abs_err": errs[("bucket", R, F)],
-            "ms": t.get("wrapper_ms"), "plain_ms": t.get("plain_ms"),
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": None})
-    return rows, collectives
+        rows.append(ag_row(f"{R}x{F}={R * F} bf16", timing[("bucket", R, F)],
+                           R * F * 2, MP, per_card, MP * bf16.get(R * F, 0),
+                           errs[("bucket", R, F)]))
+    return rows
 
 
 # ------------------------------------------- tensor-parallel training (10)
@@ -2097,6 +2182,7 @@ def phase_tp_profile(group, step, ids, say, tag="tp-profile"):
     busy = sum(dev_us(e) for e in events) / 1e3
     kinds = {"ring GEMM kernels": ("ring_gemm",),
              "row 10 (rs_step_kernel)": ("rs_step_kernel",),
+             "row 11 (ag_step_kernel)": ("ag_step_kernel",),
              "NCCL": ("nccl",), "flash kernels": ("flash_",),
              "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "sm90_xmma",
                               "Kernel2"),
@@ -2823,13 +2909,18 @@ DP_DEFAULT_FLAGS = {"FLAGS_grad_comm": "auto",
                     "FLAGS_comm_backend": ""}
 DP_FUSED = {"FLAGS_comm_backend": "dp=fused",
             "FLAGS_weight_update_sharding": True}
-# (name, flags); the fused fp32 rung is the main path
-DP_RUNGS = (("fused", DP_FUSED),
-            ("fused-bf16", dict(DP_FUSED, FLAGS_allreduce_dtype="bfloat16")),
+# (name, flags, the schedule the step must resolve to: its grad_comm
+# backend, or None for the plain all-reduce); the fused fp32 rung is the
+# main path
+DP_RUNGS = (("fused", DP_FUSED, "fused"),
+            ("fused-bf16", dict(DP_FUSED, FLAGS_allreduce_dtype="bfloat16"),
+             "fused"),
             ("ring", {"FLAGS_comm_backend": "dp=ring",
-                      "FLAGS_weight_update_sharding": True}),
-            ("int8", dict(DP_FUSED, FLAGS_allreduce_dtype="int8")),
-            ("off", {}))
+                      "FLAGS_weight_update_sharding": True}, "ring"),
+            ("int8", dict(DP_FUSED, FLAGS_allreduce_dtype="int8"), "fused"),
+            ("off", {}, None))
+# GPT-3 1.3B's buckets a step at full depth, n=4 and 16 MiB (all fp32)
+DP_FULL_BUCKETS = 196
 DP_PARITY_LAYERS, DP_PARITY_B = 2, 4
 
 
@@ -2842,37 +2933,44 @@ def dp_model(cfg, dev, params):
     return layer_params_from_numpy(model, layer_params_from_tree(params))
 
 
-def dp_rs_calls(rung, float_buckets):
-    """Row 10 calls per step on ``rung``: one per float bucket on the fused
-    rungs with an fp32 or bf16 wire; none on the ring, int8 and flags-off
-    rungs."""
-    return float_buckets if rung in ("fused", "fused-bf16") else 0
+def dp_calls(plan, flags, schedule):
+    """(row 10 calls, row 11 calls) per step of a schedule over ``plan``
+    (built apart from the step): on the fused schedule one row-10 call
+    per float bucket unless the wire is int8, and one row-11 gather per
+    bucket (weight-update sharding); none on the ring and plain
+    schedules."""
+    if schedule != "fused":
+        return 0, 0
+    floats = sum(bk.dtype.is_floating_point for bk in plan.buckets)
+    rs = 0 if flags.get("FLAGS_allreduce_dtype") == "int8" else floats
+    return rs, len(plan.buckets)
 
 
-def dp_bound(cols, n, per_card, wire_bytes=4):
-    """(ms, by) of row 10 on an (n, cols) fp32 bucket. A card per rank:
-    the whole call, the larger of the HBM bytes (x read, n - 1 received
-    rows read and sent rows written, the fp32 row written) and the bytes
-    received over one direction of NVLink (n - 1 rows at the wire). One
+def dp_bound(cols, n, per_card):
+    """(ms, by) of row 10 on an (n, cols) fp32 bucket at an fp32 wire. A
+    card per rank: the whole call, the larger of the HBM bytes (x read,
+    n - 1 received rows read and sent rows written, the fp32 row written)
+    and the bytes received over one direction of NVLink (n - 1 rows). One
     card: one middle step's pass alone (part and received row read, the
     next send written)."""
     if per_card:
-        hbm = 4 * n * cols + 2 * (n - 1) * wire_bytes * cols + 4 * cols
+        hbm = 4 * n * cols + 8 * (n - 1) * cols + 4 * cols
         times = {"bytes": hbm / HBM_BYTES_PER_S,
-                 "nvlink bytes": (n - 1) * wire_bytes * cols /
-                 NVLINK_BYTES_PER_S}
+                 "nvlink bytes": 4 * (n - 1) * cols / NVLINK_BYTES_PER_S}
     else:
-        times = {"bytes": (4 + 2 * wire_bytes) * cols / HBM_BYTES_PER_S}
+        times = {"bytes": 12 * cols / HBM_BYTES_PER_S}
     by = max(times, key=times.get)
     return times[by] * 1e3, by
 
 
 def phase_dp_kernels(group, seed, say):
-    """Row 10 with real hops at ``DP_CHECK_COLS``, each rank its own (n,
-    cols) fp32 bucket: the kernel ring against the plain ring bit for bit
-    on fp32 and bf16 wires, and its fp32 row against NCCL's (gloo's on one
-    card) reduce-scatter of the same bucket within ``DP_LIB_TOL``. Returns
-    ({(cols, wire): max abs error}, failures)."""
+    """Rows 10 and 11 with real hops at ``DP_CHECK_COLS``, each rank its
+    own (n, cols) fp32 bucket: row 10's kernel ring against its plain ring
+    bit for bit on fp32 and bf16 wires, and its fp32 row against NCCL's
+    (gloo's on one card) reduce-scatter of the same bucket within
+    ``DP_LIB_TOL``; row 11's ring over the bucket's row ``rank`` against
+    its plain ring and the library's all-gather, bit for bit. Returns
+    ({(cols, wire | "library" | "gather"): max abs error}, failures)."""
     dev, n = group.device, group.n
     own = torch.Generator(device=dev).manual_seed(seed + 5000 + group.rank)
     errs, failed = {}, []
@@ -2894,25 +2992,39 @@ def phase_dp_kernels(group, seed, say):
                 if not errs[(cols, "library")] <= DP_LIB_TOL:
                     failed.append(f"row 10 vs reduce-scatter, {cols} cols: "
                                   f"{errs[(cols, 'library')]:.3e}")
-        del x
+        row = x[group.rank]
+        got = fc.fused_ag_bucket(row, group)
+        want = fc.ag_bucket_plain(row, group)
+        lib = fc.all_gather_stack(row, group)
+        torch.cuda.synchronize()
+        errs[(cols, "gather")] = float((got - want).abs().max())
+        if not (torch.equal(got, want) and torch.equal(got, lib)):
+            failed.append(f"row 11 vs its plain ring and the library "
+                          f"all-gather, {cols} cols: max abs "
+                          f"{errs[(cols, 'gather')]:.3e}")
+        del x, got, want, lib
     say(f"[dp-kernel] row 10 vs its plain ring, bit for bit (fp32 and bf16 "
         f"wires) at {list(DP_CHECK_COLS)} cols, on every rank's own bucket: "
-        f"{not failed}; vs the library reduce-scatter (fp32), max abs "
+        f"{not any('vs plain' in f for f in failed)}; vs the library "
+        f"reduce-scatter (fp32), max abs "
         f"{max(v for (c, k), v in errs.items() if k == 'library'):.2e} "
-        f"(gate {DP_LIB_TOL})")
+        f"(gate {DP_LIB_TOL}); row 11 vs its plain ring and the library "
+        f"all-gather, bit for bit: {not any('row 11' in f for f in failed)}")
     return errs, failed
 
 
-def phase_dp_train(group, seed, say, rung, flags, num_layers=None,
-                   warmup=WARMUP_STEPS, timed=TIMED_STEPS):
+def phase_dp_train(group, seed, say, rung, flags, schedule,
+                   num_layers=None, warmup=WARMUP_STEPS, timed=TIMED_STEPS):
     """GPT-3 1.3B at full width (and depth, unless ``num_layers``) through
     ``jit.TrainStep(GPTForCausalLM, gpt_loss_fn, AdamW, group=)`` at dp=n
     on one rung: phase 5's weights, lr, clip and moment dtype, fp32 params
     and bf16 compute, remat dots_no_batch, the global batch of phase 5
     (``train_ids``) split over the ranks. Gates: finite losses, the last
-    below the first, the same on every rank, row 10's calls and launches
-    as ``dp_rs_calls`` says. Returns (step, this rank's ids, readings,
-    failures)."""
+    below the first, the same on every rank; the step resolved to
+    ``schedule``; rows 10 and 11's calls and launches as ``dp_calls``
+    says of a bucket plan built apart from the step (at full depth,
+    ``DP_FULL_BUCKETS`` float buckets). Returns (step, this rank's ids,
+    readings, failures)."""
     cfg = train_config(num_layers)
     dev, n = group.device, group.n
     set_flags(dict(DP_DEFAULT_FLAGS))
@@ -2923,6 +3035,8 @@ def phase_dp_train(group, seed, say, rung, flags, num_layers=None,
     opt = AdamW(2e-4, parameters=model.parameters(),
                 grad_clip=ClipGradByGlobalNorm(1.0), moment_dtype="bfloat16")
     step = TrainStep(model, gpt_loss_fn, opt, group=group)
+    plan = gcomm.BucketPlan.build(dict(model.named_parameters()), n,
+                                  DP_DEFAULT_FLAGS["FLAGS_grad_bucket_bytes"])
     b = TRAIN_B // n
     mine = train_ids(cfg, seed, dev)[group.rank * b:(group.rank + 1) * b]
     torch.cuda.synchronize()
@@ -2935,7 +3049,7 @@ def phase_dp_train(group, seed, say, rung, flags, num_layers=None,
     gcomm.reset_comm_counters()
     # the main path: counts start at 0 here and are read right after
     fc.reset_rs_bucket_counts()
-    fc.fused_ag_bucket.launches = 0
+    fc.reset_ag_bucket_counts()
     losses = []
     group.barrier()
     t0 = time.perf_counter()
@@ -2952,16 +3066,25 @@ def phase_dp_train(group, seed, say, rung, flags, num_layers=None,
     losses = [float(x) for x in losses]
     step_s = start.elapsed_time(stop) / 1e3 / timed
     counts = (fc.fused_rs_bucket.calls, fc.fused_rs_bucket.launches)
+    ag_counts = (fc.fused_ag_bucket.calls, fc.fused_ag_bucket.launches)
     shapes = {f"{c}/{w}": k for (c, w), k in fc.fused_rs_bucket.shapes.items()}
-    gathers = fc.fused_ag_bucket.launches
+    ag_shapes = dict(fc.fused_ag_bucket.shapes)
     steps = warmup + timed
-    cfg_gc = step._gc_cfg
-    plan = None if cfg_gc is None else cfg_gc.plan
-    floats = 0 if plan is None else sum(bk.dtype.is_floating_point
-                                        for bk in plan.buckets)
-    calls = dp_rs_calls(rung, floats) * steps
-    want = (calls, n * calls)
+    rs_calls, ag_calls = (k * steps for k in dp_calls(plan, flags, schedule))
+    want, ag_want = (rs_calls, n * rs_calls), (ag_calls, n * ag_calls)
     failed = []
+    got = None if step._gc_cfg is None else step._gc_cfg.backend
+    if got != schedule:
+        failed.append(f"{rung}: the step resolved to the {got or 'plain'} "
+                      f"schedule, not {schedule or 'plain'}")
+    floats = sum(bk.dtype.is_floating_point for bk in plan.buckets)
+    if num_layers is None and floats != DP_FULL_BUCKETS:
+        failed.append(f"{rung}: {floats} float buckets a step, not "
+                      f"{DP_FULL_BUCKETS}")
+    if step._gc_cfg is not None and \
+            step._gc_cfg.plan.fingerprint() != plan.fingerprint():
+        failed.append(f"{rung}: the step's bucket plan differs from the "
+                      f"one built apart")
     if not all(np.isfinite(losses)):
         failed.append(f"a dp train loss is not finite ({rung}): {losses}")
     if not losses[-1] < losses[0]:
@@ -2974,6 +3097,9 @@ def phase_dp_train(group, seed, say, rung, flags, num_layers=None,
     if counts != want:
         failed.append(f"rank {group.rank} {rung}: row 10 (calls, launches) "
                       f"{counts} != {want}")
+    if ag_counts != ag_want:
+        failed.append(f"rank {group.rank} {rung}: row 11 (calls, launches) "
+                      f"{ag_counts} != {ag_want}")
     per_rank = group.all_gather_list(torch.tensor(
         [step_s, torch.cuda.max_memory_allocated(dev) / 1e9], device=dev,
         dtype=torch.float64))
@@ -2996,30 +3122,37 @@ def phase_dp_train(group, seed, say, rung, flags, num_layers=None,
              "reduce_bytes_by_dtype_per_step": {
                  k: v / steps for k, v in comm["reduce_bytes_by_dtype"].items()},
              "bucket_fill": comm["bucket_fill"],
-             "backend": comm["backend"], "row10_calls_per_step": calls / steps,
-             "row11_gathers_per_step": gathers / steps}
+             "backend": comm["backend"],
+             "row10_calls_per_step": counts[0] / steps,
+             "row11_calls_per_step": ag_counts[0] / steps}
     say(f"[dp-train {rung}] losses {[round(x, 4) for x in losses]} (the "
         f"same on every rank: {same})")
-    say(f"[dp-train {rung}] rank 0 row 10 (calls, launches) over {steps} "
-        f"steps: {counts} (want {want}); by (cols/wire): {shapes}")
+    say(f"[dp-train {rung}] the {got or 'plain'} schedule (want "
+        f"{schedule or 'plain'}), {len(plan.buckets)} buckets a step "
+        f"({floats} float); rank 0 row 10 (calls, launches) over {steps} "
+        f"steps: {counts} (want {want}), by (cols/wire): {shapes}; row 11: "
+        f"{ag_counts} (want {ag_want})")
     say(f"[dp-train {rung}] {json.dumps(stats)}")
     set_flags(dict(DP_DEFAULT_FLAGS))
     return step, mine, {"stats": stats, "counts": counts,
-                        "shapes": dict(fc.fused_rs_bucket.shapes)}, failed
+                        "shapes": dict(fc.fused_rs_bucket.shapes),
+                        "ag_counts": ag_counts, "ag_shapes": ag_shapes}, failed
 
 
 def phase_dp_profile(group, step, mine, say):
     """Where a fused dp step's time goes on rank 0: device ms by kind of
     kernel (``phase_tp_profile``) and under the step's record_function
     ranges (a second trace that records host ops too; the backward is
-    what the ranges leave). Every rank runs both steps."""
+    what the ranges leave). Every rank runs both steps. Fails (rank 0)
+    unless the traced step ran rows 10 and 11 and the reduce-scatter and
+    all-gather ranges took device time."""
     out = phase_tp_profile(group, lambda ids: step(ids, ids), mine, say,
                            tag="dp-profile")
     group.barrier()
     if group.rank != 0:
         step(mine, mine)
         torch.cuda.synchronize()
-        return out
+        return {"failed": []}
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA],
@@ -3037,6 +3170,12 @@ def phase_dp_profile(group, step, mine, say):
         f"while they wait): "
         f"{json.dumps({k: round(v, 3) for k, v in spans.items()})}")
     out["spans"] = spans
+    kinds = ("row 10 (rs_step_kernel)", "row 11 (ag_step_kernel)")
+    missing = [k for k in kinds if not out["by_kind"][k] > 0] + \
+        [r for r in ("grad_comm/reduce_scatter", "grad_comm/all_gather")
+         if not spans[r] > 0]
+    out["failed"] = [f"the profiled fused dp step shows no device time "
+                     f"in {missing}"] if missing else []
     return out
 
 
@@ -3096,65 +3235,107 @@ def phase_dp_parity(group, seed, say):
 
 
 def phase_dp_timing(group, seed, say):
-    """Row 10 at ``DP_TIMED_COLS`` (fp32 buckets). On rank 0, by
-    CUDA-graph replay: one middle ring step's pass alone (received row +
-    part into the next send) on fp32 and bf16 wires, its plain ops and
-    ``torch.add(recv, part, out=send)`` (fp32: the same function in one
-    library call). With a card per rank, on every rank by CUDA events
-    over 10 eager calls, the slowest rank reported: the whole call with
-    its hops (fp32 and bf16 wires), the plain ring and NCCL's
-    reduce-scatter of the same bucket. Returns {cols: timings}."""
+    """Rows 10 and 11 at ``DP_TIMED_COLS`` (fp32 buckets). On rank 0, by
+    CUDA-graph replay over operands rotating through twice the L2
+    (``rotating_ms``): row 10's middle ring step's pass alone (received
+    row + part into the next send) on fp32 and bf16 wires, its plain ops
+    and ``torch.add(recv, part, out=recv)`` (fp32: the same function and
+    bytes in one library call); row 11's step alone and ``copy_``. With
+    a card per rank, on every rank by CUDA events over 10 eager calls,
+    the slowest rank reported: each whole call with its hops (row 10 at fp32 and
+    bf16 wires), its plain ring or gather, and NCCL's reduce-scatter or
+    all-gather of the same bucket or row. Returns {cols: timings}."""
     dev, n = group.device, group.n
     per_card = group.backend == "nccl"
     g = torch.Generator(device=dev).manual_seed(seed + 6000 + group.rank)
+    f32, bf16 = torch.float32, torch.bfloat16
     out = {}
     for cols in DP_TIMED_COLS:
-        x = torch.randn((n, cols), generator=g, device=dev)
         t = {}
         if group.rank == 0:
-            part = x[0]
-            recv = torch.randn(cols, generator=g, device=dev)
-            recv16, send = recv.bfloat16(), torch.empty_like(recv)
-            f32, bf16 = torch.float32, torch.bfloat16
-            k1 = graph_ms(lambda: fc.rs_bucket_step(part, recv, f32,
-                                                    out=False), iters=20)
-            t["plain_alone_ms"] = graph_ms(
-                lambda: fc.rs_bucket_step_plain(part, recv, f32), iters=20)
-            t["library_alone_ms"] = graph_ms(
-                lambda: torch.add(recv, part, out=send), iters=20)
-            t["bf16_alone_ms"] = graph_ms(
-                lambda: fc.rs_bucket_step(part, recv16, bf16, out=False),
-                iters=20)
-            k2 = graph_ms(lambda: fc.rs_bucket_step(part, recv, f32,
-                                                    out=False), iters=20)
+            ops = {}
+
+            def operands(i):
+                if i not in ops:
+                    ops[i] = (torch.randn(cols, generator=g, device=dev),
+                              torch.randn(cols, generator=g, device=dev))
+                return ops[i]
+
+            def call(fn):
+                def make(i):
+                    part, recv = operands(i)
+                    return functools.partial(fn, part, recv)
+                return make
+
+            def kernel(part, recv):
+                fc.rs_bucket_step(part, recv, f32, out=False)
+
+            def plain(part, recv):
+                fc.rs_bucket_step_plain(part, recv, f32)
+
+            def library(part, recv):
+                torch.add(recv, part, out=recv)
+
+            # part and received row read, the next send written (fp32)
+            nbytes = 12 * cols
+            k1 = rotating_ms(call(kernel), nbytes)
+            t["plain_alone_ms"] = rotating_ms(call(plain), nbytes)
+            t["library_alone_ms"] = rotating_ms(call(library), nbytes)
+
+            def bf16_wire(i):
+                part, recv = operands(i)
+                return functools.partial(fc.rs_bucket_step, part,
+                                         recv.bfloat16(), bf16, out=False)
+
+            t["bf16_alone_ms"] = rotating_ms(bf16_wire, nbytes)
+            k2 = rotating_ms(call(kernel), nbytes)
             t["kernel_alone_ms"] = min(k1, k2)
             t["kernel_alone_runs"] = (k1, k2)
+            ops.clear()
+            t["ag"] = ag_step_alone(cols, f32, g, dev)
         group.barrier()
         if per_card:
+            x = torch.randn((n, cols), generator=g, device=dev)
+            row = x[group.rank]
             lib = torch.empty(cols, device=dev)
             calls = {
-                "kernel": lambda: fc.fused_rs_bucket(x, group, torch.float32),
-                "bf16": lambda: fc.fused_rs_bucket(x, group, torch.bfloat16),
-                "plain": lambda: fc.rs_bucket_plain(x, group, torch.float32),
-                "library": lambda: group.reduce_scatter_into(lib, x.view(-1))}
+                "kernel": lambda: fc.fused_rs_bucket(x, group, f32),
+                "bf16": lambda: fc.fused_rs_bucket(x, group, bf16),
+                "plain": lambda: fc.rs_bucket_plain(x, group, f32),
+                "library": lambda: group.reduce_scatter_into(lib, x.view(-1)),
+                "ag": lambda: fc.fused_ag_bucket(row, group),
+                "ag_plain": lambda: fc.ag_bucket_plain(row, group),
+                "ag_library": lambda: fc.all_gather_stack(row, group)}
+            order = ("kernel", "plain", "library", "bf16", "ag", "ag_plain",
+                     "ag_library", "ag", "kernel")
             mine = {}
-            for what in ("kernel", "plain", "library", "bf16", "kernel"):
+            for what in order:
                 group.barrier()
                 v = cuda_ms(calls[what], iters=10, warmup=2)
                 mine[what] = min(v, mine.get(what, v))
+            names = sorted(mine)
             every = group.all_gather_list(torch.tensor(
-                [mine[k] for k in ("kernel", "plain", "library", "bf16")],
-                device=dev, dtype=torch.float64))
-            worst = [max(float(e[i]) for e in every) for i in range(4)]
-            t.update(call_ms=worst[0], plain_call_ms=worst[1],
-                     library_call_ms=worst[2], bf16_call_ms=worst[3])
+                [mine[k] for k in names], device=dev, dtype=torch.float64))
+            worst = {k: max(float(e[i]) for e in every)
+                     for i, k in enumerate(names)}
+            t.update(call_ms=worst["kernel"], plain_call_ms=worst["plain"],
+                     library_call_ms=worst["library"],
+                     bf16_call_ms=worst["bf16"])
+            if group.rank == 0:
+                t["ag"].update(wrapper_ms=worst["ag"],
+                               plain_ms=worst["ag_plain"],
+                               gather_ms=worst["ag_library"])
+            del x, row, lib
         out[cols] = t
-        del x
     if group.rank == 0:
         for cols, t in out.items():
+            ag = t.pop("ag")
             say(f"[dp-timing] row 10, ({n}, {cols}) fp32 bucket: " + ", ".join(
                 f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                 for k, v in t.items()) + " ms")
+            say(f"[dp-timing] row 11, ({cols},) fp32 row: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in ag.items()) + " ms")
+            t["ag"] = ag
     return out
 
 
@@ -3175,12 +3356,13 @@ def dp_rank_main(group, seed):
     out = {"rank": group.rank, "errs": errs, "train": {}}
     per_card = group.backend == "nccl"
     depth = () if per_card else (2, 1, 2)
-    for rung, flags in DP_RUNGS:
+    for rung, flags, schedule in DP_RUNGS:
         step, mine, out["train"][rung], f = phase_dp_train(
-            group, seed, say, rung, flags, *depth)
+            group, seed, say, rung, flags, schedule, *depth)
         failed += f
         if per_card and rung == "fused":
             out["profile"] = phase_dp_profile(group, step, mine, say)
+            failed += out["profile"]["failed"]
         del step, mine
         torch.cuda.empty_cache()
     failed += phase_dp_parity(group, seed, say)
@@ -3209,11 +3391,12 @@ def phase_dp(seed):
 
 
 def dp_rows(r0, layout):
-    """The ``kernels`` rows of row 10, one per timed bucket width, from rank
-    0's readings: launches from the main path's run (the fused fp32 rung)
-    at that width (calls times DP ring steps); ms the whole call with its
-    hops (a card per rank) or one ring step's pass alone (one card),
-    plain and library likewise (``covers`` says which)."""
+    """The ``kernels`` rows of rows 10 and 11, one each per timed bucket
+    width, from rank 0's readings: launches from the main path's run (the
+    fused fp32 rung) at that width (calls times DP ring steps); ms the
+    whole call with its hops (a card per rank) or one ring step's pass
+    alone (one card), plain and library likewise (``covers`` says
+    which)."""
     per_card = layout == "per_card"
     rows = []
     for cols in DP_TIMED_COLS:
@@ -3238,8 +3421,14 @@ def dp_rows(r0, layout):
                        plain_ms=t["plain_alone_ms"],
                        library_ms=t["library_alone_ms"],
                        covers="one ring step's pass alone, CUDA-graph "
-                              "replay")
+                              "replay over rotating operands")
         rows.append(row)
+    fused = r0["train"]["fused"]
+    for cols in DP_TIMED_COLS:
+        rows.append(ag_row(f"{cols} fp32", r0["timing"][cols]["ag"],
+                           4 * cols, DP, per_card,
+                           DP * fused["ag_shapes"].get(cols, 0),
+                           r0["errs"][(cols, "gather")]))
     return rows
 
 
@@ -3340,22 +3529,21 @@ def main(argv=None):
     pp_outs, pp_layout = phase_pp(args.seed)
     dp_r0, dp_layout = phase_dp(args.seed)
     phase_trajectories(one_card_losses, tp_r0, pp_outs[0], dp_r0, tp_layout)
-    mp_kernels, collectives = mp_rows(mp_r0, layout, cfg)
+    mp_kernels = mp_rows(mp_r0, layout, cfg)
     return finish(rows + mp_kernels + tp_rows(tp_r0, tp_layout, cfg) +
                   pp_rows(pp_outs, pp_layout, cfg) +
-                  dp_rows(dp_r0, dp_layout), collectives, t_start)
+                  dp_rows(dp_r0, dp_layout), t_start)
 
 
-def finish(rows, collectives, t_start):
-    """The result lines: the kernels (and, apart, the library collectives
-    that stand for a TPU kernel), the card's name and power limit, and
+def finish(rows, t_start):
+    """The result lines: the kernels, the card's name and power limit, and
     the contract line last."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": rows, "collectives": collectives}))
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,9 @@ the flags ask for the explicit schedule (``resolve``):
 Rungs of ``FLAGS_comm_backend``'s dp entry: ``ring`` reduces with the
 library's reduce-scatter, ``fused`` with the hand-written ring of
 ``ops.fused_collectives.fused_rs_bucket`` (row 10), whose wire may be
-bf16 while it accumulates in fp32. ``FLAGS_allreduce_dtype="int8"`` (and
+bf16 while it accumulates in fp32, and gathers with the hand-written ring
+of ``fused_ag_bucket`` (row 11); ``ring`` gathers with the library's
+all-gather. ``FLAGS_allreduce_dtype="int8"`` (and
 bf16 on the ring rung) exchanges the rows with one all-to-all at the
 compressed dtype and sums them in fp32 (``_quantized_reduce_row``; int8
 with a scale per 2,048-element chunk).
@@ -289,8 +291,8 @@ def reduce_scatter_grads(plan, grads, group, wire_dtype, denom=1,
 
 def all_gather_shards(plan, shards, group, fused=False, idx=None, out=None):
     """Every replica's flat shards -> full tensors of the plan's shapes and
-    dtypes: one all-gather per bucket (on the fused rung through
-    ``fused_ag_bucket``, row 11's library collective). With ``out`` (a
+    dtypes: one all-gather per bucket (on the fused rung through row 11,
+    ``fused_ag_bucket``'s ring and copy kernel). With ``out`` (a
     dict of tensors) each result is copied into ``out[name]`` in place
     and ``out`` returned."""
     if idx is not None:
@@ -433,7 +435,6 @@ class GradCommConfig:
     # dp rung: 'ring' (the library's reduce-scatter) or 'fused' (row 10
     # for float buckets on an fp32 or bf16 wire)
     backend: str = "ring"
-    fused_kernels: bool = False
 
 
 _warned = set()
@@ -518,7 +519,7 @@ def resolve(group, optimizer, mp=1):
     return GradCommConfig(n=int(group.n), weight_update_sharding=wus,
                           wire_dtype=wire,
                           bucket_bytes=int(flags["FLAGS_grad_bucket_bytes"]),
-                          backend=backend, fused_kernels=backend == "fused")
+                          backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -552,7 +553,7 @@ class StepComm:
 
 
 def make_step_record(plan, wire_dtype, weight_update_sharding,
-                     with_update=True, backend="ring", fused_kernels=False):
+                     with_update=True, backend="ring"):
     """Byte / collective ledger of one executed step of this plan. The
     explicit all-reduce baseline (weight_update_sharding=False) counts
     reduce-scatter + gradient all-gather as reduce bytes (= ring
@@ -564,7 +565,7 @@ def make_step_record(plan, wire_dtype, weight_update_sharding,
     rec = StepComm(backend=backend)
     by_dtype, coll = plan.reduce_record(
         wire_dtype, two_sided=not weight_update_sharding)
-    if fused_kernels:
+    if backend == "fused":
         rs_k = sum(1 for b in plan.buckets
                    if b.dtype.is_floating_point and wire_dtype is not
                    torch.int8)

@@ -32,10 +32,6 @@ UNPORTED = ("dots", "save_attn")
 # batch dimensions (a batched product is aten.bmm and is recomputed)
 NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
-# outputs "dots_no_batch" chose to save in forward passes so far (the
-# tests read it to check what a block keeps)
-saved_dots = {"count": 0}
-
 
 def _full(fn):
     def run(*args):
@@ -49,8 +45,6 @@ def _nothing(fn):
 
 def _no_batch_dots(ctx, op, *args, **kwargs):
     if op in NO_BATCH_DOTS:
-        if not ctx.is_recompute:
-            saved_dots["count"] += 1
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 

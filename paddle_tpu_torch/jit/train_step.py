@@ -119,8 +119,7 @@ class TrainStep:
         self._comm_records = {
             tag: gc.make_step_record(cfg.plan, cfg.wire_dtype, wus,
                                      with_update=tag != "micro",
-                                     backend=cfg.backend,
-                                     fused_kernels=cfg.fused_kernels)
+                                     backend=cfg.backend)
             for tag in ("step", "micro", "fire")}
         if wus:
             self._opt_state = gc.pack_opt_state(self._opt_state,
@@ -197,7 +196,7 @@ class TrainStep:
         with record_function("grad_comm/reduce_scatter"):
             gshards = gc.reduce_scatter_grads(plan, grads, group,
                                               cfg.wire_dtype, denom=cfg.n,
-                                              fused=cfg.fused_kernels)
+                                              fused=cfg.backend == "fused")
         del grads
         if cfg.weight_update_sharding:
             if k > 1:
@@ -217,7 +216,7 @@ class TrainStep:
                 gshards = gc.clip_shards(clip, gshards, group)
         with record_function("grad_comm/all_gather"):
             full = gc.all_gather_shards(plan, gshards, group,
-                                        fused=cfg.fused_kernels)
+                                        fused=cfg.backend == "fused")
         if k == 1:
             self._update_full(full, clip=False)
             return
@@ -245,7 +244,8 @@ class TrainStep:
         state["step"] = flat["step"]
         with record_function("grad_comm/all_gather"):
             gc.all_gather_shards(plan, pshards, self.group,
-                                 fused=cfg.fused_kernels, out=self._params)
+                                 fused=cfg.backend == "fused",
+                                 out=self._params)
 
     def _to_device(self, xs):
         return tuple(torch.as_tensor(x).to(self.device)

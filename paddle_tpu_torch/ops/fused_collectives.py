@@ -48,10 +48,10 @@ place on that buffer, so no copy is made between the GEMM and the
 collective, the property the TPU kernel has. The relayout of the
 gathered ``[n, R, F/n]`` to ``[R, F]`` (``transpose(1, 0, 2)`` in the
 reference too, :722) is PyTorch. ``fused_ag_bucket``'s TPU kernel is the
-ring of remote copies and nothing else, so its port has no hand-written
-kernel: it is the library's all-gather of the row (``all_gather_stack``,
-the function the gspmd rung's data gathers call too), and the wrapper
-adds its launch counter.
+ring of remote copies that places each row in its slot; its port is the
+same ring (below, row 11): NCCL send/recv hops forward the rows, and the
+hand-written copy of ``csrc/ag_bucket.cu`` places each ring step's row
+in its slot of the output.
 
 What bounds them on an H100: at decode (R = 8 rows) the GEMM reads its
 weight shard once (bytes: 2048 x 512 bf16 is 2.1 MB, 0.6 us at 3.35
@@ -63,10 +63,12 @@ flag synchronisation) is later work (ROADMAP Queue B 11-13).
 Beside each: the plain version (``gemm_ag_plain``, ``ag_bucket_plain``):
 the plain GEMM (``generation._matmul``, or the quantized GEMM's plain
 algebra) and an out-of-place all-gather of the blocks concatenated in
-rank order, ``gemm_ag_reference``'s algebra. The wrappers take the plain
+rank order, ``gemm_ag_reference``'s algebra; the ring of blocking hops
+with each step's row copied into its slot. The wrappers take the plain
 version for CPU tensors only; for CUDA tensors they launch the kernel or
 raise. ``fused_gemm_ag.launches`` and ``fused_ag_bucket.launches`` count
-launches (``.shapes`` the same by shape).
+kernel launches (``fused_gemm_ag.shapes`` the same by shape,
+``fused_ag_bucket.shapes`` its calls by row length).
 """
 from __future__ import annotations
 
@@ -129,8 +131,16 @@ def gemm_ag_plain(x, w, group, scale=None):
 
 
 def ag_bucket_plain(row, group):
-    """(cols,) on every rank -> (n, cols) in rank order."""
-    return torch.stack(group.all_gather_list(row))
+    """The ring of ``fused_ag_bucket`` over ``group``'s blocking hops, each
+    ring step's row copied into its slot: (cols,) on every rank -> (n,
+    cols) in rank order."""
+    n, idx = group.n, group.rank
+    out = row.new_empty((n,) + tuple(row.shape))
+    out[idx].copy_(row)
+    for t in range(1, n):
+        row = group.ring_shift(row)
+        out[(idx - t) % n].copy_(row)
+    return out
 
 
 def all_gather_stack(t, group):
@@ -199,27 +209,92 @@ def fused_gemm_ag(x, w, group, scale=None):
     return buf.view(n, R, Fl).transpose(0, 1).reshape(lead + (n * Fl,))
 
 
+fused_gemm_ag.launches = 0
+fused_gemm_ag.shapes = collections.Counter()
+
+
+# ------------------------------------------------- all-gather (row 11)
+@functools.lru_cache(maxsize=None)
+def _ag_library():
+    lib = load_library("ag_bucket", "ag_bucket.cu")
+    p = ctypes.c_void_p
+    lib.ag_bucket_step_launch.argtypes = [p, p, ctypes.c_longlong, p]
+    lib.ag_bucket_step_launch.restype = ctypes.c_int
+    lib.ag_bucket_error_string.argtypes = [ctypes.c_int]
+    lib.ag_bucket_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_ag_bucket():
+    """Build (or load the cached build of) row 11's kernel library now."""
+    _ag_library()
+
+
+def ag_bucket_step(src, dst):
+    """One ring step of row 11 through the kernel: ``dst`` (a slot of the
+    output) <- ``src`` (the step's row), CUDA rows of one dtype and
+    length; returns ``dst``. Raises for what the kernel does not take."""
+    why = []
+    for name, t in (("src", src), ("dst", dst)):
+        if t.device.type != "cuda":
+            why.append(f"{name} on {t.device}, not cuda")
+        if t.dim() != 1 or not t.is_contiguous():
+            why.append(f"{name} is not a contiguous row")
+    if src.dtype != dst.dtype or src.shape != dst.shape or \
+            src.device != dst.device:
+        why.append(f"src {src.dtype} {tuple(src.shape)} and dst "
+                   f"{dst.dtype} {tuple(dst.shape)} differ")
+    if why:
+        raise ValueError("ag_bucket kernel: " + "; ".join(why))
+    lib = _ag_library()
+    with torch.cuda.device(src.device):
+        rc = lib.ag_bucket_step_launch(
+            src.data_ptr(), dst.data_ptr(), src.numel() * src.element_size(),
+            torch.cuda.current_stream(src.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ag_bucket kernel launch failed ({rc}): "
+                           f"{lib.ag_bucket_error_string(rc).decode()}")
+    fused_ag_bucket.launches += 1
+    return dst
+
+
 def fused_ag_bucket(row, group):
-    """All-gather of a flat row: (cols,) on every rank -> (n, cols) in rank
-    order, through the library's collective (``all_gather_stack``). CPU
-    tensors take ``ag_bucket_plain``."""
+    """Row 11: (cols,) on every rank -> (n, cols) in rank order. CUDA rows
+    run the ring: the row goes to the right and each received row is
+    forwarded as it arrived (n - 1 NCCL hops), while a kernel launch per
+    ring step places the step's row in its slot. CPU rows take
+    ``ag_bucket_plain``. Counts its calls (``.calls``), launches
+    (``.launches``) and calls by row length (``.shapes``)."""
     if row.device.type == "cpu":
         return ag_bucket_plain(row, group)
     if row.device.type != "cuda":
         raise ValueError(f"fused all-gather runs on cuda or cpu, not "
                          f"{row.device}")
-    if row.dim() != 1:
-        raise ValueError(f"fused_ag_bucket takes a flat row, got shape "
-                         f"{tuple(row.shape)}")
-    fused_ag_bucket.launches += 1
+    if row.dim() != 1 or not row.is_contiguous():
+        raise ValueError(f"fused_ag_bucket takes a contiguous flat row, got "
+                         f"shape {tuple(row.shape)}")
+    n, idx = group.n, group.rank
+    out = torch.empty((n,) + tuple(row.shape), dtype=row.dtype,
+                      device=row.device)
+    hop = group.ring_shift_async(row) if n > 1 else None
+    ag_bucket_step(row, out[idx])
+    for t in range(1, n):
+        recv = hop.wait()
+        if t < n - 1:
+            hop = group.ring_shift_async(recv)
+        ag_bucket_step(recv, out[(idx - t) % n])
+    fused_ag_bucket.calls += 1
     fused_ag_bucket.shapes[row.shape[0]] += 1
-    return all_gather_stack(row, group)
+    return out
 
 
-fused_gemm_ag.launches = 0
-fused_gemm_ag.shapes = collections.Counter()
-fused_ag_bucket.launches = 0
-fused_ag_bucket.shapes = collections.Counter()
+def reset_ag_bucket_counts():
+    fused_ag_bucket.launches = 0
+    fused_ag_bucket.calls = 0
+    fused_ag_bucket.shapes = collections.Counter()
+
+
+reset_ag_bucket_counts()
 
 
 # ------------------------------------------------- training (rows 7 - 9)

@@ -500,11 +500,6 @@ def test_fused_gemm_ag_wrapper_on_card(cuda_device, w_dtype):
     else:
         with pytest.raises(ValueError, match="needs a float32 scale"):
             fc.fused_gemm_ag(x, w, group, None)
-    row = torch.arange(24, dtype=torch.bfloat16, device=cuda_device)
-    out = fc.fused_ag_bucket(row, group)
-    assert out.shape == (4, 24)
-    for r in range(4):
-        assert bool((out[r] == row * (r + 1)).all()), r
 
 
 @pytest.mark.cuda
@@ -741,3 +736,75 @@ def test_rs_bucket_wrapper_refuses_what_the_kernel_does_not_take(
         fc.rs_bucket_step(torch.zeros(64, 2, device=cuda_device)[:, 0],
                           None, torch.float32)
     assert fc.fused_rs_bucket.launches == before
+
+
+# row 11 at the main path's row lengths (the dp param buckets at n=4 and
+# the serving engine's activation rows) and at odd tails
+AG_STEP_ELEMS = (3, 512, 2560, 4099, 4096, 131_072, 1_048_576, 25_755_648)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ag_bucket_step_matches_plain_on_card(cuda_device, dtype):
+    """Row 11's per-step pass (``fused_collectives.ag_bucket_step``): the
+    row copied into its slot of an (n, cols) output, bit for bit, at
+    every length, on 16-byte aligned rows and on rows that are not (the
+    byte loop); the other slots untouched."""
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    before = fc.fused_ag_bucket.launches
+    launches = 0
+    for cols in AG_STEP_ELEMS:
+        src = torch.randn(cols + 1, generator=g, device=cuda_device).to(dt)
+        for row in (src[:cols], src[1:]):
+            out = torch.zeros((3, cols), dtype=dt, device=cuda_device)
+            fc.ag_bucket_step(row, out[1])
+            launches += 1
+            torch.cuda.synchronize()
+            assert torch.equal(out[1], row), cols
+            assert not out[0].any() and not out[2].any(), cols
+    assert src[1:].data_ptr() % 16
+    assert fc.fused_ag_bucket.launches == before + launches
+
+
+@pytest.mark.cuda
+def test_ag_bucket_ring_matches_plain_on_card(cuda_device, tmp_path):
+    """Row 11's whole ring (``fused_ag_bucket``) on two and four ranks
+    sharing the card over gloo: the gathered (n, cols) equals the plain
+    all-gather bit for bit at every length, fp32 and bf16; one call and n
+    launches per ring."""
+    import torch_dp_train_ranks as ranks
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    fc.build_ag_bucket()         # once, here: the ranks only load it
+    for n in (2, 4):
+        (tmp_path / str(n)).mkdir()
+        outs = env.launch(n, ranks.card_ag_ring, 7, layout="shared",
+                          timeout_s=300, init_dir=tmp_path / str(n))
+        calls = 2 * len(ranks.CARD_COLS)
+        for o in outs:
+            for case, same in o["readings"]:
+                assert same, case
+            assert o["counts"] == (calls, n * calls)
+
+
+@pytest.mark.cuda
+def test_ag_bucket_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    """A slot of another dtype or length, a strided row and a CPU slot
+    raise; nothing falls back to a library copy."""
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    row = torch.zeros(64, device=cuda_device)
+    before = fc.fused_ag_bucket.launches
+    with pytest.raises(ValueError, match="differ"):
+        fc.ag_bucket_step(row, torch.zeros(64, device=cuda_device).half())
+    with pytest.raises(ValueError, match="differ"):
+        fc.ag_bucket_step(row, torch.zeros(63, device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.ag_bucket_step(torch.zeros(64, 2, device=cuda_device)[:, 0], row)
+    with pytest.raises(ValueError, match="not cuda"):
+        fc.ag_bucket_step(row, torch.zeros(64))
+    with pytest.raises(ValueError, match="contiguous flat row"):
+        fc.fused_ag_bucket(torch.zeros(4, 4, device=cuda_device), None)
+    assert fc.fused_ag_bucket.launches == before

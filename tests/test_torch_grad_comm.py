@@ -43,6 +43,7 @@ import pytest
 import torch
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
+from torch.utils.checkpoint import CheckpointPolicy
 
 import paddle_tpu as paddle
 import torch_dp_train_ranks as ranks
@@ -213,7 +214,7 @@ def _same_config(ref, port):
             ref.backend, ref.fused_kernels) == (
         port.n, port.weight_update_sharding,
         None if port.wire_dtype is None else gc.dtype_name(port.wire_dtype),
-        port.bucket_bytes, port.backend, port.fused_kernels)
+        port.bucket_bytes, port.backend, port.backend == "fused")
 
 
 @pytest.mark.parametrize("mode, wus, dtype, backend", FLAG_GRID,
@@ -231,7 +232,7 @@ def test_resolve_fused_and_its_bails():
     set_flags({"FLAGS_comm_backend": "dp=fused"})
     try:
         cfg = gc.resolve(types.SimpleNamespace(n=4), AdamW(1e-3))
-        assert cfg.backend == "fused" and cfg.fused_kernels
+        assert cfg.backend == "fused"
         assert gc.resolve(types.SimpleNamespace(n=1), AdamW(1e-3)) is None
         assert gc.resolve(None, AdamW(1e-3)) is None
     finally:
@@ -310,6 +311,21 @@ def test_rs_bucket_plain_is_the_reference_ring(collective_runs, n, case):
                                       o["plain-float32"])
 
 
+@pytest.mark.parametrize("case", range(len(COLL_CASES)))
+@pytest.mark.parametrize("n", DEGREES)
+def test_ag_bucket_plain_is_the_reference_gather(collective_runs, n, case):
+    """Row 11's plain ring (and the wrapper's CPU path) gathers row
+    ``rank`` of every replica's bucket in rank order, bit for bit as the
+    reference's ``all_gather`` of the same rows does."""
+    outs = [o[case] for o in collective_runs[n].result()]
+    xs = [o["x"] for o in outs]
+    want = _ref_collective(lambda x: lax.all_gather(
+        x[lax.axis_index("dp")], "dp").reshape(-1), xs)
+    for r, o in enumerate(outs):
+        np.testing.assert_array_equal(o["gather-plain"].reshape(-1), want[r])
+        np.testing.assert_array_equal(o["gather-fused"].reshape(-1), want[r])
+
+
 @pytest.mark.parametrize("wire", ["bfloat16", "int8"])
 @pytest.mark.parametrize("case", range(len(COLL_CASES)))
 @pytest.mark.parametrize("n", DEGREES)
@@ -328,7 +344,8 @@ def test_quantized_reduce_row_matches_the_reference(collective_runs, n, case,
 
 # ---------------------------------------------------- the eager GPT, remat
 @pytest.mark.parametrize("other", ["full", "nothing"])
-def test_dots_no_batch_saves_the_projections_and_keeps_the_gradients(other):
+def test_dots_no_batch_saves_the_projections_and_keeps_the_gradients(
+        other, monkeypatch):
     """The eager GPT's blocks under dots_no_batch (config.remat) against
     the same blocks under ``other``: the same loss, gradients within 1e-6;
     a dots_no_batch forward saves the qkv, out, up and down outputs of
@@ -342,28 +359,44 @@ def test_dots_no_batch_saves_the_projections_and_keeps_the_gradients(other):
     model = GPTForCausalLM(GPTConfig(**dict(cfg, remat=False)))
     layer_params_from_numpy(model, init)
     blocks = model.gpt.h
+    saved = _count_saved(monkeypatch)
     out = {}
     for policy in ("dots_no_batch", other):
         # GPTModel.forward with each block under ``policy``
         model.gpt.h = torch.nn.ModuleList(
             _Remat(b, policy) for b in blocks)
-        recompute.saved_dots["count"] = 0
+        saved["count"] = 0
         loss = gpt_loss_fn(model(ids), ids)
-        saved = recompute.saved_dots["count"]
         grads = torch.autograd.grad(loss, list(model.parameters()))
-        out[policy] = (float(loss), grads, saved)
+        out[policy] = (float(loss), grads, saved["count"])
     model.gpt.h = blocks
     # config.remat runs every block under dots_no_batch itself
     eager = GPTForCausalLM(GPTConfig(**cfg))
     layer_params_from_numpy(eager, init)
-    recompute.saved_dots["count"] = 0
+    saved["count"] = 0
     assert float(gpt_loss_fn(eager(ids), ids)) == out["dots_no_batch"][0]
-    assert recompute.saved_dots["count"] == 4 * cfg["num_layers"]
+    assert saved["count"] == 4 * cfg["num_layers"]
     assert out["dots_no_batch"][0] == out[other][0]
     assert out["dots_no_batch"][2] == 4 * cfg["num_layers"]
     assert out[other][2] == 0
     for a, b in zip(out["dots_no_batch"][1], out[other][1]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def _count_saved(monkeypatch):
+    """A count of the outputs dots_no_batch's selective-checkpoint policy
+    saves in forward passes (not in the backward's recompute): the policy
+    that the checkpoint context calls, wrapped."""
+    saved = {"count": 0}
+    policy = recompute._no_batch_dots
+
+    def counted(ctx, op, *args, **kwargs):
+        choice = policy(ctx, op, *args, **kwargs)
+        if choice == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+            saved["count"] += 1
+        return choice
+    monkeypatch.setattr(recompute, "_no_batch_dots", counted)
+    return saved
 
 
 class _Remat(torch.nn.Module):

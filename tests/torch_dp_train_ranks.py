@@ -156,11 +156,13 @@ def wires(group, inputs):
 
 
 def collectives(group, cases):
-    """Row 10's plain ring and the compressed reduce on this rank's own
-    buckets: for each (cols, seed) case, the rank's x (n, cols) (drawn
-    from seed + rank) and what ``rs_bucket_plain`` (fp32 and bf16 wires),
-    ``fused_rs_bucket`` (its CPU path), the library's reduce-scatter and
-    ``_quantized_reduce_row`` (bf16, int8) return."""
+    """Rows 10 and 11's plain rings and the compressed reduce on this
+    rank's own buckets: for each (cols, seed) case, the rank's x (n, cols)
+    (drawn from seed + rank) and what ``rs_bucket_plain`` (fp32 and bf16
+    wires), ``fused_rs_bucket`` (its CPU path), the library's
+    reduce-scatter and ``_quantized_reduce_row`` (bf16, int8) return, and
+    what ``ag_bucket_plain`` and ``fused_ag_bucket`` (its CPU path) gather
+    of row ``rank`` of x."""
     n, r = group.n, group.rank
     out = []
     for cols, seed in cases:
@@ -178,6 +180,8 @@ def collectives(group, cases):
             t, group, torch.bfloat16))
         row["quant-int8"] = _np(gc._quantized_reduce_row(t, group,
                                                          torch.int8))
+        row["gather-plain"] = _np(fc.ag_bucket_plain(t[r], group))
+        row["gather-fused"] = _np(fc.fused_ag_bucket(t[r].clone(), group))
         out.append(row)
     return out
 
@@ -205,3 +209,24 @@ def card_ring(group, seed):
     return {"readings": readings,
             "counts": (fc.fused_rs_bucket.calls,
                        fc.fused_rs_bucket.launches)}
+
+
+def card_ag_ring(group, seed):
+    """Row 11 across ranks that share a card over gloo: for each width of
+    ``CARD_COLS``, fp32 and bf16, the kernel's ring against the plain
+    all-gather bit for bit, this rank's own row drawn from seed + rank; n
+    launches and one call per ring. Returns the readings and the
+    counts."""
+    dev = group.device
+    readings = []
+    fc.reset_ag_bucket_counts()
+    for cols in CARD_COLS:
+        g = torch.Generator(device=dev).manual_seed(seed + group.rank)
+        row = torch.randn(cols, generator=g, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = fc.fused_ag_bucket(row.to(dtype), group)
+            want = fc.ag_bucket_plain(row.to(dtype), group)
+            torch.cuda.synchronize()
+            readings.append(((cols, str(dtype)), bool(torch.equal(got, want))))
+    return {"readings": readings,
+            "counts": (fc.fused_ag_bucket.calls, fc.fused_ag_bucket.launches)}
