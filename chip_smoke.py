@@ -58,20 +58,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
    built above, once): the fused GEMM + all-gather (bf16, int8 and fp8
    weight shards; the out and down shards at 8 and 256 rows, the
    vocab-sharded head at 8 fp32 rows, also as an fp32 shard) and the data
-   all-gathers (row 11, ``fused_ag_bucket``: NCCL hops and the
-   hand-written copy of ``csrc/ag_bucket.cu`` per ring step) against
+   all-gathers (row 11, ``fused_ag_bucket``: one launch of the pull
+   kernel of ``csrc/ag_bucket.cu`` over the ranks' peer staging) against
    their plain versions, each rank with its own
    weight shard and row, the outputs the same bytes on every rank; the
    16 requests through ``Engine(mp=4, comm_backend="fused")`` at bf16,
    int8 and fp8 with four cards; on one card bf16 on four of them (two
    of wave 1, wave 2) and int8 on wave 2 (every request finished with the
    same tokens on every rank; per dispatch 49 fused GEMM + all-gathers
-   and 49 data all-gathers of 4 row-11 launches each, per decode
+   and 49 data all-gathers of one row-11 launch each, per decode
    dispatch 24 paged-decode launches, 48 local
    quant GEMMs per quantized dispatch; one decode step's logits against
    the one-card forward within LOGIT_TOL); with four cards a profile of
-   a decode step; the GEMM kernels' times and row 11's ring step alone,
-   and with four cards the gathers' whole calls.
+   a decode step; the GEMM kernels' times and row 11's whole calls
+   beside the plain ring and the library's all-gather (NCCL's with four
+   cards; on one card a path check, not a speed).
 
 10. tensor-parallel training, in MP = 4 ranks laid out as in phase 9: the
    ring all-gather + GEMM, GEMM + ring reduce-scatter and ring weight-
@@ -110,12 +111,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
    14-15's times alone, and with a card per rank with their hops.
 
 12. data-parallel training, in DP = 4 replicas laid out as in phase 9:
-   row 10, the bucketed ring reduce-scatter (``ops/fused_collectives.py:
-   fused_rs_bucket``, ``csrc/rs_bucket.cu``), with real hops against its
+   row 10, the bucketed reduce-scatter (``ops/fused_collectives.py:
+   fused_rs_bucket``, one launch of the pull kernel of
+   ``csrc/rs_bucket.cu`` over the ranks' peer staging), against its
    plain ring bit for bit on fp32 and bf16 wires at 512-25,755,648 cols
    (GPT-3 1.3B's bucket widths at n=4, each rank its own bucket) and
    against NCCL's reduce-scatter of the same fp32 bucket, and row 11's
-   ring all-gather of a bucket row against its plain ring and NCCL's
+   all-gather of a bucket row against its plain ring and NCCL's
    all-gather, bit for bit; GPT-3 1.3B
    (the eager ``GPTForCausalLM``, fp32 params, bf16 compute, remat
    dots_no_batch) trained through ``jit.TrainStep(group=)`` with phase
@@ -129,14 +131,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
    depth, counted from a bucket plan built apart from the step) on the
    fused fp32 and bf16 rungs and never on the others, row 11 once per
    bucket per step on the three fused rungs (int8 included) and never on
-   the others; step time, tokens/s, MFU over the cards, peak
+   the others, each call one launch; step time, tokens/s, MFU over the
+   cards, peak
    memory and the comm ledger per step; one fused step of a 2-layer copy
    (B=4) against the one-device step on the same weights and ids within
    phase 6's tolerances; with a card per rank a profile of one fused
-   step, which must show rows 10 and 11 at work; rows 10 and 11's times
-   (one ring step's pass alone over operands rotating through twice the
-   L2, and with a card per rank the whole call with its hops beside
-   NCCL's reduce-scatter or all-gather).
+   step, which must show rows 10 and 11's kernels at work and no NCCL
+   send/recv kernel; rows 10 and 11's whole calls at every width beside
+   their plain rings and the library's reduce-scatter or all-gather
+   (NCCL's with a card per rank; on one card a path check, not a
+   speed).
 
 The lines before the last carry a ``{"kernels": [...]}`` JSON object and
 the card's name and power limit (nvidia-smi); the last line is
@@ -148,7 +152,6 @@ from __future__ import annotations
 import argparse
 import cProfile
 import dataclasses
-import functools
 import itertools
 import json
 import pathlib
@@ -204,9 +207,6 @@ from paddle_tpu_torch.serving.paged_decode import (gather_window,
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
-# the H100 SXM's L2: a pass timed over operands that fit in it reads them
-# from L2, which the main path's buckets never do (rotating_ms)
-L2_BYTES = 50 * 2 ** 20
 
 MODEL = "gpt3-1.3B"
 SLOTS, PAGE, CHUNK = 8, 16, 256
@@ -292,14 +292,20 @@ def graph_ms(fn, iters, replays=5):
     return start.elapsed_time(stop) / (iters * replays)
 
 
-def rotating_ms(make, set_bytes, iters=20, most=256):
-    """``graph_ms`` of one call per operand set, the sets rotating through
-    enough copies (``make(i)`` returns the call on the i-th; at most
-    ``most``) that together they span twice the L2, so a pass reads its
-    operands from HBM as it does on the main path."""
-    k = min(most, max(1, -(-2 * L2_BYTES // set_bytes)))
-    calls = [make(i) for i in range(k)]
-    return graph_ms(lambda: [c() for c in calls], max(1, iters // k)) / k
+def slowest_rank_ms(group, calls, order, iters):
+    """Each of ``calls`` (name -> a whole collective call) timed on every
+    rank of ``group`` by CUDA events over ``iters`` eager calls, the ranks
+    starting together after a barrier, in ``order`` (a name may come
+    twice: its faster run counts); {name: the slowest rank's ms}."""
+    mine = {}
+    for what in order:
+        group.barrier()
+        v = cuda_ms(calls[what], iters=iters, warmup=2)
+        mine[what] = min(v, mine.get(what, v))
+    names = sorted(mine)
+    every = group.all_gather_list(torch.tensor(
+        [mine[k] for k in names], device=group.device, dtype=torch.float64))
+    return {k: max(float(e[i]) for e in every) for i, k in enumerate(names)}
 
 
 def decode_inputs(gen, dev, pos, layers=1, nh=16, d=128, mp=128):
@@ -411,7 +417,8 @@ def phase_build():
                "quant_gemm": "quant_gemm.cu",
                "ring_gemm": "ring_gemm.cu",
                "rs_bucket": "rs_bucket.cu",
-               "ag_bucket": "ag_bucket.cu"}
+               "ag_bucket": "ag_bucket.cu",
+               "peer_mem": "peer_mem.cu"}
     cuda_build.build_all(sources)
     paged_decode.build()
     fa.build()
@@ -427,8 +434,11 @@ def phase_build():
         print(f"[build] {source}: {info['seconds']:.2f}s -> {info['path']}")
         for line in info["log"].splitlines():
             entry = re.search(r"(\w+_kernel)I(\w+?)EEEv", line)
+            pull = re.search(r"_Z\d+(\w+_pull_kernel)(\w*?)N4peer", line)
             if entry and "Compiling entry" in line:
                 print(f"[build]   {entry.group(1)}<{entry.group(2)}>")
+            elif pull and "Compiling entry" in line:
+                print(f"[build]   {pull.group(1)} {pull.group(2)}")
             elif "registers" in line or "spill" in line:
                 print(f"[build]     {line.strip()}")
 
@@ -1363,66 +1373,34 @@ AG_KERNEL = ("paddle_tpu_torch/csrc/ag_bucket.cu",
              "paddle_tpu/ops/pallas_kernels/fused_collectives.py:409")
 
 
-def ag_step_alone(elems, dtype, gen, dev):
-    """Row 11's ring-step pass alone on this card (``rotating_ms``): the
-    kernel's copy of a row of ``elems`` into its slot, and ``copy_`` (the
-    plain step, which is also the one library call for a copy)."""
-    ops = {}
-
-    def operands(i):
-        if i not in ops:
-            src = torch.randn(elems, generator=gen, device=dev).to(dtype)
-            ops[i] = (src, torch.empty_like(src))
-        return ops[i]
-
-    def kernel(i):
-        src, dst = operands(i)
-        return lambda: fc.ag_bucket_step(src, dst)
-
-    def plain(i):
-        src, dst = operands(i)
-        return lambda: dst.copy_(src)
-
-    nbytes = 2 * elems * torch.finfo(dtype).bits // 8
-    return {"kernel_alone_ms": rotating_ms(kernel, nbytes),
-            "plain_alone_ms": rotating_ms(plain, nbytes)}
-
-
 def ag_bound(nbytes, n, per_card):
-    """(ms, by) of row 11 on a row of ``nbytes``. A card per rank: the
-    whole call, the larger of the HBM bytes (the kernel reads the n rows
-    and writes them into their slots; the hops write n - 1 received rows
-    and read n - 1 sent ones) and the bytes received over one direction
-    of NVLink (n - 1 rows). One card: one ring step's pass alone (a row
-    read and written)."""
+    """(ms, by) of one row-11 call on a row of ``nbytes``. A card per rank:
+    the larger of the HBM bytes (the n rows written into their slots, and
+    this rank's staging row read by the n ranks) and the bytes received
+    over one direction of NVLink (n - 1 rows). One card: one rank's call
+    alone (n rows read, n written)."""
+    times = {"bytes": 2 * n * nbytes / HBM_BYTES_PER_S}
     if per_card:
-        times = {"bytes": (4 * n - 2) * nbytes / HBM_BYTES_PER_S,
-                 "nvlink bytes": (n - 1) * nbytes / NVLINK_BYTES_PER_S}
-    else:
-        times = {"bytes": 2 * nbytes / HBM_BYTES_PER_S}
+        times["nvlink bytes"] = (n - 1) * nbytes / NVLINK_BYTES_PER_S
     by = max(times, key=times.get)
     return times[by] * 1e3, by
 
 
 def ag_row(label, t, nbytes, n, per_card, launches, err):
-    """A ``kernels`` row of row 11 over a row of ``nbytes`` from its
-    timings ``t`` (``ag_step_alone``'s, and with a card per rank the whole
-    call's ``wrapper_ms``, ``plain_ms`` and ``gather_ms``)."""
+    """A ``kernels`` row of row 11 over a row of ``nbytes`` from its whole
+    calls' timings ``t`` (``slowest_rank_ms``: the call, the plain ring,
+    the library's all-gather)."""
     bound, by = ag_bound(nbytes, n, per_card)
-    row = {"name": f"fused_ag_bucket[{label}]", "route": "cuda",
-           "source": AG_KERNEL[0], "replaces": AG_KERNEL[1],
-           "launches": launches, "max_abs_err": err, "bound_ms": bound,
-           "bound_by": by, "kernel_alone_ms": t["kernel_alone_ms"]}
-    if per_card:
-        row.update(ms=t["wrapper_ms"], plain_ms=t["plain_ms"],
-                   library_ms=t["gather_ms"],
-                   covers=f"whole call: {n} passes + {n - 1} hops")
-    else:
-        row.update(ms=t["kernel_alone_ms"], plain_ms=t["plain_alone_ms"],
-                   library_ms=t["plain_alone_ms"],
-                   covers="one ring step's pass alone, CUDA-graph replay "
-                          "over rotating operands")
-    return row
+    return {"name": f"fused_ag_bucket[{label}]", "route": "cuda",
+            "source": AG_KERNEL[0], "replaces": AG_KERNEL[1],
+            "launches": launches, "max_abs_err": err, "ms": t["call_ms"],
+            "plain_ms": t["plain_call_ms"], "bound_ms": bound,
+            "bound_by": by, "library_ms": t["library_call_ms"],
+            "covers": (f"whole call, one launch, slowest of {n} ranks on "
+                       f"their own cards; library: NCCL's all-gather")
+            if per_card else
+            (f"path check, not a speed: whole call with {n} ranks "
+             f"time-slicing one card; library: gloo's all-gather")}
 
 
 def _mp_weight(gen, dev, K, F, kind, n=1):
@@ -1601,13 +1579,13 @@ def phase_mp_serve(group, cfg, params, seed, quant, gen, say, wave1=None):
     L = cfg.num_layers
     steps, decode = c["paged_steps"], c["decode_dispatches"]
     want = {"fused_gemm_ag": steps * (2 * L + 1),
-            "fused_ag_bucket": steps * (2 * L + 1) * MP,
+            "fused_ag_bucket": steps * (2 * L + 1),
             "paged_decode": 0 if quant else decode * L,
             "paged_decode_q": decode * L if quant else 0,
             "quant_gemm": steps * 2 * L if quant else 0}
     say(f"[{tag}] launches on rank {group.rank}: {counts} (want {want}: "
         f"{steps} dispatches x ({2 * L + 1} fused GEMM + all-gathers, "
-        f"{2 * L + 1} data all-gathers of {MP} ring steps each"
+        f"{2 * L + 1} data all-gathers of one launch each"
         f"{', 2 x L local quant GEMMs' if quant else ''}), "
         f"{decode} decode dispatches x {L} paged decodes)")
     if counts != want or decode == 0:
@@ -1682,8 +1660,11 @@ def phase_mp_timing(group, cfg, gen, say):
     on the next of 24 weight shards, as the layers are), the plain GEMM,
     cuBLAS on the shard (int8/fp8: dequantized beforehand); with a card
     per rank also the in-place all-gather, the plain gather, and the whole
-    wrapper, by CUDA events over eager calls on every rank, and row 11's
-    gathers. Returns {(kind, label, R) | ("bucket", R, F): timings}."""
+    wrapper, by CUDA events over eager calls on every rank. Row 11's whole
+    calls (the row copied into the staging, as ``ag_last`` does) beside
+    its plain ring and the library's all-gather on every layout
+    (``slowest_rank_ms``; on one card a path check). Returns {(kind,
+    label, R) | ("bucket", R, F): timings}."""
     dev = group.device
     per_card = group.backend == "nccl"
     out = {}
@@ -1747,27 +1728,19 @@ def phase_mp_timing(group, cfg, gen, say):
                         for k, v in t.items()) + " ms")
             del ws, ss, x, buf
     for R, F in mp_bucket_cases(cfg):
-        t = ag_step_alone(R * F, torch.bfloat16, gen, dev) \
-            if group.rank == 0 else {}
-        group.barrier()
-        if per_card:
-            row = torch.randn(R * F, generator=gen, device=dev).to(
-                torch.bfloat16)
-            t.update(
-                gather_ms=eager_ms(lambda: fc.all_gather_stack(row, group),
-                                   100),
-                plain_ms=eager_ms(lambda: fc.ag_bucket_plain(row, group),
-                                  100),
-                wrapper_ms=eager_ms(lambda: fc.fused_ag_bucket(row, group),
-                                    100))
+        row = torch.randn(R * F, generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = slowest_rank_ms(group, {
+            "call": lambda: fc.fused_ag_bucket(row, group),
+            "plain": lambda: fc.ag_bucket_plain(row, group),
+            "library": lambda: fc.all_gather_stack(row, group)},
+            ("call", "plain", "library", "call"), 100 if per_card else 5)
+        t = {"call_ms": w["call"], "plain_call_ms": w["plain"],
+             "library_call_ms": w["library"]}
         out[("bucket", R, F)] = t
-        say(f"[mp-timing] fused_ag_bucket {R}x{F} bf16 ({group.backend}): "
+        say(f"[mp-timing] fused_ag_bucket {R}x{F} bf16 ({group.backend}"
+            f"{'' if per_card else ', a path check'}): "
             + ", ".join(f"{k} {v:.4f}" for k, v in t.items()) + " ms")
-    if not per_card:
-        say(f"[mp-timing] the all-gathers' whole calls (fused_ag_bucket's "
-            f"ring and the gathers of fused_gemm_ag) are timed with a card "
-            f"per rank only: {MP} ranks sharing one card over gloo time the "
-            f"host's copies")
     return out
 
 
@@ -1861,10 +1834,10 @@ def phase_mp(seed, single):
 
 def mp_rows(r0, layout, cfg):
     """The ``kernels`` rows of rows 11-13 from rank 0's readings (row 11:
-    the data all-gathers' ring, ``ag_row``). With one card (layout
-    "shared") no all-gather is timed: rows 12-13's ms, plain and library
-    cover the GEMM and the bound its bytes and operations only, and row
-    11's its ring step's pass alone."""
+    the data all-gathers, ``ag_row``). With one card (layout "shared")
+    rows 12-13's ms, plain and library cover the GEMM and the bound its
+    bytes and operations only, and row 11's whole call is a path
+    check."""
     per_card = layout == "per_card"
     rows = []
     errs, timing = r0["errs"], r0["timing"]
@@ -1898,7 +1871,7 @@ def mp_rows(r0, layout, cfg):
     bf16 = r0["serve"]["bf16"]["shapes"]["fused_ag_bucket"]
     for R, F in mp_bucket_cases(cfg):
         rows.append(ag_row(f"{R}x{F}={R * F} bf16", timing[("bucket", R, F)],
-                           R * F * 2, MP, per_card, MP * bf16.get(R * F, 0),
+                           R * F * 2, MP, per_card, bf16.get(R * F, 0),
                            errs[("bucket", R, F)]))
     return rows
 
@@ -2181,8 +2154,8 @@ def phase_tp_profile(group, step, ids, say, tag="tp-profile"):
                     key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events) / 1e3
     kinds = {"ring GEMM kernels": ("ring_gemm",),
-             "row 10 (rs_step_kernel)": ("rs_step_kernel",),
-             "row 11 (ag_step_kernel)": ("ag_step_kernel",),
+             "row 10 (rs_pull_kernel)": ("rs_pull_kernel",),
+             "row 11 (ag_pull_kernel)": ("ag_pull_kernel",),
              "NCCL": ("nccl",), "flash kernels": ("flash_",),
              "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "sm90_xmma",
                               "Kernel2"),
@@ -2202,7 +2175,8 @@ def phase_tp_profile(group, step, ids, say, tag="tp-profile"):
     for e in events[:12]:
         say(f"[{tag}]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} calls  "
             f"{e.key[:90]}")
-    return {"traced_ms": traced * 1e3, "busy_ms": busy, "by_kind": by_kind}
+    return {"traced_ms": traced * 1e3, "busy_ms": busy, "by_kind": by_kind,
+            "kernels": {e.key: e.count for e in events}}
 
 
 def phase_tp_parity(group, seed, say):
@@ -2947,29 +2921,27 @@ def dp_calls(plan, flags, schedule):
 
 
 def dp_bound(cols, n, per_card):
-    """(ms, by) of row 10 on an (n, cols) fp32 bucket at an fp32 wire. A
-    card per rank: the whole call, the larger of the HBM bytes (x read,
-    n - 1 received rows read and sent rows written, the fp32 row written)
-    and the bytes received over one direction of NVLink (n - 1 rows). One
-    card: one middle step's pass alone (part and received row read, the
-    next send written)."""
+    """(ms, by) of one row-10 call on an (n, cols) fp32 bucket, at either
+    wire (the pull reads the fp32 parts whatever the wire). A card per
+    rank: the larger of the HBM bytes (this rank's staging bucket read by
+    the n ranks, a row each, and the fp32 row written) and the bytes
+    received over one direction of NVLink (n - 1 rows of parts). One
+    card: one rank's call alone (n rows read, one written)."""
+    times = {"bytes": 4 * (n + 1) * cols / HBM_BYTES_PER_S}
     if per_card:
-        hbm = 4 * n * cols + 8 * (n - 1) * cols + 4 * cols
-        times = {"bytes": hbm / HBM_BYTES_PER_S,
-                 "nvlink bytes": 4 * (n - 1) * cols / NVLINK_BYTES_PER_S}
-    else:
-        times = {"bytes": 12 * cols / HBM_BYTES_PER_S}
+        times["nvlink bytes"] = 4 * (n - 1) * cols / NVLINK_BYTES_PER_S
     by = max(times, key=times.get)
     return times[by] * 1e3, by
 
 
 def phase_dp_kernels(group, seed, say):
-    """Rows 10 and 11 with real hops at ``DP_CHECK_COLS``, each rank its
-    own (n, cols) fp32 bucket: row 10's kernel ring against its plain ring
-    bit for bit on fp32 and bf16 wires, and its fp32 row against NCCL's
-    (gloo's on one card) reduce-scatter of the same bucket within
-    ``DP_LIB_TOL``; row 11's ring over the bucket's row ``rank`` against
-    its plain ring and the library's all-gather, bit for bit. Returns
+    """Rows 10 and 11 across the ranks at ``DP_CHECK_COLS``, each rank its
+    own (n, cols) fp32 bucket: row 10's one-launch kernel against its
+    plain ring bit for bit on fp32 and bf16 wires, and its fp32 row
+    against NCCL's (gloo's on one card) reduce-scatter of the same bucket
+    within ``DP_LIB_TOL``; row 11's kernel on the bucket's row ``rank``
+    against its plain ring and the library's all-gather, bit for bit (the
+    staging grows from 4 MiB to the largest bucket on the way). Returns
     ({(cols, wire | "library" | "gather"): max abs error}, failures)."""
     dev, n = group.device, group.n
     own = torch.Generator(device=dev).manual_seed(seed + 5000 + group.rank)
@@ -3071,7 +3043,8 @@ def phase_dp_train(group, seed, say, rung, flags, schedule,
     ag_shapes = dict(fc.fused_ag_bucket.shapes)
     steps = warmup + timed
     rs_calls, ag_calls = (k * steps for k in dp_calls(plan, flags, schedule))
-    want, ag_want = (rs_calls, n * rs_calls), (ag_calls, n * ag_calls)
+    # one launch a call
+    want, ag_want = (rs_calls, rs_calls), (ag_calls, ag_calls)
     failed = []
     got = None if step._gc_cfg is None else step._gc_cfg.backend
     if got != schedule:
@@ -3144,8 +3117,10 @@ def phase_dp_profile(group, step, mine, say):
     kernel (``phase_tp_profile``) and under the step's record_function
     ranges (a second trace that records host ops too; the backward is
     what the ranges leave). Every rank runs both steps. Fails (rank 0)
-    unless the traced step ran rows 10 and 11 and the reduce-scatter and
-    all-gather ranges took device time."""
+    unless the traced step ran rows 10 and 11's pull kernels and the
+    reduce-scatter and all-gather ranges took device time, or if it ran
+    any NCCL send/recv kernel (rows 10-11 post no hop; nothing else of
+    the dp step does)."""
     out = phase_tp_profile(group, lambda ids: step(ids, ids), mine, say,
                            tag="dp-profile")
     group.barrier()
@@ -3170,12 +3145,19 @@ def phase_dp_profile(group, step, mine, say):
         f"while they wait): "
         f"{json.dumps({k: round(v, 3) for k, v in spans.items()})}")
     out["spans"] = spans
-    kinds = ("row 10 (rs_step_kernel)", "row 11 (ag_step_kernel)")
+    kinds = ("row 10 (rs_pull_kernel)", "row 11 (ag_pull_kernel)")
     missing = [k for k in kinds if not out["by_kind"][k] > 0] + \
         [r for r in ("grad_comm/reduce_scatter", "grad_comm/all_gather")
          if not spans[r] > 0]
-    out["failed"] = [f"the profiled fused dp step shows no device time "
-                     f"in {missing}"] if missing else []
+    hops = {k: c for k, c in out["kernels"].items() if "nccl" in k.lower()
+            and re.search(r"SendRecv|_Send|_Recv", k)}
+    pulls = sum(c for k, c in out["kernels"].items() if "_pull_kernel" in k)
+    say(f"[dp-profile] rows 10 and 11's pull kernels launched {pulls} times "
+        f"in the step; NCCL send/recv kernels: {hops or 'none'}")
+    out["failed"] = ([f"the profiled fused dp step shows no device time "
+                      f"in {missing}"] if missing else []) + \
+        ([f"the profiled fused dp step ran NCCL send/recv kernels: {hops}"]
+         if hops else [])
     return out
 
 
@@ -3235,107 +3217,54 @@ def phase_dp_parity(group, seed, say):
 
 
 def phase_dp_timing(group, seed, say):
-    """Rows 10 and 11 at ``DP_TIMED_COLS`` (fp32 buckets). On rank 0, by
-    CUDA-graph replay over operands rotating through twice the L2
-    (``rotating_ms``): row 10's middle ring step's pass alone (received
-    row + part into the next send) on fp32 and bf16 wires, its plain ops
-    and ``torch.add(recv, part, out=recv)`` (fp32: the same function and
-    bytes in one library call); row 11's step alone and ``copy_``. With
-    a card per rank, on every rank by CUDA events over 10 eager calls,
-    the slowest rank reported: each whole call with its hops (row 10 at fp32 and
-    bf16 wires), its plain ring or gather, and NCCL's reduce-scatter or
-    all-gather of the same bucket or row. Returns {cols: timings}."""
+    """Rows 10 and 11's whole calls at ``DP_TIMED_COLS`` (fp32 buckets),
+    each operand already in its peer staging, as grad_comm packs it, by
+    ``slowest_rank_ms``: row 10 at fp32 and bf16 wires beside its plain
+    ring and the library's reduce-scatter of the same bucket, row 11
+    beside its plain ring and the library's all-gather of the same row;
+    the library is NCCL with a card per rank, gloo on one card, where the
+    ranks time-slice the card and the readings check the path, not its
+    speed. Returns {cols: timings}."""
     dev, n = group.device, group.n
     per_card = group.backend == "nccl"
     g = torch.Generator(device=dev).manual_seed(seed + 6000 + group.rank)
     f32, bf16 = torch.float32, torch.bfloat16
     out = {}
     for cols in DP_TIMED_COLS:
-        t = {}
-        if group.rank == 0:
-            ops = {}
-
-            def operands(i):
-                if i not in ops:
-                    ops[i] = (torch.randn(cols, generator=g, device=dev),
-                              torch.randn(cols, generator=g, device=dev))
-                return ops[i]
-
-            def call(fn):
-                def make(i):
-                    part, recv = operands(i)
-                    return functools.partial(fn, part, recv)
-                return make
-
-            def kernel(part, recv):
-                fc.rs_bucket_step(part, recv, f32, out=False)
-
-            def plain(part, recv):
-                fc.rs_bucket_step_plain(part, recv, f32)
-
-            def library(part, recv):
-                torch.add(recv, part, out=recv)
-
-            # part and received row read, the next send written (fp32)
-            nbytes = 12 * cols
-            k1 = rotating_ms(call(kernel), nbytes)
-            t["plain_alone_ms"] = rotating_ms(call(plain), nbytes)
-            t["library_alone_ms"] = rotating_ms(call(library), nbytes)
-
-            def bf16_wire(i):
-                part, recv = operands(i)
-                return functools.partial(fc.rs_bucket_step, part,
-                                         recv.bfloat16(), bf16, out=False)
-
-            t["bf16_alone_ms"] = rotating_ms(bf16_wire, nbytes)
-            k2 = rotating_ms(call(kernel), nbytes)
-            t["kernel_alone_ms"] = min(k1, k2)
-            t["kernel_alone_runs"] = (k1, k2)
-            ops.clear()
-            t["ag"] = ag_step_alone(cols, f32, g, dev)
-        group.barrier()
-        if per_card:
-            x = torch.randn((n, cols), generator=g, device=dev)
-            row = x[group.rank]
-            lib = torch.empty(cols, device=dev)
-            calls = {
-                "kernel": lambda: fc.fused_rs_bucket(x, group, f32),
-                "bf16": lambda: fc.fused_rs_bucket(x, group, bf16),
-                "plain": lambda: fc.rs_bucket_plain(x, group, f32),
-                "library": lambda: group.reduce_scatter_into(lib, x.view(-1)),
-                "ag": lambda: fc.fused_ag_bucket(row, group),
-                "ag_plain": lambda: fc.ag_bucket_plain(row, group),
-                "ag_library": lambda: fc.all_gather_stack(row, group)}
-            order = ("kernel", "plain", "library", "bf16", "ag", "ag_plain",
-                     "ag_library", "ag", "kernel")
-            mine = {}
-            for what in order:
-                group.barrier()
-                v = cuda_ms(calls[what], iters=10, warmup=2)
-                mine[what] = min(v, mine.get(what, v))
-            names = sorted(mine)
-            every = group.all_gather_list(torch.tensor(
-                [mine[k] for k in names], device=dev, dtype=torch.float64))
-            worst = {k: max(float(e[i]) for e in every)
-                     for i, k in enumerate(names)}
-            t.update(call_ms=worst["kernel"], plain_call_ms=worst["plain"],
-                     library_call_ms=worst["library"],
-                     bf16_call_ms=worst["bf16"])
-            if group.rank == 0:
-                t["ag"].update(wrapper_ms=worst["ag"],
-                               plain_ms=worst["ag_plain"],
-                               gather_ms=worst["ag_library"])
-            del x, row, lib
-        out[cols] = t
+        x = torch.randn((n, cols), generator=g, device=dev)
+        stage = fc.rs_bucket_staging(group, (n, cols), f32)
+        stage.copy_(x)
+        row = x[group.rank]
+        ag_stage = fc.ag_bucket_staging(group, cols, f32)
+        ag_stage.copy_(row)
+        lib = torch.empty(cols, device=dev)
+        w = slowest_rank_ms(group, {
+            "call": lambda: fc.fused_rs_bucket(stage, group, f32),
+            "bf16": lambda: fc.fused_rs_bucket(stage, group, bf16),
+            "plain": lambda: fc.rs_bucket_plain(x, group, f32),
+            "library": lambda: group.reduce_scatter_into(lib, x.view(-1)),
+            "ag": lambda: fc.fused_ag_bucket(ag_stage, group),
+            "ag_plain": lambda: fc.ag_bucket_plain(row, group),
+            "ag_library": lambda: fc.all_gather_stack(row, group)},
+            ("call", "plain", "library", "bf16", "ag", "ag_plain",
+             "ag_library", "ag", "call"), 10 if per_card else 3)
+        out[cols] = {"call_ms": w["call"], "bf16_call_ms": w["bf16"],
+                     "plain_call_ms": w["plain"],
+                     "library_call_ms": w["library"],
+                     "ag": {"call_ms": w["ag"],
+                            "plain_call_ms": w["ag_plain"],
+                            "library_call_ms": w["ag_library"]}}
+        del x, stage, row, ag_stage, lib
     if group.rank == 0:
+        check_ = "" if per_card else ", a path check"
         for cols, t in out.items():
-            ag = t.pop("ag")
-            say(f"[dp-timing] row 10, ({n}, {cols}) fp32 bucket: " + ", ".join(
-                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-                for k, v in t.items()) + " ms")
-            say(f"[dp-timing] row 11, ({cols},) fp32 row: " + ", ".join(
-                f"{k} {v:.4f}" for k, v in ag.items()) + " ms")
-            t["ag"] = ag
+            say(f"[dp-timing] row 10, ({n}, {cols}) fp32 bucket "
+                f"({group.backend}{check_}): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in t.items() if k != "ag")
+                + " ms")
+            say(f"[dp-timing] row 11, ({cols},) fp32 row ({group.backend}"
+                f"{check_}): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in t["ag"].items()) + " ms")
     return out
 
 
@@ -3393,41 +3322,34 @@ def phase_dp(seed):
 def dp_rows(r0, layout):
     """The ``kernels`` rows of rows 10 and 11, one each per timed bucket
     width, from rank 0's readings: launches from the main path's run (the
-    fused fp32 rung) at that width (calls times DP ring steps); ms the
-    whole call with its hops (a card per rank) or one ring step's pass
-    alone (one card), plain and library likewise (``covers`` says
-    which)."""
+    fused fp32 rung) at that width (one a call); ms, plain and library
+    the whole calls of ``phase_dp_timing`` (``covers`` says on which
+    layout)."""
     per_card = layout == "per_card"
     rows = []
+    fused = r0["train"]["fused"]
     for cols in DP_TIMED_COLS:
         t = r0["timing"][cols]
         bound, by = dp_bound(cols, DP, per_card)
-        calls = r0["train"]["fused"]["shapes"].get((cols, "float32"), 0)
-        row = {"name": f"{DP_KERNEL[0]}[{DP}x{cols} fp32]", "route": "cuda",
-               "source": "paddle_tpu_torch/csrc/rs_bucket.cu",
-               "replaces": DP_KERNEL[2], "launches": calls * DP,
-               "max_abs_err": r0["errs"][(cols, "float32")],
-               "max_abs_err_bf16_wire": r0["errs"][(cols, "bfloat16")],
-               "bound_ms": bound, "bound_by": by,
-               "kernel_alone_ms": t["kernel_alone_ms"],
-               "bf16_alone_ms": t["bf16_alone_ms"]}
-        if per_card:
-            row.update(ms=t["call_ms"], plain_ms=t["plain_call_ms"],
-                       library_ms=t["library_call_ms"],
-                       bf16_ms=t["bf16_call_ms"],
-                       covers="whole call: 4 passes + 3 hops, slowest rank")
-        else:
-            row.update(ms=t["kernel_alone_ms"],
-                       plain_ms=t["plain_alone_ms"],
-                       library_ms=t["library_alone_ms"],
-                       covers="one ring step's pass alone, CUDA-graph "
-                              "replay over rotating operands")
-        rows.append(row)
-    fused = r0["train"]["fused"]
+        rows.append({
+            "name": f"{DP_KERNEL[0]}[{DP}x{cols} fp32]", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/rs_bucket.cu",
+            "replaces": DP_KERNEL[2],
+            "launches": fused["shapes"].get((cols, "float32"), 0),
+            "max_abs_err": r0["errs"][(cols, "float32")],
+            "max_abs_err_bf16_wire": r0["errs"][(cols, "bfloat16")],
+            "ms": t["call_ms"], "plain_ms": t["plain_call_ms"],
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": t["library_call_ms"], "bf16_ms": t["bf16_call_ms"],
+            "covers": (f"whole call, one launch, slowest of {DP} ranks on "
+                       f"their own cards; library: NCCL's reduce-scatter")
+            if per_card else
+            (f"path check, not a speed: whole call with {DP} ranks "
+             f"time-slicing one card; library: gloo's reduce-scatter")})
     for cols in DP_TIMED_COLS:
         rows.append(ag_row(f"{cols} fp32", r0["timing"][cols]["ag"],
                            4 * cols, DP, per_card,
-                           DP * fused["ag_shapes"].get(cols, 0),
+                           fused["ag_shapes"].get(cols, 0),
                            r0["errs"][(cols, "gather")]))
     return rows
 

@@ -40,11 +40,13 @@ import shutil
 import tempfile
 import time
 import traceback
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from datetime import timedelta
 
 import torch
 import torch.distributed as dist
+
+from . import peer
 
 LAYOUTS = {"cpu": "gloo", "shared": "gloo", "per_card": "nccl"}
 
@@ -57,6 +59,9 @@ class MPGroup:
     n: int
     backend: str                  # "gloo" | "nccl"
     device: torch.device
+    # rows 10-11's peer-memory channels by purpose (``distributed.peer``)
+    peer_channels: dict = field(default_factory=dict, repr=False,
+                                compare=False)
 
     @property
     def stage_host(self):
@@ -269,6 +274,7 @@ def _rank_main(rank, n, layout, init_file, timeout_s, results, fn, args):
         group = init_mp_group(rank, n, init_file, layout, timeout_s)
         try:
             out = fn(group, *args)
+            peer.close(group)         # every rank, before it leaves
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))

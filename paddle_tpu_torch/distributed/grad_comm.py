@@ -18,13 +18,15 @@ the flags ask for the explicit schedule (``resolve``):
 * the bucketed all-gather of the updated params (``all_gather_shards``).
 
 Rungs of ``FLAGS_comm_backend``'s dp entry: ``ring`` reduces with the
-library's reduce-scatter, ``fused`` with the hand-written ring of
+library's reduce-scatter and gathers with its all-gather; ``fused``
+reduces with the hand-written kernel of
 ``ops.fused_collectives.fused_rs_bucket`` (row 10), whose wire may be
-bf16 while it accumulates in fp32, and gathers with the hand-written ring
-of ``fused_ag_bucket`` (row 11); ``ring`` gathers with the library's
-all-gather. ``FLAGS_allreduce_dtype="int8"`` (and
-bf16 on the ring rung) exchanges the rows with one all-to-all at the
-compressed dtype and sums them in fp32 (``_quantized_reduce_row``; int8
+bf16 while it accumulates in fp32, and gathers with ``fused_ag_bucket``
+(row 11). On the card each of those is one launch of a pull kernel over
+peer staging (``distributed.peer``) that the buckets and rows are packed
+straight into. ``FLAGS_allreduce_dtype="int8"`` (and bf16 on the ring
+rung) exchanges the rows with one all-to-all at the compressed dtype and
+sums them in fp32 (``_quantized_reduce_row``; int8
 with a scale per 2,048-element chunk).
 
 The reference's branches for its dp x mp composed step (auto axes, the
@@ -44,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..flags import get_flags
-from . import comm_backend
+from . import comm_backend, peer
 
 logger = logging.getLogger(__name__)
 
@@ -216,9 +218,16 @@ def _padded_rows(t, n, cols):
     return (F.pad(flat, (0, pad)) if pad else flat).view(n, cols)
 
 
-def _pack_bucket(plan, bucket, tree):
+def _pack_bucket(plan, bucket, tree, out=None):
+    """The (n, cols) bucket of ``tree``'s members, each zero-padded to a
+    multiple of n and viewed as (n, its cols), side by side; into ``out``
+    (a contiguous (n, cols) tensor, e.g. row 10's peer staging) when
+    given."""
     parts = [_padded_rows(tree[name], plan.n, plan.entries[name].cols)
              for name in bucket.names]
+    if out is not None:
+        return out.copy_(parts[0]) if len(parts) == 1 else \
+            torch.cat(parts, dim=1, out=out)
     return parts[0].contiguous() if len(parts) == 1 else \
         torch.cat(parts, dim=1)
 
@@ -268,19 +277,35 @@ def reduce_scatter_grads(plan, grads, group, wire_dtype, denom=1,
     if fixed16:
         raise NotImplementedError(_COMPOSED)
     from ..ops import fused_collectives as fc
+
+    def wire_of(b):
+        return wire_dtype if (wire_dtype is not None and
+                              b.dtype.is_floating_point) else None
+
+    row10 = {b.index: b for b in plan.buckets if fused and
+             b.dtype.is_floating_point and wire_of(b) is not torch.int8}
+    on_card = bool(row10) and group.device.type == "cuda"
+    if on_card:              # row 10's staging holds its largest bucket
+        peer.channel(group, fc.RS_CHANNEL, max(
+            plan.n * b.cols * _itemsize(b.dtype) for b in row10.values()))
     shards = {}
     for b in plan.buckets:
-        x = _pack_bucket(plan, b, grads)
         is_float = b.dtype.is_floating_point
-        wd = wire_dtype if (wire_dtype is not None and is_float) else None
-        if fused and is_float and wd is not torch.int8:
-            row = fc.fused_rs_bucket(x, group, wd)
+        wd = wire_of(b)
+        if b.index in row10:
+            # packed straight into this rank's peer staging on the card
+            stage = fc.rs_bucket_staging(group, (plan.n, b.cols), b.dtype) \
+                if on_card else None
+            row = fc.fused_rs_bucket(_pack_bucket(plan, b, grads, stage),
+                                     group, wd)
         elif wd is None:
+            x = _pack_bucket(plan, b, grads)
             row = group.reduce_scatter_into(
                 torch.empty(b.cols, dtype=x.dtype, device=x.device),
                 x.reshape(-1))
         else:
-            row = _quantized_reduce_row(x, group, wd)
+            row = _quantized_reduce_row(_pack_bucket(plan, b, grads), group,
+                                        wd)
         if denom != 1:
             row = row / denom
         if is_float:
@@ -292,16 +317,29 @@ def reduce_scatter_grads(plan, grads, group, wire_dtype, denom=1,
 def all_gather_shards(plan, shards, group, fused=False, idx=None, out=None):
     """Every replica's flat shards -> full tensors of the plan's shapes and
     dtypes: one all-gather per bucket (on the fused rung through row 11,
-    ``fused_ag_bucket``'s ring and copy kernel). With ``out`` (a
+    ``fused_ag_bucket``, each row built in its peer staging on the card).
+    With ``out`` (a
     dict of tensors) each result is copied into ``out[name]`` in place
     and ``out`` returned."""
     if idx is not None:
         raise NotImplementedError(_COMPOSED)
     from ..ops import fused_collectives as fc
     res = {} if out is None else out
+    on_card = fused and group.device.type == "cuda"
+    if on_card:              # row 11's staging holds the longest row
+        peer.channel(group, fc.AG_CHANNEL, max(
+            b.cols * _itemsize(b.dtype) for b in plan.buckets))
     for b in plan.buckets:
-        row = torch.cat([shards[name] for name in b.names]) \
-            if len(b.names) > 1 else shards[b.names[0]].contiguous()
+        parts = [shards[name] for name in b.names]
+        if on_card:          # built straight in this rank's peer staging
+            row = fc.ag_bucket_staging(group, b.cols, parts[0].dtype)
+            if len(parts) > 1:
+                torch.cat(parts, out=row)
+            else:
+                row.copy_(parts[0])
+        else:
+            row = torch.cat(parts) if len(parts) > 1 else \
+                parts[0].contiguous()
         full = fc.fused_ag_bucket(row, group) if fused else \
             fc.all_gather_stack(row, group)                     # (n, cols)
         for name in b.names:

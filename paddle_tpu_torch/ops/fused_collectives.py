@@ -1,11 +1,20 @@
 """Fused GEMM + collective ops for tensor parallelism, and the bucketed
-ring reduce-scatter of data-parallel gradient communication (counterpart
-of ``paddle_tpu/ops/pallas_kernels/fused_collectives.py:361-779`` and its
-``gemm_ag_reference`` and ``rs_bucket_reference``, :1014 and :1032).
+reduce-scatter and all-gather of data-parallel gradient communication
+(counterpart of ``paddle_tpu/ops/pallas_kernels/fused_collectives.py:
+361-779`` and its ``gemm_ag_reference`` and ``rs_bucket_reference``,
+:1014 and :1032).
 
-Data parallelism: ``fused_rs_bucket``, row 10 (below, after the training
-ops), the reduce-scatter of one gradient bucket of
-``distributed/grad_comm.py`` on the fused dp rung.
+Data parallelism: ``fused_rs_bucket`` and ``fused_ag_bucket``, rows 10
+and 11 (below, after the training ops), the reduce-scatter of one
+gradient bucket and the all-gather of one updated param row of
+``distributed/grad_comm.py`` on the fused dp rung; row 11 also carries
+the mp serving engine's data gathers. Each call is one launch of a
+hand-written pull kernel (``csrc/rs_bucket.cu``, ``csrc/ag_bucket.cu``)
+over symmetric peer buffers (``distributed/peer.py``): every rank writes
+its operand into its staging region, and the kernel reads the peers'
+staging over NVLink through CUDA IPC mappings made once per group,
+synchronising with flags in device memory; no NCCL hop and no host round
+trip. Their results are the plain rings' bit for bit.
 
 Training (sequence parallelism): ``fused_ag_gemm`` and ``fused_gemm_rs``,
 the differentiable ring all-gather + GEMM (ColumnParallel forward) and
@@ -37,9 +46,9 @@ Replaces three TPU kernels:
 
 The TPU kernels keep a rank's GEMM output block out of device memory
 between the epilogue and the transfer, and move it around a ring with
-in-kernel remote DMAs. On Hopper the transfer is NCCL's all-gather
-outside the kernel (``torch.distributed``); the arithmetic is the
-hand-written GEMM of ``csrc/quant_gemm.cu`` (bf16 weights without a
+in-kernel remote DMAs. On Hopper the GEMM's transfer is NCCL's
+all-gather outside the kernel (``torch.distributed``); the arithmetic is
+the hand-written GEMM of ``csrc/quant_gemm.cu`` (bf16 weights without a
 scale against bf16 or fp32 x, fp32 weights against fp32 x for an LM
 head passed at fp32; int8/fp8 weights with their scale), whose epilogue
 stores the block straight into this rank's slot of the gather buffer
@@ -47,18 +56,16 @@ stores the block straight into this rank's slot of the gather buffer
 place on that buffer, so no copy is made between the GEMM and the
 collective, the property the TPU kernel has. The relayout of the
 gathered ``[n, R, F/n]`` to ``[R, F]`` (``transpose(1, 0, 2)`` in the
-reference too, :722) is PyTorch. ``fused_ag_bucket``'s TPU kernel is the
-ring of remote copies that places each row in its slot; its port is the
-same ring (below, row 11): NCCL send/recv hops forward the rows, and the
-hand-written copy of ``csrc/ag_bucket.cu`` places each ring step's row
-in its slot of the output.
+reference too, :722) is PyTorch. ``fused_ag_bucket`` is row 11 above:
+the row is copied into the peer staging and one launch pulls every
+rank's.
 
 What bounds them on an H100: at decode (R = 8 rows) the GEMM reads its
 weight shard once (bytes: 2048 x 512 bf16 is 2.1 MB, 0.6 us at 3.35
 TB/s), and the all-gather moves R x F x (n - 1) / n elements per rank,
-a few KB: latency, not NVLink's 450 GB/s. Fusing the two into one kernel
-whose epilogue stores into the peers' buffers over NVLink (CUDA IPC,
-flag synchronisation) is later work (ROADMAP Queue B 11-13).
+a few KB: latency, not NVLink's 450 GB/s. Fusing the GEMM's epilogue
+with stores into the peers' buffers (the peer channels of rows 10-11)
+is later work (ROADMAP Queue A step 4).
 
 Beside each: the plain version (``gemm_ag_plain``, ``ag_bucket_plain``):
 the plain GEMM (``generation._matmul``, or the quantized GEMM's plain
@@ -79,7 +86,7 @@ import functools
 import torch
 
 from ..cuda_build import load_library
-
+from ..distributed import peer as _peer
 from ..models.generation import _proj
 from . import quant_gemm as _qg
 from . import ring_gemm as _rg
@@ -214,75 +221,91 @@ fused_gemm_ag.shapes = collections.Counter()
 
 
 # ------------------------------------------------- all-gather (row 11)
+AG_CHANNEL = "ag_bucket"
+
+
 @functools.lru_cache(maxsize=None)
 def _ag_library():
     lib = load_library("ag_bucket", "ag_bucket.cu")
     p = ctypes.c_void_p
-    lib.ag_bucket_step_launch.argtypes = [p, p, ctypes.c_longlong, p]
-    lib.ag_bucket_step_launch.restype = ctypes.c_int
+    lib.ag_pull_launch.argtypes = [p, p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_longlong, p, p,
+                                   ctypes.c_ulonglong, p]
+    lib.ag_pull_launch.restype = ctypes.c_int
     lib.ag_bucket_error_string.argtypes = [ctypes.c_int]
     lib.ag_bucket_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def build_ag_bucket():
-    """Build (or load the cached build of) row 11's kernel library now."""
+    """Build (or load the cached builds of) row 11's kernel library and
+    the peer-memory library now."""
+    _peer.build()
     _ag_library()
 
 
-def ag_bucket_step(src, dst):
-    """One ring step of row 11 through the kernel: ``dst`` (a slot of the
-    output) <- ``src`` (the step's row), CUDA rows of one dtype and
-    length; returns ``dst``. Raises for what the kernel does not take."""
+def ag_bucket_pull_plain(row, group):
+    """The pull kernel's algebra in plain ops: slot p of the (n, cols)
+    result is rank p's row, read from every rank (an all-gather), in rank
+    order."""
+    return torch.stack(group.all_gather_list(row.contiguous()))
+
+
+def ag_bucket_staging(group, numel, dtype):
+    """A (numel,) row of ``dtype`` in this rank's row-11 staging on a CUDA
+    group: a ``fused_ag_bucket`` operand written here is not copied at the
+    call."""
+    nbytes = numel * torch.empty((), dtype=dtype).element_size()
+    return _peer.channel(group, AG_CHANNEL, nbytes).view((numel,), dtype)
+
+
+def _check_group(t, group, what):
     why = []
-    for name, t in (("src", src), ("dst", dst)):
-        if t.device.type != "cuda":
-            why.append(f"{name} on {t.device}, not cuda")
-        if t.dim() != 1 or not t.is_contiguous():
-            why.append(f"{name} is not a contiguous row")
-    if src.dtype != dst.dtype or src.shape != dst.shape or \
-            src.device != dst.device:
-        why.append(f"src {src.dtype} {tuple(src.shape)} and dst "
-                   f"{dst.dtype} {tuple(dst.shape)} differ")
-    if why:
-        raise ValueError("ag_bucket kernel: " + "; ".join(why))
-    lib = _ag_library()
-    with torch.cuda.device(src.device):
-        rc = lib.ag_bucket_step_launch(
-            src.data_ptr(), dst.data_ptr(), src.numel() * src.element_size(),
-            torch.cuda.current_stream(src.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ag_bucket kernel launch failed ({rc}): "
-                           f"{lib.ag_bucket_error_string(rc).decode()}")
-    fused_ag_bucket.launches += 1
-    return dst
+    if t.device.type != "cuda":
+        why.append(f"{what} on {t.device}, not cuda")
+    elif getattr(group, "device", None) != t.device:
+        why.append(f"{what} on {t.device}, the group on "
+                   f"{getattr(group, 'device', None)}")
+    n = getattr(group, "n", 0)
+    if not 2 <= n <= _peer.MAX_RANKS:
+        why.append(f"a group of {n} ranks (the kernels take 2 to "
+                   f"{_peer.MAX_RANKS})")
+    return why
 
 
 def fused_ag_bucket(row, group):
-    """Row 11: (cols,) on every rank -> (n, cols) in rank order. CUDA rows
-    run the ring: the row goes to the right and each received row is
-    forwarded as it arrived (n - 1 NCCL hops), while a kernel launch per
-    ring step places the step's row in its slot. CPU rows take
-    ``ag_bucket_plain``. Counts its calls (``.calls``), launches
-    (``.launches``) and calls by row length (``.shapes``)."""
+    """Row 11: (cols,) on every rank -> (n, cols) in rank order. A CUDA row
+    is copied into this rank's staging (unless it is the staging view of
+    ``ag_bucket_staging``) and one kernel launch pulls every rank's row
+    into its slot; CPU rows take ``ag_bucket_plain``. Counts its calls
+    (``.calls``), launches (``.launches``, one a call) and calls by row
+    length (``.shapes``)."""
     if row.device.type == "cpu":
         return ag_bucket_plain(row, group)
-    if row.device.type != "cuda":
-        raise ValueError(f"fused all-gather runs on cuda or cpu, not "
-                         f"{row.device}")
-    if row.dim() != 1 or not row.is_contiguous():
-        raise ValueError(f"fused_ag_bucket takes a contiguous flat row, got "
-                         f"shape {tuple(row.shape)}")
-    n, idx = group.n, group.rank
+    why = _check_group(row, group, "row")
+    if row.dim() != 1 or not row.is_contiguous() or row.numel() == 0:
+        why.append(f"fused_ag_bucket takes a contiguous flat row, got shape "
+                   f"{tuple(row.shape)}")
+    if why:
+        raise ValueError("ag_bucket kernel: " + "; ".join(why))
+    _peer.raise_for(0, 11, group.rank, None)   # an earlier kernel trapped
+    n = group.n
+    nbytes = row.numel() * row.element_size()
+    ch = _peer.channel(group, AG_CHANNEL, nbytes)
+    stage = ch.view(row.shape, row.dtype)
+    if row.data_ptr() != stage.data_ptr():
+        stage.copy_(row)
     out = torch.empty((n,) + tuple(row.shape), dtype=row.dtype,
                       device=row.device)
-    hop = group.ring_shift_async(row) if n > 1 else None
-    ag_bucket_step(row, out[idx])
-    for t in range(1, n):
-        recv = hop.wait()
-        if t < n - 1:
-            hop = group.ring_shift_async(recv)
-        ag_bucket_step(recv, out[(idx - t) % n])
+    lib = _ag_library()
+    with torch.cuda.device(row.device):
+        rc = lib.ag_pull_launch(
+            ch.data, ch.pads, n, group.rank, nbytes, out.data_ptr(),
+            _peer.error_pointer(), ch.timeout_ns,
+            torch.cuda.current_stream(row.device).cuda_stream)
+    _peer.raise_for(rc, 11, group.rank,
+                    lambda c: lib.ag_bucket_error_string(c).decode())
+    fused_ag_bucket.launches += 1
     fused_ag_bucket.calls += 1
     fused_ag_bucket.shapes[row.shape[0]] += 1
     return out
@@ -352,23 +375,16 @@ def fused_gemm_rs(y, w, group):
 # grad_comm's ring reduce-scatter of an (n, cols) bucket of this replica's
 # flat gradients into its reduced (cols,) fp32 row, each hop's traveling
 # accumulator on a fp32 or bf16 wire, accumulated in fp32 on receipt
-# ("part + received"). The hops are NCCL send/recv pairs
-# (``MPGroup.ring_shift_async``); each ring step launches the hand-written
-# elementwise pass of ``csrc/rs_bucket.cu``, which writes the next hop's
-# send buffer (and, at the last step, the output row) from the received
-# row and this step's part. It is the same IEEE fp32 add and the same
-# round-to-nearest-even cast as the plain version's, so the two are equal
-# bit for bit. The ``/ n`` mean and the cast back to the bucket dtype stay
-# with the caller, as in the reference (grad_comm.py:306-309).
+# ("part + received"). Unrolled, rank i's row is
+#   acc = f32(x_{i+1}[i]);  for k = 2 .. n: acc = f32(wire(acc)) + x_{i+k}[i]
+# and the pull kernel of ``csrc/rs_bucket.cu`` computes exactly that, in
+# that order and with those roundings, from row i of every rank's staging,
+# so it equals the plain ring bit for bit. The ``/ n`` mean and the cast
+# back to the bucket dtype stay with the caller, as in the reference
+# (grad_comm.py:306-309).
+RS_CHANNEL = "rs_bucket"
 RS_PART_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 RS_WIRE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def rs_bucket_step_plain(part, recv, wire_dtype):
-    """One ring step: (acc, acc cast to the wire) with acc = part in fp32
-    at the first step (``recv`` None), else float(recv) + part."""
-    acc = part.float() if recv is None else recv.float() + part.float()
-    return acc, acc.to(wire_dtype)
 
 
 def rs_bucket_plain(x, group, wire_dtype=None):
@@ -381,7 +397,22 @@ def rs_bucket_plain(x, group, wire_dtype=None):
     acc = x[(idx - 1) % n].float()
     for t in range(1, n):
         recv = group.ring_shift(acc.to(wire))
-        acc, _ = rs_bucket_step_plain(x[(idx - t - 1) % n], recv, wire)
+        acc = recv.float() + x[(idx - t - 1) % n].float()
+    return acc
+
+
+def rs_bucket_pull_plain(x, group, wire_dtype=None):
+    """The pull kernel's algebra in plain ops: row ``rank`` of every rank's
+    (n, cols) bucket (read through an all-gather) summed in the ring's
+    order, ``acc = f32(wire(acc)) + x_{rank+k}[rank]`` for k = 2..n from
+    ``acc = x_{rank+1}[rank]``; equal to ``rs_bucket_plain`` bit for
+    bit."""
+    wire = wire_dtype or torch.float32
+    n, i = group.n, group.rank
+    every = group.all_gather_list(x.contiguous())
+    acc = every[(i + 1) % n][i].float()
+    for k in range(2, n + 1):
+        acc = acc.to(wire).float() + every[(i + k) % n][i].float()
     return acc
 
 
@@ -389,89 +420,73 @@ def rs_bucket_plain(x, group, wire_dtype=None):
 def _rs_library():
     lib = load_library("rs_bucket", "rs_bucket.cu")
     p = ctypes.c_void_p
-    lib.rs_bucket_step_launch.argtypes = [ctypes.c_int, ctypes.c_int, p, p,
-                                          p, p, ctypes.c_longlong, p]
-    lib.rs_bucket_step_launch.restype = ctypes.c_int
+    lib.rs_pull_launch.argtypes = [ctypes.c_int, ctypes.c_int, p, p,
+                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_longlong, p, p,
+                                   ctypes.c_ulonglong, p]
+    lib.rs_pull_launch.restype = ctypes.c_int
     lib.rs_bucket_error_string.argtypes = [ctypes.c_int]
     lib.rs_bucket_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def build_rs_bucket():
-    """Build (or load the cached build of) row 10's kernel library now."""
+    """Build (or load the cached builds of) row 10's kernel library and
+    the peer-memory library now."""
+    _peer.build()
     _rs_library()
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def rs_bucket_step(part, recv, wire_dtype, out=True, send=True):
-    """One ring step through the kernel on CUDA tensors: part (cols,) fp32
-    or bf16, recv (cols,) in the wire dtype or None; returns (out fp32 or
-    None, send in the wire dtype or None) as ``rs_bucket_step_plain``
-    computes them. Raises for what the kernel does not take."""
-    why = []
-    if part.device.type != "cuda":
-        why.append(f"part on {part.device}, not cuda")
-    if part.dtype not in RS_PART_DTYPES:
-        why.append(f"part dtype {part.dtype} not float32/bfloat16")
-    if wire_dtype not in RS_WIRE_DTYPES:
-        why.append(f"wire dtype {wire_dtype} not float32/bfloat16")
-    if part.dim() != 1 or not part.is_contiguous():
-        why.append("part is not a contiguous row")
-    if recv is not None and (recv.dtype != wire_dtype or
-                             recv.shape != part.shape or
-                             recv.device != part.device or
-                             not recv.is_contiguous()):
-        why.append("recv is not a contiguous row of the wire dtype beside "
-                   "part")
-    if not (out or send):
-        why.append("neither out nor send asked for")
-    if why:
-        raise ValueError("rs_bucket kernel: " + "; ".join(why))
-    o = torch.empty(part.shape, dtype=torch.float32, device=part.device) \
-        if out else None
-    s = torch.empty(part.shape, dtype=wire_dtype, device=part.device) \
-        if send else None
-    lib = _rs_library()
-    with torch.cuda.device(part.device):
-        rc = lib.rs_bucket_step_launch(
-            RS_PART_DTYPES[part.dtype], RS_WIRE_DTYPES[wire_dtype],
-            part.data_ptr(), _ptr(recv), _ptr(o), _ptr(s), part.numel(),
-            torch.cuda.current_stream(part.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"rs_bucket kernel launch failed ({rc}): "
-                           f"{lib.rs_bucket_error_string(rc).decode()}")
-    fused_rs_bucket.launches += 1
-    return o, s
+def rs_bucket_staging(group, shape, dtype):
+    """An (n, cols) bucket of ``dtype`` in this rank's row-10 staging on a
+    CUDA group: a ``fused_rs_bucket`` operand packed here is not copied at
+    the call."""
+    nbytes = shape[0] * shape[1] * torch.empty((), dtype=dtype).element_size()
+    return _peer.channel(group, RS_CHANNEL, nbytes).view(shape, dtype)
 
 
 def fused_rs_bucket(x, group, wire_dtype=None):
-    """Row 10: (n, cols) local gradient rows -> this rank's (cols,) fp32
-    row summed over ``group``'s n ranks, each hop at ``wire_dtype`` (None:
-    fp32; or bf16). CUDA tensors run the ring: n kernel launches (one per
-    ring step) and n - 1 NCCL hops; CPU tensors take ``rs_bucket_plain``.
-    Counts its calls (``.calls``), launches (``.launches``) and calls by
-    (cols, wire) (``.shapes``)."""
+    """Row 10: (n, cols) local gradient rows (fp32 or bf16) -> this rank's
+    (cols,) fp32 row summed over ``group``'s n ranks, in the ring's order
+    with each term's accumulator rounded to ``wire_dtype`` (None: fp32; or
+    bf16). A CUDA bucket is copied into this rank's staging (unless it is
+    the view of ``rs_bucket_staging``) and one kernel launch pulls row
+    ``rank`` of every rank's; CPU tensors take ``rs_bucket_plain``.
+    Counts its calls (``.calls``), launches (``.launches``, one a call)
+    and calls by (cols, wire) (``.shapes``)."""
     if x.device.type == "cpu":
         return rs_bucket_plain(x, group, wire_dtype)
     wire = wire_dtype or torch.float32
-    if x.dim() != 2 or x.shape[0] != group.n or not x.is_contiguous():
-        raise ValueError(f"fused_rs_bucket takes a contiguous ({group.n}, "
-                         f"cols) bucket, got {tuple(x.shape)}")
-    n, idx = group.n, group.rank
-    out, hop = None, None
-    for t in range(n):
-        part = x[(idx - t - 1) % n]
-        recv = hop.wait() if hop is not None else None
-        last = t == n - 1
-        out, send = rs_bucket_step(part, recv, wire, out=last,
-                                   send=not last)
-        if not last:
-            hop = group.ring_shift_async(send)
+    why = _check_group(x, group, "bucket")
+    n = getattr(group, "n", 0)
+    if x.dim() != 2 or x.shape[0] != n or not x.is_contiguous() or \
+            x.numel() == 0:
+        why.append(f"fused_rs_bucket takes a contiguous ({n}, cols) bucket, "
+                   f"got {tuple(x.shape)}")
+    if x.dtype not in RS_PART_DTYPES:
+        why.append(f"part dtype {x.dtype} not float32/bfloat16")
+    if wire not in RS_WIRE_DTYPES:
+        why.append(f"wire dtype {wire} not float32/bfloat16")
+    if why:
+        raise ValueError("rs_bucket kernel: " + "; ".join(why))
+    _peer.raise_for(0, 10, group.rank, None)   # an earlier kernel trapped
+    cols = x.shape[1]
+    ch = _peer.channel(group, RS_CHANNEL, x.numel() * x.element_size())
+    stage = ch.view(x.shape, x.dtype)
+    if x.data_ptr() != stage.data_ptr():
+        stage.copy_(x)
+    out = torch.empty(cols, dtype=torch.float32, device=x.device)
+    lib = _rs_library()
+    with torch.cuda.device(x.device):
+        rc = lib.rs_pull_launch(
+            RS_PART_DTYPES[x.dtype], RS_WIRE_DTYPES[wire], ch.data, ch.pads,
+            n, group.rank, cols, out.data_ptr(), _peer.error_pointer(),
+            ch.timeout_ns, torch.cuda.current_stream(x.device).cuda_stream)
+    _peer.raise_for(rc, 10, group.rank,
+                    lambda c: lib.rs_bucket_error_string(c).decode())
+    fused_rs_bucket.launches += 1
     fused_rs_bucket.calls += 1
-    fused_rs_bucket.shapes[(x.shape[1], str(wire)[6:])] += 1
+    fused_rs_bucket.shapes[(cols, str(wire)[6:])] += 1
     return out
 
 

@@ -30,8 +30,9 @@ because only the movement of bytes differs (``ServingMPConfig.backend``):
   the reference's block order (``_ring_ag_last``);
 * ``fused``: ``ops/fused_collectives.py``'s kernels, the GEMM's epilogue
   storing into the gather buffer's slot (``fused_gemm_ag``), and the data
-  gathers through ``fused_ag_bucket`` (row 11's ring of hops, each ring
-  step's row placed in its slot by the hand-written copy kernel).
+  gathers through ``fused_ag_bucket`` (row 11: the row copied into this
+  rank's peer staging, one kernel launch pulling every rank's over
+  NVLink).
 """
 from __future__ import annotations
 
@@ -116,7 +117,8 @@ def _ring_ag_last(x, group):
 def ag_last(x, group, backend):
     """Exact all-gather along the last axis: [..., F/n] -> [..., F], the
     blocks in rank (= logical) order. gspmd: one collective; fused: row
-    11's ring over the flat row (``fused_ag_bucket``)."""
+    11 over the flat row (``fused_ag_bucket``, which copies it into the
+    peer staging and pulls every rank's in one launch)."""
     n = group.n
     if n == 1:
         return x

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels of the port against their plain PyTorch
-versions, on an NVIDIA card. Every test here is marked ``cuda`` and skips
+versions, on an NVIDIA card (rows 10-11's one-launch collectives on
+ranks that share the card). Every test here is marked ``cuda`` and skips
 where ``torch.cuda.is_available()`` is False. The file imports neither
 jax nor the reference package, so on a machine without jax it runs
 without the suite's conftest:
@@ -655,156 +656,147 @@ def test_pp_boundary_wrappers_refuse_what_the_kernels_do_not_take(
     assert (ppb.gemm_ppsend.launches, ppb.gemm_pprecv.launches) == before
 
 
-# row 10 at the main path's bucket widths (GPT-3 1.3B at n=4: biases and
-# LayerNorms, qkv, up/down, out/wpe, wte/head) and at odd tails
-RS_STEP_COLS = (3, 512, 1536, 2560, 4099, 1_048_576, 3_145_728, 4_194_304,
-                25_755_648)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
-@pytest.mark.parametrize("part_dtype", ["float32", "bfloat16"])
-def test_rs_bucket_step_matches_plain_on_card(cuda_device, part_dtype, wire):
-    """Row 10's per-step pass (``fused_collectives.rs_bucket_step``): the
-    first step (part cast to the wire), a middle step (received wire row
-    plus part into the next send) and the last (into the fp32 row), bit
-    for bit against the plain ops at every width, on 16-byte aligned rows
-    and on a row that is not (the scalar path)."""
-    from paddle_tpu_torch.ops import fused_collectives as fc
-    pdt, wdt = getattr(torch, part_dtype), getattr(torch, wire)
-    g = torch.Generator(device=cuda_device).manual_seed(5)
-    before = fc.fused_rs_bucket.launches
-    launches = 0
-    for cols in RS_STEP_COLS:
-        x = torch.randn((2, cols + 1), generator=g, device=cuda_device)
-        for part in (x[0, :cols].to(pdt), x[1, 1:].to(pdt)[:cols]):
-            recv = torch.randn(cols, generator=g, device=cuda_device).to(wdt)
-            _, s0 = fc.rs_bucket_step(part, None, wdt, out=False)
-            _, s1 = fc.rs_bucket_step(part, recv, wdt, out=False)
-            o2, _ = fc.rs_bucket_step(part, recv, wdt, send=False)
-            launches += 3
-            torch.cuda.synchronize()
-            _, p0 = fc.rs_bucket_step_plain(part, None, wdt)
-            a1, p1 = fc.rs_bucket_step_plain(part, recv, wdt)
-            assert s0.dtype == wdt and o2.dtype == torch.float32
-            assert torch.equal(s0, p0), cols
-            assert torch.equal(s1, p1), cols
-            assert torch.equal(o2, a1), cols
-    # the unaligned row: x[1, 1:] of a bf16 cast is a fresh tensor, so
-    # make one by slicing after the cast
-    y = torch.randn(4099 + 1, generator=g, device=cuda_device)[1:]
-    assert y.data_ptr() % 16
-    o, _ = fc.rs_bucket_step(y, None, torch.float32, send=False)
-    assert torch.equal(o, y)
-    assert fc.fused_rs_bucket.launches == before + launches + 1
-
-
-@pytest.mark.cuda
-def test_rs_bucket_ring_matches_plain_on_card(cuda_device, tmp_path):
-    """Row 10's whole ring (``fused_rs_bucket``) on two ranks sharing the
-    card over gloo: the kernel ring's row equals the plain ring's bit for
-    bit at every width, fp32 and bf16 wires; one call and n launches per
-    ring."""
+@pytest.fixture(scope="module")
+def shared_rows(tmp_path_factory):
+    """Rows 10-11's card checks (``torch_dp_train_ranks.card_rows``) on 2
+    and 4 gloo ranks sharing the card (the ``shared`` layout), one spawn
+    per degree for all the tests below: {n: the ranks' results}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (hand-written kernel, no CPU mode)")
     import torch_dp_train_ranks as ranks
     from paddle_tpu_torch.distributed import env
     from paddle_tpu_torch.ops import fused_collectives as fc
-    fc.build_rs_bucket()         # once, here: the ranks only load it
-    outs = env.launch(2, ranks.card_ring, 6, layout="shared",
-                      timeout_s=300, init_dir=tmp_path)
-    calls = 2 * len(ranks.CARD_COLS)
-    for o in outs:
-        for case, same in o["readings"]:
-            assert same, case
-        assert o["counts"] == (calls, 2 * calls)
+    fc.build_rs_bucket()         # once, here: the ranks only load them
+    fc.build_ag_bucket()
+    return {n: env.launch(n, ranks.card_rows, 6, layout="shared",
+                          timeout_s=300,
+                          init_dir=tmp_path_factory.mktemp(f"rows{n}"))
+            for n in (2, 4)}
+
+
+@pytest.mark.cuda
+def test_rs_bucket_ring_matches_plain_on_card(cuda_device, shared_rows):
+    """Row 10's whole call (``fused_rs_bucket``, one pull launch over the
+    peer staging) on two and four ranks sharing the card: equal to the
+    plain ring bit for bit at every width, fp32 and bf16 parts and wires;
+    one launch a call."""
+    import torch_dp_train_ranks as ranks
+    for n, outs in shared_rows.items():
+        calls = len(ranks.CARD_COLS) * len(ranks.PART_DTYPES) * \
+            len(ranks.WIRE_DTYPES)
+        for o in (o["ring"] for o in outs):
+            for case, same in o["readings"]:
+                assert same, (n, case)
+            assert o["counts"] == (calls, calls)
 
 
 @pytest.mark.cuda
 def test_rs_bucket_wrapper_refuses_what_the_kernel_does_not_take(
         cuda_device):
-    """An fp16 part, an int8 wire, a received row of another dtype and a
-    strided part raise; nothing falls back to the plain path."""
+    """An fp16 part, an int8 wire, a bucket of the wrong row count, a
+    strided bucket, a bucket on another device than the group's and
+    groups of 1 and 9 ranks raise before any collective; nothing falls
+    back to the plain ring, and no launch is counted."""
+    import types
     from paddle_tpu_torch.ops import fused_collectives as fc
-    part = torch.zeros(64, device=cuda_device)
-    before = fc.fused_rs_bucket.launches
+    dev = torch.zeros(1, device=cuda_device).device      # cuda:<index>
+    group = types.SimpleNamespace(n=2, rank=0, device=dev, peer_channels={})
+    x = torch.zeros(2, 64, device=cuda_device)
+    before = (fc.fused_rs_bucket.launches, fc.fused_rs_bucket.calls)
     with pytest.raises(ValueError, match="part dtype"):
-        fc.rs_bucket_step(part.half(), None, torch.float32)
+        fc.fused_rs_bucket(x.half(), group)
     with pytest.raises(ValueError, match="wire dtype"):
-        fc.rs_bucket_step(part, None, torch.int8)
-    with pytest.raises(ValueError, match="recv"):
-        fc.rs_bucket_step(part, part.bfloat16(), torch.float32)
+        fc.fused_rs_bucket(x, group, torch.int8)
+    with pytest.raises(ValueError, match=r"contiguous \(2, cols\)"):
+        fc.fused_rs_bucket(torch.zeros(3, 64, device=cuda_device), group)
     with pytest.raises(ValueError, match="contiguous"):
-        fc.rs_bucket_step(torch.zeros(64, 2, device=cuda_device)[:, 0],
-                          None, torch.float32)
-    assert fc.fused_rs_bucket.launches == before
-
-
-# row 11 at the main path's row lengths (the dp param buckets at n=4 and
-# the serving engine's activation rows) and at odd tails
-AG_STEP_ELEMS = (3, 512, 2560, 4099, 4096, 131_072, 1_048_576, 25_755_648)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ag_bucket_step_matches_plain_on_card(cuda_device, dtype):
-    """Row 11's per-step pass (``fused_collectives.ag_bucket_step``): the
-    row copied into its slot of an (n, cols) output, bit for bit, at
-    every length, on 16-byte aligned rows and on rows that are not (the
-    byte loop); the other slots untouched."""
-    from paddle_tpu_torch.ops import fused_collectives as fc
-    dt = getattr(torch, dtype)
-    g = torch.Generator(device=cuda_device).manual_seed(9)
-    before = fc.fused_ag_bucket.launches
-    launches = 0
-    for cols in AG_STEP_ELEMS:
-        src = torch.randn(cols + 1, generator=g, device=cuda_device).to(dt)
-        for row in (src[:cols], src[1:]):
-            out = torch.zeros((3, cols), dtype=dt, device=cuda_device)
-            fc.ag_bucket_step(row, out[1])
-            launches += 1
-            torch.cuda.synchronize()
-            assert torch.equal(out[1], row), cols
-            assert not out[0].any() and not out[2].any(), cols
-    assert src[1:].data_ptr() % 16
-    assert fc.fused_ag_bucket.launches == before + launches
+        fc.fused_rs_bucket(torch.zeros(64, 2, device=cuda_device).t(), group)
+    with pytest.raises(ValueError, match="the group on"):
+        fc.fused_rs_bucket(x, types.SimpleNamespace(
+            n=2, rank=0, device=torch.device("cpu"), peer_channels={}))
+    for n in (1, 9):
+        with pytest.raises(ValueError, match=f"a group of {n} ranks"):
+            fc.fused_rs_bucket(torch.zeros(n, 64, device=cuda_device),
+                               types.SimpleNamespace(
+                                   n=n, rank=0, device=dev,
+                                   peer_channels={}))
+    assert not group.peer_channels
+    assert (fc.fused_rs_bucket.launches, fc.fused_rs_bucket.calls) == before
 
 
 @pytest.mark.cuda
-def test_ag_bucket_ring_matches_plain_on_card(cuda_device, tmp_path):
-    """Row 11's whole ring (``fused_ag_bucket``) on two and four ranks
-    sharing the card over gloo: the gathered (n, cols) equals the plain
-    all-gather bit for bit at every length, fp32 and bf16; one call and n
-    launches per ring."""
+def test_ag_bucket_ring_matches_plain_on_card(cuda_device, shared_rows):
+    """Row 11's whole call (``fused_ag_bucket``, one pull launch over the
+    peer staging) on two and four ranks sharing the card: the gathered (n,
+    cols) equals the plain ring bit for bit at every length, fp32 and
+    bf16; one launch a call."""
     import torch_dp_train_ranks as ranks
-    from paddle_tpu_torch.distributed import env
-    from paddle_tpu_torch.ops import fused_collectives as fc
-    fc.build_ag_bucket()         # once, here: the ranks only load it
-    for n in (2, 4):
-        (tmp_path / str(n)).mkdir()
-        outs = env.launch(n, ranks.card_ag_ring, 7, layout="shared",
-                          timeout_s=300, init_dir=tmp_path / str(n))
-        calls = 2 * len(ranks.CARD_COLS)
-        for o in outs:
+    for n, outs in shared_rows.items():
+        calls = len(ranks.CARD_COLS) * len(ranks.PART_DTYPES)
+        for o in (o["ag_ring"] for o in outs):
             for case, same in o["readings"]:
-                assert same, case
-            assert o["counts"] == (calls, n * calls)
+                assert same, (n, case)
+            assert o["counts"] == (calls, calls)
 
 
 @pytest.mark.cuda
 def test_ag_bucket_wrapper_refuses_what_the_kernel_does_not_take(
         cuda_device):
-    """A slot of another dtype or length, a strided row and a CPU slot
-    raise; nothing falls back to a library copy."""
+    """A 2-D row, a strided row, an empty row, a row on another device
+    than the group's and a group of one rank raise before any collective;
+    nothing falls back to a library gather, and no launch is counted."""
+    import types
     from paddle_tpu_torch.ops import fused_collectives as fc
-    row = torch.zeros(64, device=cuda_device)
-    before = fc.fused_ag_bucket.launches
-    with pytest.raises(ValueError, match="differ"):
-        fc.ag_bucket_step(row, torch.zeros(64, device=cuda_device).half())
-    with pytest.raises(ValueError, match="differ"):
-        fc.ag_bucket_step(row, torch.zeros(63, device=cuda_device))
-    with pytest.raises(ValueError, match="contiguous"):
-        fc.ag_bucket_step(torch.zeros(64, 2, device=cuda_device)[:, 0], row)
-    with pytest.raises(ValueError, match="not cuda"):
-        fc.ag_bucket_step(row, torch.zeros(64))
+    dev = torch.zeros(1, device=cuda_device).device      # cuda:<index>
+    group = types.SimpleNamespace(n=2, rank=0, device=dev, peer_channels={})
+    before = (fc.fused_ag_bucket.launches, fc.fused_ag_bucket.calls)
     with pytest.raises(ValueError, match="contiguous flat row"):
-        fc.fused_ag_bucket(torch.zeros(4, 4, device=cuda_device), None)
-    assert fc.fused_ag_bucket.launches == before
+        fc.fused_ag_bucket(torch.zeros(4, 4, device=cuda_device), group)
+    with pytest.raises(ValueError, match="contiguous flat row"):
+        fc.fused_ag_bucket(torch.zeros(64, 2, device=cuda_device)[:, 0],
+                           group)
+    with pytest.raises(ValueError, match="contiguous flat row"):
+        fc.fused_ag_bucket(torch.zeros(0, device=cuda_device), group)
+    with pytest.raises(ValueError, match="the group on"):
+        fc.fused_ag_bucket(torch.zeros(64, device=cuda_device),
+                           types.SimpleNamespace(
+                               n=2, rank=0, device=torch.device("cpu"),
+                               peer_channels={}))
+    with pytest.raises(ValueError, match="a group of 1 ranks"):
+        fc.fused_ag_bucket(torch.zeros(64, device=cuda_device),
+                           types.SimpleNamespace(n=1, rank=0, device=dev,
+                                                 peer_channels={}))
+    assert not group.peer_channels
+    assert (fc.fused_ag_bucket.launches, fc.fused_ag_bucket.calls) == before
+
+
+@pytest.mark.cuda
+def test_rows_10_11_survive_back_to_back_reuse_on_card(cuda_device,
+                                                        shared_rows):
+    """200 back-to-back calls of rows 10 and 11, alternating, at widths in
+    a bucket plan's order with a many-block bucket and odd widths mixed in
+    (so the staging grows mid-run and grids of one and of many blocks
+    follow each other), with no host synchronisation between calls, on
+    two and four ranks sharing the card: every result equals its plain
+    ring bit for bit, one launch a call."""
+    import torch_dp_train_ranks as ranks
+    half = ranks.REUSE_CALLS // 2
+    for n, outs in shared_rows.items():
+        for o in (o["reuse"] for o in outs):
+            assert len(o["readings"]) == ranks.REUSE_CALLS
+            for case, same in o["readings"]:
+                assert same, (n, case)
+            assert o["counts"] == ((half, half), (half, half))
+
+
+@pytest.mark.cuda
+def test_peer_channels_close_and_reopen_on_card(cuda_device, shared_rows):
+    """Rows 10-11's channels on two and four ranks sharing the card: open,
+    closed, reopened and closed again. Each process holds 2 (n - 1) peer
+    mappings while both channels are open and none after each close, the
+    group keeps no channel after a close, and the calls after the reopen
+    still equal their plain rings."""
+    for n, outs in shared_rows.items():
+        for o in (o["teardown"] for o in outs):
+            assert all(o["readings"]), (n, o["readings"])
+            assert o["mappings"] == [0, 2 * (n - 1), 0, 2 * (n - 1), 0], n

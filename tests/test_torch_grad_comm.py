@@ -23,6 +23,11 @@ Held, fp32:
   ``rs_bucket_reference``'s algebra (fused_collectives.py:1032) bit for
   bit on fp32 and bf16 wires, and against the reference's
   ``psum_scatter`` within 1e-6; the library reduce-scatter likewise;
+* rows 10 and 11's pull kernels' algebra (``rs_bucket_pull_plain``,
+  ``ag_bucket_pull_plain``) against their plain rings bit for bit at n = 2
+  and 4 (fp32 and bf16 parts, wires and rows; 512 and 1,000,003 cols), and
+  ``_pack_bucket`` into a staging view against a fresh tensor, byte for
+  byte;
 * ``_quantized_reduce_row`` (bf16, int8 with 2,048-element chunk scales)
   against the reference's under its shard_map on n of the 8 virtual
   devices: the same wire values, sums within 1e-6;
@@ -76,6 +81,9 @@ BUCKET_BYTES = (4096, 16 * 2 ** 20)
 # rows that pad to the int8 chunk (2,048) and span three chunks
 COLL_CASES = ((3, 0), (512, 10), (2049, 20), (5000, 30))
 COLL_TOL = 1e-6
+# (cols, seed) of the pull kernels' algebra: a bucket row, an odd width
+PULL_CASES = ((512, 40), (1_000_003, 50))
+PULL_DEGREES = (2, 4)
 
 
 def _ref_mlp():
@@ -340,6 +348,80 @@ def test_quantized_reduce_row_matches_the_reference(collective_runs, n, case,
     for r, o in enumerate(outs):
         np.testing.assert_allclose(o[f"quant-{wire}"], want[r], rtol=0,
                                    atol=COLL_TOL * max(scale, 1.0))
+
+
+# ------------------------------------- rows 10-11's pull kernels' algebra
+@pytest.fixture(scope="module")
+def pull_runs(tmp_path_factory):
+    pool = ThreadPoolExecutor(max_workers=len(PULL_DEGREES))
+    futures = {n: pool.submit(env.launch, n, ranks.pull_algebra, PULL_CASES,
+                              layout="cpu", timeout_s=300,
+                              init_dir=tmp_path_factory.mktemp(f"pull{n}"))
+               for n in PULL_DEGREES}
+    yield futures
+    pool.shutdown(wait=True)
+
+
+def _pull_readings(pull_runs, n, kind, cols):
+    return [[(case, same, keep) for case, same, keep in o
+             if case[0] == kind and case[1] == cols]
+            for o in pull_runs[n].result()]
+
+
+@pytest.mark.parametrize("cols", [c for c, _ in PULL_CASES])
+@pytest.mark.parametrize("n", PULL_DEGREES)
+def test_rs_bucket_pull_algebra_is_the_plain_ring(pull_runs, n, cols):
+    """Row 10's pull kernel computes row ``rank`` from every rank's bucket
+    in the ring's order and roundings (``rs_bucket_pull_plain``): bit for
+    bit ``rs_bucket_plain`` at fp32 and bf16 parts and wires, an odd width
+    included; the bf16 wire's rounding shows (it differs from the fp32
+    wire's row where n > 2)."""
+    for readings in _pull_readings(pull_runs, n, "rs", cols):
+        assert len(readings) == 4
+        for case, same, _ in readings:
+            assert same, case
+        rows = {case[3]: keep for case, _, keep in readings
+                if keep is not None}
+        assert set(rows) == {"torch.float32", "torch.bfloat16"}
+        if n > 2:
+            assert not np.array_equal(rows["torch.float32"],
+                                      rows["torch.bfloat16"])
+
+
+@pytest.mark.parametrize("cols", [c for c, _ in PULL_CASES])
+@pytest.mark.parametrize("n", PULL_DEGREES)
+def test_ag_bucket_pull_algebra_is_the_plain_ring(pull_runs, n, cols):
+    """Row 11's pull kernel copies every rank's row into its slot
+    (``ag_bucket_pull_plain``): bit for bit ``ag_bucket_plain`` at the fp32
+    of the dp param rows and the bf16 of serving's activations."""
+    for readings in _pull_readings(pull_runs, n, "ag", cols):
+        assert [case[2] for case, _, _ in readings] == [
+            "torch.float32", "torch.bfloat16"]
+        for case, same, _ in readings:
+            assert same, case
+
+
+@pytest.mark.parametrize("n", DEGREES)
+@pytest.mark.parametrize("kind", ["mlp", "gpt"])
+def test_pack_bucket_into_a_staging_view_gives_the_same_bytes(kind, n):
+    """``_pack_bucket`` into a view of a larger byte buffer (as row 10's
+    peer staging is one) writes the bytes it returns into a fresh tensor,
+    for every bucket of a plan (one- and many-member buckets, padded
+    tails), and returns the view itself."""
+    _, port = _models(kind)
+    grads = {k: torch.randn(p.shape, generator=torch.Generator().manual_seed(
+        i)) for i, (k, p) in enumerate(port.named_parameters())}
+    plan = gc.BucketPlan.build(dict(port.named_parameters()), n, 4096)
+    assert any(len(b.names) > 1 for b in plan.buckets)
+    staging = torch.full((1 << 16,), 0xAB, dtype=torch.uint8)
+    for b in plan.buckets:
+        fresh = gc._pack_bucket(plan, b, grads)
+        nbytes = fresh.numel() * fresh.element_size()
+        view = staging[:nbytes].view(b.dtype).view(n, b.cols)
+        got = gc._pack_bucket(plan, b, grads, view)
+        assert got.data_ptr() == staging.data_ptr()
+        assert torch.equal(staging[:nbytes], fresh.reshape(-1).view(
+            torch.uint8)), b.names
 
 
 # ---------------------------------------------------- the eager GPT, remat

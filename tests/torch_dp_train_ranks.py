@@ -1,5 +1,5 @@
 """Per-rank functions of tests/test_torch_dp_train.py and
-tests/test_torch_grad_comm.py (and of the row-10 card test in
+tests/test_torch_grad_comm.py (and of the rows 10-11 card tests in
 tests/test_torch_cuda_kernels.py), run by
 ``paddle_tpu_torch.distributed.env.launch`` in spawned ranks, one per
 data-parallel replica. A spawned child imports the module that holds its
@@ -188,24 +188,33 @@ def collectives(group, cases):
 
 # ------------------------------------------------------------- on the card
 CARD_COLS = (3, 512, 1536, 2560, 4099, 1 << 20)
+# rows 10-11's operand dtypes: fp32 and bf16 gradient parts, fp32 and bf16
+# wires; fp32 param rows and bf16 serving activations
+PART_DTYPES = (torch.float32, torch.bfloat16)
+WIRE_DTYPES = (torch.float32, torch.bfloat16)
+REUSE_CALLS = 200
 
 
 def card_ring(group, seed):
     """Row 10 across ranks that share a card over gloo: for each width of
-    ``CARD_COLS`` and each wire, the kernel's ring against the plain ring
-    bit for bit, this rank's own bucket drawn from seed + rank; n launches
-    and one call per kernel ring. Returns the readings and the counts."""
+    ``CARD_COLS``, each part dtype and each wire, the one-launch kernel
+    against the plain ring bit for bit, this rank's own bucket drawn from
+    seed + rank; one launch a call. Returns the readings and the
+    counts."""
     dev = group.device
     readings = []
     fc.reset_rs_bucket_counts()
     for cols in CARD_COLS:
         g = torch.Generator(device=dev).manual_seed(seed + group.rank)
         x = torch.randn((group.n, cols), generator=g, device=dev)
-        for wire in (torch.float32, torch.bfloat16):
-            got = fc.fused_rs_bucket(x, group, wire)
-            want = fc.rs_bucket_plain(x, group, wire)
-            torch.cuda.synchronize()
-            readings.append(((cols, str(wire)), bool(torch.equal(got, want))))
+        for part in PART_DTYPES:
+            for wire in WIRE_DTYPES:
+                xp = x.to(part)
+                got = fc.fused_rs_bucket(xp, group, wire)
+                want = fc.rs_bucket_plain(xp, group, wire)
+                torch.cuda.synchronize()
+                readings.append(((cols, str(part), str(wire)),
+                                 bool(torch.equal(got, want))))
     return {"readings": readings,
             "counts": (fc.fused_rs_bucket.calls,
                        fc.fused_rs_bucket.launches)}
@@ -213,20 +222,135 @@ def card_ring(group, seed):
 
 def card_ag_ring(group, seed):
     """Row 11 across ranks that share a card over gloo: for each width of
-    ``CARD_COLS``, fp32 and bf16, the kernel's ring against the plain
-    all-gather bit for bit, this rank's own row drawn from seed + rank; n
-    launches and one call per ring. Returns the readings and the
-    counts."""
+    ``CARD_COLS``, fp32 and bf16, the one-launch kernel against the plain
+    ring bit for bit, this rank's own row drawn from seed + rank; one
+    launch a call. Returns the readings and the counts."""
     dev = group.device
     readings = []
     fc.reset_ag_bucket_counts()
     for cols in CARD_COLS:
         g = torch.Generator(device=dev).manual_seed(seed + group.rank)
         row = torch.randn(cols, generator=g, device=dev)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in PART_DTYPES:
             got = fc.fused_ag_bucket(row.to(dtype), group)
             want = fc.ag_bucket_plain(row.to(dtype), group)
             torch.cuda.synchronize()
             readings.append(((cols, str(dtype)), bool(torch.equal(got, want))))
     return {"readings": readings,
             "counts": (fc.fused_ag_bucket.calls, fc.fused_ag_bucket.launches)}
+
+
+def reuse_widths(n):
+    """``REUSE_CALLS`` bucket widths in a bucket plan's order (the mini GPT
+    at 4096-byte buckets), a 1M-col bucket (a grid of many blocks, and a
+    staging that must grow) and odd widths mixed in."""
+    model = GPTForCausalLM(GPTConfig(**GPT_KW))
+    plan = gc.BucketPlan.build(dict(model.named_parameters()), n, 4096)
+    widths = [b.cols for b in plan.buckets] + [1 << 20, 3, 4099]
+    return [widths[i % len(widths)] for i in range(REUSE_CALLS)]
+
+
+def card_reuse(group, seed):
+    """``REUSE_CALLS`` back-to-back calls of rows 10 and 11 (alternating)
+    with no host synchronisation between them, at ``reuse_widths``; every
+    other row-10 bucket packed straight into the staging, the others
+    copied in by the wrapper. Each call's inputs are kept; after the last
+    call, every result against its plain ring bit for bit. A rank that
+    overwrote its staging while a peer still read it, or a barrier that
+    let a rank run ahead, shows as a mismatch."""
+    dev = group.device
+    g = torch.Generator(device=dev).manual_seed(seed + group.rank)
+    calls = []
+    fc.reset_rs_bucket_counts()
+    fc.reset_ag_bucket_counts()
+    for i, cols in enumerate(reuse_widths(group.n)):
+        wire = WIRE_DTYPES[i // 2 % 2]
+        if i % 2:
+            row = torch.randn(cols, generator=g, device=dev)
+            calls.append(("ag", row, None, fc.fused_ag_bucket(row, group)))
+            continue
+        x = torch.randn((group.n, cols), generator=g, device=dev)
+        if i % 4 == 0:
+            stage = fc.rs_bucket_staging(group, x.shape, x.dtype)
+            stage.copy_(x)
+            got = fc.fused_rs_bucket(stage, group, wire)
+        else:
+            got = fc.fused_rs_bucket(x, group, wire)
+        calls.append(("rs", x, wire, got))
+    torch.cuda.synchronize()
+    counts = ((fc.fused_rs_bucket.calls, fc.fused_rs_bucket.launches),
+              (fc.fused_ag_bucket.calls, fc.fused_ag_bucket.launches))
+    readings = []
+    for i, (kind, t, wire, got) in enumerate(calls):
+        want = fc.rs_bucket_plain(t, group, wire) if kind == "rs" else \
+            fc.ag_bucket_plain(t, group)
+        readings.append(((i, kind, t.shape[-1]), bool(torch.equal(got, want))))
+    return {"readings": readings, "counts": counts}
+
+
+def card_teardown(group, seed):
+    """Open rows 10-11's channels, close them, reopen and close again:
+    the peer mappings this process holds (2 (n - 1) while both channels
+    are open, 0 after each close), the group's channels gone after each
+    close, and each reopened call still equal to its plain ring."""
+    from paddle_tpu_torch.distributed import peer
+    dev = group.device
+    g = torch.Generator(device=dev).manual_seed(seed + group.rank)
+    mappings, readings = [peer.open_mappings()], []
+    for _ in range(2):
+        x = torch.randn((group.n, 4099), generator=g, device=dev)
+        got = fc.fused_rs_bucket(x, group)
+        row = torch.randn(4099, generator=g, device=dev)
+        got_ag = fc.fused_ag_bucket(row, group)
+        torch.cuda.synchronize()
+        readings.append(bool(torch.equal(got, fc.rs_bucket_plain(x, group))))
+        readings.append(bool(torch.equal(got_ag,
+                                         fc.ag_bucket_plain(row, group))))
+        mappings.append(peer.open_mappings())
+        peer.close(group)
+        mappings.append(peer.open_mappings())
+        readings.append(not group.peer_channels)
+    return {"mappings": mappings, "readings": readings}
+
+
+def card_rows(group, seed):
+    """Every rows 10-11 card check above, in one spawn: the rings, the
+    back-to-back reuse, then the teardown (which must find both channels
+    open and close them)."""
+    from paddle_tpu_torch.distributed import peer
+    out = {"ring": card_ring(group, seed), "ag_ring": card_ag_ring(group, seed),
+           "reuse": card_reuse(group, seed + 1)}
+    peer.close(group)
+    out["teardown"] = card_teardown(group, seed + 2)
+    return out
+
+
+# ------------------------------------------------------- the pull algebra
+def pull_algebra(group, cases):
+    """The pull kernels' plain algebra against the plain rings on this
+    rank's own buckets, for each (cols, seed) case: row 10's
+    (``rs_bucket_pull_plain`` against ``rs_bucket_plain``) at fp32 and
+    bf16 parts and wires, and row 11's (``ag_bucket_pull_plain`` against
+    ``ag_bucket_plain``) on row ``rank`` at fp32 and bf16. Returns
+    [(case, equal bit for bit, the rows)] with the rows of the two wires
+    kept for one fp32 part."""
+    n, r = group.n, group.rank
+    out = []
+    for cols, seed in cases:
+        x = torch.from_numpy(np.random.default_rng(seed + r).standard_normal(
+            (n, cols)).astype(np.float32))
+        for part in PART_DTYPES:
+            xp = x.to(part)
+            for wire in WIRE_DTYPES:
+                pull = fc.rs_bucket_pull_plain(xp, group, wire)
+                ring = fc.rs_bucket_plain(xp, group, wire)
+                keep = _np(pull) if part == torch.float32 else None
+                out.append((("rs", cols, str(part), str(wire)),
+                            torch.equal(pull, ring) and
+                            pull.dtype == torch.float32, keep))
+        for dtype in PART_DTYPES:
+            row = x[r].to(dtype)
+            out.append((("ag", cols, str(dtype)),
+                        torch.equal(fc.ag_bucket_pull_plain(row, group),
+                                    fc.ag_bucket_plain(row, group)), None))
+    return out
