@@ -6,14 +6,17 @@
 Phases, each of which fails the run (nonzero exit, no result line):
 
 1. build the hand-written CUDA kernels from ``paddle_tpu_torch/csrc``, one
-   nvcc per source, all started together;
+   nvcc per source, all started together, printing ptxas's register,
+   shared-memory and spill report and, where the toolkit has cuobjdump,
+   the HGMMA and UTMALDG (TMA load) count of each instance of the
+   redesigned flash forward and dK/dV kernels, which must have both;
 2. hold each kernel against its plain PyTorch version: paged decode at the
    serving slice's shapes (8 slots, 16 heads of 128, page 16, 128 slot
    pages, bf16 pool, positions at 0 and page boundaries); the flash
    forward (O, LSE), dQ and dK/dV kernels at the train step's B=8,
    S=2048, 16 heads of 128, bf16, causal, and at B=2: causal and not,
-   S=2048 and the ragged S=200, and one d=64 case, each output held per
-   element and per 128-row tile; then the card-only tests of
+   S=2048 and the ragged S=200, 129 and 65, and d=64 cases, each output
+   held per element and per 128-row tile; then the card-only tests of
    ``tests/test_torch_cuda_kernels.py`` in a pytest process;
 3. serve GPT-3 1.3B (full width and depth, bf16, random weights from the
    seed) through ``serving.Engine``: 16 requests, prompts of 32-1024
@@ -35,7 +38,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    kernels and through ``use_flash=False`` on the same weights: loss and
    every gradient leaf within a bf16 tolerance;
 7. timings: each kernel against its bound, its plain version and one
-   PyTorch library call; engine decode tokens/s and TTFT; train step
+   PyTorch library call (the flash kernels at the shape of every training
+   path); engine decode tokens/s and TTFT; train step
    time, tokens/s and MFU; torch.profiler over a decode step and over a
    train step;
 8. quantized serving (phase 2 also holds its two kernels against their
@@ -221,8 +225,20 @@ FLASH_CASES = [  # (B, S, nh, d, causal)
     (2, 2048, 16, 128, True), (2, 2048, 16, 128, False),
     (2, 200, 16, 128, True), (2, 200, 16, 128, False),
     (2, 2048, 16, 64, True),
+    # one row past a 128-row tile; one past a 64-row tile
+    (2, 129, 16, 128, True), (2, 65, 16, 64, False),
 ]
 TRAIN_B, TRAIN_S = 8, 2048  # bench.py's headline rung
+# the shapes each training path hands the flash kernels, timed in
+# phase_flash_timing: (path, B, S, heads, d); the first gives the kernels
+# line's rows. pp=4 runs microbatches of 1 sequence (M=8), an mp=4 rank
+# a quarter of the heads, a dp=4 replica 2 sequences.
+FLASH_TIMED_SHAPES = (
+    ("one card", TRAIN_B, TRAIN_S, 16, 128),
+    ("pp=4 microbatch", 1, TRAIN_S, 16, 128),
+    ("mp=4 rank", TRAIN_B, TRAIN_S, 4, 128),
+    ("dp=4 replica", 2, TRAIN_S, 16, 128),
+)
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 # train-path parity, kernels vs use_flash=False, bf16 everywhere else the
 # same ops: |loss_k - loss_p| <= PARITY_LOSS_REL * |loss_p| and, per
@@ -243,6 +259,9 @@ FLASH_KERNELS = (  # (name, wrapper, TPU kernel it replaces)
     ("flash_dkv", fa.flash_dkv,
      "paddle_tpu/ops/pallas_kernels/flash_attention_bwd.py:142"),
 )
+FLASH_SOURCES = {"flash_fwd": "paddle_tpu_torch/csrc/flash_sm90.cu",
+                 "flash_dq": "paddle_tpu_torch/csrc/flash_attention.cu",
+                 "flash_dkv": "paddle_tpu_torch/csrc/flash_sm90.cu"}
 
 
 def check(cond, msg):
@@ -414,6 +433,7 @@ def phase_build():
     t0 = time.perf_counter()
     sources = {"paged_decode": "paged_decode.cu",
                "flash_attention": "flash_attention.cu",
+               "flash_sm90": "flash_sm90.cu",
                "quant_gemm": "quant_gemm.cu",
                "ring_gemm": "ring_gemm.cu",
                "rs_bucket": "rs_bucket.cu",
@@ -439,8 +459,38 @@ def phase_build():
                 print(f"[build]   {entry.group(1)}<{entry.group(2)}>")
             elif pull and "Compiling entry" in line:
                 print(f"[build]   {pull.group(1)} {pull.group(2)}")
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "wgmma" in line):
                 print(f"[build]     {line.strip()}")
+    flash_sass_counts(cuda_build.BUILD_INFO["flash_sm90"]["path"])
+
+
+def flash_sass_counts(lib):
+    """The SASS of the redesigned flash kernels (cuobjdump, where the
+    toolkit has it): the warpgroup products (HGMMA) and TMA loads
+    (UTMALDG) in each instance, which must have both."""
+    tool = pathlib.Path(cuda_build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        print(f"[build] no {tool}: SASS not counted")
+        return
+    sass = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(flash_\w+_kernel)I(\w+?)EEEv", line)
+            fn = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if fn:
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn:
+            for op in counts[fn]:
+                counts[fn][op] += op in line
+    for fn, c in counts.items():
+        print(f"[build] SASS {fn}: {c['HGMMA']} HGMMA, {c['UTMALDG']} "
+              f"UTMALDG")
+    check(counts and all(c["HGMMA"] and c["UTMALDG"]
+                         for c in counts.values()),
+          f"a redesigned flash kernel lacks HGMMA or UTMALDG: {counts}")
 
 
 def phase_kernel_vs_plain(gen, dev):
@@ -1034,11 +1084,16 @@ def phase_flash_vs_plain(gen, dev):
     worst = {name: 0.0 for name, _, _ in FLASH_KERNELS}
     for B, S, nh, d, causal in FLASH_CASES:
         q, k, v, do = flash_inputs(gen, dev, B, S, nh, d)
-        o, lse = fa.flash_forward(q, k, v, causal)
-        delta = fa.attention_delta(o, do)
-        dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
-        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal)
-        torch.cuda.synchronize()
+        try:
+            o, lse = fa.flash_forward(q, k, v, causal)
+            delta = fa.attention_delta(o, do)
+            dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
+            dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            print(f"[flash] a kernel failed at B={B} S={S} nh={nh} d={d}; "
+                  f"mbarrier wait record: {fa.wait_timeout_record()}")
+            raise
         o_p, lse_p = fa.flash_forward_plain(q, k, v, causal)
         dq_p = fa.flash_dq_plain(q, k, v, do, lse_p, delta, causal)
         dk_p, dv_p = fa.flash_dkv_plain(q, k, v, do, lse_p, delta, causal)
@@ -1266,14 +1321,12 @@ def phase_train_parity(seed, gen, dev):
           f"a gradient leaf disagrees with the plain path: {rel}")
 
 
-def phase_flash_timing(gen, dev, errs, counts):
-    """Each flash kernel at the 1.3B training shapes (B=8, S=2048, 16 heads
-    of 128, bf16, causal) against its bound, its plain version and SDPA.
-    SDPA's forward is the forward kernel's library time. Its backward
-    (forward + backward less forward) computes dQ, dK and dV in one call,
-    so it stands once, on flash_dkv's row, marked as covering dQ + dK/dV,
-    and flash_dq's row has none. Returns the three kernel rows."""
-    B, S, nh, d = TRAIN_B, TRAIN_S, 16, 128
+def flash_shape_times(gen, dev, B, S, nh, d):
+    """The three flash kernels and their plain versions at one causal
+    shape, device time by CUDA graph replay in turns (plain, kernel,
+    kernel, plain), and SDPA's forward and backward (forward + backward
+    less forward) on the same values: ({kernel: (k1, k2, p1, p2)},
+    sdpa_fwd_ms, sdpa_bwd_ms)."""
     q, k, v, do = flash_inputs(gen, dev, B, S, nh, d)
     o, lse = fa.flash_forward(q, k, v, True)
     delta = fa.attention_delta(o, do)
@@ -1299,40 +1352,62 @@ def phase_flash_timing(gen, dev, errs, counts):
         torch.autograd.grad(out, leaves, doh)
 
     lib_fwd = graph_ms(sdpa_fwd, iters=10)
-    lib_fwd_bwd = graph_ms(sdpa_fwd_bwd, iters=10)
-    lib_bwd = lib_fwd_bwd - lib_fwd
-    library = {"flash_fwd": lib_fwd, "flash_dq": None,
-               "flash_dkv": lib_bwd}
-    rows = []
-    for name, _, replaces in FLASH_KERNELS:
-        kernel, plain = calls[name]
-        # device time, in turns: plain, kernel, kernel, plain
+    lib_bwd = graph_ms(sdpa_fwd_bwd, iters=10) - lib_fwd
+    times = {}
+    for name, (kernel, plain) in calls.items():
         p1 = graph_ms(plain, iters=2, replays=3)
         k1 = graph_ms(kernel, iters=10)
         k2 = graph_ms(kernel, iters=10)
         p2 = graph_ms(plain, iters=2, replays=3)
-        ms, plain_ms = min(k1, k2), min(p1, p2)
-        bound, bound_by, nflops, nbytes = flash_bound(name, B, S, nh, d,
-                                                      True)
-        print(f"[timing] {name} B={B} S={S} nh={nh} d={d} bf16 causal, "
-              f"device time (CUDA graph replay): kernel {k1:.4f}/{k2:.4f} "
-              f"ms = {nflops / ms / 1e9:.1f} TFLOP/s, plain "
-              f"{p1:.4f}/{p2:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
-              f"{nflops:.3e} flops, {nbytes / 1e6:.1f} MB) -> "
-              f"{bound / ms:.1%} of bound")
-        rows.append({"name": name, "route": "cuda",
-                     "source": "paddle_tpu_torch/csrc/flash_attention.cu",
-                     "replaces": replaces, "launches": counts[name],
-                     "max_abs_err": errs[name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": bound_by, "library_ms": library[name]})
+        times[name] = (k1, k2, p1, p2)
+    return times, lib_fwd, lib_bwd
+
+
+def phase_flash_timing(gen, dev, errs, counts):
+    """Each flash kernel, causal bf16, at every shape of
+    FLASH_TIMED_SHAPES (the one-card step's B=8, S=2048, 16 heads of 128
+    first, then what the pp, mp and dp paths hand it) against its bound,
+    its plain version and SDPA. SDPA's forward is the forward kernel's
+    library time. Its backward computes dQ, dK and dV in one call, so it
+    stands once, on flash_dkv's row, marked as covering dQ + dK/dV, and
+    flash_dq's row has none. Returns the three kernel rows of the first
+    shape."""
+    rows = []
+    for path, B, S, nh, d in FLASH_TIMED_SHAPES:
+        times, lib_fwd, lib_bwd = flash_shape_times(gen, dev, B, S, nh, d)
+        library = {"flash_fwd": lib_fwd, "flash_dq": None,
+                   "flash_dkv": lib_bwd}
+        ms, main_shape = {}, not rows
+        for name, _, replaces in FLASH_KERNELS:
+            k1, k2, p1, p2 = times[name]
+            ms[name], plain_ms = min(k1, k2), min(p1, p2)
+            bound, bound_by, nflops, nbytes = flash_bound(name, B, S, nh,
+                                                          d, True)
+            lib = library[name]
+            vs_lib = f", SDPA {lib:.4f} ms" if lib is not None else ""
+            print(f"[timing] {name} ({path}) B={B} S={S} nh={nh} d={d} "
+                  f"bf16 causal, device time (CUDA graph replay): kernel "
+                  f"{k1:.4f}/{k2:.4f} ms = "
+                  f"{nflops / ms[name] / 1e9:.1f} TFLOP/s, plain "
+                  f"{p1:.4f}/{p2:.4f} ms{vs_lib}, bound {bound:.4f} ms "
+                  f"({bound_by}: {nflops:.3e} flops, {nbytes / 1e6:.1f} "
+                  f"MB) -> {bound / ms[name]:.1%} of bound")
+            if main_shape:
+                rows.append({"name": name, "route": "cuda",
+                             "source": FLASH_SOURCES[name],
+                             "replaces": replaces,
+                             "launches": counts[name],
+                             "max_abs_err": errs[name], "ms": ms[name],
+                             "plain_ms": plain_ms, "bound_ms": bound,
+                             "bound_by": bound_by, "library_ms": lib})
+        kernels_bwd = ms["flash_dq"] + ms["flash_dkv"]
+        print(f"[timing] SDPA ({path}; library yardstick, not used by the "
+              f"port): forward {lib_fwd:.4f} ms against the forward "
+              f"kernel's {ms['flash_fwd']:.4f} ms "
+              f"({ms['flash_fwd'] / lib_fwd:.2f}x); backward (dQ, dK and "
+              f"dV in one call) {lib_bwd:.4f} ms against dQ + dK/dV "
+              f"{kernels_bwd:.4f} ms ({kernels_bwd / lib_bwd:.2f}x)")
     rows[2]["library_covers"] = "flash_dq+flash_dkv"
-    kernels_bwd = rows[1]["ms"] + rows[2]["ms"]
-    print(f"[timing] SDPA (library yardstick, not used by the port): "
-          f"forward {lib_fwd:.4f} ms against the forward kernel's "
-          f"{rows[0]['ms']:.4f} ms; backward (dQ, dK and dV in one call) "
-          f"{lib_bwd:.4f} ms against dQ + dK/dV {kernels_bwd:.4f} ms "
-          f"({kernels_bwd / lib_bwd:.2f}x)")
     return rows
 
 

@@ -1,57 +1,49 @@
-// Flash attention for Hopper (sm_90a): the forward, dQ and dK/dV kernels.
+// Flash attention's dQ kernel for Hopper (sm_90a).
 //
-// Replaces three TPU kernels of paddle_tpu/ops/pallas_kernels/:
-//   flash_attention.py:_fwd_kernel       (pallas_call at :280)  -> flash_fwd_kernel
+// Replaces the TPU kernel paddle_tpu/ops/pallas_kernels/
 //   flash_attention_bwd.py:_dq_kernel    (pallas_call at :286)  -> flash_dq_kernel
-//   flash_attention_bwd.py:_dkv_kernel   (pallas_call at :300)  -> flash_dkv_kernel
-// in their causal and non-causal forms, without bias, segment ids or dropout.
-// For every batch b and head h, with s = q.k * scale:
+// in its causal and non-causal form, without bias, segment ids or dropout.
+// The forward and dK/dV kernels are in flash_sm90.cu. For every batch b and
+// head h, with s = q.k * scale:
 //
-//   forward  O = softmax(s) V,  LSE = logsumexp(s)   (masked keys excluded)
 //   dQ       P = exp(s - LSE), dP = dO V^T, dS = P (dP - delta) scale,
 //            dQ = dS K                    (delta = rowsum(dO o O), computed
 //                                          beside the kernels, as the TPU
 //                                          path computes it in XLA)
-//   dK, dV   dV = P^T dO, dK = dS^T Q
 //
 // q, k, v and dO are read in their [B, S, H, D] layout through the element
 // strides the caller gives (the last dimension contiguous), so the qkv split
 // of the model hands over strided views and nothing is copied to [B*H, S, D].
-// O, dQ, dK and dV are written contiguous [B, S, H, D]; LSE and delta are
-// fp32 [B*H, S]. Rows and keys past S are masked here, so any S >= 1 works
-// (the TPU path needs S to be a multiple of 128). The head dim is not padded.
+// dQ is written contiguous [B, S, H, D]; LSE and delta are fp32 [B*H, S].
+// Rows and keys past S are masked here, so any S >= 1 works (the TPU path
+// needs S to be a multiple of 128). The head dim is not padded.
 //
-// What bounds them on an H100: operations. At the GPT-3 1.3B training shapes
-// (B=8, S=2048, 16 heads of 128, bf16, causal) the forward does
-// 2*B*nh*S^2*d = 1.37e11 flops on 270 MB, dQ 2.06e11 on 337 MB and dK/dV
-// 2.75e11 on 404 MB: 500-700 flops per byte, above the ~295 the card needs
-// before its tensor cores, not its memory, are the limit. So the products run
-// on the tensor cores (989 TFLOP/s bf16), never as fp32 FMA (67 TFLOP/s).
+// What bounds it on an H100: operations. At the GPT-3 1.3B training shapes
+// (B=8, S=2048, 16 heads of 128, bf16, causal) dQ does 2.06e11 flops on
+// 337 MB: over 600 flops per byte, above the ~295 the card needs before its
+// tensor cores, not its memory, are the limit. So the products run on the
+// tensor cores (989 TFLOP/s bf16), never as fp32 FMA (67 TFLOP/s).
 //
 // Design, for the GPU rather than copied from the TPU grid:
 // * the TPU grid's sequential dimension becomes a loop inside one block:
-//   forward and dQ take one block per (b*h, q-tile) and loop over k-tiles up
-//   to the diagonal; dK/dV takes one block per (b*h, k-tile) and loops over
-//   q-tiles from the diagonal on. Every output tile is owned by one block,
-//   so there are no atomics and no cross-block reduction;
+//   one block per (b*h, q-tile) loops over k-tiles up to the diagonal, so
+//   every output tile is owned by one block: no atomics and no cross-block
+//   reduction;
 // * 4 warps per block, each owning 16 rows of the block's tile. Products are
 //   warp-level mma.sync m16n8k16 with bf16 operands and fp32
 //   accumulators. The accumulator layout of one product is the operand
-//   layout of the next, so P and dS go from registers straight into the
-//   P.V, dS.K, P^T.dO and dS^T.Q products without a trip through memory;
-// * the online softmax keeps each row's running max and sum in registers
-//   (in log2 units, exp2f), reduced over the 4 lanes that share a row with
-//   two shuffles; P and dS are rounded to the input type for the tensor
-//   cores, as every tensor-core flash kernel does;
+//   layout of the next, so dS goes from registers straight into the dS.K
+//   product without a trip through memory;
 // * tiles are staged in shared memory with 16-byte loads, rows padded by 8
-//   elements so that fragment reads are free of bank conflicts. An operand
-//   that a product needs with its contraction along the sequence (V in the
-//   forward, K in dQ, Q and dO in dK/dV) is also stored transposed;
+//   elements so that fragment reads are free of bank conflicts. K, which
+//   the dS.K product needs with its contraction along the sequence, is
+//   also stored transposed;
 // * causal blocks above the diagonal are skipped by the loop bounds, the
 //   diagonal tile is masked per element, and blocks are numbered so that
 //   the heaviest tiles start first.
 // Copies are synchronous (no cp.async/TMA pipeline) and products use
-// mma.sync, not wgmma: those are for later work.
+// mma.sync, not wgmma: flash_sm90.cu shows the Hopper design for the other
+// two kernels.
 //
 // Built by paddle_tpu_torch/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -69,7 +61,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;                  // elements added to each smem row
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {                         // element strides of [B, S, H, D]
   long long b, s, h;
@@ -159,147 +150,6 @@ __device__ __forceinline__ void load_tile(T* dst, T* dst_t, const T* src,
       const T* e = reinterpret_cast<const T*>(&v);
 #pragma unroll
       for (int i = 0; i < 8; ++i) dst_t[(c8 * 8 + i) * kLdT + r] = e[i];
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// ---------------------------------------------------------------- forward
-constexpr int kFwdBq = 64;               // q rows per block (16 per warp)
-constexpr int kFwdBk = 64;               // keys per loop step
-
-template <int D>
-constexpr int fwd_smem_bytes() {
-  return 2 * (kFwdBq * (D + kPad) + kFwdBk * (D + kPad) +
-              D * (kFwdBk + kPad));
-}
-
-template <typename T, int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int H, Strides qs,
-                 Strides ks, Strides vs, float scale_log2) {
-  constexpr int BQ = kFwdBq, BK = kFwdBk, LD = D + kPad, LDT = BK + kPad;
-  extern __shared__ uint4 smem_u4[];
-  T* Qs = reinterpret_cast<T*>(smem_u4);
-  T* Ks = Qs + BQ * LD;
-  T* Vt = Ks + BK * LD;                  // V transposed: [D][BK + kPad]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest first
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-
-  load_tile<T, BQ, D>(Qs, nullptr, qb, q0, S, qs.s);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    load_a(qf[kk], Qs, LD, warp * 16, kk * 16, lane);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const int kv_end = kCausal ? min(S, q0 + BQ) : S;
-
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();                     // previous tiles fully consumed
-    load_tile<T, BK, D>(Ks, nullptr, kb, k0, S, ks.s);
-    load_tile<T, BK, D>(nullptr, Vt, vb, k0, S, vs.s);
-    __syncthreads();
-
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b0, b1;
-        load_b(b0, b1, Ks, LD, n * 8, kk * 16, lane);
-        Mma<T>::run(s[n], qf[kk], b0, b1);
-      }
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const bool ok = col < S && (!kCausal || col <= row[e >> 1]);
-        const float x = ok ? s[n][e] * scale_log2 : -INFINITY;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float mu[2], corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      mu[i] = m_new == -INFINITY ? 0.f : m_new;   // row without keys yet
-      corr[i] = exp2f(m[i] - mu[i]);
-      m[i] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - mu[e >> 1]);
-        s[n][e] = p;
-        rs[e >> 1] += p;
-      }
-    l[0] = l[0] * corr[0] + rs[0];       // per-lane partial sums; the four
-    l[1] = l[1] * corr[1] + rs[1];       // lanes of a row are summed at the end
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      uint32_t pa[4];
-      c_to_a<T>(pa, s, j);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, Vt, LDT, n * 8, j * 16, lane);
-        Mma<T>::run(acc[n], pa, b0, b1);
-      }
-    }
-  }
-
-  T* ob = o + (static_cast<long long>(b) * S * H + h) * D;
-  const long long os = static_cast<long long>(H) * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float lsum = quad_sum(l[i]);
-    const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
-    if (row[i] < S) {
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(ob + row[i] * os + n * 8 + 2 * t) =
-            Mma<T>::pack(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
-      if (t == 0)
-        lse[static_cast<long long>(bh) * S + row[i]] =
-            lsum > 0.f ? (m[i] + log2f(lsum)) * kLn2 : INFINITY;
     }
   }
 }
@@ -419,134 +269,6 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// ------------------------------------------------------------------ dK/dV
-constexpr int kDkvBk = 64;               // keys per block (16 per warp)
-constexpr int kDkvBq = 32;               // q rows per loop step
-
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return 2 * (2 * kDkvBk * (D + kPad) + 2 * kDkvBq * (D + kPad) +
-              2 * D * (kDkvBq + kPad)) +
-         4 * 2 * kDkvBq;
-}
-
-template <typename T, int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int S, int H, Strides qs, Strides ks,
-                 Strides vs, Strides dos, float scale, float scale_log2) {
-  constexpr int BK = kDkvBk, BQ = kDkvBq, LD = D + kPad, LDT = BQ + kPad;
-  extern __shared__ uint4 smem_u4[];
-  T* Ks = reinterpret_cast<T*>(smem_u4);
-  T* Vs = Ks + BK * LD;
-  T* Qs = Vs + BK * LD;
-  T* dOs = Qs + BQ * LD;
-  T* Qt = dOs + BQ * LD;                 // Q transposed: [D][BQ + kPad]
-  T* dOt = Qt + D * LDT;                 // dO transposed
-  float* lse_s = reinterpret_cast<float*>(dOt + D * LDT);
-  float* dlt_s = lse_s + BQ;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BK;        // heaviest (earliest keys) first
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const T* dob = dout + b * dos.b + h * dos.h;
-
-  load_tile<T, BK, D>(Ks, nullptr, kb, k0, S, ks.s);
-  load_tile<T, BK, D>(Vs, nullptr, vb, k0, S, vs.s);
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-  }
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  const int q_begin = kCausal ? (k0 / BQ) * BQ : 0;
-
-  for (int q0 = q_begin; q0 < S; q0 += BQ) {
-    __syncthreads();
-    load_tile<T, BQ, D>(Qs, Qt, qb, q0, S, qs.s);
-    load_tile<T, BQ, D>(dOs, dOt, dob, q0, S, dos.s);
-    if (threadIdx.x < BQ) {
-      const int r = q0 + threadIdx.x;
-      const long long at = static_cast<long long>(bh) * S + r;
-      lse_s[threadIdx.x] = r < S ? lse[at] * kLog2e : 0.f;
-      dlt_s[threadIdx.x] = r < S ? delta[at] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: rows are this warp's 16 keys
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-      st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-      dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, Ks, LD, warp * 16, kk * 16, lane);
-      load_a(va, Vs, LD, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int n = 0; n < BQ / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, Qs, LD, n * 8, kk * 16, lane);
-        Mma<T>::run(st[n], ka, b0, b1);
-        load_b(b0, b1, dOs, LD, n * 8, kk * 16, lane);
-        Mma<T>::run(dpt[n], va, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = key[e >> 1];
-        const int cq = n * 8 + 2 * t + (e & 1);      // column within tile
-        const int r = q0 + cq;
-        const bool ok = r < S && j < S && (!kCausal || j <= r);
-        const float p = ok ? exp2f(st[n][e] * scale_log2 - lse_s[cq]) : 0.f;
-        st[n][e] = p;                                       // P^T
-        dpt[n][e] = p * (dpt[n][e] - dlt_s[cq]) * scale;    // dS^T
-      }
-#pragma unroll
-    for (int j = 0; j < BQ / 16; ++j) {
-      uint32_t pa[4], da[4];
-      c_to_a<T>(pa, st, j);
-      c_to_a<T>(da, dpt, j);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, dOt, LDT, n * 8, j * 16, lane);
-        Mma<T>::run(dva[n], pa, b0, b1);
-        load_b(b0, b1, Qt, LDT, n * 8, j * 16, lane);
-        Mma<T>::run(dka[n], da, b0, b1);
-      }
-    }
-  }
-
-  const long long base = (static_cast<long long>(b) * S * H + h) * D;
-  const long long os = static_cast<long long>(H) * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    if (key[i] < S) {
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const long long at = base + key[i] * os + n * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(dk + at) =
-            Mma<T>::pack(dka[n][2 * i], dka[n][2 * i + 1]);
-        *reinterpret_cast<uint32_t*>(dv + at) =
-            Mma<T>::pack(dva[n][2 * i], dva[n][2 * i + 1]);
-      }
-    }
-}
-
 // ---------------------------------------------------------------- launches
 Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
@@ -560,24 +282,6 @@ cudaError_t allow_smem(K kernel, int bytes, bool* done) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) *done = true;
   return err;
-}
-
-template <typename T, int D, bool C>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
-                void* lse, int B, int S, int H, const long long* st,
-                float scale, cudaStream_t stream) {
-  static bool ready = false;
-  constexpr int smem = fwd_smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D, C>;
-  cudaError_t err = allow_smem(kernel, smem, &ready);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kFwdBq - 1) / kFwdBq, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, H, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      scale * kLog2e);
-  return cudaGetLastError();
 }
 
 template <typename T, int D, bool C>
@@ -600,27 +304,6 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool C>
-cudaError_t dkv(const void* q, const void* k, const void* v,
-                const void* dout, const void* lse, const void* delta,
-                void* dkp, void* dvp, int B, int S, int H,
-                const long long* st, float scale, cudaStream_t stream) {
-  static bool ready = false;
-  constexpr int smem = dkv_smem_bytes<D>();
-  auto kernel = flash_dkv_kernel<T, D, C>;
-  cudaError_t err = allow_smem(kernel, smem, &ready);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kDkvBk - 1) / kDkvBk, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dkp), static_cast<T*>(dvp), S, H, strides_at(st, 0),
-      strides_at(st, 1), strides_at(st, 2), strides_at(st, 3), scale,
-      scale * kLog2e);
-  return cudaGetLastError();
-}
-
 // Calls FN<bf16, D, causal>(args...) for the runtime D and causal; -1 when
 // this library has no such instance.
 #define FLASH_DISPATCH(FN, ...)                                            \
@@ -638,19 +321,9 @@ cudaError_t dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Operands are bfloat16. strides: [B, S, H] element strides of q, k, v (and
-// dout for the backward), three per tensor. Each returns 0, a cudaError_t
-// code, or -1 for a head_dim not built here.
-extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                void* o, void* lse, int B, int S, int H,
-                                int head_dim, int causal,
-                                const long long* strides, float scale,
-                                void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(fwd, q, k, v, o, lse, B, S, H, strides, scale, s);
-}
-
+// Operands are bfloat16. strides: [B, S, H] element strides of q, k, v and
+// dout, three per tensor. Returns 0, a cudaError_t code, or -1 for a
+// head_dim not built here.
 extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dqp, int B, int S,
@@ -661,18 +334,6 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dqp, B, S, H, strides, scale,
                  s);
-}
-
-extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dkp, void* dvp,
-                                int B, int S, int H, int head_dim, int causal,
-                                const long long* strides, float scale,
-                                void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(dkv, q, k, v, dout, lse, delta, dkp, dvp, B, S, H, strides,
-                 scale, s);
 }
 
 extern "C" const char* flash_error_string(int code) {

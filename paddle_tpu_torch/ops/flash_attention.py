@@ -1,5 +1,6 @@
 """Flash attention on [B, S, H, D]: the hand-written CUDA kernels
-(``csrc/flash_attention.cu``), their wrappers, their plain PyTorch
+(``csrc/flash_sm90.cu``: forward and dK/dV, wgmma fed by TMA;
+``csrc/flash_attention.cu``: dQ), their wrappers, their plain PyTorch
 versions, and the differentiable ``flash_attention_bshd``.
 
 Counterpart of ``paddle_tpu/ops/pallas_kernels/flash_attention.py``
@@ -169,28 +170,60 @@ def unsupported_reason(head_dim, dtype):
     return "; ".join(reasons) or None
 
 
+_LL = ctypes.POINTER(ctypes.c_longlong)
+_INTS = [ctypes.c_int] * 5
+_TAIL = [_LL, ctypes.c_float, ctypes.c_void_p]
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
+    """The dQ kernel's library (``csrc/flash_attention.cu``)."""
     lib = load_library("flash_attention", "flash_attention.cu")
-    ll = ctypes.POINTER(ctypes.c_longlong)
-    ints = [ctypes.c_int] * 5
-    lib.flash_fwd_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + ints + [ll, ctypes.c_float, ctypes.c_void_p])
-    lib.flash_dq_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + ints + [ll, ctypes.c_float, ctypes.c_void_p])
-    lib.flash_dkv_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + ints + [ll, ctypes.c_float, ctypes.c_void_p])
-    for fn in (lib.flash_fwd_launch, lib.flash_dq_launch,
-               lib.flash_dkv_launch):
-        fn.restype = ctypes.c_int
+    lib.flash_dq_launch.argtypes = [ctypes.c_void_p] * 7 + _INTS + _TAIL
+    lib.flash_dq_launch.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _sm90_library():
+    """The forward and dK/dV kernels' library (``csrc/flash_sm90.cu``)."""
+    lib = load_library("flash_sm90", "flash_sm90.cu")
+    lib.flash_sm90_fwd_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + _INTS + _TAIL)
+    lib.flash_sm90_dkv_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + _INTS + _TAIL)
+    for fn in (lib.flash_sm90_fwd_launch, lib.flash_sm90_dkv_launch):
+        fn.restype = ctypes.c_int
+    lib.flash_sm90_wait_record.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.flash_sm90_wait_record.restype = None
+    lib.flash_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.flash_sm90_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def build():
-    """Build (or load the cached build of) the kernel library now."""
+    """Build (or load the cached builds of) the kernel libraries now."""
     _library()
+    _sm90_library()
+
+
+WAIT_RECORD_FIELDS = ("code", "row", "block_x", "block_y", "warp",
+                      "barrier", "parity", "step")
+
+
+def wait_timeout_record():
+    """What the first mbarrier wait of the forward or dK/dV kernel that
+    timed out in this process was waiting for (a dict of
+    WAIT_RECORD_FIELDS: the kernel's PERF.md row, its block, its warp, 8
+    being the forward's producer, the barrier, the parity and the loop
+    step), or
+    None. Reads host memory only, so it works after the kernel's trap has
+    left the CUDA context unusable."""
+    out = (ctypes.c_int * len(WAIT_RECORD_FIELDS))()
+    _sm90_library().flash_sm90_wait_record(out)
+    return dict(zip(WAIT_RECORD_FIELDS, out)) if out[0] else None
 
 
 def _readable(t):
@@ -245,10 +278,51 @@ def _strides(*ts):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _raise_on(lib, rc, what):
+# The TMA tiles of csrc/flash_sm90.cu: a load brings TMA_BOX_COLS columns
+# of one head (128 bytes, the row of the 128-byte swizzle) over a tile's
+# rows; a d=128 tile is two such boxes.
+TMA_BOX_COLS = 64
+FWD_ROWS = 128           # forward: q rows per block, keys per loop step
+DKV_KEYS = 128           # dK/dV: keys per block
+DKV_Q_ROWS = 64          # dK/dV: q rows per step
+
+
+def tensor_map_args(t, rows):
+    """The arguments of ``cuTensorMapEncodeTiled`` for one [B, S, H, D]
+    operand of the forward or dK/dV kernel, innermost dimension first:
+    ``dims`` (D, H, S, B); ``strides``, the byte strides of H, S and B, the
+    caller's own (so the qkv split is read in place); ``box``, the tile a
+    load brings: TMA_BOX_COLS columns of one head by ``rows`` rows of one
+    batch. The map's S is the true length: TMA fills the rows of a box
+    past it with zeros, and the kernels mask them. Raises for a layout the
+    kernels cannot read in place (``_readable``), which ``_for_kernel``
+    copies first."""
+    if t.dim() != 4 or not _readable(t):
+        raise ValueError(f"TMA needs a [B, S, H, D] tensor with a "
+                         f"contiguous last dim and 16-byte aligned rows, "
+                         f"got shape {tuple(t.shape)} strides {t.stride()}")
+    item = t.element_size()
+    B, S, H, D = t.shape
+    sb, ss, sh, _ = t.stride()
+    return {"dims": (D, H, S, B),
+            "strides": (sh * item, ss * item, sb * item),
+            "box": (TMA_BOX_COLS, 1, rows, 1)}
+
+
+def _map_records(*operands):
+    """The 11 values per (tensor, rows) that csrc/flash_sm90.cu reads:
+    dims, strides, box."""
+    vals = []
+    for t, rows in operands:
+        a = tensor_map_args(t, rows)
+        vals += [*a["dims"], *a["strides"], *a["box"]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _raise_on(rc, what, error_string):
     if rc != 0:
         raise RuntimeError(f"flash {what} kernel launch failed ({rc}): "
-                           f"{lib.flash_error_string(rc).decode()}")
+                           f"{error_string(rc).decode()}")
 
 
 def _stream(t):
@@ -261,16 +335,17 @@ def flash_forward(q, k, v, causal=True, scale=None):
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, causal, scale)
     _check(q, k, v)
-    lib = _library()
+    lib = _sm90_library()
     B, S, H, D = q.shape
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    maps = _map_records((q, FWD_ROWS), (k, FWD_ROWS), (v, FWD_ROWS))
     with torch.cuda.device(q.device):
-        rc = lib.flash_fwd_launch(
+        rc = lib.flash_sm90_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, S, H, D, int(causal),
-            _strides(q, k, v), _scale(q, scale), _stream(q))
-    _raise_on(lib, rc, "forward")
+            lse.data_ptr(), B, S, H, D, int(causal), maps,
+            _scale(q, scale), _stream(q))
+    _raise_on(rc, "forward", lib.flash_sm90_error_string)
     flash_forward.launches += 1
     return o, lse
 
@@ -291,7 +366,7 @@ def flash_dq(q, k, v, do, lse, delta, causal=True, scale=None):
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, D,
             int(causal), _strides(q, k, v, do), _scale(q, scale),
             _stream(q))
-    _raise_on(lib, rc, "dQ")
+    _raise_on(rc, "dQ", lib.flash_error_string)
     flash_dq.launches += 1
     return dq
 
@@ -303,17 +378,18 @@ def flash_dkv(q, k, v, do, lse, delta, causal=True, scale=None):
         return flash_dkv_plain(q, k, v, do, lse, delta, causal, scale)
     _check(q, k, v, do)
     _check_stats(q, lse, delta)
-    lib = _library()
+    lib = _sm90_library()
     B, S, H, D = q.shape
     dk = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    maps = _map_records((q, DKV_Q_ROWS), (k, DKV_KEYS), (v, DKV_KEYS),
+                        (do, DKV_Q_ROWS))
     with torch.cuda.device(q.device):
-        rc = lib.flash_dkv_launch(
+        rc = lib.flash_sm90_dkv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, H, D, int(causal), _strides(q, k, v, do),
-            _scale(q, scale), _stream(q))
-    _raise_on(lib, rc, "dK/dV")
+            B, S, H, D, int(causal), maps, _scale(q, scale), _stream(q))
+    _raise_on(rc, "dK/dV", lib.flash_sm90_error_string)
     flash_dkv.launches += 1
     return dk, dv
 

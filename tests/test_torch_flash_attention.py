@@ -160,3 +160,62 @@ def test_kernel_gate_passes_rounding_and_catches_a_missing_key_tile():
     bad = fa.error_vs_plain(dropped.bfloat16(), want)
     assert not fa.within_tolerance(bad), bad
     assert bad["tile_rel_l2"] > 10 * fa.TILE_REL
+
+
+# ----------------------------------------------- TMA tensor-map arguments
+# ``tensor_map_args`` is what the forward and dK/dV kernels' launch hands
+# to cuTensorMapEncodeTiled: checked here on CPU tensors, byte for byte.
+def test_tensor_map_args_of_a_contiguous_tensor():
+    t = torch.zeros(2, 256, 4, 128, dtype=torch.bfloat16)
+    a = fa.tensor_map_args(t, fa.FWD_ROWS)
+    assert a == {"dims": (128, 4, 256, 2),
+                 "strides": (128 * 2, 4 * 128 * 2, 256 * 4 * 128 * 2),
+                 "box": (fa.TMA_BOX_COLS, 1, 128, 1)}
+    # a box row is the 128-byte swizzle's row: two boxes span d=128
+    assert fa.TMA_BOX_COLS * t.element_size() == 128
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_tensor_map_args_read_the_qkv_split_in_place(D):
+    """q, k, v of the model's [B, S, 3, H, D] qkv tensor: the same dims,
+    the qkv tensor's own strides, bases H*D elements apart; nothing is
+    copied."""
+    B, S, H = 2, 256, 4
+    qkv = torch.zeros(B, S, 3, H, D, dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    for i, t in enumerate((q, k, v)):
+        assert fa._for_kernel(t) is t
+        a = fa.tensor_map_args(t, fa.DKV_KEYS)
+        assert a["dims"] == (D, H, S, B)
+        assert a["strides"] == (D * 2, 3 * H * D * 2, S * 3 * H * D * 2)
+        assert a["box"] == (fa.TMA_BOX_COLS, 1, fa.DKV_KEYS, 1)
+        assert t.data_ptr() - qkv.data_ptr() == i * H * D * 2
+        assert all(s % 16 == 0 for s in a["strides"])
+
+
+@pytest.mark.parametrize("S", [1, 65, 129, 200])
+def test_tensor_map_args_keep_a_ragged_length(S):
+    """The map's S is the true length, not rounded to a tile: TMA fills
+    the rows of a box past S with zeros, and the kernels mask them. The
+    launch hands the kernel 11 values an operand, in argument order."""
+    t = torch.zeros(1, S, 2, 64, dtype=torch.bfloat16)
+    assert fa.tensor_map_args(t, fa.DKV_Q_ROWS)["dims"] == (64, 2, S, 1)
+    rec = list(fa._map_records((t, fa.DKV_Q_ROWS), (t, fa.DKV_KEYS)))
+    assert rec == [64, 2, S, 1, 128, 256, S * 256, 64, 1, 64, 1,
+                   64, 2, S, 1, 128, 256, S * 256, 64, 1, 128, 1]
+
+
+def test_tensor_map_args_refuse_what_the_kernels_copy_first():
+    """A transposed view has no contiguous last dim: the map refuses it,
+    and ``_for_kernel`` (on CUDA) hands the kernels a contiguous copy,
+    whose map has the copy's strides."""
+    base = torch.zeros(2, 64, 4, 96, dtype=torch.bfloat16)
+    view = base.transpose(1, 3)                     # [2, 96, 4, 64]
+    assert not fa._readable(view)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        fa.tensor_map_args(view, 64)
+    copy = view.contiguous()
+    assert fa.tensor_map_args(copy, 64)["strides"] == (
+        64 * 2, 4 * 64 * 2, 96 * 4 * 64 * 2)
+    with pytest.raises(ValueError, match="B, S, H, D"):
+        fa.tensor_map_args(torch.zeros(4, 8, dtype=torch.bfloat16), 64)
