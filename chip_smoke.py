@@ -9,7 +9,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    nvcc per source, all started together, printing ptxas's register,
    shared-memory and spill report and, where the toolkit has cuobjdump,
    the HGMMA and UTMALDG (TMA load) count of each instance of the
-   redesigned flash forward and dK/dV kernels, which must have both;
+   flash forward, dQ and dK/dV kernels, which must have both;
 2. hold each kernel against its plain PyTorch version: paged decode at the
    serving slice's shapes (8 slots, 16 heads of 128, page 16, 128 slot
    pages, bf16 pool, positions at 0 and page boundaries); the flash
@@ -260,7 +260,7 @@ FLASH_KERNELS = (  # (name, wrapper, TPU kernel it replaces)
      "paddle_tpu/ops/pallas_kernels/flash_attention_bwd.py:142"),
 )
 FLASH_SOURCES = {"flash_fwd": "paddle_tpu_torch/csrc/flash_sm90.cu",
-                 "flash_dq": "paddle_tpu_torch/csrc/flash_attention.cu",
+                 "flash_dq": "paddle_tpu_torch/csrc/flash_sm90.cu",
                  "flash_dkv": "paddle_tpu_torch/csrc/flash_sm90.cu"}
 
 
@@ -432,7 +432,6 @@ def quant_gemm_cases(cfg):
 def phase_build():
     t0 = time.perf_counter()
     sources = {"paged_decode": "paged_decode.cu",
-               "flash_attention": "flash_attention.cu",
                "flash_sm90": "flash_sm90.cu",
                "quant_gemm": "quant_gemm.cu",
                "ring_gemm": "ring_gemm.cu",
@@ -466,9 +465,10 @@ def phase_build():
 
 
 def flash_sass_counts(lib):
-    """The SASS of the redesigned flash kernels (cuobjdump, where the
-    toolkit has it): the warpgroup products (HGMMA) and TMA loads
-    (UTMALDG) in each instance, which must have both."""
+    """The SASS of the flash kernels (cuobjdump, where the toolkit has
+    it): the warpgroup products (HGMMA) and TMA loads (UTMALDG) in each
+    instance, which must have both; every kernel in its four instances
+    (d = 64 and 128, causal and full)."""
     tool = pathlib.Path(cuda_build.nvcc_path()).parent / "cuobjdump"
     if not tool.exists():
         print(f"[build] no {tool}: SASS not counted")
@@ -490,7 +490,10 @@ def flash_sass_counts(lib):
               f"UTMALDG")
     check(counts and all(c["HGMMA"] and c["UTMALDG"]
                          for c in counts.values()),
-          f"a redesigned flash kernel lacks HGMMA or UTMALDG: {counts}")
+          f"a flash kernel lacks HGMMA or UTMALDG: {counts}")
+    for name in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
+        n = sum(f"{name}<" in fn for fn in counts)
+        check(n == 4, f"{name} has {n} instances in the SASS, not 4")
 
 
 def phase_kernel_vs_plain(gen, dev):
@@ -719,14 +722,18 @@ def phase_logits(cfg, eng, gen, dev):
           "kernel-path logits disagree with the plain path")
 
 
-def phase_profile(cfg, eng, rng, steps=10, rank=0, tag="profile"):
+def phase_profile(cfg, eng, rng, steps=10, group=None, tag="profile"):
     """Where a decode step's time goes: 8 decoding slots, ``steps``
     boundaries timed on the host, then the same number traced with
     torch.profiler (device kernels only) for kernel time by name and the
     device's busy share of the traced window, then the same number under
     cProfile for the host's time by Python function (cProfile slows the
     Python it counts, so read its shares, not its milliseconds). A
-    tensor-parallel rank other than 0 (``rank``) steps along, unmeasured."""
+    tensor-parallel rank of ``group`` other than 0 steps along,
+    unmeasured. The ranks meet once rank 0's profiler has started and
+    once it has stopped: a rank that stepped on meanwhile would wait in
+    row 11's barrier while the profiler starts or collects its trace,
+    which can outlast that barrier's 10 s timeout."""
     chunks = serving_counters()["prefill_chunks"] + SLOTS
     for _ in range(SLOTS):   # one 64-token chunk each, then decode only
         eng.submit(Request(rng.integers(0, cfg.vocab_size, 64),
@@ -734,7 +741,14 @@ def phase_profile(cfg, eng, rng, steps=10, rank=0, tag="profile"):
     while serving_counters()["prefill_chunks"] < chunks:
         eng.step()
     check(eng.active_slots == SLOTS, "profile window lost a slot")
-    if rank != 0:
+    meet = group.barrier if group is not None else (lambda: None)
+    if group is not None and group.rank != 0:
+        for _ in range(steps):                # rank 0's untraced steps
+            eng.step()
+        meet()
+        for _ in range(steps):                # its traced steps
+            eng.step()
+        meet()
         eng.run()
         return
     t0 = time.perf_counter()
@@ -744,11 +758,13 @@ def phase_profile(cfg, eng, rng, steps=10, rank=0, tag="profile"):
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA],
             acc_events=True) as prof:
+        meet()
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) / steps
+    meet()
     host = cProfile.Profile()
     host.enable()
     for _ in range(steps):
@@ -1703,7 +1719,7 @@ def phase_mp_serve(group, cfg, params, seed, quant, gen, say, wave1=None):
     if quant in (None, "int8") and group.backend == "nccl":
         group.barrier()
         phase_profile(cfg, eng, np.random.default_rng(seed + 7),
-                      rank=group.rank, tag=f"mp-profile-{quant or 'bf16'}")
+                      group=group, tag=f"mp-profile-{quant or 'bf16'}")
     rec = tp_overlap.serving_step_record(cfg, eng._mp_cfg, SLOTS, 1)
     decode_tokens = c["tokens_out"] - len(reqs)
     stats = {
@@ -2206,17 +2222,20 @@ def phase_tp_train(group, seed, say, num_layers=None,
 def phase_tp_profile(group, step, ids, say, tag="tp-profile"):
     """Where a tensor- or pipeline-parallel step's time goes on rank 0:
     torch.profiler (device kernels) over one step, grouped by kind. Every
-    rank runs the step; rank 0 traces it."""
+    rank runs the step; rank 0 traces it. The ranks start it together once
+    rank 0's profiler is on (a dp step's rows 10-11 would otherwise wait
+    in their 10 s barrier while the profiler starts)."""
     step(ids)
     torch.cuda.synchronize()
-    group.barrier()
     if group.rank != 0:
+        group.barrier()
         step(ids)
         torch.cuda.synchronize()
         return None
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA],
             acc_events=True) as prof:
+        group.barrier()
         t0 = time.perf_counter()
         float(step(ids))
         traced = time.perf_counter() - t0
@@ -3200,6 +3219,7 @@ def phase_dp_profile(group, step, mine, say):
                            tag="dp-profile")
     group.barrier()
     if group.rank != 0:
+        group.barrier()
         step(mine, mine)
         torch.cuda.synchronize()
         return {"failed": []}
@@ -3207,6 +3227,7 @@ def phase_dp_profile(group, step, mine, say):
             activities=[torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA],
             acc_events=True) as prof:
+        group.barrier()                       # the ranks step together
         float(step(mine, mine))
     ranges = ("train_step/forward", "grad_comm/reduce_scatter",
               "train_step/clip", "train_step/optimizer",
@@ -3367,6 +3388,7 @@ def dp_rank_main(group, seed):
         if per_card and rung == "fused":
             out["profile"] = phase_dp_profile(group, step, mine, say)
             failed += out["profile"]["failed"]
+            group.barrier()           # rank 0 has read its traces
         del step, mine
         torch.cuda.empty_cache()
     failed += phase_dp_parity(group, seed, say)

@@ -1,30 +1,33 @@
-// Flash attention's forward and dK/dV kernels for Hopper (sm_90a): wgmma
-// products fed by TMA loads through an mbarrier ring.
+// Flash attention's forward, dQ and dK/dV kernels for Hopper (sm_90a):
+// wgmma products fed by TMA loads through an mbarrier ring.
 //
-// Replaces two TPU kernels of paddle_tpu/ops/pallas_kernels/:
-//   flash_attention.py:_fwd_kernel      (pallas_call at :280) -> flash_fwd_kernel
-//   flash_attention_bwd.py:_dkv_kernel  (pallas_call at :300) -> flash_dkv_kernel
+// Replaces three TPU kernels of paddle_tpu/ops/pallas_kernels/:
+//   flash_attention.py:_fwd_kernel  (pallas_call at :280) -> flash_fwd_kernel
+//   flash_attention_bwd.py:_dq_kernel  (pallas_call at :286) -> flash_dq_kernel
+//   flash_attention_bwd.py:_dkv_kernel (pallas_call at :300) -> flash_dkv_kernel
 // in their causal and non-causal forms (no bias, segment ids or dropout).
-// The dQ kernel (_dq_kernel) stays in flash_attention.cu. For each batch b
-// and head h, with s = q.k * scale:
+// For each batch b and head h, with s = q.k * scale:
 //
 //   forward  O = softmax(s) V, LSE = logsumexp(s) (natural log, masked keys
 //            excluded)
-//   dK, dV   P = exp(s - LSE), dP = dO V^T, dS = P (dP - delta) scale,
-//            dV = P^T dO, dK = dS^T Q   (delta = rowsum(dO o O), computed
-//                                        beside the kernels in PyTorch)
+//   dQ       P = exp(s - LSE), dP = dO V^T, dS = P (dP - delta) scale,
+//            dQ = dS K
+//   dK, dV   P and dS as for dQ, dV = P^T dO, dK = dS^T Q
+//            (delta = rowsum(dO o O), computed beside the kernels in
+//            PyTorch)
 //
 // q, k, v and dO are read in their [B, S, H, D] layout through a TMA tensor
 // map per operand (4-D, innermost first: D, H, S, B, with the caller's byte
-// strides), so the model's qkv split is read in place. O, dK and dV are
-// written contiguous [B, S, H, D] bf16; LSE and delta are fp32 [B*H, S].
-// Any S >= 1; head dims 64 and 128; bf16.
+// strides), so the model's qkv split is read in place. O, dQ, dK and dV
+// are written contiguous [B, S, H, D] bf16; LSE and delta are fp32
+// [B*H, S]. Any S >= 1; head dims 64 and 128; bf16.
 //
 // What bounds them on an H100: operations. At the GPT-3 1.3B training
 // shapes (B=8, S=2048, 16 heads of 128, causal) the forward does 1.37e11
-// flops on 270 MB and dK/dV 2.75e11 on 404 MB: over 500 flops a byte,
-// above the ~295 at which the bf16 tensor cores (989 TFLOP/s), not HBM,
-// become the limit. So the design keeps the tensor cores fed:
+// flops on 270 MB, dQ 2.06e11 on 337 MB and dK/dV 2.75e11 on 404 MB: over
+// 500 flops a byte, above the ~295 at which the bf16 tensor cores (989
+// TFLOP/s), not HBM, become the limit. So the design keeps the tensor
+// cores fed:
 //
 // * Products are warpgroup wgmma.mma_async (m64nNk16, bf16 in, fp32
 //   accumulators). Operands that live in shared memory are read there by
@@ -35,29 +38,30 @@
 // * Tiles arrive by TMA (cp.async.bulk.tensor) with the 128-byte swizzle,
 //   as boxes of 64 columns (128 bytes, the swizzle's row) by the tile's
 //   rows: a d=128 tile is two boxes side by side. The descriptors use the
-//   same swizzle: K-major operands (Q and K in S = Q K^T; K, V, Q, dO in
-//   the dK/dV kernel's S^T and dP^T) step 32 bytes inside the swizzle row
-//   per k16 slice; MN-major operands (V in O += P V; dO and Q in dV += P^T
-//   dO and dK += dS^T Q) are read transposed through the descriptor's
-//   transpose bit, one 64-column box per instruction, so no transposed
-//   copy is ever made. Every descriptor carries 1024 bytes (8 rows of 128
+//   same swizzle: K-major operands (Q and K in S = Q K^T; dO and V in dQ's
+//   dP = dO V^T; K, V, Q, dO in the dK/dV kernel's S^T and dP^T) step 32
+//   bytes inside the swizzle row per k16 slice; MN-major operands (V in O
+//   += P V; K in dQ += dS K; dO and Q in dV += P^T dO and dK += dS^T Q)
+//   are read transposed through the descriptor's transpose bit, one
+//   64-column box per instruction, so no transposed copy is ever made. Every descriptor carries 1024 bytes (8 rows of 128
 //   bytes) as the stride between 8-row groups.
 // * Loads run ahead through a ring of stages, each with a full barrier (an
 //   arrive with the stage's byte count; TMA's transaction bytes complete
 //   it) and an empty barrier (every consumer thread arrives when its
 //   products have read the stage), so the loads of the next tiles overlap
-//   this tile's products and softmax. The forward is warp-specialised:
-//   warps 0-7 are two consumer warpgroups, warps 8-11 a producer
-//   warpgroup whose first thread issues every load and refills a stage as
-//   soon as it is empty; setmaxnreg moves registers from the producer to
-//   the consumers, which take turns issuing S = Q K^T (named barriers) so
-//   that one's product overlaps the other's softmax. A block of 384
+//   this tile's products and softmax. The forward and dQ are
+//   warp-specialised: warps 0-7 are two consumer warpgroups, warps 8-11 a
+//   producer warpgroup whose first thread issues every load and refills a
+//   stage as soon as it is empty; setmaxnreg moves registers from the
+//   producer to the consumers. The forward's consumers take turns issuing
+//   S = Q K^T (named barriers) so that one's product overlaps the other's
+//   softmax (the same turns cost dQ 5 % and dK/dV 17 %). A block of 384
 //   threads is compiled to 168 registers a thread (65536 / 384; ptxas of
 //   CUDA 12.9 reports that count whatever setmaxnreg asks), which holds
-//   the forward's O and S accumulators but not dK/dV's: that kernel runs
-//   the two consumer warpgroups alone (256 threads, up to 255 registers)
-//   and its thread 0 issues the loads two steps ahead through a 3-stage
-//   ring.
+//   the forward's O and S accumulators and dQ's accumulator with S and dP
+//   of 64 keys, but not dK/dV's two accumulators: that kernel runs the two
+//   consumer warpgroups alone (256 threads, up to 255 registers) and its
+//   thread 0 issues the loads two steps ahead through a 3-stage ring.
 // * Forward: one block per (b*h, 128-row q tile), heaviest causal tiles
 //   first; each consumer warpgroup owns 64 q rows. Q is loaded once; K
 //   and V tiles of 128 keys stream through the ring. The online softmax
@@ -72,14 +76,26 @@
 //   dP^T = V dO^T put keys on wgmma's M, so P^T and dS^T are already the
 //   A operands of dV += P^T dO and dK += dS^T Q. Every dK/dV row is owned
 //   by one block: no atomics, the same bits on every run.
+// * dQ: the forward's grid and loop with the LSE known (no online
+//   softmax): one block per (b*h, 128-row q tile), heaviest first, each
+//   consumer warpgroup owning 64 q rows; Q and dO are loaded once and
+//   stay (the A operands of S = Q K^T and dP = dO V^T); tiles of 64 keys
+//   of K and V stream through a 3-stage ring. Each thread loads the LSE
+//   and delta of its two rows once, by plain loads. S and dP are two
+//   commit groups, so P is computed while dP is in the tensor cores; dS
+//   goes from the accumulators into the A fragments of dQ += dS K. Every
+//   dQ row is owned by one block and sums its key tiles in order: no
+//   atomics, the same bits on every run (dQ is not folded into dK/dV's
+//   block, which would need a sum across blocks).
 // * The mask is evaluated only where it can bite: the forward's last key
 //   tile (the diagonal when causal, the one holding key S-1 otherwise); in
-//   dK/dV the diagonal q tile and the one holding q row S-1. What TMA
-//   reads past S comes as zeros: such keys are masked to -inf in the
-//   forward and such q rows to P = 0 in dK/dV, the sums over them; the
-//   output rows past S (forward q rows, dK/dV keys) are computed and not
-//   written. A dK/dV warpgroup whose keys all lie above a causal q tile
-//   skips it.
+//   dQ the key tiles on the warpgroup's diagonal and the one holding key
+//   S-1; in dK/dV the diagonal q tile and the one holding q row S-1. What
+//   TMA reads past S comes as zeros: such keys are masked to -inf in the
+//   forward and to P = 0 in dQ, such q rows to P = 0 in dK/dV, the sums
+//   over them; the output rows past S (forward and dQ q rows, dK/dV keys)
+//   are computed and not written. A dQ or dK/dV warpgroup whose rows all
+//   lie before a causal tile's keys skips it.
 // * Every mbarrier wait is bounded by %globaltimer: a wait that outlasts
 //   kWaitTimeoutNs writes the kernel, block, warp, barrier, parity and
 //   loop step into a host-mapped record and traps, so a phase slip fails
@@ -116,9 +132,19 @@ constexpr int kFwdBq = 128;       // q rows per forward block
 constexpr int kFwdBk = 128;       // keys per forward loop step
 constexpr int kDkvBk = 128;       // keys per dK/dV block
 constexpr int kDkvBq = 64;        // q rows per dK/dV loop step
+constexpr int kDqBq = 128;        // q rows per dQ block
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned long long kWaitTimeoutNs = 10000000000ull;  // 10 s
+// Arrivals that complete a stage's full barrier: the loads' one. A test
+// build (-DFLASH_SM90_STUCK) expects one more, which never comes, so every
+// kernel's first wait on a stage times out and leaves its record (the
+// forced-timeout card test; the shipped library is never built so).
+#ifdef FLASH_SM90_STUCK
+constexpr uint32_t kFullCount = 2;
+#else
+constexpr uint32_t kFullCount = 1;
+#endif
 
 // Error codes of the launch functions besides cudaError_t's.
 constexpr int kErrHeadDim = -1;
@@ -133,10 +159,10 @@ constexpr int kErrMapArgs = -4;
 // wgmma instructions.
 struct WaitRecord {
   int code;       // 0: none; 1: an mbarrier wait timed out
-  int row;        // the kernel's PERF.md row: 4 forward, 6 dK/dV
+  int row;        // the kernel's PERF.md row: 4 forward, 5 dQ, 6 dK/dV
   int block_x;
   int block_y;
-  int warp;       // 8: the forward's producer
+  int warp;       // 8: the forward's or dQ's producer
   int barrier;    // index into the block's barrier array
   int parity;     // the phase parity waited for
   int step;       // the loop step (-1 before the loop)
@@ -489,7 +515,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x == 0) {
     mbar_init(w.at(0), 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(w.at(1 + s), 1);
+      mbar_init(w.at(1 + s), kFullCount);
       mbar_init(w.at(1 + kStages + s), kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -699,7 +725,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   if (issuer) {
     mbar_init(w.at(0), 1);
     for (int s = 0; s < ST; ++s) {
-      mbar_init(w.at(1 + s), 1);
+      mbar_init(w.at(1 + s), kFullCount);
       mbar_init(w.at(1 + ST + s), kDkvThreads);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -848,6 +874,240 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     }
 }
 
+// ------------------------------------------------------------------- dQ
+// The forward's loop with the LSE known: Q and dO stay, K and V tiles of
+// 64 keys stream, filled by the producer warpgroup. Each consumer thread
+// holds dQ's accumulator of its two q rows (64 fp32 at d=128) beside S
+// and dP of the key tile (32 each), which fits the 168 registers ptxas
+// gives a 384-thread block. The FLASH_DQ_* switches build the forms
+// measured against this one (`chip_compare.py dq-variants`; PERF.md §6):
+// 128-key tiles, thread 0 filling the ring in a 256-thread block instead
+// of a producer warpgroup, another stage count, and the forward's
+// named-barrier turns on the S and dP products. The shipped library
+// takes the defaults.
+#ifndef FLASH_DQ_BK
+#define FLASH_DQ_BK 64
+#endif
+#ifndef FLASH_DQ_PRODUCER
+#define FLASH_DQ_PRODUCER 1
+#endif
+#ifndef FLASH_DQ_STAGES
+#define FLASH_DQ_STAGES 3
+#endif
+#ifndef FLASH_DQ_TURNS
+#define FLASH_DQ_TURNS 0
+#endif
+constexpr int kDqBk = FLASH_DQ_BK;  // keys per loop step
+constexpr bool kDqProducer = FLASH_DQ_PRODUCER;
+constexpr int kDqStages = FLASH_DQ_STAGES;
+constexpr bool kDqTurns = FLASH_DQ_TURNS;
+constexpr int kDqThreads = kDqProducer ? kThreads : kConsumers;
+
+template <int D>
+struct DqSmem {
+  static constexpr int kQT = kDqBq * D * 2;         // Q or dO, whole block
+  static constexpr int kTile = kDqBk * D * 2;       // one K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQT;
+  static constexpr int kStage0 = 2 * kQT;
+  static constexpr int kStageBytes = 2 * kTile;     // K then V
+  static constexpr int kBytes = kStage0 + kDqStages * kStageBytes + 1024;
+};
+
+// d[64 x 8 NB] (+)= A[64x16] B[16 x 8 NB], both K-major in shared memory,
+// at the key tile's width
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint32_t a,
+                                         uint32_t b, int accumulate) {
+  wgmma_ss_n64(d, a, b, accumulate);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint32_t a,
+                                         uint32_t b, int accumulate) {
+  wgmma_ss_n128(d, a, b, accumulate);
+}
+
+// barriers: 0 Q and dO full; 1 + s stage s full; 1 + kDqStages + s empty
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dq, int S, int H, float scale,
+                float scale_log2, WaitRecord* rec) {
+  using L = DqSmem<D>;
+  constexpr int BQ = kDqBq, BK = kDqBk, ND = D / kBoxCols;
+  constexpr int ST = kDqStages;
+  extern __shared__ uint8_t smem[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * ST];
+  const uint32_t base = aligned_base(smem);
+  const Waiter w{smem_u32(bars), rec, 5};
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warpgroup();
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest first
+  const int kv_end = kCausal ? min(S, q0 + BQ) : S;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+
+  // K and V keys of loop step i into its stage
+  auto load_step = [&](int i) {
+    const int s = i % ST;
+    const uint32_t st = base + L::kStage0 + s * L::kStageBytes;
+    mbar_expect_tx(w.at(1 + s), 2 * L::kTile);
+    tma_tile<D>(st, &tk, w.at(1 + s), BK, h, i * BK, b);
+    tma_tile<D>(st + L::kTile, &tv, w.at(1 + s), BK, h, i * BK, b);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(w.at(0), 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(w.at(1 + s), kFullCount);
+      mbar_init(w.at(1 + ST + s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect_tx(w.at(0), 2 * L::kQT);
+    tma_tile<D>(base + L::kQ, &tq, w.at(0), BQ, h, q0, b);
+    tma_tile<D>(base + L::kDo, &tdo, w.at(0), BQ, h, q0, b);
+    if (!kDqProducer)
+      for (int i = 0; i < ST - 1 && i < n_tiles; ++i) load_step(i);
+  }
+  __syncthreads();
+
+  if constexpr (kDqProducer) {
+    if (wg == kConsumerWarps / 4) {                   // the producer
+      setmaxnreg_dec<kProducerRegs>();
+      if (warp == kConsumerWarps && lane == 0)
+        for (int it = 0; it < n_tiles; ++it) {
+          if (it >= ST) w.wait(1 + ST + it % ST, ((it / ST) - 1) & 1, it);
+          load_step(it);
+        }
+      return;
+    }
+    setmaxnreg_inc<kConsumerRegs>();
+  }
+
+  // a consumer: warpgroup wg owns q rows [qw, qw + 64)
+  const int g = lane / 4, t = lane % 4;
+  const int qw = q0 + 64 * wg;
+  const int row[2] = {qw + 16 * (warp % 4) + g, qw + 16 * (warp % 4) + g + 8};
+  // this thread's rows' LSE (log2 units) and delta, 0 past S
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long at = static_cast<long long>(bh) * S + row[i];
+    lse2[i] = row[i] < S ? __ldg(lse + at) * kLog2e : 0.f;
+    dlt[i] = row[i] < S ? __ldg(delta + at) : 0.f;
+  }
+  float acc[ND][32];
+#pragma unroll
+  for (int c = 0; c < ND; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  const uint32_t q_lo = desc_lo(base + L::kQ + wg * 64 * kRowBytes);
+  const uint32_t do_lo = desc_lo(base + L::kDo + wg * 64 * kRowBytes);
+
+  if (kDqTurns && wg == 1) turn_pass(wg);    // warpgroup 0 goes first
+  w.wait(0, 0, -1);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % ST, key0 = it * BK;
+    if (!kDqProducer && threadIdx.x == 0 && it + ST - 1 < n_tiles) {
+      // step it + ST - 1 goes where step it - 1 was, once both
+      // warpgroups are done with it: the other may lag this one a step
+      if (it > 0) w.wait(1 + ST + (it - 1) % ST, ((it - 1) / ST) & 1, it);
+      load_step(it + ST - 1);
+    }
+    const uint32_t k_lo = desc_lo(base + L::kStage0 + s * L::kStageBytes);
+    const uint32_t v_lo = desc_at(k_lo, L::kTile);
+    const uint32_t qa = opaque(q_lo), doa = opaque(do_lo);
+    w.wait(1 + s, (it / ST) & 1, it);
+    __syncwarp();
+    if (kCausal && !kDqTurns && key0 > qw + 63) {  // every key above
+      mbar_arrive(w.at(1 + ST + s));                // every row
+      continue;
+    }
+
+    // S = Q K^T and dP = dO V^T over the D / 16 k16 slices of the head
+    // dim, as two groups: P is computed while dP is in the tensor cores
+    float sc[BK / 2], dp[BK / 2];
+    if (kDqTurns) turn_wait(wg);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, desc_at(qa, (kk / 4) * BQ * kRowBytes + kk % 4 * 32),
+               desc_at(k_lo, (kk / 4) * BK * kRowBytes + kk % 4 * 32),
+               kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, desc_at(doa, (kk / 4) * BQ * kRowBytes + kk % 4 * 32),
+               desc_at(v_lo, (kk / 4) * BK * kRowBytes + kk % 4 * 32),
+               kk > 0);
+    wgmma_commit();
+    if (kDqTurns && (wg == 0 || it + 1 < n_tiles)) turn_pass(wg);
+    wgmma_wait<1>();                      // S is in
+    fence_regs(sc);
+
+    // P = exp2(s scale_log2 - LSE log2e), 0 where the mask bites: keys
+    // past S (TMA's zeros) and, when causal, keys after the row
+    const bool masked = (kCausal && key0 + BK - 1 > qw) || key0 + BK > S;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(sc[4 * n + e], scale_log2, -lse2[e >> 1]));
+        if (masked) {
+          const int col = key0 + 8 * n + 2 * t + (e & 1);
+          if (col >= S || (kCausal && col > row[e >> 1])) p = 0.f;
+        }
+        sc[4 * n + e] = p;
+      }
+    wgmma_wait<0>();                      // dP is in
+    fence_regs(dp);
+
+    // dS = P (dP - delta) scale, rounded into A fragments
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * n + e] =
+            sc[4 * n + e] * (dp[4 * n + e] - dlt[e >> 1]) * scale;
+    uint32_t da[BK / 16][4];
+    acc_to_a<BK / 8>(da, dp);
+
+    // dQ += dS K: K's rows are the k dim, read MN-major, one box a product
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+      for (int c = 0; c < ND; ++c)
+        wgmma_rs_n64_t(acc[c], da[j],
+                       desc_at(k_lo, c * BK * kRowBytes + 16 * j * kRowBytes));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < ND; ++c) fence_regs(acc[c]);
+    fence_regs(da);
+    mbar_arrive(w.at(1 + ST + s));
+  }
+
+  __nv_bfloat16* out = dq + (static_cast<long long>(b) * S * H + h) * D;
+  const long long os = static_cast<long long>(H) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (row[i] < S) {
+#pragma unroll
+      for (int c = 0; c < ND; ++c)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<uint32_t*>(out + row[i] * os + c * 64 + 8 * n +
+                                       2 * t) =
+              pack_bf16(acc[c][4 * n + 2 * i], acc[c][4 * n + 2 * i + 1]);
+    }
+}
+
 // ------------------------------------------------------------- host side
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
@@ -989,6 +1249,32 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
+template <int D, bool C>
+int dq(const void* q, const void* k, const void* v, const void* dout,
+       const void* lse, const void* delta, void* dqp, int B, int S, int H,
+       const long long* maps, float scale, cudaStream_t stream) {
+  static unsigned ready = 0;
+  constexpr int smem = DqSmem<D>::kBytes;
+  auto kernel = flash_dq_kernel<D, C>;
+  cudaError_t err = allow_smem(kernel, smem, &ready);
+  if (err != cudaSuccess) return err;
+  WaitRecord* rec = nullptr;
+  if ((err = record(&rec)) != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv, tdo;
+  int rc;
+  if ((rc = encode(&tq, maps, q, kDqBq)) ||
+      (rc = encode(&tk, maps + kMapArgs, k, kDqBk)) ||
+      (rc = encode(&tv, maps + 2 * kMapArgs, v, kDqBk)) ||
+      (rc = encode(&tdo, maps + 3 * kMapArgs, dout, kDqBq)))
+    return rc;
+  const dim3 grid((S + kDqBq - 1) / kDqBq, B * H);
+  kernel<<<grid, kDqThreads, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dqp), S,
+      H, scale, scale * kLog2e, rec);
+  return cudaGetLastError();
+}
+
 // Calls FN<D, causal>(args...) for the runtime D and causal.
 #define FLASH_DISPATCH(FN, ...)                                 \
   do {                                                          \
@@ -1027,6 +1313,18 @@ extern "C" int flash_sm90_dkv_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(dkv, q, k, v, dout, lse, delta, dkp, dvp, B, S, H, maps,
                  scale, s);
+}
+
+extern "C" int flash_sm90_dq_launch(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dqp, int B, int S, int H,
+                                    int head_dim, int causal,
+                                    const long long* maps, float scale,
+                                    void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dqp, B, S, H, maps, scale, s);
 }
 
 // The timeout record's 8 ints (code, row, block x, block y, warp, barrier,

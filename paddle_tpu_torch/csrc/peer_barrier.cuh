@@ -29,7 +29,10 @@
 // when ranks time-slice one card) records who waited for whom in the
 // host-mapped error record and traps; the wrapper turns the sticky CUDA
 // error that follows into a RuntimeError naming the row, the rank and the
-// epoch.
+// epoch. The first wait to time out takes the record; the others (every
+// block waits for the same missing peer) wait, bounded, until its code is
+// set before they trap, since a trap ends the grid with the record's
+// writes still in flight.
 
 #pragma once
 
@@ -110,6 +113,13 @@ __device__ __noinline__ void fail(const Peers& a, int p, uint32_t e,
     __threadfence_system();
     r->code = 1;
     __threadfence_system();
+  } else {
+    // another block holds the record: let it finish writing before a
+    // trap ends the grid (and with it the writes in flight)
+    const volatile int* code = &a.err->code;
+    const unsigned long long t0 = global_ns();
+    while (*code == 0 && global_ns() - t0 < a.timeout_ns) {
+    }
   }
   __trap();
 }

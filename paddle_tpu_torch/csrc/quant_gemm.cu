@@ -69,7 +69,7 @@
 //   while this step computes. Fragments come from shared memory by
 //   ldmatrix (the weight's transposed), and the products run on the tensor
 //   cores as warp-level mma.sync m16n8k16 with fp32 accumulators (the
-//   fragment layout of flash_attention.cu). bf16 products are exact in
+//   PTX ISA's m16n8k16 fragment layout). bf16 products are exact in
 //   fp32, so this computes the stream kernel's sums up to their order. A
 //   launch of few tiles splits k over blocks like the stream kernel. fp32
 //   x always takes the stream kernel: rounding x to bf16 would change the

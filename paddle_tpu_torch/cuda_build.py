@@ -45,7 +45,11 @@ def nvcc_path():
                        "paddle_tpu_torch are built from source at first use")
 
 
-def _target(name, source):
+def _flags(defines):
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _target(name, source, defines=()):
     """(source path, library path) of ``csrc/<source>``: the library is
     named by a digest of the source, the shared headers of ``csrc/`` and
     the flags."""
@@ -53,25 +57,27 @@ def _target(name, source):
     headers = b"".join(h.read_bytes()
                        for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            " ".join(_flags(defines)).encode()
+                            ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_all(sources):
+def build_all(sources, defines=()):
     """Build every library of ``{name: source}`` that is not in ``_build/``
     yet, one nvcc process per source, all started together, and wait for
-    all of them. Raises with nvcc's output when a build fails; no process
-    outlives the call."""
+    all of them; ``defines`` (``NAME`` or ``NAME=VALUE``) go to every
+    source's nvcc as ``-D``. Raises with nvcc's output when a build fails;
+    no process outlives the call."""
     t0 = time.perf_counter()
     procs = {}
     try:
         for name, source in sources.items():
-            src, lib = _target(name, source)
+            src, lib = _target(name, source, defines)
             if lib.exists():
                 continue
             BUILD_DIR.mkdir(exist_ok=True)
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [nvcc_path(), *_flags(defines), "-o", str(tmp), str(src)]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.PIPE,
                                             text=True), src, tmp, lib)
@@ -93,12 +99,12 @@ def build_all(sources):
                 tmp.unlink(missing_ok=True)
 
 
-def load_library(name, source):
+def load_library(name, source, defines=()):
     """Build ``csrc/<source>`` (if its digest is not in ``_build/`` yet)
     and return the loaded ``ctypes.CDLL``. Raises with nvcc's output when
     the build fails."""
-    build_all({name: source})
-    _, lib = _target(name, source)
+    build_all({name: source}, defines)
+    _, lib = _target(name, source, defines)
     handle = ctypes.CDLL(str(lib))
     BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "",
                                  "path": str(lib)})

@@ -1,7 +1,7 @@
 """Flash attention on [B, S, H, D]: the hand-written CUDA kernels
-(``csrc/flash_sm90.cu``: forward and dK/dV, wgmma fed by TMA;
-``csrc/flash_attention.cu``: dQ), their wrappers, their plain PyTorch
-versions, and the differentiable ``flash_attention_bshd``.
+(``csrc/flash_sm90.cu``: forward, dQ and dK/dV, wgmma fed by TMA), their
+wrappers, their plain PyTorch versions, and the differentiable
+``flash_attention_bshd``.
 
 Counterpart of ``paddle_tpu/ops/pallas_kernels/flash_attention.py``
 (``_fwd_kernel`` through ``_pallas_forward``, ``flash_attention_bshd`` and
@@ -175,26 +175,17 @@ _INTS = [ctypes.c_int] * 5
 _TAIL = [_LL, ctypes.c_float, ctypes.c_void_p]
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    """The dQ kernel's library (``csrc/flash_attention.cu``)."""
-    lib = load_library("flash_attention", "flash_attention.cu")
-    lib.flash_dq_launch.argtypes = [ctypes.c_void_p] * 7 + _INTS + _TAIL
-    lib.flash_dq_launch.restype = ctypes.c_int
-    lib.flash_error_string.argtypes = [ctypes.c_int]
-    lib.flash_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _sm90_library():
-    """The forward and dK/dV kernels' library (``csrc/flash_sm90.cu``)."""
-    lib = load_library("flash_sm90", "flash_sm90.cu")
+def bind(lib):
+    """Set the argument and result types of a build of
+    ``csrc/flash_sm90.cu`` (a ctypes library); returns it."""
     lib.flash_sm90_fwd_launch.argtypes = (
         [ctypes.c_void_p] * 5 + _INTS + _TAIL)
+    lib.flash_sm90_dq_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + _INTS + _TAIL)
     lib.flash_sm90_dkv_launch.argtypes = (
         [ctypes.c_void_p] * 8 + _INTS + _TAIL)
-    for fn in (lib.flash_sm90_fwd_launch, lib.flash_sm90_dkv_launch):
+    for fn in (lib.flash_sm90_fwd_launch, lib.flash_sm90_dq_launch,
+               lib.flash_sm90_dkv_launch):
         fn.restype = ctypes.c_int
     lib.flash_sm90_wait_record.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.flash_sm90_wait_record.restype = None
@@ -203,9 +194,14 @@ def _sm90_library():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _sm90_library():
+    """The three kernels' library (``csrc/flash_sm90.cu``)."""
+    return bind(load_library("flash_sm90", "flash_sm90.cu"))
+
+
 def build():
-    """Build (or load the cached builds of) the kernel libraries now."""
-    _library()
+    """Build (or load the cached build of) the kernel library now."""
     _sm90_library()
 
 
@@ -214,13 +210,12 @@ WAIT_RECORD_FIELDS = ("code", "row", "block_x", "block_y", "warp",
 
 
 def wait_timeout_record():
-    """What the first mbarrier wait of the forward or dK/dV kernel that
-    timed out in this process was waiting for (a dict of
-    WAIT_RECORD_FIELDS: the kernel's PERF.md row, its block, its warp, 8
-    being the forward's producer, the barrier, the parity and the loop
-    step), or
-    None. Reads host memory only, so it works after the kernel's trap has
-    left the CUDA context unusable."""
+    """What the first mbarrier wait of a flash kernel (the forward, dQ or
+    dK/dV) that timed out in this process was waiting for (a dict of
+    WAIT_RECORD_FIELDS: the kernel's PERF.md row, 4, 5 or 6, its block,
+    its warp, 8 being the forward's or dQ's producer, the barrier, the
+    parity and the loop step), or None. Reads host memory only, so it
+    works after the kernel's trap has left the CUDA context unusable."""
     out = (ctypes.c_int * len(WAIT_RECORD_FIELDS))()
     _sm90_library().flash_sm90_wait_record(out)
     return dict(zip(WAIT_RECORD_FIELDS, out)) if out[0] else None
@@ -273,11 +268,6 @@ def _check_stats(q, *stats):
                              f"{tuple(t.shape)}")
 
 
-def _strides(*ts):
-    vals = [s for t in ts for s in t.stride()[:3]]
-    return (ctypes.c_longlong * len(vals))(*vals)
-
-
 # The TMA tiles of csrc/flash_sm90.cu: a load brings TMA_BOX_COLS columns
 # of one head (128 bytes, the row of the 128-byte swizzle) over a tile's
 # rows; a d=128 tile is two such boxes.
@@ -285,11 +275,13 @@ TMA_BOX_COLS = 64
 FWD_ROWS = 128           # forward: q rows per block, keys per loop step
 DKV_KEYS = 128           # dK/dV: keys per block
 DKV_Q_ROWS = 64          # dK/dV: q rows per step
+DQ_Q_ROWS = 128          # dQ: q rows per block
+DQ_KEYS = 64             # dQ: keys per step
 
 
 def tensor_map_args(t, rows):
     """The arguments of ``cuTensorMapEncodeTiled`` for one [B, S, H, D]
-    operand of the forward or dK/dV kernel, innermost dimension first:
+    operand of a flash kernel, innermost dimension first:
     ``dims`` (D, H, S, B); ``strides``, the byte strides of H, S and B, the
     caller's own (so the qkv split is read in place); ``box``, the tile a
     load brings: TMA_BOX_COLS columns of one head by ``rows`` rows of one
@@ -357,16 +349,17 @@ def flash_dq(q, k, v, do, lse, delta, causal=True, scale=None):
         return flash_dq_plain(q, k, v, do, lse, delta, causal, scale)
     _check(q, k, v, do)
     _check_stats(q, lse, delta)
-    lib = _library()
+    lib = _sm90_library()
     B, S, H, D = q.shape
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    maps = _map_records((q, DQ_Q_ROWS), (k, DQ_KEYS), (v, DQ_KEYS),
+                        (do, DQ_Q_ROWS))
     with torch.cuda.device(q.device):
-        rc = lib.flash_dq_launch(
+        rc = lib.flash_sm90_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, D,
-            int(causal), _strides(q, k, v, do), _scale(q, scale),
-            _stream(q))
-    _raise_on(rc, "dQ", lib.flash_error_string)
+            int(causal), maps, _scale(q, scale), _stream(q))
+    _raise_on(rc, "dQ", lib.flash_sm90_error_string)
     flash_dq.launches += 1
     return dq
 

@@ -113,11 +113,11 @@ def test_engine_decodes_through_the_kernel_on_card(cuda_device):
 # comment gives the reason: bf16 in and out, fp32 accumulation, P and dS
 # rounded to bf16 for the tensor cores). The LSE is fp32 on both sides and
 # differs only in summation order (atol = rtol = LSE_TOL).
-# The forward and dK/dV kernels (csrc/flash_sm90.cu) work in tiles of 128
-# rows (forward q rows and keys, dK/dV keys) and 64 rows (dK/dV q rows),
-# with TMA boxes of 64 columns: the lengths below put the ragged edge on
-# every side of those tiles, at both head dims, causal and full, at B*H =
-# 1 and at the train step's B*H = 128.
+# The kernels (csrc/flash_sm90.cu) work in tiles of 128 rows (forward q
+# rows and keys, dQ q rows, dK/dV keys) and 64 rows (dQ keys, dK/dV q
+# rows), with TMA boxes of 64 columns: the lengths below put the ragged
+# edge on every side of those tiles, at both head dims, causal and full,
+# at B*H = 1 and at the train step's B*H = 128.
 FLASH_EDGE_S = (1, 63, 64, 65, 127, 128, 129, 200, 2048)
 FLASH_CASES = [  # (B, S, H, D, causal)
     (8, 2048, 16, 128, True),
@@ -197,7 +197,7 @@ def test_flash_kernels_match_plain_on_card(cuda_device, case):
                                   (1, 129, 2, 64, False)],
                          ids=["train-step", "B1-S129-H2-D64-full"])
 def test_flash_kernels_give_the_same_bits_on_every_call(cuda_device, case):
-    """Each O, LSE, dK and dV row is computed by one block in a fixed
+    """Each O, LSE, dQ, dK and dV row is computed by one block in a fixed
     order (no atomics): two calls on the same inputs give the same bits.
     No mbarrier wait timed out on the way."""
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -205,14 +205,106 @@ def test_flash_kernels_give_the_same_bits_on_every_call(cuda_device, case):
     q, k, v, do = _flash_inputs(cuda_device, B, S, H, D, seed=5)
     o, lse = fa.flash_forward(q, k, v, causal)
     delta = fa.attention_delta(o, do)
-    first = (o, lse, *fa.flash_dkv(q, k, v, do, lse, delta, causal))
+    first = (o, lse, fa.flash_dq(q, k, v, do, lse, delta, causal),
+             *fa.flash_dkv(q, k, v, do, lse, delta, causal))
     o2, lse2 = fa.flash_forward(q, k, v, causal)
-    second = (o2, lse2, *fa.flash_dkv(q, k, v, do, lse, delta, causal))
+    second = (o2, lse2, fa.flash_dq(q, k, v, do, lse, delta, causal),
+              *fa.flash_dkv(q, k, v, do, lse, delta, causal))
     torch.cuda.synchronize()
-    for name, a, b in zip(("o", "lse", "dk", "dv"), first, second):
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), first, second):
         bits = torch.int32 if a.dtype == torch.float32 else torch.int16
         assert torch.equal(a.view(bits), b.view(bits)), name
     assert fa.wait_timeout_record() is None
+
+
+# A flash kernel in a process of its own, from a build of
+# csrc/flash_sm90.cu with FLASH_SM90_STUCK defined: every stage's full
+# barrier there expects one arrival that never comes, so the kernel's
+# first wait on a stage outlasts the 10 s bound and traps. Prints whether
+# synchronising raised and the wait record, as JSON, on its last line.
+STUCK_SCRIPT = """
+import json, sys
+import torch
+from paddle_tpu_torch import cuda_build
+from paddle_tpu_torch.ops import flash_attention as fa
+lib = fa.bind(cuda_build.load_library("flash_sm90_stuck", "flash_sm90.cu",
+                                      ("FLASH_SM90_STUCK",)))
+fa._sm90_library = lambda: lib
+row = int(sys.argv[1])
+q, k, v, do = (torch.randn(1, 256, 2, 64, device="cuda").bfloat16()
+               for _ in range(4))
+lse, delta = torch.zeros(2, 2, 256, device="cuda")
+call = {4: lambda: fa.flash_forward(q, k, v),
+        5: lambda: fa.flash_dq(q, k, v, do, lse, delta),
+        6: lambda: fa.flash_dkv(q, k, v, do, lse, delta)}[row]
+try:
+    call()
+    torch.cuda.synchronize()
+    raised = False
+except RuntimeError:
+    raised = True
+print(json.dumps({"raised": raised, "record": fa.wait_timeout_record()}))
+"""
+
+
+@pytest.mark.cuda
+def test_flash_wait_timeouts_trap_with_a_record_on_card(cuda_device):
+    """Rows 4, 5 and 6 with a stage barrier that never completes (the
+    FLASH_SM90_STUCK test build, each row in a process of its own, one
+    after the other: a context that faults while another spins on the
+    same card can leave the other hung): each launch traps instead of
+    hanging, and ``wait_timeout_record()`` names its row, a consumer or
+    producer warp of the block and the barrier it waited on."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    from paddle_tpu_torch import cuda_build
+    cuda_build.build_all({"flash_sm90_stuck": "flash_sm90.cu"},
+                         ("FLASH_SM90_STUCK",))   # once, here
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    for row in (4, 5, 6):
+        proc = subprocess.run([sys.executable, "-c", STUCK_SCRIPT, str(row)],
+                              cwd=root, env=env, capture_output=True,
+                              text=True, timeout=120)
+        lines = proc.stdout.strip().splitlines()
+        assert lines, (row, proc.stderr[-2000:])
+        got = json.loads(lines[-1])
+        rec = got["record"]
+        assert got["raised"], (row, got)
+        assert rec is not None and rec["code"] == 1 and rec["row"] == row, \
+            (row, rec)
+        assert 0 <= rec["warp"] <= 8 and rec["block_y"] < 2, (row, rec)
+        assert rec["barrier"] >= 1 and rec["step"] >= 0, (row, rec)
+
+
+@pytest.mark.cuda
+def test_peer_barrier_timeout_leaves_a_filled_record_on_card(cuda_device,
+                                                             tmp_path):
+    """Row 10 on a four-rank group sharing the card, called by rank 0
+    alone, at 4M columns: every block of its grid (264 on an H100) waits
+    at the entry barrier for three peers that never arrive, so hundreds
+    of waits time out at once. The kernel traps (synchronising raises),
+    the error record is filled in before the trap ends the grid (row 10,
+    rank 0, the entry barrier, epoch 1, a peer that never came), and the
+    next call raises naming it."""
+    import torch_dp_train_ranks as ranks
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    fc.build_rs_bucket()         # once, here: the ranks only load it
+    outs = env.launch(4, ranks.card_forced_timeout, 1 << 22, 2.0,
+                      layout="shared", timeout_s=300, init_dir=tmp_path)
+    got = outs[0]
+    rec = got["record"]
+    assert got["raised"], got
+    assert rec["code"] == 1 and rec["row"] == 10 and rec["rank"] == 0, rec
+    assert rec["at_end"] == 0 and rec["epoch"] == 1, rec
+    assert rec["peer"] in (1, 2, 3) and rec["seen"] == 0, rec
+    assert rec["block"] >= 0, rec
+    assert "row 10: rank 0's entry barrier at epoch 1" in got["next_call"]
+    assert outs[1:] == [{}, {}, {}]
 
 
 @pytest.mark.cuda

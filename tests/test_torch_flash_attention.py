@@ -163,8 +163,8 @@ def test_kernel_gate_passes_rounding_and_catches_a_missing_key_tile():
 
 
 # ----------------------------------------------- TMA tensor-map arguments
-# ``tensor_map_args`` is what the forward and dK/dV kernels' launch hands
-# to cuTensorMapEncodeTiled: checked here on CPU tensors, byte for byte.
+# ``tensor_map_args`` is what the flash kernels' launches hand to
+# cuTensorMapEncodeTiled: checked here on CPU tensors, byte for byte.
 def test_tensor_map_args_of_a_contiguous_tensor():
     t = torch.zeros(2, 256, 4, 128, dtype=torch.bfloat16)
     a = fa.tensor_map_args(t, fa.FWD_ROWS)
@@ -203,6 +203,42 @@ def test_tensor_map_args_keep_a_ragged_length(S):
     rec = list(fa._map_records((t, fa.DKV_Q_ROWS), (t, fa.DKV_KEYS)))
     assert rec == [64, 2, S, 1, 128, 256, S * 256, 64, 1, 64, 1,
                    64, 2, S, 1, 128, 256, S * 256, 64, 1, 128, 1]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_dq_tensor_map_args_read_the_qkv_split_in_place(D):
+    """The dQ kernel's four operands from the model's qkv split and a
+    contiguous dO: q and dO in boxes of DQ_Q_ROWS rows, k and v in boxes
+    of DQ_KEYS, each with its own tensor's strides, in the launch's
+    argument order; nothing is copied."""
+    B, S, H = 2, 256, 4
+    qkv = torch.zeros(B, S, 3, H, D, dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    rec = list(fa._map_records((q, fa.DQ_Q_ROWS), (k, fa.DQ_KEYS),
+                               (v, fa.DQ_KEYS), (do, fa.DQ_Q_ROWS)))
+    split = [D * 2, 3 * H * D * 2, S * 3 * H * D * 2]
+    dense = [D * 2, H * D * 2, S * H * D * 2]
+    want = []
+    for strides, rows in ((split, fa.DQ_Q_ROWS), (split, fa.DQ_KEYS),
+                          (split, fa.DQ_KEYS), (dense, fa.DQ_Q_ROWS)):
+        want += [D, H, S, B, *strides, fa.TMA_BOX_COLS, 1, rows, 1]
+    assert rec == want
+    assert all(fa._for_kernel(t) is t for t in (q, k, v, do))
+    # a key tile of the dQ loop is whole 128-byte swizzle periods (8 rows)
+    assert fa.DQ_KEYS % 8 == 0 and fa.DQ_Q_ROWS % 64 == 0
+
+
+@pytest.mark.parametrize("S", [1, 63, 65, 129, 200])
+def test_dq_tensor_map_args_keep_a_ragged_length(S):
+    """At a length that is no multiple of dQ's tiles the maps carry the
+    true S, which the kernel masks (keys) and does not store (q rows)."""
+    t = torch.zeros(1, S, 2, 128, dtype=torch.bfloat16)
+    for rows in (fa.DQ_Q_ROWS, fa.DQ_KEYS):
+        a = fa.tensor_map_args(t, rows)
+        assert a["dims"] == (128, 2, S, 1)
+        assert a["box"] == (fa.TMA_BOX_COLS, 1, rows, 1)
+        assert a["strides"] == (256, 512, S * 512)
 
 
 def test_tensor_map_args_refuse_what_the_kernels_copy_first():

@@ -1,5 +1,5 @@
 """The port stands alone: no file of ``paddle_tpu_torch/``, not
-``chip_smoke.py`` and not ``tests/torch_mp_ranks.py``,
+``chip_smoke.py`` or ``chip_compare.py`` and not ``tests/torch_mp_ranks.py``,
 ``tests/torch_tp_train_ranks.py``, ``tests/torch_pp_train_ranks.py`` or
 ``tests/torch_dp_train_ranks.py`` (the modules that spawned tensor-,
 pipeline- and data-parallel ranks import) imports jax or the JAX package
@@ -12,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mp_ranks.py",
+    [ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
+     ROOT / "tests" / "torch_mp_ranks.py",
      ROOT / "tests" / "torch_tp_train_ranks.py",
      ROOT / "tests" / "torch_pp_train_ranks.py",
      ROOT / "tests" / "torch_dp_train_ranks.py"]

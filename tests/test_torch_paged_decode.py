@@ -102,3 +102,17 @@ def test_build_digest_covers_shared_headers(tmp_path, monkeypatch):
     assert cuda_build._target("k", "k.cu")[1] == first
     (tmp_path / "conv.cuh").write_text("// two\n")
     assert cuda_build._target("k", "k.cu")[1] != first
+
+
+def test_build_digest_covers_defines(tmp_path, monkeypatch):
+    """A ``-D`` variant of a source (the flash kernels' forced-timeout
+    test build) is a library of its own: the digest covers the defines,
+    and the shipped build is never the variant's."""
+    from paddle_tpu_torch import cuda_build
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text("// k\n")
+    plain = cuda_build._target("k", "k.cu")[1]
+    stuck = cuda_build._target("k", "k.cu", ("FLASH_SM90_STUCK",))[1]
+    assert stuck != plain
+    assert cuda_build._target("k", "k.cu", ())[1] == plain
+    assert cuda_build._flags(("A", "B=2"))[-2:] == ("-DA", "-DB=2")

@@ -325,6 +325,42 @@ def card_rows(group, seed):
     return out
 
 
+def card_forced_timeout(group, cols, timeout_s):
+    """Row 10 where rank 0 alone calls ``fused_rs_bucket`` and its peers
+    never do: every block of rank 0's kernel (a bucket of ``cols``
+    columns: a grid of many blocks) waits at the entry barrier for peers
+    that never arrive, past ``timeout_s``, and traps. Returns, on rank 0,
+    what synchronising raised, the error record, and what the next call
+    raised. The peers keep their channels mapped until rank 0 is done;
+    rank 0's CUDA context is lost, so no rank tears its channel down
+    (process exit releases it)."""
+    from paddle_tpu_torch.distributed import peer
+    dev = group.device
+    stage = fc.rs_bucket_staging(group, (group.n, cols), torch.float32)
+    stage.fill_(1.0)
+    torch.cuda.synchronize(dev)
+    group.barrier()
+    out = {}
+    if group.rank == 0:
+        group.peer_channels[fc.RS_CHANNEL].timeout_ns = int(timeout_s * 1e9)
+        fc.fused_rs_bucket(stage, group)
+        try:
+            torch.cuda.synchronize(dev)
+            out["raised"] = None
+        except RuntimeError as e:
+            out["raised"] = str(e)
+        rec = peer._error_record()[0]
+        out["record"] = {name: getattr(rec, name) for name, _ in rec._fields_}
+        try:
+            fc.fused_rs_bucket(stage, group)
+            out["next_call"] = None
+        except RuntimeError as e:
+            out["next_call"] = str(e)
+    group.barrier()
+    group.peer_channels.clear()
+    return out
+
+
 # ------------------------------------------------------- the pull algebra
 def pull_algebra(group, cases):
     """The pull kernels' plain algebra against the plain rings on this
