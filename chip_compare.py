@@ -1,50 +1,22 @@
 #!/usr/bin/env python3
-"""Comparisons on one NVIDIA GPU that ``chip_smoke.py`` does not make:
+"""The one-card GPT-3 1.3B train step of two trees, in turns, on one
+NVIDIA GPU:
 
-    python3 chip_compare.py dq-variants
     python3 chip_compare.py train-turns PARENT_DIR
 
-``dq-variants`` builds the flash dQ kernel in each form of
-``DQ_VARIANTS`` (``-D`` switches of ``paddle_tpu_torch/csrc/flash_sm90.cu``;
-the first is the shipped form), prints ptxas's register and spill report
-of its instances, holds each against ``flash_dq_plain`` per element and
-per tile at chip_smoke's ``FLASH_CASES`` (and the same bits on a second
-call), and times each at chip_smoke's ``FLASH_TIMED_SHAPES`` by
-CUDA-graph replay, three times. Each form runs in a process of its own,
-so a form that traps leaves the others measurable.
-
-``train-turns`` runs chip_smoke's one-card GPT-3 1.3B train step
-(``phase_train``, then ``phase_train_profile``) from the tree at
-PARENT_DIR (a ``git archive`` of another commit) and from this one, in
-turns (parent, this, this, parent), each in a process of its own, and
-prints their ``[train]`` and ``[train-profile]`` lines.
-
-Both need a CUDA device and exit with another code than 0 without one.
+runs chip_smoke's train step (``phase_train``, then
+``phase_train_profile``) from the tree at PARENT_DIR (a ``git archive``
+of another commit) and from this one, in turns (parent, this, this,
+parent), each in a process of its own, and prints their ``[train]`` and
+``[train-profile]`` lines. Needs a CUDA device and exits with another
+code than 0 without one.
 """
 import os
 import subprocess
 import sys
-import threading
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# name -> the FLASH_DQ_* switches and the keys of a loop step
-# (ops/flash_attention.py:DQ_KEYS) of that form
-DQ_VARIANTS = {
-    "64 keys, producer warpgroup, 3 stages": ((), 64),
-    "64 keys, producer warpgroup, 2 stages": (("FLASH_DQ_STAGES=2",), 64),
-    "64 keys, producer warpgroup, 3 stages, turns": (
-        ("FLASH_DQ_TURNS=1",), 64),
-    "64 keys, thread 0 fills, 3 stages": (("FLASH_DQ_PRODUCER=0",), 64),
-    "128 keys, thread 0 fills, 2 stages": (
-        ("FLASH_DQ_BK=128", "FLASH_DQ_PRODUCER=0", "FLASH_DQ_STAGES=2"),
-        128),
-    "128 keys, thread 0 fills, 2 stages, turns": (
-        ("FLASH_DQ_BK=128", "FLASH_DQ_PRODUCER=0", "FLASH_DQ_STAGES=2",
-         "FLASH_DQ_TURNS=1"), 128),
-    "128 keys, producer warpgroup, 2 stages": (
-        ("FLASH_DQ_BK=128", "FLASH_DQ_STAGES=2"), 128),
-}
 TRAIN_RUN = """
 import torch
 import chip_smoke as cs
@@ -55,102 +27,8 @@ cs.phase_train_profile(step, ids)
 """
 
 
-def _lib_name(index):
-    return f"flash_sm90_dq_variant{index}"
-
-
 def _say(msg):
     print(msg, flush=True)
-
-
-def dq_variant(index):
-    """Check and time one form of DQ_VARIANTS (in its own process)."""
-    import torch
-
-    import chip_smoke as cs
-    from paddle_tpu_torch import cuda_build
-    from paddle_tpu_torch.ops import flash_attention as fa
-    name = list(DQ_VARIANTS)[index]
-    defines, keys = DQ_VARIANTS[name]
-    lib = fa.bind(cuda_build.load_library(_lib_name(index), "flash_sm90.cu",
-                                          defines))
-    fa._sm90_library = lambda: lib
-    fa.DQ_KEYS = keys
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    ok = True
-    for B, S, nh, d, causal in cs.FLASH_CASES:
-        q, k, v, do = cs.flash_inputs(gen, dev, B, S, nh, d)
-        o, lse = fa.flash_forward_plain(q, k, v, causal)
-        delta = fa.attention_delta(o, do)
-        dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
-        again = fa.flash_dq(q, k, v, do, lse, delta, causal)
-        torch.cuda.synchronize()
-        r = fa.error_vs_plain(dq, fa.flash_dq_plain(q, k, v, do, lse, delta,
-                                                    causal))
-        same = torch.equal(dq.view(torch.int16), again.view(torch.int16))
-        good = fa.within_tolerance(r) and same
-        ok &= good
-        _say(f"[{name}] B={B} S={S} nh={nh} d={d} "
-             f"{'causal' if causal else 'full'}: {'ok' if good else 'BAD'} "
-             f"(worst tile {r['tile_rel_l2']:.2e}, worst element "
-             f"{r['element']:.3f}, same bits {same})")
-    for path, B, S, nh, d in cs.FLASH_TIMED_SHAPES:
-        q, k, v, do = cs.flash_inputs(gen, dev, B, S, nh, d)
-        o, lse = fa.flash_forward_plain(q, k, v, True)
-        delta = fa.attention_delta(o, do)
-        times = [cs.graph_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta,
-                                                 True), iters=10)
-                 for _ in range(3)]
-        bound, _, nflops, _ = cs.flash_bound("flash_dq", B, S, nh, d, True)
-        best = min(times)
-        _say(f"[{name}] {path} B={B} S={S} nh={nh} d={d} causal: "
-             f"{' / '.join(f'{t:.4f}' for t in times)} ms -> "
-             f"{nflops / best / 1e9:.1f} TFLOP/s, {bound / best:.1%} of "
-             f"bound")
-    if not ok:
-        raise SystemExit(f"[{name}] disagrees with flash_dq_plain")
-
-
-def dq_variants():
-    from paddle_tpu_torch import cuda_build
-    errors = {}
-
-    def build(index):
-        try:
-            cuda_build.build_all({_lib_name(index): "flash_sm90.cu"},
-                                 list(DQ_VARIANTS.values())[index][0])
-        except RuntimeError as e:
-            errors[index] = str(e)
-
-    threads = [threading.Thread(target=build, args=(i,))
-               for i in range(len(DQ_VARIANTS))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    failed = []
-    for index, name in enumerate(DQ_VARIANTS):
-        if index in errors:
-            _say(f"[{name}] build failed:\n{errors[index][-4000:]}")
-            failed.append(name)
-            continue
-        entry = None
-        for line in cuda_build.BUILD_INFO[_lib_name(index)]["log"] \
-                .splitlines():
-            if "Compiling entry" in line or "Function properties" in line:
-                entry = "flash_dq_kernel" in line
-            elif entry and ("registers" in line or "spill" in line):
-                _say(f"[{name}] ptxas: {line.strip()}")
-        proc = subprocess.run([sys.executable, __file__, "dq-variant",
-                               str(index)], cwd=ROOT, capture_output=True,
-                              text=True, timeout=600)
-        sys.stdout.write(proc.stdout)
-        if proc.returncode:
-            _say(f"[{name}] exit {proc.returncode}: {proc.stderr[-3000:]}")
-            failed.append(name)
-    if failed:
-        raise SystemExit(f"failed: {failed}")
 
 
 def train_turns(parent):
@@ -180,11 +58,7 @@ def main(argv):
     _say(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader"], capture_output=True,
                         text=True).stdout.strip())
-    if argv[:1] == ["dq-variants"] and len(argv) == 1:
-        dq_variants()
-    elif argv[:1] == ["dq-variant"] and len(argv) == 2:
-        dq_variant(int(argv[1]))
-    elif argv[:1] == ["train-turns"] and len(argv) == 2:
+    if argv[:1] == ["train-turns"] and len(argv) == 2:
         train_turns(argv[1])
     else:
         raise SystemExit(__doc__)

@@ -43,8 +43,9 @@
 //   bytes inside the swizzle row per k16 slice; MN-major operands (V in O
 //   += P V; K in dQ += dS K; dO and Q in dV += P^T dO and dK += dS^T Q)
 //   are read transposed through the descriptor's transpose bit, one
-//   64-column box per instruction, so no transposed copy is ever made. Every descriptor carries 1024 bytes (8 rows of 128
-//   bytes) as the stride between 8-row groups.
+//   64-column box per instruction, so no transposed copy is ever made.
+//   Every descriptor carries 1024 bytes (8 rows of 128 bytes) as the
+//   stride between 8-row groups.
 // * Loads run ahead through a ring of stages, each with a full barrier (an
 //   arrive with the stage's byte count; TMA's transaction bytes complete
 //   it) and an empty barrier (every consumer thread arrives when its
@@ -135,15 +136,16 @@ constexpr int kDkvBq = 64;        // q rows per dK/dV loop step
 constexpr int kDqBq = 128;        // q rows per dQ block
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr unsigned long long kWaitTimeoutNs = 10000000000ull;  // 10 s
 // Arrivals that complete a stage's full barrier: the loads' one. A test
 // build (-DFLASH_SM90_STUCK) expects one more, which never comes, so every
-// kernel's first wait on a stage times out and leaves its record (the
-// forced-timeout card test; the shipped library is never built so).
+// kernel's first wait on a stage times out after 1 s and leaves its record
+// (the forced-timeout card test; the shipped library is never built so).
 #ifdef FLASH_SM90_STUCK
 constexpr uint32_t kFullCount = 2;
+constexpr unsigned long long kWaitTimeoutNs = 1000000000ull;   // 1 s
 #else
 constexpr uint32_t kFullCount = 1;
+constexpr unsigned long long kWaitTimeoutNs = 10000000000ull;  // 10 s
 #endif
 
 // Error codes of the launch functions besides cudaError_t's.
@@ -879,29 +881,9 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 // 64 keys stream, filled by the producer warpgroup. Each consumer thread
 // holds dQ's accumulator of its two q rows (64 fp32 at d=128) beside S
 // and dP of the key tile (32 each), which fits the 168 registers ptxas
-// gives a 384-thread block. The FLASH_DQ_* switches build the forms
-// measured against this one (`chip_compare.py dq-variants`; PERF.md §6):
-// 128-key tiles, thread 0 filling the ring in a 256-thread block instead
-// of a producer warpgroup, another stage count, and the forward's
-// named-barrier turns on the S and dP products. The shipped library
-// takes the defaults.
-#ifndef FLASH_DQ_BK
-#define FLASH_DQ_BK 64
-#endif
-#ifndef FLASH_DQ_PRODUCER
-#define FLASH_DQ_PRODUCER 1
-#endif
-#ifndef FLASH_DQ_STAGES
-#define FLASH_DQ_STAGES 3
-#endif
-#ifndef FLASH_DQ_TURNS
-#define FLASH_DQ_TURNS 0
-#endif
-constexpr int kDqBk = FLASH_DQ_BK;  // keys per loop step
-constexpr bool kDqProducer = FLASH_DQ_PRODUCER;
-constexpr int kDqStages = FLASH_DQ_STAGES;
-constexpr bool kDqTurns = FLASH_DQ_TURNS;
-constexpr int kDqThreads = kDqProducer ? kThreads : kConsumers;
+// gives a 384-thread block (PERF.md §6 records the other forms measured).
+constexpr int kDqBk = 64;       // keys per loop step
+constexpr int kDqStages = 3;
 
 template <int D>
 struct DqSmem {
@@ -914,20 +896,9 @@ struct DqSmem {
   static constexpr int kBytes = kStage0 + kDqStages * kStageBytes + 1024;
 };
 
-// d[64 x 8 NB] (+)= A[64x16] B[16 x 8 NB], both K-major in shared memory,
-// at the key tile's width
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint32_t a,
-                                         uint32_t b, int accumulate) {
-  wgmma_ss_n64(d, a, b, accumulate);
-}
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint32_t a,
-                                         uint32_t b, int accumulate) {
-  wgmma_ss_n128(d, a, b, accumulate);
-}
-
 // barriers: 0 Q and dO full; 1 + s stage s full; 1 + kDqStages + s empty
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kDqThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
@@ -971,23 +942,19 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_expect_tx(w.at(0), 2 * L::kQT);
     tma_tile<D>(base + L::kQ, &tq, w.at(0), BQ, h, q0, b);
     tma_tile<D>(base + L::kDo, &tdo, w.at(0), BQ, h, q0, b);
-    if (!kDqProducer)
-      for (int i = 0; i < ST - 1 && i < n_tiles; ++i) load_step(i);
   }
   __syncthreads();
 
-  if constexpr (kDqProducer) {
-    if (wg == kConsumerWarps / 4) {                   // the producer
-      setmaxnreg_dec<kProducerRegs>();
-      if (warp == kConsumerWarps && lane == 0)
-        for (int it = 0; it < n_tiles; ++it) {
-          if (it >= ST) w.wait(1 + ST + it % ST, ((it / ST) - 1) & 1, it);
-          load_step(it);
-        }
-      return;
-    }
-    setmaxnreg_inc<kConsumerRegs>();
+  if (wg == kConsumerWarps / 4) {                     // the producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0)
+      for (int it = 0; it < n_tiles; ++it) {
+        if (it >= ST) w.wait(1 + ST + it % ST, ((it / ST) - 1) & 1, it);
+        load_step(it);
+      }
+    return;
   }
+  setmaxnreg_inc<kConsumerRegs>();
 
   // a consumer: warpgroup wg owns q rows [qw, qw + 64)
   const int g = lane / 4, t = lane % 4;
@@ -1009,44 +976,37 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t q_lo = desc_lo(base + L::kQ + wg * 64 * kRowBytes);
   const uint32_t do_lo = desc_lo(base + L::kDo + wg * 64 * kRowBytes);
 
-  if (kDqTurns && wg == 1) turn_pass(wg);    // warpgroup 0 goes first
   w.wait(0, 0, -1);
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % ST, key0 = it * BK;
-    if (!kDqProducer && threadIdx.x == 0 && it + ST - 1 < n_tiles) {
-      // step it + ST - 1 goes where step it - 1 was, once both
-      // warpgroups are done with it: the other may lag this one a step
-      if (it > 0) w.wait(1 + ST + (it - 1) % ST, ((it - 1) / ST) & 1, it);
-      load_step(it + ST - 1);
-    }
     const uint32_t k_lo = desc_lo(base + L::kStage0 + s * L::kStageBytes);
     const uint32_t v_lo = desc_at(k_lo, L::kTile);
     const uint32_t qa = opaque(q_lo), doa = opaque(do_lo);
     w.wait(1 + s, (it / ST) & 1, it);
     __syncwarp();
-    if (kCausal && !kDqTurns && key0 > qw + 63) {  // every key above
-      mbar_arrive(w.at(1 + ST + s));                // every row
+    if (kCausal && key0 > qw + 63) {    // every key above every row
+      mbar_arrive(w.at(1 + ST + s));
       continue;
     }
 
     // S = Q K^T and dP = dO V^T over the D / 16 k16 slices of the head
     // dim, as two groups: P is computed while dP is in the tensor cores
     float sc[BK / 2], dp[BK / 2];
-    if (kDqTurns) turn_wait(wg);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(sc, desc_at(qa, (kk / 4) * BQ * kRowBytes + kk % 4 * 32),
-               desc_at(k_lo, (kk / 4) * BK * kRowBytes + kk % 4 * 32),
-               kk > 0);
+      wgmma_ss_n64(sc,
+                   desc_at(qa, (kk / 4) * BQ * kRowBytes + kk % 4 * 32),
+                   desc_at(k_lo, (kk / 4) * BK * kRowBytes + kk % 4 * 32),
+                   kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(dp, desc_at(doa, (kk / 4) * BQ * kRowBytes + kk % 4 * 32),
-               desc_at(v_lo, (kk / 4) * BK * kRowBytes + kk % 4 * 32),
-               kk > 0);
+      wgmma_ss_n64(dp,
+                   desc_at(doa, (kk / 4) * BQ * kRowBytes + kk % 4 * 32),
+                   desc_at(v_lo, (kk / 4) * BK * kRowBytes + kk % 4 * 32),
+                   kk > 0);
     wgmma_commit();
-    if (kDqTurns && (wg == 0 || it + 1 < n_tiles)) turn_pass(wg);
     wgmma_wait<1>();                      // S is in
     fence_regs(sc);
 
@@ -1268,7 +1228,7 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
       (rc = encode(&tdo, maps + 3 * kMapArgs, dout, kDqBq)))
     return rc;
   const dim3 grid((S + kDqBq - 1) / kDqBq, B * H);
-  kernel<<<grid, kDqThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dqp), S,
       H, scale, scale * kLog2e, rec);

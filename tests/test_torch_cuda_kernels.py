@@ -220,8 +220,9 @@ def test_flash_kernels_give_the_same_bits_on_every_call(cuda_device, case):
 # A flash kernel in a process of its own, from a build of
 # csrc/flash_sm90.cu with FLASH_SM90_STUCK defined: every stage's full
 # barrier there expects one arrival that never comes, so the kernel's
-# first wait on a stage outlasts the 10 s bound and traps. Prints whether
-# synchronising raised and the wait record, as JSON, on its last line.
+# first wait on a stage outlasts that build's 1 s bound and traps. Prints
+# whether synchronising raised and the wait record, as JSON, on its last
+# line.
 STUCK_SCRIPT = """
 import json, sys
 import torch
