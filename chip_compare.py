@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""The one-card GPT-3 1.3B train step of two trees, in turns, on one
-NVIDIA GPU:
+"""Two trees timed in turns on one NVIDIA GPU:
 
     python3 chip_compare.py train-turns PARENT_DIR
+    python3 chip_compare.py decode-turns PARENT_DIR
 
-runs chip_smoke's train step (``phase_train``, then
-``phase_train_profile``) from the tree at PARENT_DIR (a ``git archive``
-of another commit) and from this one, in turns (parent, this, this,
-parent), each in a process of its own, and prints their ``[train]`` and
-``[train-profile]`` lines. Needs a CUDA device and exits with another
+``train-turns`` runs chip_smoke's one-card GPT-3 1.3B train step
+(``phase_train``, then ``phase_train_profile``); ``decode-turns`` the
+paged-decode kernels (bf16, int8 and fp8 pools; 16 heads of 128, page
+16, a 128-page table, 24 layer slices cycled) at 8 slots x 512 live
+tokens, 1 x 2048 and 8 x 2048, by CUDA-graph replay. Each runs from the
+tree at PARENT_DIR (a ``git archive`` of another commit) and from this
+one, in turns (parent, this, this, parent), each in a process of its
+own, and prints their lines. Needs a CUDA device and exits with another
 code than 0 without one.
 """
 import os
@@ -27,28 +30,69 @@ cs.phase_train_profile(step, ids)
 """
 
 
+DECODE_RUN = """
+import itertools, torch
+import chip_smoke as cs
+from paddle_tpu_torch.serving import paged_decode as pd
+pd.build()
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+L = 24
+for B, live in ((8, 512), (1, 2048), (8, 2048)):
+    pos = [live - 1] * B
+    for kind in ("bf16", "int8", "fp8"):
+        if kind == "bf16":
+            q, kc, vc, table, pos_t = cs.decode_inputs(gen, dev, pos, layers=L)
+            ksc = vsc = None
+        else:
+            q, kc, vc, ksc, vsc, table, pos_t = cs.decode_inputs_q(
+                gen, dev, pos, kind, layers=L)
+        layer = itertools.cycle(range(L))
+
+        def call():
+            i = next(layer)
+            if ksc is None:
+                pd.paged_decode_attention(q, kc[i], vc[i], table, pos_t,
+                                          cs.PAGE)
+            else:
+                pd.paged_decode_attention_q(q, kc[i], vc[i], table, pos_t,
+                                            ksc[i], vsc[i], cs.PAGE)
+
+        ms = min(cs.graph_ms(call, iters=10 * L) for _ in range(2))
+        bound = cs.decode_bound(pos, pool_bytes=2 if ksc is None else 1,
+                                page_scales=ksc is not None)[0]
+        print(f"[decode-turns] {kind} B={B} x {live}: {ms:.4f} ms, bound "
+              f"{bound:.4f} ms", flush=True)
+        del q, kc, vc
+        torch.cuda.empty_cache()
+"""
+
+
 def _say(msg):
     print(msg, flush=True)
 
 
-def train_turns(parent):
+def turns(parent, run, prefixes):
+    """``run`` (Python source) from the tree at ``parent`` and from this
+    one, in turns, each in a process of its own; prints the lines that
+    start with one of ``prefixes``."""
     parent = Path(parent).resolve()
     if not (parent / "chip_smoke.py").exists():
         raise SystemExit(f"{parent} holds no chip_smoke.py")
     failed = False
     for name, tree in (("parent", parent), ("this", ROOT), ("this", ROOT),
                        ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", TRAIN_RUN], cwd=tree,
+        proc = subprocess.run([sys.executable, "-c", run], cwd=tree,
                               env=dict(os.environ, PYTHONPATH=str(tree)),
                               capture_output=True, text=True, timeout=900)
         for line in proc.stdout.splitlines():
-            if line.startswith(("[train]", "[train-profile]")):
+            if line.startswith(prefixes):
                 _say(f"<{name}> {line}")
         if proc.returncode:
             _say(f"<{name}> exit {proc.returncode}: {proc.stderr[-3000:]}")
             failed = True
     if failed:
-        raise SystemExit("a train run failed")
+        raise SystemExit("a run failed")
 
 
 def main(argv):
@@ -59,7 +103,9 @@ def main(argv):
                          "--format=csv,noheader"], capture_output=True,
                         text=True).stdout.strip())
     if argv[:1] == ["train-turns"] and len(argv) == 2:
-        train_turns(argv[1])
+        turns(argv[1], TRAIN_RUN, ("[train]", "[train-profile]"))
+    elif argv[:1] == ["decode-turns"] and len(argv) == 2:
+        turns(argv[1], DECODE_RUN, ("[decode-turns]",))
     else:
         raise SystemExit(__doc__)
 

@@ -6,11 +6,13 @@
 Phases, each of which fails the run (nonzero exit, no result line):
 
 1. build the hand-written CUDA kernels from ``paddle_tpu_torch/csrc``, one
-   nvcc per source, all started together, printing ptxas's register,
+   nvcc per source, all started together (with the card tests'
+   forced-timeout build of the flash kernels), printing ptxas's register,
    shared-memory and spill report and, where the toolkit has cuobjdump,
    the HGMMA and UTMALDG (TMA load) count of each instance of the
-   flash forward, dQ and dK/dV kernels and of the quant GEMM's
-   tensor-core kernel, which must have both (and the latter no spill);
+   flash forward, dQ and dK/dV kernels, of the quant GEMM's tensor-core
+   kernel and of row 8's GEMM, which must have both (and the latter two
+   no spill), and the TMA loads of the paged decode's 24 instances;
 2. hold each kernel against its plain PyTorch version: paged decode at the
    serving slice's shapes (8 slots, 16 heads of 128, page 16, 128 slot
    pages, bf16 pool, positions at 0 and page boundaries); the flash
@@ -40,7 +42,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    every gradient leaf within a bf16 tolerance;
 7. timings: each kernel against its bound, its plain version and one
    PyTorch library call (the flash kernels at the shape of every training
-   path); engine decode tokens/s and TTFT; train step
+   path; the paged decode also at 1 and 8 slots x 2048 live tokens);
+   engine decode tokens/s and TTFT; train step
    time, tokens/s and MFU; torch.profiler over a decode step and over a
    train step;
 8. quantized serving (phase 2 also holds its two kernels against their
@@ -80,19 +83,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    cards; on one card a path check, not a speed).
 
 10. tensor-parallel training, in MP = 4 ranks laid out as in phase 9: the
-   ring all-gather + GEMM, GEMM + ring reduce-scatter and ring weight-
-   gradient kernels (``ops/ring_gemm.py``) against their plain versions
-   at every shape of the main path (B=8, S=2048, each rank its own
-   shards; row 7's output the same bytes on every rank); GPT-3 1.3B
+   ring all-gather + GEMM and ring weight-gradient kernels and the GEMM +
+   reduce-scatter over the peer buffers (row 8: ``csrc/gemm_rs.cu``'s
+   wgmma GEMM storing into the peers' slots, then its reduce;
+   ``ops/ring_gemm.py``) against their plain versions at every shape of
+   the main path (B=8, S=2048, each rank its own shards; row 7's output
+   the same bytes on every rank); GPT-3 1.3B
    trained through ``HybridTrainStep(group=, comm_backend="fused")`` with
    phase 5's recipe, at full depth (2 warm-up and 5 timed steps) with a
    card per rank, at 2 layers (1 + 2 steps) on one card: finite losses,
    the last below the first, the same on every rank, and per step 6L /
-   6L / 4L calls of the three kernels, MP launches each; one fused step
+   6L / 4L calls of the three kernels (MP launches a call for rows 7 and
+   9, two for row 8); one fused step
    of the 2-layer copy (B=2) against the one-card step on the same
    weights within phase 6's tolerances (loss and every gradient leaf over
    all shards); with a card per rank a profile of one step, the step
-   time, tokens/s and MFU over the four cards; each kernel's times; and
+   time, tokens/s and MFU over the four cards; each kernel's times
+   (whole calls with a card per rank; the GEMMs alone, and row 8's whole
+   call as a path check, on one card); and
    with a card per rank the rsag rung at full depth from the same
    weights and ids (its losses printed beside the fused rung's, gated as
    above but for the ring kernels: none launched).
@@ -165,6 +173,7 @@ import pstats
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -253,6 +262,10 @@ MP = 4                      # tensor-parallel ranks of phase 9
 MP_WEIGHTS = ("bf16",) + QUANT_DTYPES
 QUANT_TORCH = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 DECODE_POS = [0, 15, 16, 31, 511, 1023, 1500, 2047]
+# the paged decode's timed shapes beside the main path's 8 slots x 512
+# live tokens: one slot and eight at a long context (2048 tokens, the
+# table's 128 pages: 16 splits of 8 pages)
+DECODE_EXTRA_SHAPES = ((1, 2048), (8, 2048))
 FLASH_KERNELS = (  # (name, wrapper, TPU kernel it replaces)
     ("flash_fwd", fa.flash_forward,
      "paddle_tpu/ops/pallas_kernels/flash_attention.py:83"),
@@ -437,10 +450,22 @@ def phase_build():
                "flash_sm90": "flash_sm90.cu",
                "quant_gemm": "quant_gemm.cu",
                "ring_gemm": "ring_gemm.cu",
+               "gemm_rs": "gemm_rs.cu",
                "rs_bucket": "rs_bucket.cu",
                "ag_bucket": "ag_bucket.cu",
                "peer_mem": "peer_mem.cu"}
-    cuda_build.build_all(sources)
+    # the card tests' forced-timeout build of the flash kernels, beside
+    # the others (its nvcc would otherwise run inside the card tests)
+    stuck = {}
+    side = threading.Thread(target=lambda: stuck.update(err=_build_or_error(
+        {"flash_sm90_stuck": "flash_sm90.cu"}, ("FLASH_SM90_STUCK",))))
+    side.start()
+    try:
+        cuda_build.build_all(sources)
+    finally:
+        side.join()
+    check(stuck.get("err", "no result") is None,
+          f"the forced-timeout build: {stuck.get('err')}")
     paged_decode.build()
     fa.build()
     qg.build()
@@ -480,6 +505,32 @@ def phase_build():
     check(len(spills) == 15 and not any(any(s) for s in spills.values()),
           f"the quant GEMM's tensor-core kernel spills (or ptxas reported "
           f"no instance): {spills}")
+    rs = sass_counts(cuda_build.BUILD_INFO["gemm_rs"]["path"],
+                     r"gemm_rs_kernel")
+    check(rs is None or len(rs) == 4,
+          f"row 8's GEMM has {len(rs or ())} instances in the SASS, not 4 "
+          f"(NN, NT x peers, local)")
+    spills = {fn: s for fn, s in ptxas_spills(
+        cuda_build.BUILD_INFO["gemm_rs"]["log"]).items()
+        if "gemm_rs" in fn}
+    print(f"[build] row 8 (gemm_rs.cu) ptxas spills (store, load bytes): "
+          f"{spills}")
+    check(len(spills) == 11 and not any(any(s) for s in spills.values()),
+          f"row 8's kernels spill (or ptxas reported no instance): {spills}")
+    pd = sass_counts(cuda_build.BUILD_INFO["paged_decode"]["path"],
+                     r"paged_decode_kernel", ops=("UTMALDG",))
+    check(pd is None or len(pd) == 24,
+          f"the paged decode has {len(pd or ())} instances in the SASS, not "
+          f"24 (4 pool types x 2 head dims x 3 page sizes)")
+
+
+def _build_or_error(sources, defines):
+    """``cuda_build.build_all``; None, or the error it raised."""
+    try:
+        cuda_build.build_all(sources, defines)
+    except Exception as e:      # noqa: BLE001 - reported by the caller
+        return e
+    return None
 
 
 def ptxas_spills(log):
@@ -498,11 +549,12 @@ def ptxas_spills(log):
     return out
 
 
-def sass_counts(lib, pattern):
+def sass_counts(lib, pattern, ops=("HGMMA", "UTMALDG")):
     """The SASS of a library's kernels named by ``pattern`` (cuobjdump,
-    where the toolkit has it): the warpgroup products (HGMMA) and TMA
-    loads (UTMALDG) in each instance, which must have both. Returns
-    {kernel<template args>: counts}, or None without cuobjdump."""
+    where the toolkit has it): the count of each of ``ops`` in each
+    instance (by default the warpgroup products, HGMMA, and TMA tile
+    loads, UTMALDG), which must have all. Returns {kernel<template args>:
+    counts}, or None without cuobjdump."""
     tool = pathlib.Path(cuda_build.nvcc_path()).parent / "cuobjdump"
     if not tool.exists():
         print(f"[build] no {tool}: SASS not counted")
@@ -515,16 +567,15 @@ def sass_counts(lib, pattern):
             m = re.search(rf"({pattern})I(\w+?)EEEv", line)
             fn = f"{m.group(1)}<{m.group(2)}>" if m else None
             if fn:
-                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+                counts[fn] = dict.fromkeys(ops, 0)
         elif fn:
             for op in counts[fn]:
                 counts[fn][op] += op in line
     for fn, c in counts.items():
-        print(f"[build] SASS {fn}: {c['HGMMA']} HGMMA, {c['UTMALDG']} "
-              f"UTMALDG")
-    check(counts and all(c["HGMMA"] and c["UTMALDG"]
-                         for c in counts.values()),
-          f"a {pattern} instance lacks HGMMA or UTMALDG: {counts}")
+        print(f"[build] SASS {fn}: " + ", ".join(f"{v} {k}"
+                                                 for k, v in c.items()))
+    check(counts and all(all(c.values()) for c in counts.values()),
+          f"a {pattern} instance lacks one of {ops}: {counts}")
     return counts
 
 
@@ -1026,6 +1077,8 @@ def phase_quant_timing(cfg, qs, dtype, gen, dev, errs):
           f"and dequantized to bf16 beforehand {lib:.4f} ms, bound "
           f"{bound:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB) -> "
           f"{bound / ms:.1%} of bound")
+    del q, kq, vq, kg, vg
+    torch.cuda.empty_cache()
     rows.append({
         "name": f"paged_decode_q[{dtype}]", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_decode.cu",
@@ -1033,8 +1086,69 @@ def phase_quant_timing(cfg, qs, dtype, gen, dev, errs):
         "launches": qs["counts"]["paged_decode_q"],
         "max_abs_err": errs[("paged_decode_q", dtype)], "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-        "library_ms": lib})
+        "library_ms": lib,
+        "other_shapes": decode_shape_times(gen, dev, dtype)})
     return rows
+
+
+def decode_shape_times(gen, dev, dtype=None, layers=8):
+    """The paged decode (bf16 pool, or ``dtype`` int8 / fp8 with page
+    scales) at each of ``DECODE_EXTRA_SHAPES``, cycling over ``layers``
+    layer slices of the pool (134 MB and more, past the 50 MB L2): kernel
+    and SDPA on K/V gathered (and dequantized) beforehand by CUDA-graph
+    replay, and the bound. Returns {"B x tokens": {ms, library_ms,
+    bound_ms}}."""
+    out = {}
+    for B, live in DECODE_EXTRA_SHAPES:
+        pos = [live - 1] * B
+        if dtype is None:
+            q, kc, vc, table, pos_t = decode_inputs(gen, dev, pos,
+                                                    layers=layers)
+            ksc = vsc = None
+        else:
+            q, kc, vc, ksc, vsc, table, pos_t = decode_inputs_q(
+                gen, dev, pos, dtype, layers=layers)
+        layer = itertools.cycle(range(layers))
+
+        def kernel():
+            i = next(layer)
+            if dtype is None:
+                paged_decode_attention(q, kc[i], vc[i], table, pos_t, PAGE)
+            else:
+                paged_decode_attention_q(q, kc[i], vc[i], table, pos_t,
+                                         ksc[i], vsc[i], PAGE)
+
+        def gathered(pool, sc, i):
+            win = gather_window(pool[i], table)[:, :live]
+            if sc is not None:
+                win = (win.float() * sc[i][table].repeat_interleave(
+                    PAGE, 1)[:, :live, None, None]).to(torch.bfloat16)
+            return win.permute(0, 2, 1, 3).contiguous()
+
+        kg = [gathered(kc, ksc, i) for i in range(layers)]
+        vg = [gathered(vc, vsc, i) for i in range(layers)]
+        qb = q.to(torch.bfloat16)[:, :, None]
+
+        def library():
+            i = next(layer)
+            F.scaled_dot_product_attention(qb, kg[i], vg[i])
+
+        k1 = graph_ms(kernel, iters=10 * layers)
+        lib = graph_ms(library, iters=10 * layers)
+        k2 = graph_ms(kernel, iters=10 * layers)
+        bound, bound_by, nbytes = decode_bound(
+            pos, pool_bytes=2 if dtype is None else 1,
+            page_scales=dtype is not None)
+        ms = min(k1, k2)
+        print(f"[timing] paged_decode{'' if dtype is None else '_q ' + dtype}"
+              f" B={B} x {live} live tokens, nh=16 d=128, device time (CUDA "
+              f"graph replay): kernel {k1:.4f}/{k2:.4f} ms, SDPA "
+              f"{lib:.4f} ms, bound {bound:.4f} ms ({bound_by}, "
+              f"{nbytes / 1e6:.1f} MB) -> {bound / ms:.1%} of bound")
+        out[f"{B}x{live}"] = {"ms": ms, "library_ms": lib, "bound_ms": bound}
+        del q, kc, vc, kg, vg
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_timing(gen, dev, max_abs, launches, layers):
@@ -1098,12 +1212,15 @@ def phase_timing(gen, dev, max_abs, launches, layers):
     print(f"[timing] paged_decode at pos={vpos}, device time: kernel "
           f"{vms:.4f} ms, "
           f"bound {vbound:.4f} ms -> {vbound / vms:.1%} of bound")
+    del vq, vkc, vvc
+    torch.cuda.empty_cache()
     return {"name": "paged_decode", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_decode.cu",
             "replaces": "paddle_tpu/serving/paged_attention.py:94",
             "launches": launches, "max_abs_err": max_abs, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": lib}
+            "library_ms": lib, "eager_ms": k_eager,
+            "other_shapes": decode_shape_times(gen, dev)}
 
 
 # ------------------------------------------------------------ flash / train
@@ -1889,10 +2006,10 @@ def mp_serve_plan(backend):
 
 
 @contextlib.contextmanager
-def rows_10_11_record(group):
+def peer_record(group):
     """A spawned rank's failure prints, before it propagates, the rank's
-    rows 10-11 error record (``peer.error_record``: which barrier wait
-    gave up on which peer, and why), or that it has none."""
+    peer-buffer error record (rows 8, 10 and 11; ``peer.error_record``:
+    which wait gave up on which peer, and why), or that it has none."""
     try:
         yield
     except BaseException:
@@ -1900,8 +2017,8 @@ def rows_10_11_record(group):
             rec = peer.error_record()
         except Exception as e:      # noqa: BLE001 - a lost context, say
             rec = f"not readable: {e}"
-        print(f"[rank {group.rank}] failed; rows 10-11 error record: "
-              f"{rec}", flush=True)
+        print(f"[rank {group.rank}] failed; peer error record (rows 8, "
+              f"10, 11): {rec}", flush=True)
         raise
 
 
@@ -1911,7 +2028,7 @@ def mp_rank_main(group, seed):
     versions, GPT-3 1.3B served at mp=MP at bf16, int8 and fp8, and the
     timings. Rank 0 prints; every rank returns its readings and the
     failures it saw (and a failing rank its rows 10-11 error record)."""
-    with rows_10_11_record(group):
+    with peer_record(group):
         return _mp_rank(group, seed)
 
 
@@ -2039,6 +2156,12 @@ TP_KERNELS = (  # (kernel, wrapper, TPU kernel it replaces)
      "paddle_tpu/ops/pallas_kernels/fused_collectives.py:307"),
 )
 TP_WRAPPERS = {name: wrapper for name, wrapper, _ in TP_KERNELS}
+# launches a call: rows 7 and 9 one GEMM per ring step; row 8 its GEMM
+# (every chunk) and its reduce
+TP_LAUNCHES = {"ring_ag_gemm": MP, "ring_gemm_rs": 2, "ring_ag_accum": MP}
+TP_SOURCES = {"ring_ag_gemm": "paddle_tpu_torch/csrc/ring_gemm.cu",
+              "ring_gemm_rs": "paddle_tpu_torch/csrc/gemm_rs.cu",
+              "ring_ag_accum": "paddle_tpu_torch/csrc/ring_gemm.cu"}
 TP_PLAIN = {"ring_ag_gemm": rg.ag_gemm_plain, "ring_gemm_rs": rg.gemm_rs_plain,
             "ring_ag_accum": rg.ag_accum_plain}
 TP_PARITY_B = 2             # the 2-layer copy's batch (phase 6's)
@@ -2246,7 +2369,7 @@ def phase_tp_train(group, seed, say, num_layers=None,
     counts = tp_counts()
     shapes = {name: dict(w.shapes) for name, w, _ in TP_KERNELS}
     steps = warmup + timed
-    want = {k: (v * steps, v * steps * group.n) if rung == "fused"
+    want = {k: (v * steps, v * steps * TP_LAUNCHES[k]) if rung == "fused"
             else (0, 0) for k, v in tp_step_calls(cfg.num_layers).items()}
     failed = []
     if not all(np.isfinite(losses)):
@@ -2275,7 +2398,7 @@ def phase_tp_train(group, seed, say, num_layers=None,
         f"every rank: {same})")
     say(f"[tp-train] (calls, launches) over {steps} steps: {counts} (want "
         f"{want}: per step {tp_step_calls(cfg.num_layers)} calls of "
-        f"{group.n} ring steps each)")
+        f"{TP_LAUNCHES} launches each)")
     say(f"[tp-train] {json.dumps(stats)}")
     return step, ids, {"stats": stats, "counts": counts,
                        "shapes": shapes}, failed
@@ -2310,6 +2433,7 @@ def phase_tp_profile(group, step, ids, say, tag="tp-profile"):
                     key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events) / 1e3
     kinds = {"ring GEMM kernels": ("ring_gemm",),
+             "row 8 (gemm_rs GEMM + reduce)": ("gemm_rs",),
              "row 10 (rs_pull_kernel)": ("rs_pull_kernel",),
              "row 11 (ag_pull_kernel)": ("ag_pull_kernel",),
              "NCCL": ("nccl",), "flash kernels": ("flash_",),
@@ -2390,14 +2514,17 @@ def phase_tp_parity(group, seed, say):
 
 def phase_tp_timing(group, gen, cfg, say):
     """Each ring kernel at every main-path shape, per rank. With a card per
-    rank: the whole wrapper call (MP GEMM launches and MP - 1 NCCL hops)
-    by CUDA events over eager calls on every rank, its plain version, and
-    the library yardstick (row 7: ``all_gather_into_tensor`` + ``torch.mm``;
-    row 8: ``torch.mm`` + ``reduce_scatter_tensor``; row 9: the gathered
-    ``torch.mm(r^T, stat)``). With the ranks sharing one card (gloo hops
-    through host memory): the MP step GEMMs alone, one launch per step by
-    CUDA-graph replay on rank 0, against the plain version's and
-    ``torch.mm``'s products. Returns {(kernel, label): timings}."""
+    rank: the whole wrapper call (rows 7 and 9: MP GEMM launches and MP -
+    1 NCCL hops; row 8: its GEMM, whose epilogue stores into the peers'
+    slots, and its reduce) by CUDA events over eager calls on every rank,
+    the slowest rank's, its plain version, and the library yardstick (row
+    7: ``all_gather_into_tensor`` + ``torch.mm``; row 8: ``torch.mm`` +
+    ``reduce_scatter_tensor``; row 9: the gathered ``torch.mm(r^T,
+    stat)``); and each call's GEMMs alone (``tp_gemm_only``) on rank 0.
+    With the ranks sharing one card (gloo hops through host memory): the
+    GEMMs alone on rank 0, and row 8's whole call on every rank as a path
+    check (four ranks time-slicing the card). Returns {(kernel, label):
+    timings}."""
     dev = group.device
     per_card = group.backend == "nccl"
     out = {}
@@ -2431,15 +2558,32 @@ def phase_tp_timing(group, gen, cfg, say):
                     group.all_gather_into(buf, a.reshape(-1, a.shape[2]))
                     torch.mm(buf.t(), b.reshape(-1, b.shape[2]))
 
-            k1 = run(lambda: _tp_call(kernel, wrapper, a, b, flag, group), 10)
-            p1 = run(lambda: _tp_call(kernel, TP_PLAIN[kernel], a, b, flag,
-                                      group), 3)
-            lib = run(library, 10)
-            k2 = run(lambda: _tp_call(kernel, wrapper, a, b, flag, group), 10)
+            calls = {"kernel": lambda: _tp_call(kernel, wrapper, a, b, flag,
+                                                group),
+                     "plain": lambda: _tp_call(kernel, TP_PLAIN[kernel], a, b,
+                                               flag, group),
+                     "library": library}
+            k1 = slowest_rank_ms(group, calls, ("kernel",), 10)["kernel"]
+            p1 = slowest_rank_ms(group, calls, ("plain",), 3)["plain"]
+            lib = slowest_rank_ms(group, calls, ("library",), 10)["library"]
+            k2 = slowest_rank_ms(group, calls, ("kernel",), 10)["kernel"]
             t.update(ms=min(k1, k2), ms_runs=(k1, k2), plain_ms=p1,
-                     library_ms=lib, covers="call: MP GEMMs + hops")
-        elif group.rank == 0:
-            t.update(tp_gemm_only(kernel, a, b, flag))
+                     library_ms=lib,
+                     covers=("whole call: the GEMM storing into the peers' "
+                             "slots + the reduce, slowest rank"
+                             if kernel == "ring_gemm_rs" else
+                             "whole call: MP GEMMs + NCCL hops, slowest "
+                             "rank"))
+            if group.rank == 0:
+                t["gemm_only"] = tp_gemm_only(kernel, a, b, flag)
+        else:
+            if group.rank == 0:
+                t.update(tp_gemm_only(kernel, a, b, flag))
+            if kernel == "ring_gemm_rs":
+                t["call_ms_shared"] = slowest_rank_ms(
+                    group, {"call": lambda: _tp_call(kernel, wrapper, a, b,
+                                                     flag, group)},
+                    ("call",), 3)["call"]
         group.barrier()
         out[(kernel, label)] = t
         if group.rank == 0:
@@ -2451,9 +2595,12 @@ def phase_tp_timing(group, gen, cfg, say):
 
 
 def tp_gemm_only(kernel, a, b, flag):
-    """One rank's MP step GEMMs of a call without its hops: the kernel's
-    step launch, the plain version's fp32 product and torch.mm, each by
-    CUDA-graph replay, times MP."""
+    """One rank's GEMMs of a call without its hops: rows 7 and 9 the
+    kernel's step launch, the plain version's fp32 product and torch.mm,
+    each by CUDA-graph replay, times MP; row 8 its GEMM of every chunk in
+    one launch into local memory (``gemm_rs_local``), against MP chunk
+    products of the plain version and of torch.mm. ``tflops``: the
+    kernel's rate."""
     dev = a.device
     n = MP
     if kernel == "ring_ag_gemm":
@@ -2469,16 +2616,18 @@ def tp_gemm_only(kernel, a, b, flag):
         x2, w2 = a.reshape(-1, A), (b.t() if flag else b)
     elif kernel == "ring_gemm_rs":
         B, S, F_ = a.shape
-        A = b.shape[0] if flag else b.shape[1]
         s = S // n
-        acc = torch.empty((B * s, A), dtype=torch.float32, device=dev)
-        mode = "NT" if flag else "NN"
-
-        def kern():
-            rg.launch(mode, rg._rows(a, 0, F_, S * F_, s), rg._rows(b),
-                      rg._rows(acc, 0, A), B * s, A, F_, False,
-                      acc.data_ptr(), dev)
         x2, w2 = a[:, :s].reshape(-1, F_), (b.t() if flag else b)
+        k1 = graph_ms(lambda: rg.gemm_rs_local(a, b, n, 0, flag), iters=8)
+        p = graph_ms(lambda: x2.float() @ w2.float(), iters=2, replays=2)
+        lib = graph_ms(lambda: torch.mm(x2, w2), iters=8)
+        k2 = graph_ms(lambda: rg.gemm_rs_local(a, b, n, 0, flag), iters=8)
+        ms = min(k1, k2)
+        return {"ms": ms, "ms_runs": (k1, k2), "plain_ms": n * p,
+                "library_ms": n * lib,
+                "tflops": 2 * B * S * F_ * w2.shape[1] / ms / 1e9,
+                "covers": "the call's GEMM of every chunk, one launch, no "
+                          "peers"}
     else:
         B, s, A = a.shape
         S, Bf = b.shape[1], b.shape[2]
@@ -2496,9 +2645,11 @@ def tp_gemm_only(kernel, a, b, flag):
     p = graph_ms(lambda: x2.float() @ w2.float(), iters=2, replays=2)
     lib = graph_ms(lambda: torch.mm(x2, w2), iters=8)
     k2 = graph_ms(kern, iters=8)
-    return {"ms": n * min(k1, k2), "ms_runs": (n * k1, n * k2),
+    ms = n * min(k1, k2)
+    return {"ms": ms, "ms_runs": (n * k1, n * k2),
             "plain_ms": n * p, "library_ms": n * lib,
-            "covers": "MP step GEMMs, no hops"}
+            "tflops": n * 2 * x2.shape[0] * x2.shape[1] * w2.shape[1] / ms
+            / 1e9, "covers": "MP step GEMMs, no hops"}
 
 
 def tp_rank_main(group, seed):
@@ -2506,7 +2657,13 @@ def tp_rank_main(group, seed):
     ring kernels against their plain versions, the main path (GPT-3 1.3B
     at full depth with a card per rank; 2 layers on one card), the
     profile (a card per rank), the 2-layer parity and the timings. Rank 0
-    prints; every rank returns its readings and failures."""
+    prints; every rank returns its readings and failures (a failing rank
+    its peer error record: row 8 runs over the peer buffers)."""
+    with peer_record(group):
+        return _tp_rank(group, seed)
+
+
+def _tp_rank(group, seed):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(1)
@@ -2581,12 +2738,15 @@ def tp_rows(r0, layout, cfg):
             tp_shape_key(kernel, shapes, flag), 0)
         rows.append({
             "name": f"{kernel}[{label}]", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/ring_gemm.cu",
-            "replaces": replaces[kernel], "launches": calls * MP,
+            "source": TP_SOURCES[kernel],
+            "replaces": replaces[kernel],
+            "launches": calls * TP_LAUNCHES[kernel],
             "max_abs_err": r0["errs"][(kernel, label)]["max_abs"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound,
             "bound_by": by, "library_ms": t["library_ms"],
-            "covers": t["covers"]})
+            "covers": t["covers"],
+            **{k: t[k] for k in ("gemm_only", "call_ms_shared", "tflops")
+               if k in t}})
     return rows
 
 
@@ -3434,7 +3594,7 @@ def dp_rank_main(group, seed):
     parity copy and the timings. Rank 0 prints; every rank returns its
     readings and failures (a failing rank its rows 10-11 error
     record)."""
-    with rows_10_11_record(group):
+    with peer_record(group):
         return _dp_rank(group, seed)
 
 
@@ -3543,14 +3703,44 @@ def phase_trajectories(one_card, tp_r0, pp_r0, dp_r0, layout):
               f"{losses[-1] - one_card[-1]:+.4f}")
 
 
+def dp_timing_rank(group, seed):
+    """One rank of ``--only dp-timing``: rows 10-11's whole calls
+    (``phase_dp_timing``) alone."""
+    with peer_record(group):
+        say = (lambda *a: print(*a, flush=True)) if group.rank == 0 else \
+            (lambda *a: None)
+        group.barrier()
+        return {"rank": group.rank, "failed": [],
+                "timing": phase_dp_timing(group, seed, say)}
+
+
+ONLY = {"tp": lambda seed: phase_tp(seed),
+        "dp-timing": lambda seed: env.launch(
+            DP, dp_timing_rank, seed, timeout_s=600,
+            layout="per_card" if torch.cuda.device_count() >= DP
+            else "shared")}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run alone after the "
+                         "build, for measurements (" + ", ".join(ONLY) +
+                         "); prints no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.only:
+        phases = args.only.split(",")
+        check(all(p in ONLY for p in phases), f"--only takes {list(ONLY)}")
+        phase_build()
+        for p in phases:
+            ONLY[p](args.seed)
+        print(f"[only] {args.only}: done")
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")

@@ -155,9 +155,7 @@ constexpr uint32_t kFullCount = 1;
 
 // Error codes of the launch functions besides cudaError_t's.
 constexpr int kErrHeadDim = -1;
-constexpr int kErrEntryPoint = -2;
-constexpr int kErrEncode = -3;
-constexpr int kErrMapArgs = -4;
+constexpr int kErrMapArgs = -4;     // -2 and -3: sm90.cuh's encode codes
 
 // The rows [row0, row0 + rows) of head h of batch b, all D columns, as
 // D / 64 boxes of [rows][64] one after the other from dst.

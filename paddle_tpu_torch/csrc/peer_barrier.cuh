@@ -1,7 +1,8 @@
 // The device side of the symmetric peer buffers (peer_mem.cu), shared by
-// rows 10 and 11 (rs_bucket.cu, ag_bucket.cu): the layout of a channel's
-// signal pad, the peer pointers a kernel is given, and the entry and exit
-// barriers that every block of a one-launch collective runs.
+// rows 10 and 11 (rs_bucket.cu, ag_bucket.cu) and row 8 (gemm_rs.cu): the
+// layout of a channel's signal pad, the peer pointers a kernel is given,
+// the bounded wait for a peer's flag, and the entry and exit barriers that
+// every block of rows 10-11's one-launch collectives runs.
 //
 // A channel is one cudaMalloc per rank: the signal pad (kPadBytes) and,
 // after it, the staging region the caller writes its operand into. Every
@@ -64,6 +65,14 @@ struct Pad {
   uint32_t epoch[kMaxBlocks];
   uint32_t start[kMaxBlocks][kMaxRanks];
   uint32_t end[kMaxBlocks][kMaxRanks];
+  // row 8 (gemm_rs.cu), whose calls are numbered by `calls`:
+  uint32_t calls;           // this rank's finished calls (its reduce sets)
+  uint32_t reduced;         // reduce blocks done this call
+  uint32_t tiles[kMaxRanks];      // GEMM tiles of chunk c stored this call
+  uint32_t ready[2][kMaxRanks];   // [parity][src]: src's partial of call e
+                                  // is in slot [parity][src] (src writes e)
+  uint32_t freed[kMaxRanks];      // [dst]: dst has read this rank's slots of
+                                  // call e (dst writes e)
 };
 
 // the staging region begins this many bytes into a channel (a multiple of
@@ -83,11 +92,13 @@ struct ErrorRecord {
   int code;         // 0: none; 1: the peer's heartbeat stood still for the
                     // timeout; 2: the peer beat but never came before the
                     // backstop
-  int row;          // 10 or 11
+  int row;          // 8, 10 or 11
   int rank;
   int peer;         // the rank whose flag never came
   int block;
-  int at_end;       // 0: entry barrier, 1: exit barrier
+  int at_end;       // rows 10-11: 0 entry barrier, 1 exit barrier; row 8:
+                    // 0 the GEMM's wait for a freed slot, 1 the reduce's
+                    // wait for a partial
   uint32_t epoch;
   uint32_t seen;    // the flag value last read
   uint32_t beat;    // the peer's heartbeat counter last read
@@ -161,6 +172,33 @@ __device__ __noinline__ void fail(const Peers& a, int p, uint32_t e,
   __trap();
 }
 
+// one thread: wait until *flag (written by rank p) has reached e, reading
+// p's heartbeat as the note above says; gives up with the record
+// (at_end as ErrorRecord says) when p is gone or the backstop passes
+__device__ __forceinline__ void wait_flag(const Peers& a, const uint32_t* flag,
+                                          uint32_t e, int p, int at_end) {
+  uint32_t seen = ld_acquire_sys(flag);
+  if (static_cast<int32_t>(seen - e) >= 0) return;
+  const uint32_t* beat = a.beats + p * kBeatStride;
+  const unsigned long long t0 = global_ns();
+  unsigned long long moved = t0, checked = t0;
+  uint32_t last = 0;
+  while (static_cast<int32_t>((seen = ld_acquire_sys(flag)) - e) < 0) {
+    const unsigned long long now = global_ns();
+    if (now - checked > a.timeout_ns / 4) {
+      const uint32_t b = ld_relaxed_sys(beat);
+      if (checked == t0 || b != last) {  // the first reading, or moved
+        last = b;
+        moved = now;
+      } else if (now - moved > a.timeout_ns) {
+        fail(a, p, e, seen, at_end, 1, b);
+      }
+      checked = now;
+    }
+    if (now - t0 > a.backstop_ns) fail(a, p, e, seen, at_end, 2, last);
+  }
+}
+
 // every block: signal call e to every rank's slot for this block, wait
 // for every rank's signal of e, then the whole block goes on
 __device__ __forceinline__ void barrier(const Peers& a, uint32_t e,
@@ -173,28 +211,8 @@ __device__ __forceinline__ void barrier(const Peers& a, uint32_t e,
     Pad* mine = a.pad[a.rank];
     st_release_sys(at_end ? &theirs->end[b][a.rank]
                           : &theirs->start[b][a.rank], e);
-    const uint32_t* flag = at_end ? &mine->end[b][p] : &mine->start[b][p];
-    uint32_t seen = ld_acquire_sys(flag);
-    if (static_cast<int32_t>(seen - e) < 0) {
-      const uint32_t* beat = a.beats + p * kBeatStride;
-      const unsigned long long t0 = global_ns();
-      unsigned long long moved = t0, checked = t0;
-      uint32_t last = 0;
-      while (static_cast<int32_t>((seen = ld_acquire_sys(flag)) - e) < 0) {
-        const unsigned long long now = global_ns();
-        if (now - checked > a.timeout_ns / 4) {
-          const uint32_t b = ld_relaxed_sys(beat);
-          if (checked == t0 || b != last) {  // the first reading, or moved
-            last = b;
-            moved = now;
-          } else if (now - moved > a.timeout_ns) {
-            fail(a, p, e, seen, at_end, 1, b);
-          }
-          checked = now;
-        }
-        if (now - t0 > a.backstop_ns) fail(a, p, e, seen, at_end, 2, last);
-      }
-    }
+    wait_flag(a, at_end ? &mine->end[b][p] : &mine->start[b][p], e, p,
+              at_end);
   }
   __syncthreads();
 }

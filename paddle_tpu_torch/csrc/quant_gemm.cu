@@ -101,10 +101,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// Error codes of the launch functions besides cudaError_t's.
+// Error codes of the launch functions besides cudaError_t's and
+// sm90.cuh's encode codes.
 constexpr int kErrUnsupported = -1;
-constexpr int kErrEntryPoint = -2;
-constexpr int kErrEncode = -3;
 
 // ----------------------------------------------------------- weight types
 struct Int8W { static constexpr int kSize = 1; };
@@ -744,27 +743,6 @@ int dispatch_stream(const void* x, const void* wq, const void* scale,
                                    splits, k_per_split, s);
   }
   return kErrUnsupported;
-}
-
-// The tensor-core kernel's 2-D map of a row-major [rows, cols] operand of
-// `elem` bytes (128-byte swizzle), its box `box_cols` by `box_rows`.
-int encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem,
-              const void* ptr, long long rows, long long cols, int box_cols,
-              int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (!fn) return kErrEntryPoint;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t one[2] = {1, 1};
-  const CUresult r =
-      fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, one,
-         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 
 template <int W, int N>

@@ -1,20 +1,19 @@
 // The local GEMMs of the ring collectives of sequence-parallel training and
 // of the pipeline boundary, for Hopper (sm_90a).
 //
-// Replaces five TPU kernels of paddle_tpu/ops/pallas_kernels/
-// fused_collectives.py. Three are a ring of n steps in which a chunk of
-// the sequence moves to the right neighbour while the chunk in hand is
-// GEMMed:
+// Replaces four TPU kernels of paddle_tpu/ops/pallas_kernels/
+// fused_collectives.py. Two are a ring of n steps in which a chunk of the
+// sequence moves to the right neighbour while the chunk in hand is GEMMed:
 //
 // * _ag_gemm_kernel (:201, the pallas_call at :590): ring all-gather of the
 //   seq shard x [B, s, A] with each arriving chunk GEMMed against the
 //   column shard w [A, F] into its block-row of [B, n*s, F];
-// * _gemm_rs_kernel (:249, :610): GEMM of the per-rank partial y [B, S, F]
-//   chunk by chunk against the row shard w [F, A], accumulated in fp32
-//   into the chunk's traveling ring destination: acc = recv + part,
-//   [B, s, A] after n steps;
-// * _ag_accum_kernel (:307, :631): the weight gradient of both, sum over
-//   the ring steps of r_c^T @ stat_c in fp32, [A, Bf].
+// * _ag_accum_kernel (:307, :631): the weight gradient of rows 7 and 8,
+//   sum over the ring steps of r_c^T @ stat_c in fp32, [A, Bf].
+//
+// (Row 8, _gemm_rs_kernel (:249, :610), ran here until it moved to
+// gemm_rs.cu: a wgmma GEMM whose epilogue stores into the peers' NVLink
+// buffers. Rows 7, 9, 14 and 15 keep this file's mma.sync core.)
 //
 // Two are the last GEMM of a pipeline stage and its backward:
 //
@@ -35,11 +34,6 @@
 //   straight into the chunk's rows of the [B, n*s, F] output (a row map:
 //   row r of the chunk lands at b * (n*s*F) + (src*s + i) * F with
 //   b = r / s, i = r % s), so the gathered result needs no relayout;
-// * row 8, mode NN (NT in the backward): reads the chunk's rows of y in
-//   place through the same row map, and writes fp32 acc = recv + part
-//   (the reference's order, fused_collectives.py:277; plain part at the
-//   first step) into the buffer the next hop sends, or at the last step
-//   the bf16 result;
 // * row 9, mode TN: both operands row-major over the B*s contraction rows
 //   (the ring chunk, and the rows of the stationary operand belonging to
 //   chunk src, read in place through the row map); the transposed operand
@@ -59,16 +53,13 @@
 //   element is summed over k in the same order whatever rows a launch
 //   covers, so one launch over all rows keeps that property.
 //
-// What bounds them on an H100. Rows 7-9, per rank at GPT-3 1.3B, B=8,
+// What bounds them on an H100. Rows 7 and 9, per rank at GPT-3 1.3B, B=8,
 // S=2048, n=4 (chunk rows B*s = 4096): one qkv chunk GEMM is
 // 2*4096*2048*1536 = 25.8 GFLOP, 26 us at 989 TFLOP/s (operations: ~1,900
-// flops per byte moved); the hop beside it moves a 16.8 MB bf16 chunk
-// (rows 7, 9) or 33.5 MB of fp32 partials (row 8), 37 / 75 us at 450 GB/s
-// NVLink. Row 7 posts hop t+1 before launching step t's GEMM, so the
-// transfer runs under the GEMM, as the TPU kernel's double buffer does;
-// row 9 likewise. Row 8's step needs the partial that arrives with the
-// hop, and this first version waits for it and then launches the GEMM
-// with it as its fp32 addend: no overlap, no extra pass over the partials.
+// flops per byte moved); the hop beside it moves a 16.8 MB bf16 chunk,
+// 37 us at 450 GB/s NVLink. Row 7 posts hop t+1 before launching step t's
+// GEMM, so the transfer runs under the GEMM, as the TPU kernel's double
+// buffer does; row 9 likewise.
 // Row 14 at pp=4, M=8 (R = 2048 rows a microbatch, K = 8192, F = 2048):
 // 2*2048*8192*2048 = 68.7 GFLOP, 69.5 us at 989 TFLOP/s, against ~84 MB
 // of HBM traffic (25 us) and an 8.39 MB hop (18.6 us at 450 GB/s): bound
@@ -86,9 +77,8 @@
 // layouts of quant_gemm.cu). The row map's division is done once per
 // thread: a load walks its k rows with a cursor. With two stages and the
 // division in the loop the same GEMMs ran at 55-188 TFLOP/s on an H100,
-// with these changes at 111-284 (PERF.md). wgmma, TMA, split k for the
-// few-tile weight gradients, and an NVLink design whose epilogue stores
-// into the peers' buffers are later work.
+// with these changes at 111-284 (PERF.md). wgmma, TMA (gemm_rs.cu's core)
+// and split k for the few-tile weight gradients are later work here.
 //
 // Built by paddle_tpu_torch/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared

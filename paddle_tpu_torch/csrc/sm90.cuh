@@ -1,19 +1,21 @@
-// Hopper (sm_90a) building blocks shared by the kernels written for its
-// tensor cores: flash_sm90.cu (rows 4-6) and quant_gemm.cu (row 3).
+// Hopper (sm_90a) building blocks shared by the kernels written for it:
+// flash_sm90.cu (rows 4-6), quant_gemm.cu (row 3), gemm_rs.cu (row 8) and
+// paged_decode.cu (rows 1-2; its mbarriers and bounded waits).
 //
 // * mbarriers (init, arrive, arrive with a TMA transaction count, parity
 //   waits), every wait bounded by %globaltimer: a wait that outlasts
 //   kWaitTimeoutNs writes the kernel's row, block, warp, barrier, parity
 //   and loop step into a host-mapped WaitRecord and traps, so a phase
 //   slip fails the run instead of hanging it;
-// * TMA tile loads (cp.async.bulk.tensor, 2-D and 4-D) that complete on
+// * TMA tile loads (cp.async.bulk.tensor, 2-D to 4-D) that complete on
 //   an mbarrier;
 // * wgmma matrix descriptors of tiles laid out by TMA's 128-byte swizzle,
 //   and the warpgroup fence / commit / wait around wgmma.mma_async;
 // * setmaxnreg, register fences, bf16 packing;
 // * host side: cuTensorMapEncodeTiled through the runtime's driver entry
-//   point, the host-mapped WaitRecord, the opt-in to more than 48 KB of
-//   dynamic shared memory.
+//   point (and the 2-D swizzled map of a row-major operand), the
+//   host-mapped WaitRecord, the opt-in to more than 48 KB of dynamic
+//   shared memory.
 //
 // Everything lives in an anonymous namespace: each library that includes
 // this header has its own copy, its own g_claim and its own record.
@@ -42,7 +44,8 @@ constexpr unsigned long long kWaitTimeoutNs = SM90_WAIT_TIMEOUT_NS;
 // wgmma instructions.
 struct WaitRecord {
   int code;       // 0: none; 1: an mbarrier wait timed out
-  int row;        // the kernel's PERF.md row (3 quant GEMM, 4-6 flash)
+  int row;        // the kernel's PERF.md row (1 paged decode, 3 quant
+                  // GEMM, 4-6 flash, 8 GEMM + reduce-scatter)
   int block_x;
   int block_y;
   int warp;       // the waiting warp (a producer's or a consumer's)
@@ -156,6 +159,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 
@@ -296,6 +311,33 @@ EncodeTiled encode_tiled() {
   if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
     fn = reinterpret_cast<EncodeTiled>(p);
   return fn;
+}
+
+// Codes of a failed tensor-map encode (the launch functions' negative
+// codes besides cudaError_t's).
+constexpr int kErrEntryPoint = -2;
+constexpr int kErrEncode = -3;
+
+// A 2-D map of a row-major [rows, cols] operand of `elem` bytes (rows
+// `cols` elements apart), 128-byte swizzle, its box `box_cols` by
+// `box_rows`, zero fill past the edges; 0 or an encode code above.
+int encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem,
+              const void* ptr, long long rows, long long cols, int box_cols,
+              int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return kErrEntryPoint;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t one[2] = {1, 1};
+  const CUresult r =
+      fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, one,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 
 // the host-mapped timeout record, allocated at the first launch

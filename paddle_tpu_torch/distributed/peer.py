@@ -1,14 +1,18 @@
 """Symmetric peer buffers over CUDA IPC: the memory that rows 10 and 11's
 one-launch collectives (``ops/fused_collectives.py``: ``fused_rs_bucket``,
-``fused_ag_bucket``) read across the ranks of a group.
+``fused_ag_bucket``) read across the ranks of a group, and that row 8's
+GEMM + reduce-scatter (``ops/ring_gemm.py:ring_gemm_rs``) writes its
+partials into.
 
 A *channel* is one ``cudaMalloc`` per rank, made by ``csrc/peer_mem.cu``
 outside PyTorch's caching allocator (so ``expandable_segments`` does not
 matter, and a channel is one IPC handle with no offset bookkeeping): a
 signal pad of flags and per-block epochs (``csrc/peer_barrier.cuh``),
 zeroed, then the staging region that the caller writes its operand into.
-A group holds one channel per purpose (``"rs_bucket"``, ``"ag_bucket"``)
-in ``MPGroup.peer_channels``.
+A group holds one channel per purpose (``"rs_bucket"``, ``"ag_bucket"``,
+``"gemm_rs"``) in ``MPGroup.peer_channels``. Row 8's staging holds 2n
+fp32 slots of a chunk (by call parity and source rank) that the peers'
+GEMMs store into.
 
 Set-up is collective and happens at a purpose's first call on a group,
 on every rank at once (the SPMD ranks make the same calls in the same
@@ -165,13 +169,17 @@ def raise_for(rc, row, rank, describe):
     if rec.code or rc != 0:
         stop_heartbeat()
     if rec.code:
-        where = "exit" if rec.at_end else "entry"
+        if rec.row == 8:
+            where = ("reduce's wait for a partial" if rec.at_end else
+                     "GEMM's wait for a freed slot")
+        else:
+            where = ("exit" if rec.at_end else "entry") + " barrier"
         why = ("whose heartbeat stood still for the timeout: the process "
                "is gone" if rec.code == 1 else
                "which kept beating but never came before the backstop: "
                "alive and stuck")
         raise RuntimeError(
-            f"row {rec.row}: rank {rec.rank}'s {where} barrier at epoch "
+            f"row {rec.row}: rank {rec.rank}'s {where} at epoch "
             f"{rec.epoch} (block {rec.block}) gave up waiting for rank "
             f"{rec.peer} (its flag stood at {rec.seen}, its heartbeat at "
             f"{rec.beat}), {why}; the kernel trapped and this process's "
@@ -277,7 +285,7 @@ class Channel:
                     raise RuntimeError(
                         f"peer memory: cuda:{self.device} (rank "
                         f"{group.rank}) has no peer access to cuda:{d} "
-                        f"(rank {r}); rows 10-11's one-launch kernels need "
+                        f"(rank {r}); the peer-buffer kernels need "
                         f"every pair of cards joined (NVLink or PCIe P2P)")
         except BaseException:
             lib.peer_free(self.device, own)

@@ -1,8 +1,9 @@
-"""Ring all-gather + GEMM, GEMM + ring reduce-scatter and the ring weight
-gradient of sequence-parallel training: the hand-written CUDA kernel
-(``csrc/ring_gemm.cu``), its wrappers and their plain PyTorch versions
-(counterpart of ``paddle_tpu/ops/pallas_kernels/fused_collectives.py``
-:201-360 and :575-650, and of the ring algebra of
+"""Ring all-gather + GEMM, GEMM + reduce-scatter and the ring weight
+gradient of sequence-parallel training: the hand-written CUDA kernels
+(``csrc/ring_gemm.cu``, ``csrc/gemm_rs.cu``), their wrappers and their
+plain PyTorch versions (counterpart of
+``paddle_tpu/ops/pallas_kernels/fused_collectives.py`` :201-360 and
+:575-650, and of the ring algebra of
 ``paddle_tpu/distributed/tp_overlap.py:121-160`` and
 ``fused_collectives.py:993-1011``).
 
@@ -13,34 +14,39 @@ Replaces three TPU kernels, each a ring of n steps over an ``MPGroup``
   past every rank; step t GEMMs the chunk in hand, owned by
   ``src = (i - t) mod n``, against w [A, F] into block-row ``src`` of the
   output [B, n*s, F];
-* ``ring_gemm_rs`` (``_gemm_rs_kernel``): step t GEMMs the rows of chunk
-  ``c = (i - t - 1) mod n`` of the partial y [B, S, F] against w [F, A]
-  and adds them, in fp32, to the traveling accumulator just received
-  (``recv + part``); after n steps rank i holds chunk i summed over the
-  ranks, [B, s, A];
+* ``ring_gemm_rs`` (``_gemm_rs_kernel``): the partial y [B, S, F] @ w
+  [F, A], chunk by chunk, reduced over the ranks in fp32: rank i holds
+  chunk i summed over the ranks, [B, s, A], in the ring's order
+  ``((p_{i+1} + p_{i+2}) + ...) + p_i``;
 * ``ring_ag_accum`` (``_ag_accum_kernel``): the ring operand r [B, s, A]
   rings past as in ``ring_ag_gemm`` and step t adds ``r_src^T @
   stat_src`` (stat's rows of chunk src) to an fp32 [A, Bf] sum: the
   weight gradient of both.
 
-The TPU kernels move chunks with in-kernel remote DMAs; here a hop is an
-NCCL point-to-point pair outside the kernel (``MPGroup.ring_shift_async``)
-and each step launches one GEMM of ``csrc/ring_gemm.cu``, whose epilogue
-does the ring's arithmetic (the block-row store, ``recv + part``, ``+=``).
-``ring_ag_gemm`` and ``ring_ag_accum`` post hop t+1 before step t's GEMM,
-so the transfer runs under the GEMM; ``ring_gemm_rs`` waits for the
-partial it adds and then launches (see the source's note).
+The TPU kernels move chunks with in-kernel remote DMAs. Rows 7 and 9 move
+them with NCCL point-to-point pairs outside the kernel
+(``MPGroup.ring_shift_async``), posting hop t+1 before step t's GEMM of
+``csrc/ring_gemm.cu`` (``mma.sync`` tiles), so the transfer runs under
+the GEMM. Row 8 moves its fp32 partials through symmetric peer buffers
+(``distributed/peer.py``, channel ``"gemm_rs"``): one launch of
+``csrc/gemm_rs.cu``'s wgmma GEMM computes every chunk, remote chunks
+first, and its epilogue stores each remote tile straight into the
+destination rank's slot over NVLink; a second launch at the destination
+sums the slots in the ring's order. No NCCL hop and no host round trip;
+given the same partials the sum is the plain ring's bit for bit.
 ``transpose_w`` reads a weight stored [F, A] as its transpose in the
 kernel (the backward's ``w^T``), without a copy.
 
 Beside each, its plain version (``ag_gemm_plain``, ``gemm_rs_plain``,
 ``ag_accum_plain``): the same ring schedule over the group's blocking hops
 with fp32 products and sums (``tp_overlap``'s ring rung runs the same
-loops in the compute dtype, so in fp32 the two are the same bits). The
-wrappers take the plain version for CPU tensors only; for CUDA tensors
-they launch the kernel or raise. Each wrapper counts its kernel's
-launches (``.launches``, n per call), its calls (``.calls``) and its
-calls by shape (``.shapes``).
+loops in the compute dtype, so in fp32 the two are the same bits).
+``gemm_rs_peer_plain`` is row 8's peer schedule in plain form over every
+rank's inputs at once. The wrappers take the plain version for CPU
+tensors only; for CUDA tensors they launch the kernel or raise. Each
+wrapper counts its kernel launches (``.launches``: n per call for rows 7
+and 9, one per ring step; two per call for row 8, the GEMM and the
+reduce), its calls (``.calls``) and its calls by shape (``.shapes``).
 """
 from __future__ import annotations
 
@@ -51,8 +57,11 @@ import functools
 import torch
 
 from ..cuda_build import load_library
+from ..distributed import peer as _peer
 
 MODES = {"NN": 0, "NT": 1, "TN": 2}
+RS_CHANNEL = "gemm_rs"      # row 8's peer channel: 2n fp32 slots of a chunk
+RS_TILE_ROWS = 128          # csrc/gemm_rs.cu's kBM: s must be a multiple
 
 # The kernel against its plain version, per element:
 # |kernel - plain| <= ELEMENT_TOL * (|plain| + rms of plain's row), and
@@ -145,6 +154,34 @@ def ring_rs(y, w, group, mm, shift):
     return acc
 
 
+def ring_order_sum(parts, rank):
+    """Rank ``rank``'s chunk from the fp32 partials of every rank
+    (``parts[src]``), summed in the ring's order: src = rank + 1 first,
+    rank itself last, one fp32 add a term (``ring_rs``'s arithmetic)."""
+    n = len(parts)
+    acc = parts[(rank + 1) % n]
+    for k in range(2, n + 1):
+        acc = acc + parts[(rank + k) % n]
+    return acc
+
+
+def gemm_rs_peer_plain(ys, ws, transpose_w=False):
+    """Row 8's peer schedule in plain form over all n ranks' inputs (``ys``
+    [B, S, F], ``ws`` [F, A] or stored [A, F], one per rank): every rank's
+    fp32 partial of chunk c goes into slot [c][src] (``_mm32``), then each
+    destination sums its slots in the ring's order. Returns every rank's
+    chunk [B, S/n, A] in y's dtype; the same bits as ``gemm_rs_plain`` on
+    each rank."""
+    n = len(ys)
+    s = ys[0].shape[1] // n
+    slots = [[None] * n for _ in range(n)]
+    for src, (y, w) in enumerate(zip(ys, ws)):
+        w = w.t() if transpose_w else w
+        for c in range(n):
+            slots[c][src] = _chunk_mm(_mm32, y[:, c * s:(c + 1) * s], w)
+    return [ring_order_sum(slots[c], c).to(ys[0].dtype) for c in range(n)]
+
+
 def ag_gemm_plain(x, w, group, transpose_w=False):
     """x [B, s, A] @ w [A, F] (``transpose_w``: w stored [F, A]) over the
     ring: [B, n*s, F] in x's dtype, each block-row rounded once."""
@@ -194,9 +231,34 @@ def _library():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _rs_library():
+    lib = load_library("gemm_rs", "gemm_rs.cu")
+    p, i, ll, ull = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_ulonglong)
+    lib.gemm_rs_launch.argtypes = [i, p, p, p] + [i] * 6 + [p, p, ll, p, p,
+                                                            ull, ull, p]
+    lib.gemm_rs_launch.restype = i
+    lib.gemm_rs_local_launch.argtypes = [i, p, p, p] + [i] * 6 + [p]
+    lib.gemm_rs_local_launch.restype = i
+    lib.gemm_rs_wait_record.argtypes = [p]
+    lib.gemm_rs_wait_record.restype = None
+    lib.gemm_rs_error_string.argtypes = [i]
+    lib.gemm_rs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def build():
-    """Build (or load the cached build of) the kernel library now."""
+    """Build (or load the cached builds of) the kernel libraries now."""
     _library()
+    _rs_library()
+
+
+def rs_wait_timeout_record():
+    """The record of row 8's first mbarrier wait that timed out (a dict of
+    ``cuda_build.WAIT_RECORD_FIELDS``), or None."""
+    from ..cuda_build import wait_record
+    return wait_record(_rs_library().gemm_rs_wait_record)
 
 
 def _rows(t, offset=0, ld=None, bstride=0, rpb=1 << 30):
@@ -274,41 +336,77 @@ def ring_ag_gemm(x, w, group, transpose_w=False):
     return out
 
 
-def ring_gemm_rs(y, w, group, transpose_w=False):
-    """GEMM + ring reduce-scatter: y [B, S, F] (this rank's partial) @ w
-    [F, A] (``transpose_w``: w stored [A, F]), summed over the ranks in
-    fp32 on the ring: this rank's seq shard [B, S/n, A] in y's dtype. CPU
-    tensors take ``gemm_rs_plain``; CUDA tensors launch the kernel n
-    times, or raise."""
-    if y.device.type == "cpu":
-        return gemm_rs_plain(y, w, group, transpose_w)
+def _rs_shapes(y, w, n, transpose_w):
+    """(B, S, F, A, s) of a row-8 call over n ranks, or ValueError when the
+    operands disagree or the kernel cannot take them."""
     B, S, F = y.shape
     A, Kw = (w.shape if transpose_w else w.shape[::-1])
-    n, rank = group.n, group.rank
     if Kw != F or S % n:
         raise ValueError(f"ring_gemm_rs: y {tuple(y.shape)} and w "
                          f"{tuple(w.shape)} (transpose_w={transpose_w}) "
                          f"disagree, or {S} rows not divisible by {n}")
     s = S // n
-    M = B * s
-    _check("ring_gemm_rs", (y, w), M, A, F)
-    mode = "NT" if transpose_w else "NN"
-    f32 = dict(dtype=torch.float32, device=y.device)
-    recv = None
-    for t in range(n):
-        c = (rank - t - 1) % n
-        last = t == n - 1
-        acc = torch.empty((B, s, A), dtype=y.dtype, device=y.device) \
-            if last else torch.empty((M, A), **f32)
-        launch(mode, _rows(y, c * s * F, F, S * F, s), _rows(w),
-               _rows(acc, 0, A), M, A, F, last,
-               None if recv is None else recv.data_ptr(), y.device)
-        ring_gemm_rs.launches += 1
-        if not last:
-            recv = group.ring_shift_async(acc).wait()
+    _check("ring_gemm_rs", (y, w), B * s, A, F)
+    why = []
+    if s % RS_TILE_ROWS:
+        why.append(f"a chunk of {s} rows is not a multiple of "
+                   f"{RS_TILE_ROWS} (a tile would straddle a batch row)")
+    if not 2 <= n <= _peer.MAX_RANKS:
+        why.append(f"a group of {n} ranks (the peer channels take 2 to "
+                   f"{_peer.MAX_RANKS})")
+    if why:
+        raise ValueError("ring_gemm_rs kernel: " + "; ".join(why))
+    return B, S, F, A, s
+
+
+def ring_gemm_rs(y, w, group, transpose_w=False):
+    """GEMM + reduce-scatter: y [B, S, F] (this rank's partial) @ w [F, A]
+    (``transpose_w``: w stored [A, F]), summed over the ranks in fp32 in
+    the ring's order: this rank's seq shard [B, S/n, A] in y's dtype. CPU
+    tensors take ``gemm_rs_plain``; CUDA tensors launch ``gemm_rs.cu``'s
+    GEMM (its remote tiles stored into the peers' slots) and its reduce,
+    or raise. Collective: every rank of ``group`` makes the same calls in
+    the same order (the first opens the group's ``"gemm_rs"`` channel)."""
+    if y.device.type == "cpu":
+        return gemm_rs_plain(y, w, group, transpose_w)
+    B, S, F, A, s = _rs_shapes(y, w, group.n, transpose_w)
+    n, rank = group.n, group.rank
+    _peer.raise_for(0, 8, rank, None)          # an earlier kernel trapped
+    slot = B * s * A
+    ch = _peer.channel(group, RS_CHANNEL, 2 * n * slot * 4)
+    stride = ch.capacity // (2 * n * 4) // 4 * 4
+    out = torch.empty((B, s, A), dtype=y.dtype, device=y.device)
+    lib = _rs_library()
+    with torch.cuda.device(y.device):
+        rc = lib.gemm_rs_launch(
+            MODES["NT" if transpose_w else "NN"], y.data_ptr(), w.data_ptr(),
+            out.data_ptr(), B, S, F, A, n, rank, ch.data, ch.pads, stride,
+            _peer.error_pointer(), ch.beats, ch.timeout_ns, ch.backstop_ns,
+            torch.cuda.current_stream(y.device).cuda_stream)
+    _peer.raise_for(rc, 8, rank,
+                    lambda c: lib.gemm_rs_error_string(c).decode())
+    ring_gemm_rs.launches += 2
     ring_gemm_rs.calls += 1
-    ring_gemm_rs.shapes[(M, F, A, transpose_w)] += 1
-    return acc
+    ring_gemm_rs.shapes[(B * s, F, A, transpose_w)] += 1
+    return out
+
+
+def gemm_rs_local(y, w, n, rank, transpose_w=False):
+    """Row 8's GEMM alone, without peers: every chunk's fp32 partial of y
+    [B, S, F] @ w, [n, B*S/n, A], in rank ``rank``'s tile order (the
+    products of a call, timed apart from the transfer). Not counted."""
+    B, S, F, A, s = _rs_shapes(y, w, n, transpose_w)
+    out = torch.empty((n, B * s, A), dtype=torch.float32, device=y.device)
+    lib = _rs_library()
+    with torch.cuda.device(y.device):
+        rc = lib.gemm_rs_local_launch(
+            MODES["NT" if transpose_w else "NN"], y.data_ptr(), w.data_ptr(),
+            out.data_ptr(), B, S, F, A, n, rank,
+            torch.cuda.current_stream(y.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"row 8 GEMM launch failed ({rc}): "
+                           f"{lib.gemm_rs_error_string(rc).decode()}")
+    return out
 
 
 def ring_ag_accum(r, stat, group, transpose=False):

@@ -10,9 +10,14 @@ ctx [B, nh, d] float32 over keys 0..pos[b] of each slot.
 The kernel is bound by bytes: it must read every live key and value once,
 sum_b (live pages_b * page_size) * nh * d * 2 * itemsize, over the card's
 3.35 TB/s (B=8 slots of 512 live tokens, nh=16, d=128, bf16: 33.5 MB,
-about 10 us per layer). It walks only each slot's live pages, with
-16-byte loads and one page of loads in flight; see the source for the
-design.
+about 10 us per layer). It splits each slot's pages over blocks (splits
+of 8 to 64 pages, as many as fill the card twice over), loads each
+page's K and V of a head into shared memory with a TMA tile load through
+an mbarrier ring, and joins the splits in
+split order; see the source for the design. A call uses an fp32
+workspace for the splits' partials and a per-device int32 counter per
+(slot, head) that every call leaves at zero, so calls on one device run
+one after another on one stream (as the engine's do).
 
 ``paged_decode_attention`` takes the plain version only for tensors on
 the CPU. On CUDA it launches the kernel or raises: a failed build or
@@ -85,6 +90,67 @@ def paged_decode_q_plain(q, kc_l, vc_l, table, pos, ksc_l, vsc_l,
                             ksc_l, vsc_l, page_size)[:, 0]
 
 
+def paged_decode_split_plain(q, kc_l, vc_l, table, pos, page_size,
+                             split_pages, scales=None):
+    """The kernel's algorithm in plain PyTorch: each slot's pages cut into
+    splits of ``split_pages``, each live split's (max, sum, unnormalised
+    context) over its keys, then the live splits joined in split order.
+    A split wholly past pos[b] is never formed, so it brings no NaN into
+    the join. ``scales`` = (ksc_l, vsc_l) for an int8/fp8 pool (key
+    scales after the dot, value scales on the context). fp32; returns ctx
+    [B, nh, d]."""
+    B, nh, d = q.shape
+    MP = table.shape[1]
+    out = torch.empty((B, nh, d), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        p = int(pos[b])
+        n_pages = 0 if p < 0 else min(p // page_size + 1, MP)
+        parts = []
+        for j0 in range(0, max(n_pages, 1), split_pages):
+            pages = table[b, j0:min(j0 + split_pages, n_pages)].long()
+            keys = torch.arange(j0 * page_size,
+                                (j0 + len(pages)) * page_size,
+                                device=q.device)
+            if len(pages) == 0:                 # no live key: 0 / 0
+                parts.append((torch.full((nh,), float("-inf")),
+                              torch.zeros(nh), torch.zeros(nh, d)))
+                continue
+            k = _page_rows(kc_l, pages)                    # [S, nh, d]
+            v = _page_rows(vc_l, pages)
+            s = torch.einsum("hd,shd->hs", q[b].float(), k) / d ** 0.5
+            if scales is not None:
+                ks = scales[0][pages].repeat_interleave(page_size)
+                vs = scales[1][pages].repeat_interleave(page_size)
+                s = s * ks[None]
+                v = v * vs[:, None, None]
+            s = s.masked_fill(keys[None] > p, float("-inf"))
+            m = s.max(dim=-1).values                        # [nh]
+            e = torch.where(m[:, None] == float("-inf"),
+                            torch.zeros_like(s), (s - m[:, None]).exp())
+            parts.append((m, e.sum(-1), torch.einsum("hs,shd->hd", e, v)))
+        mx = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+        den = torch.zeros(nh, device=q.device)
+        num = torch.zeros(nh, d, device=q.device)
+        for m, l, acc in parts:                             # split order
+            f = torch.where(m == float("-inf"), torch.zeros_like(m),
+                            (m - mx).exp())
+            den = den + f * l
+            num = num + f[:, None] * acc
+        out[b] = num / den[:, None]
+    return out
+
+
+def _page_rows(pool_l, pages):
+    """The rows of ``pages`` of a pool [P, ps, nh, d] in page order, as
+    fp32 [len(pages) * ps, nh, d] (one-byte pools move as uint8)."""
+    _, ps, nh, d = pool_l.shape
+    if pool_l.element_size() == 1:
+        rows = pool_l.view(torch.uint8)[pages].view(pool_l.dtype)
+    else:
+        rows = pool_l[pages]
+    return rows.reshape(len(pages) * ps, nh, d).float()
+
+
 def unsupported_reason(head_dim, page_size, pool_dtype):
     """Why the kernel cannot take these shapes, or None when it can."""
     reasons = []
@@ -104,13 +170,14 @@ def unsupported_reason(head_dim, page_size, pool_dtype):
 def _library():
     lib = load_library("paged_decode", "paged_decode.cu")
     lib.paged_decode_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 +
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 +
         [ctypes.c_float, ctypes.c_void_p])
     lib.paged_decode_launch.restype = ctypes.c_int
-    lib.paged_decode_q_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
-        [ctypes.c_float, ctypes.c_void_p])
-    lib.paged_decode_q_launch.restype = ctypes.c_int
+    lib.paged_decode_workspace_floats.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.paged_decode_workspace_floats.restype = ctypes.c_longlong
+    lib.paged_decode_wait_record.argtypes = [ctypes.c_void_p]
+    lib.paged_decode_wait_record.restype = None
     lib.paged_decode_error_string.argtypes = [ctypes.c_int]
     lib.paged_decode_error_string.restype = ctypes.c_char_p
     return lib
@@ -119,6 +186,39 @@ def _library():
 def build():
     """Build (or load the cached build of) the kernel library now."""
     _library()
+
+
+def wait_timeout_record():
+    """The record of the kernel's first mbarrier wait that timed out (a
+    dict of ``cuda_build.WAIT_RECORD_FIELDS``), or None."""
+    from ..cuda_build import wait_record
+    return wait_record(_library().paged_decode_wait_record)
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_floats(device, B, nh, d, MP):
+    """The fp32 workspace a call of these shapes needs on ``device`` (its
+    split plan depends on them and the device's SMs only)."""
+    with torch.cuda.device(device):
+        floats = _library().paged_decode_workspace_floats(
+            B, nh, d, MP, ctypes.byref(ctypes.c_int()))
+    if floats < 0:
+        raise RuntimeError("paged decode kernel: the device's SM count "
+                           "could not be read")
+    return floats
+
+
+_ARRIVED = {}               # device -> int32 counters, zero between calls
+
+
+def _arrived(device, n):
+    """At least ``n`` int32 split counters on ``device``, zero between
+    calls (each call's last split of a (slot, head) resets its own)."""
+    buf = _ARRIVED.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _ARRIVED[device] = buf
+    return buf
 
 
 def _check(q, kc_l, vc_l, table, pos, page_size, dtypes):
@@ -175,17 +275,24 @@ def _launch(q, kc_l, vc_l, table, pos, page_size, scales=None):
             raise ValueError(f"{name} must be contiguous float32 [{P}] on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
-    lib = _library()
-    entry = (lib.paged_decode_launch if scales is None
-             else lib.paged_decode_q_launch)
     B, nh, d = q.shape
+    MP = table.shape[1]
+    if MP == 0:
+        raise ValueError("paged decode kernel: the table has no pages")
+    lib = _library()
     out = torch.empty((B, nh, d), dtype=torch.float32, device=q.device)
-    ptrs = (q, kc_l, vc_l, table, pos, *(scales or ()), out)
+    ws = torch.empty(_workspace_floats(q.device, B, nh, d, MP),
+                     dtype=torch.float32, device=q.device)
+    arrived = _arrived(q.device, B * nh)
+    ksc, vsc = (t.data_ptr() for t in scales) if scales else (None, None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = entry(*(t.data_ptr() for t in ptrs), B, nh, d, page_size,
-                   table.shape[1], dtypes[kc_l.dtype], 1.0 / d ** 0.5,
-                   stream)
+        rc = lib.paged_decode_launch(
+            q.data_ptr(), kc_l.data_ptr(), vc_l.data_ptr(), table.data_ptr(),
+            pos.data_ptr(), ksc, vsc, out.data_ptr(), ws.data_ptr(),
+            arrived.data_ptr(), B, nh, P, d, page_size, MP,
+            dtypes[kc_l.dtype],
+            1.0 / d ** 0.5, stream)
     if rc != 0:
         raise RuntimeError(
             f"paged decode kernel launch failed ({rc}): "

@@ -55,6 +55,88 @@ def test_kernel_matches_plain_on_card(cuda_device, pool_dtype):
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
 
 
+# the split kernel's cases: (B, live tokens) at the main path's 512 and a
+# long 2048 (a table of 128 pages: 16 splits of 8 pages), one slot and
+# eight; and a batch of positions mid-page, on page and split edges and
+# ending before the last split, so whole splits are masked
+DECODE_SPLIT_CASES = [(1, [511]), (8, [511] * 8), (1, [2047]), (8, [2047] * 8),
+                      (8, [0, 7, 127, 128, 129, 700, 1029, 2046])]
+POOL_KINDS = ("bfloat16", "int8", "fp8")
+
+
+def _decode_pool(a, kind, device):
+    """A bf16 pool, or an int8 / fp8 one spread over the type's range."""
+    if kind == "bfloat16":
+        return torch.from_numpy(a).to(device, torch.bfloat16)
+    if kind == "int8":
+        return torch.from_numpy(np.clip(np.round(a * 40), -127, 127).astype(
+            np.int8)).to(device)
+    return torch.from_numpy(a * 100).to(device).clamp(-448, 448).to(
+        torch.float8_e4m3fn)
+
+
+def _decode_args(device, kind, B, pos, seed):
+    rng = np.random.default_rng(seed)
+    P = 257                     # slots' pages drawn from it, repeats and all
+    q, kc, vc, table, pos = _case(rng, B, 16, 128, 16, 128, P, pos)
+    args = [torch.from_numpy(q).to(device), _decode_pool(kc, kind, device),
+            _decode_pool(vc, kind, device),
+            torch.from_numpy(table).to(device),
+            torch.from_numpy(pos).to(device)]
+    if kind != "bfloat16":
+        args += [torch.from_numpy(rng.uniform(0.01, 0.1, P).astype(
+            np.float32)).to(device) for _ in range(2)]
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", POOL_KINDS)
+@pytest.mark.parametrize("case", DECODE_SPLIT_CASES,
+                         ids=lambda c: f"B{c[0]}-{max(c[1]) + 1}")
+def test_paged_decode_splits_match_plain_on_card(cuda_device, kind, case):
+    """Rows 1-2's split kernel (pages cut into splits of 8, bulk page
+    loads, the splits joined in order) at B = 1 and 8, 512 and 2048 live
+    tokens and mixed positions, over bf16, int8 and fp8 pools: within
+    1e-3 of the plain version (fp32 sums in another order; the gate of
+    the serving-shape tests above), one launch a call, the same bits on a
+    second call."""
+    from paddle_tpu_torch.serving import paged_decode as pd
+    B, pos = case
+    args = _decode_args(cuda_device, kind, B, pos, seed=30 + B)
+    fn = pd.paged_decode_attention if kind == "bfloat16" else \
+        pd.paged_decode_attention_q
+    plain = pd.paged_decode_plain if kind == "bfloat16" else \
+        pd.paged_decode_q_plain
+    before = fn.launches
+    got = fn(*args, 16)
+    again = fn(*args, 16)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, plain(*args, 16), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_paged_decode_leaves_no_split_counter_behind_on_card(cuda_device):
+    """Calls of different shapes one after another with no host
+    synchronisation (the split counters reset by each call's last split),
+    then every counter zero and every result the same bits as alone."""
+    from paddle_tpu_torch.serving import paged_decode as pd
+    cases = [_decode_args(cuda_device, "bfloat16", B, pos, seed=40 + i)
+             for i, (B, pos) in enumerate(DECODE_SPLIT_CASES)]
+    alone = []
+    for args in cases:
+        alone.append(pd.paged_decode_attention(*args, 16))
+        torch.cuda.synchronize()
+    mixed = [pd.paged_decode_attention(*cases[i % len(cases)], 16)
+             for i in range(3 * len(cases))]
+    torch.cuda.synchronize()
+    for i, got in enumerate(mixed):
+        assert torch.equal(got, alone[i % len(cases)]), i
+    assert all(int(b.abs().sum()) == 0 for b in pd._ARRIVED.values())
+    assert pd.wait_timeout_record() is None
+
+
 @pytest.mark.cuda
 def test_kernel_wrapper_refuses_bad_inputs(cuda_device):
     q = torch.zeros(2, 2, 128, device=cuda_device)
@@ -68,6 +150,8 @@ def test_kernel_wrapper_refuses_bad_inputs(cuda_device):
     kc12 = kc[:, :12].contiguous()
     with pytest.raises(ValueError, match="page_size 12"):
         paged_decode_attention(q, kc12, kc12, table, pos, 12)
+    with pytest.raises(ValueError, match="no pages"):
+        paged_decode_attention(q, kc, kc, table[:, :0], pos, 16)
 
 
 @pytest.mark.cuda
@@ -937,16 +1021,19 @@ def test_pp_boundary_wrappers_refuse_what_the_kernels_do_not_take(
 
 @pytest.fixture(scope="module")
 def shared_rows(tmp_path_factory):
-    """Rows 10-11's card checks (``torch_dp_train_ranks.card_rows``) on 2
-    and 4 gloo ranks sharing the card (the ``shared`` layout), one spawn
-    per degree for all the tests below: {n: the ranks' results}."""
+    """The peer-buffer card checks (``torch_dp_train_ranks.card_rows``:
+    row 8's, then rows 10-11's) on 2 and 4 gloo ranks sharing the card
+    (the ``shared`` layout), one spawn per degree for all the tests
+    below: {n: the ranks' results}."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (hand-written kernel, no CPU mode)")
     import torch_dp_train_ranks as ranks
     from paddle_tpu_torch.distributed import env
     from paddle_tpu_torch.ops import fused_collectives as fc
+    from paddle_tpu_torch.ops import ring_gemm
     fc.build_rs_bucket()         # once, here: the ranks only load them
     fc.build_ag_bucket()
+    ring_gemm.build()
     return {n: env.launch(n, ranks.card_rows, 6, layout="shared",
                           timeout_s=300,
                           init_dir=tmp_path_factory.mktemp(f"rows{n}"))
@@ -1099,3 +1186,130 @@ def test_peer_channels_close_and_reopen_on_card(cuda_device, shared_rows):
         for o in (o["teardown"] for o in outs):
             assert all(o["readings"]), (n, o["readings"])
             assert o["mappings"] == [0, 2 * (n - 1), 0, 2 * (n - 1), 0], n
+
+
+# ------------------------------------------- row 8 over the peer buffers
+@pytest.fixture(scope="module")
+def row8_runs(shared_rows, tmp_path_factory):
+    """Row 8's card checks (``torch_tp_train_ranks.card_row8``) on 2 and 4
+    gloo ranks sharing the card (from the ``shared_rows`` spawns) and,
+    where the machine has 4 cards, on 4 NCCL ranks with a card each:
+    {(layout, n): the ranks' results}."""
+    import torch_tp_train_ranks as ranks
+    from paddle_tpu_torch.distributed import env
+    runs = {("shared", n): [o["row8"] for o in outs]
+            for n, outs in shared_rows.items()}
+    if torch.cuda.device_count() >= 4:
+        runs[("per_card", 4)] = env.launch(
+            4, ranks.card_row8, 8, layout="per_card", timeout_s=600,
+            init_dir=tmp_path_factory.mktemp("row8per_card"))
+    return runs
+
+
+@pytest.mark.cuda
+def test_row8_matches_plain_on_card(cuda_device, row8_runs):
+    """NN and NT at every ``ROW8_SHAPES`` (tile edges, several tiles, a
+    main-path chunk) on every layout the machine has: per element and per
+    128-row tile against ``gemm_rs_plain`` (its gates, ops/ring_gemm.py),
+    two launches a call (the GEMM and the reduce)."""
+    import torch_tp_train_ranks as ranks
+    calls = 2 * 2 * len(ranks.ROW8_SHAPES) + ranks.ROW8_REUSE_CALLS
+    for run, outs in row8_runs.items():
+        for o in outs:
+            for case, r, ok in o["readings"]:
+                if case[0] == "plain":
+                    assert ok, (run, case, r)
+            assert o["counts"] == (calls, 2 * calls), run
+
+
+@pytest.mark.cuda
+def test_row8_gives_the_same_bits_on_every_call_on_card(cuda_device,
+                                                        row8_runs):
+    """A second call of each case, and every one of the back-to-back calls
+    (modes and shapes alternating, the slots reused by call parity, no
+    host synchronisation between them), gives the first call's bits."""
+    for run, outs in row8_runs.items():
+        for o in outs:
+            for case, _, same in o["readings"]:
+                if case[0] in ("same bits", "reuse"):
+                    assert same, (run, case)
+
+
+@pytest.mark.cuda
+def test_row8_survives_a_late_peer_on_card(cuda_device, row8_runs):
+    """With the channel's timeout shortened to 1.5 s the last rank sleeps
+    three timeouts before a call; the others wait for its partial in
+    their reduce (longer than two timeouts) without giving up, no rank's
+    error record is set, and every rank's result is the same bits as
+    that case's first call."""
+    import torch_tp_train_ranks as ranks
+    for run, outs in row8_runs.items():
+        n = len(outs)
+        assert [o["late"] for o in outs] == [False] * (n - 1) + [True]
+        for r, o in enumerate(outs):
+            assert o["code"] == 0, (run, r)
+            late = [same for case, _, same in o["readings"]
+                    if case[0] == "late"]
+            assert late == [True], (run, r)
+            if not o["late"]:
+                assert o["waited"] > 2 * ranks.ROW8_LATE_TIMEOUT_S, (run, r)
+
+
+@pytest.mark.cuda
+def test_row8_gone_peer_leaves_a_filled_record_on_card(cuda_device,
+                                                       tmp_path):
+    """Row 8 on two ranks sharing the card, called by rank 0 alone while
+    its peer's process ends a second after the group barrier: rank 0's
+    reduce waits for the peer's partial, gives up once the peer's
+    heartbeat has stood still for the 2 s timeout, fills the error record
+    (code 1, row 8, rank 0, the reduce's wait, call 1, peer 1) and traps;
+    synchronising raises and the next call names it."""
+    import torch_tp_train_ranks as ranks
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.ops import ring_gemm
+    ring_gemm.build()            # once, here: the ranks only load it
+    outs = env.launch(2, ranks.card_row8_gone_peer, 2.0, layout="shared",
+                      timeout_s=300, init_dir=tmp_path)
+    got = outs[0]
+    rec = got["record"]
+    assert got["raised"], got
+    assert rec["code"] == 1 and rec["row"] == 8 and rec["rank"] == 0, rec
+    assert rec["at_end"] == 1 and rec["epoch"] == 1 and rec["peer"] == 1, rec
+    assert got["seconds"] < 30, got
+    assert "row 8: rank 0's reduce's wait for a partial at epoch 1" in \
+        got["next_call"]
+    assert "the process is gone" in got["next_call"]
+    assert outs[1:] == [{}]
+
+
+@pytest.mark.cuda
+def test_row8_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    """A chunk that is not a multiple of the 128-row tile, fp32 operands,
+    a width that is not a multiple of 16, a strided operand and groups of
+    1 and 9 ranks raise before any channel opens; nothing falls back to
+    a ring or to NCCL, and no launch is counted."""
+    import types
+    from paddle_tpu_torch.ops import ring_gemm as rg
+    dev = torch.zeros(1, device=cuda_device).device
+    bf = dict(device=cuda_device, dtype=torch.bfloat16)
+
+    def group(n):
+        return types.SimpleNamespace(n=n, rank=0, device=dev,
+                                     peer_channels={})
+
+    g2 = group(2)
+    y, w = torch.zeros(2, 256, 64, **bf), torch.zeros(64, 32, **bf)
+    before = (rg.ring_gemm_rs.calls, rg.ring_gemm_rs.launches)
+    with pytest.raises(ValueError, match="not a multiple of 128"):
+        rg.ring_gemm_rs(torch.zeros(2, 96, 64, **bf), w, g2)
+    with pytest.raises(ValueError, match="not bfloat16"):
+        rg.ring_gemm_rs(y.float(), w.float(), g2)
+    with pytest.raises(ValueError, match="not a multiple of 16"):
+        rg.ring_gemm_rs(y[..., :40].contiguous(), w[:40], g2)
+    with pytest.raises(ValueError, match="not contiguous"):
+        rg.ring_gemm_rs(y, w.t().contiguous().t(), g2)
+    for n in (1, 9):
+        with pytest.raises(ValueError, match=f"a group of {n} ranks"):
+            rg.ring_gemm_rs(torch.zeros(2, 128 * n, 64, **bf), w, group(n))
+    assert not g2.peer_channels
+    assert (rg.ring_gemm_rs.calls, rg.ring_gemm_rs.launches) == before

@@ -1,7 +1,9 @@
 """The port's paged-decode attention (paddle_tpu_torch/serving/
-paged_decode.py): its plain version against the reference's Pallas kernel
-run in interpret mode, and the wrapper's CPU routing. The hand-written
-kernel itself is tested on a card by tests/test_torch_cuda_kernels.py."""
+paged_decode.py): its plain version and the plain form of the kernel's
+split algorithm (pages cut into splits, the splits joined in order)
+against the reference's Pallas kernels run in interpret mode, and the
+wrapper's CPU routing. The hand-written kernel itself is tested on a card
+by tests/test_torch_cuda_kernels.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,8 +11,11 @@ import torch
 
 from paddle_tpu.serving.paged_attention import paged_decode_attention as \
     jax_paged_decode
+from paddle_tpu.serving.paged_attention import paged_decode_attention_q as \
+    jax_paged_decode_q
 from paddle_tpu_torch.serving.paged_decode import (
-    paged_decode_attention, paged_decode_plain, unsupported_reason)
+    paged_decode_attention, paged_decode_plain, paged_decode_split_plain,
+    unsupported_reason)
 
 
 def _case(rng, B, nh, d, ps, MP, P, pos):
@@ -50,6 +55,79 @@ def test_plain_matches_reference_kernel_interpret(pool_dtype, ps):
     assert got.dtype == torch.float32 and got.shape == (B, nh, d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
+
+
+# the split form's cases: a table of 8 pages cut into 1, 2 and 4 splits;
+# positions inside the first page, on a page edge (its last key and the
+# next page's first), ending before the last split (so 1 or 3 whole
+# splits are masked) and at the table's last key
+SPLIT_MP = 8
+_SPLIT_POS = {8: [5, 7, 8, 26, 63], 16: [5, 15, 16, 50, 127]}
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "fp8"])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_split_plain_matches_reference_kernels_interpret(splits, pool, ps):
+    """The kernel's split-and-join algorithm in plain form, at 1, 2 and 4
+    splits of the slot's table, against the reference's ``_decode_kernel``
+    (float / bf16 pools) and ``_decode_kernel_q`` (int8 / fp8 pools with
+    per-page scales in [0.01, 0.1]) in interpret mode, as
+    tests/test_paged_serving.py and tests/test_quant_serving.py run them:
+    fp32 math over the same pool values, 2e-5 (summation order). Whole
+    splits past pos contribute nothing: no NaN."""
+    rng = np.random.default_rng(3 + splits)
+    B, nh, d, P = 5, 4, 64, 23
+    q, kc, vc, table, pos = _case(rng, B, nh, d, ps, SPLIT_MP, P,
+                                  _SPLIT_POS[ps])
+    args = [jnp.asarray(q), None, None, jnp.asarray(table),
+            jnp.asarray(pos)]
+    scales = None
+    if pool in ("int8", "fp8"):
+        if pool == "int8":
+            kc, vc = (np.clip(np.round(a * 40), -127, 127).astype(np.int8)
+                      for a in (kc, vc))
+            jk, jv = jnp.asarray(kc), jnp.asarray(vc)
+            tk, tv = torch.from_numpy(kc), torch.from_numpy(vc)
+        else:
+            kc, vc = (np.clip(a * 60, -448, 448) for a in (kc, vc))
+            jk, jv = (jnp.asarray(a).astype(jnp.float8_e4m3fn)
+                      for a in (kc, vc))
+            tk, tv = (torch.from_numpy(a).to(torch.float8_e4m3fn)
+                      for a in (kc, vc))
+        ksc, vsc = (rng.uniform(0.01, 0.1, P).astype(np.float32)
+                    for _ in range(2))
+        want = jax_paged_decode_q(args[0], jk, jv, args[3], args[4],
+                                  jnp.asarray(ksc), jnp.asarray(vsc),
+                                  page_size=ps, interpret=True)
+        scales = (torch.from_numpy(ksc), torch.from_numpy(vsc))
+    else:
+        jdt, tdt = getattr(jnp, pool), getattr(torch, pool)
+        want = jax_paged_decode(args[0], jnp.asarray(kc, jdt),
+                                jnp.asarray(vc, jdt), args[3], args[4],
+                                page_size=ps, interpret=True)
+        tk, tv = (torch.from_numpy(a).to(tdt) for a in (kc, vc))
+    got = paged_decode_split_plain(
+        torch.from_numpy(q), tk, tv, torch.from_numpy(table),
+        torch.from_numpy(pos), ps, split_pages=SPLIT_MP // splits,
+        scales=scales)
+    assert got.dtype == torch.float32 and got.shape == (B, nh, d)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_split_plain_gives_a_slot_without_keys_the_kernels_nan():
+    """pos < 0 (no live key): 0 / 0, as the reference's kernel and the
+    plain gather give, whatever the split count."""
+    rng = np.random.default_rng(4)
+    q, kc, vc, table, pos = _case(rng, 2, 2, 64, 8, 4, 9, [-1, 9])
+    args = [torch.from_numpy(a) for a in (q, kc, vc, table, pos)]
+    for sp in (1, 4):
+        got = paged_decode_split_plain(*args, 8, split_pages=sp)
+        assert bool(torch.isnan(got[0]).all())
+        assert bool(torch.isfinite(got[1]).all())
+    assert bool(torch.isnan(paged_decode_plain(*args, 8)[0]).all())
 
 
 def test_wrapper_takes_plain_version_on_cpu_without_counting():

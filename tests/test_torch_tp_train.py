@@ -229,6 +229,38 @@ def test_fused_plain_path_is_the_ring_rung_bit_for_bit(run):
                                       o["ops"]["rs/ring"][0])
 
 
+@pytest.mark.parametrize("transpose", [False, True], ids=["NN", "NT"])
+def test_row8_peer_schedule_is_the_plain_ring(run, ref, inputs, transpose):
+    """Row 8's peer schedule in plain form (``gemm_rs_peer_plain``: every
+    rank's fp32 partial of chunk c into slot [c][src], each destination
+    summing its slots in the ring's order) over all n ranks' shards: the
+    same bits as each rank's ``gemm_rs_plain`` (the ring of hops, fp32),
+    and within OP_TOL of the reference's ring (its ``gemm_ring_rs``; NT:
+    dx of its ``ring_ag_gemm`` by JAX autodiff, which is the GEMM +
+    reduce-scatter of gy by w^T). The reference's ``_gemm_rs_kernel``
+    lives in a module that does not import under this image's jax
+    (fused_collectives.py:63), so its ring algebra stands in for it, as
+    in the tests above."""
+    from paddle_tpu_torch.ops import ring_gemm as rg
+    n, outs = run
+    c = {k: torch.from_numpy(v) for k, v in inputs["case"].items()}
+    if transpose:
+        ys = [c["gy"].chunk(n, dim=2)[r].contiguous() for r in range(n)]
+        ws = [c["w"].chunk(n, dim=1)[r].contiguous() for r in range(n)]
+        key, want = "rs/plain_t", ref[n]["ops"]["ag"][1]
+    else:
+        ys = [c["y"].chunk(n, dim=2)[r].contiguous() for r in range(n)]
+        ws = [c["w2"].chunk(n, dim=0)[r].contiguous() for r in range(n)]
+        key, want = "rs/plain", ref[n]["ops"]["rs"][0]
+    got = rg.gemm_rs_peer_plain(ys, ws, transpose_w=transpose)
+    for o in outs:
+        r = o["rank"]
+        np.testing.assert_array_equal(got[r].numpy(), o["ops"][key])
+        np.testing.assert_allclose(got[r].numpy(), _cols(want, r, n, 1),
+                                   rtol=OP_TOL,
+                                   atol=OP_TOL * np.abs(want).max())
+
+
 def test_ag_accum_matches_the_dense_sum(run, inputs):
     """sum_c r_c^T stat_c over the ring equals the dense contraction over
     the whole sequence; the transposed variant its transpose."""

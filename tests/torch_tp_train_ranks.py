@@ -77,6 +77,8 @@ def ops(group, case):
         out[f"rs/{rung}"] = (_np(o), _np(dy), _np(dw2))
     out["ag/plain"] = _np(rg.ring_ag_gemm(x_r, w_r, group))
     out["rs/plain"] = _np(rg.ring_gemm_rs(y_r, w2_r, group))
+    out["rs/plain_t"] = _np(rg.ring_gemm_rs(gy_r, w_r, group,
+                                            transpose_w=True))
     out["accum"] = _np(rg.ring_ag_accum(x_r, gy_r, group))
     out["accum_t"] = _np(rg.ring_ag_accum(gx_r, y_r, group,
                                           transpose=True))
@@ -130,6 +132,9 @@ def checks(group, payload):
 # the ring kernels' card check: (B, s, A, F) per rank; A and F not
 # multiples of the 128-wide tiles in the first, several tiles in the second
 CARD_SHAPES = ((2, 24, 96, 48), (2, 256, 512, 384))
+# row 8's (its chunk of s rows is a multiple of the 128-row tile): A and F
+# past the 256 x 64 tile's edges in the first, several tiles in the second
+RS_CARD_SHAPES = ((2, 128, 272, 80), (2, 256, 512, 384))
 
 
 def card_kernels(group, seed):
@@ -144,20 +149,23 @@ def card_kernels(group, seed):
 
     rg.reset_counts()
     out = []
-    for B, s, A, Fd in CARD_SHAPES:
+    for (B, s, A, Fd), rs_shape in zip(CARD_SHAPES, RS_CARD_SHAPES):
         S = group.n * s
         x, gx = rand(B, s, A), rand(B, s, A)
         y, gy = rand(B, S, Fd), rand(B, S, Fd)
         w, w2 = rand(A, Fd), rand(Fd, A)
+        rB, rs, rA, rF = rs_shape
+        ry, rgy = rand(rB, group.n * rs, rF), rand(rB, group.n * rs, rF)
+        rw, rw2 = rand(rA, rF), rand(rF, rA)
         cases = {
             "ag_gemm": (rg.ring_ag_gemm(x, w, group),
                         rg.ag_gemm_plain(x, w, group)),
             "ag_gemm_t": (rg.ring_ag_gemm(gx, w2, group, transpose_w=True),
                           rg.ag_gemm_plain(gx, w2, group, True)),
-            "gemm_rs": (rg.ring_gemm_rs(y, w2, group),
-                        rg.gemm_rs_plain(y, w2, group)),
-            "gemm_rs_t": (rg.ring_gemm_rs(gy, w, group, transpose_w=True),
-                          rg.gemm_rs_plain(gy, w, group, True)),
+            "gemm_rs": (rg.ring_gemm_rs(ry, rw2, group),
+                        rg.gemm_rs_plain(ry, rw2, group)),
+            "gemm_rs_t": (rg.ring_gemm_rs(rgy, rw, group, transpose_w=True),
+                          rg.gemm_rs_plain(rgy, rw, group, True)),
             "ag_accum": (rg.ring_ag_accum(x, gy, group),
                          rg.ag_accum_plain(x, gy, group)),
             "ag_accum_t": (rg.ring_ag_accum(gx, y, group, transpose=True),
@@ -172,3 +180,130 @@ def card_kernels(group, seed):
             out.append(((name, B, s, A, Fd), r, ok))
     counts = {k.__name__: (k.calls, k.launches) for k in rg.KERNELS}
     return {"readings": out, "counts": counts}
+
+
+# row 8's card checks (``card_row8``): (B, s, A, F) per rank, the first
+# two as in RS_CARD_SHAPES, the third a main-path chunk (s = 512, A = 2048)
+ROW8_SHAPES = RS_CARD_SHAPES + ((1, 512, 2048, 512),)
+ROW8_REUSE_CALLS = 12
+ROW8_LATE_TIMEOUT_S = 1.5           # the late-peer check's barrier timeout
+ROW8_LATE_BY = 3.0                  # how late its late rank is: timeouts
+
+
+def _row8_ok(got, want):
+    r = rg.error_vs_plain(got, want)
+    return (bool(torch.isfinite(got).all()) and got.shape == want.shape and
+            got.dtype == want.dtype and rg.within_tolerance(r, got.dtype)), r
+
+
+def card_row8(group, seed):
+    """Row 8 (``ring_gemm_rs``: the wgmma GEMM storing into the peers'
+    slots, then the ring-order reduce) on the card, every rank its own
+    operands: NN and NT at every ``ROW8_SHAPES`` against ``gemm_rs_plain``
+    (per element and per 128-row tile) and the same bits on a second
+    call; ``ROW8_REUSE_CALLS`` calls back to back, modes and shapes
+    alternating, with no host synchronisation (the slots reused by call
+    parity), each the same bits as that case's first call; a late peer:
+    the last rank sleeps ``ROW8_LATE_BY`` timeouts of
+    ``ROW8_LATE_TIMEOUT_S`` between two calls while the others wait in
+    their reduce, no rank's error record set, the result the same bits.
+    Returns the readings, the launch counts, how long the late call took
+    on this rank and whether it was the late one."""
+    import time
+    from paddle_tpu_torch.distributed import peer
+    dev, n = group.device, group.n
+    g = torch.Generator(device=dev).manual_seed(seed + group.rank)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    rg.reset_counts()
+    cases, readings, first = [], [], {}
+    for B, s, A, Fd in ROW8_SHAPES:
+        y = rand(B, n * s, Fd)
+        for t in (False, True):
+            w = rand(A, Fd) if t else rand(Fd, A)
+            cases.append(((B, s, A, Fd, t), y, w))
+    for key, y, w in cases:
+        got = rg.ring_gemm_rs(y, w, group, transpose_w=key[-1])
+        again = rg.ring_gemm_rs(y, w, group, transpose_w=key[-1])
+        want = rg.gemm_rs_plain(y, w, group, key[-1])
+        torch.cuda.synchronize(dev)
+        ok, r = _row8_ok(got, want)
+        readings.append((("plain",) + key, r, ok))
+        readings.append((("same bits",) + key, None,
+                         bool(torch.equal(got, again))))
+        first[key] = got
+    outs = [(key, rg.ring_gemm_rs(y, w, group, transpose_w=key[-1]))
+            for i in range(ROW8_REUSE_CALLS)
+            for key, y, w in [cases[(5 * i) % len(cases)]]]
+    torch.cuda.synchronize(dev)
+    for i, (key, got) in enumerate(outs):
+        readings.append((("reuse", i) + key, None,
+                         bool(torch.equal(got, first[key]))))
+    counts = (rg.ring_gemm_rs.calls, rg.ring_gemm_rs.launches)
+    # the late peer
+    key, y, w = cases[-1]
+    ch = group.peer_channels[rg.RS_CHANNEL]
+    before = ch.timeout_ns
+    ch.timeout_ns = int(ROW8_LATE_TIMEOUT_S * 1e9)
+    group.barrier()
+    late = group.rank == n - 1
+    if late:
+        time.sleep(ROW8_LATE_BY * ROW8_LATE_TIMEOUT_S)
+    t0 = time.perf_counter()
+    got = rg.ring_gemm_rs(y, w, group, transpose_w=key[-1])
+    torch.cuda.synchronize(dev)
+    waited = time.perf_counter() - t0
+    ch.timeout_ns = before
+    readings.append((("late",) + key, None, bool(torch.equal(got,
+                                                             first[key]))))
+    return {"readings": readings, "counts": counts, "waited": waited,
+            "late": late, "code": peer.error_record()["code"]}
+
+
+# how long the peers of the gone-peer check live on after the group
+# barrier: long enough for rank 0's GEMM to have stored its tiles
+ROW8_DEAD_AFTER_S = 1.0
+
+
+def card_row8_gone_peer(group, timeout_s):
+    """Row 8 where rank 0 alone calls ``ring_gemm_rs`` and its peers'
+    processes end ``ROW8_DEAD_AFTER_S`` after the group barrier, as a
+    crash would (their heartbeats stop): rank 0's GEMM stores its tiles,
+    then its reduce waits for partials that never come and gives up once
+    a peer's heartbeat has stood still for ``timeout_s``. Returns, on rank
+    0, what synchronising raised, the error record, what the next call
+    raised and how long the call took to fail. Rank 0's CUDA context is
+    lost, so no rank tears its channel or heartbeat down."""
+    import time
+    from paddle_tpu_torch.distributed import env, peer
+    dev, n = group.device, group.n
+    y = torch.ones((1, n * 128, 64), device=dev, dtype=torch.bfloat16)
+    w = torch.ones((64, 64), device=dev, dtype=torch.bfloat16)
+    rg.gemm_rs_plain(y, w, group)           # every rank: the group works
+    peer.channel(group, rg.RS_CHANNEL, 2 * n * 128 * 64 * 4)
+    torch.cuda.synchronize(dev)
+    group.barrier()
+    if group.rank != 0:
+        time.sleep(ROW8_DEAD_AFTER_S)
+        env.exit_rank({})
+    group.peer_channels[rg.RS_CHANNEL].timeout_ns = int(timeout_s * 1e9)
+    out = {}
+    t0 = time.perf_counter()
+    rg.ring_gemm_rs(y, w, group)
+    try:
+        torch.cuda.synchronize(dev)
+        out["raised"] = None
+    except RuntimeError as e:
+        out["raised"] = str(e)
+    out["seconds"] = time.perf_counter() - t0
+    out["record"] = peer.error_record()
+    try:
+        rg.ring_gemm_rs(y, w, group)
+        out["next_call"] = None
+    except RuntimeError as e:
+        out["next_call"] = str(e)
+    group.peer_channels.clear()
+    group.peer_beat = None
+    return out
