@@ -52,8 +52,10 @@
 //   the layer's pool viewed as [P * page_size, nh * d] (box [page, d], no
 //   swizzle; a row of d is cut into pieces of at most 256 bytes, a box's
 //   innermost extent), completing on the stage's full barrier. The ring
-//   holds eight stages of one page each where they fit 64 KB, else four
-//   (page 16, d=128: bf16 64 KB, three blocks an SM; int8 / fp8 32 KB).
+//   holds as many stages of one page as fill 64 KB, 4 to 16 (page 16,
+//   d=128: bf16 8, int8 / fp8 16; three blocks an SM), so a one-byte pool
+//   keeps as many bytes in flight as a bf16 one. The table entries are
+//   read beside pos, not after it.
 //   Consumer warp w takes the pages w, w + 4, ... of its split, so a stage
 //   only ever has one consumer, frees each stage on its empty barrier, and
 //   the producer refills it with the split's next page. (Copying a page
@@ -177,10 +179,12 @@ struct Shape {
   static constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
   static constexpr int kPageBytes = PS * kRowBytes;    // K (or V) of a page
   static constexpr int kStageBytes = 2 * kPageBytes;   // K then V
-  // 8 stages where they fit kRingBytes, else 4: a multiple of the
+  // as many stages as fill kRingBytes, 4 to 16 and a multiple of the
   // consumer warps, so a stage is only ever waited on by its one warp, at
-  // most one phase ahead of it
-  static constexpr int kStages = 8 * kStageBytes <= kRingBytes ? 8 : 4;
+  // most one phase ahead of it (page 16, d=128: bf16 8, int8 / fp8 16)
+  static constexpr int kFit = kRingBytes / kStageBytes;
+  static constexpr int kStages =
+      kFit < 4 ? 4 : (kFit > 16 ? 16 : kFit / kConsumerWarps * kConsumerWarps);
   static constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment
   static_assert(D % kVec == 0, "head_dim must be a multiple of 8");
   static_assert(kLanes <= 32 && 32 % kLanes == 0,
@@ -230,9 +234,30 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tk,  // K pool
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
+  const int j0 = split * split_pages;
+  // the producer's page-table entries are read beside pos, not after it:
+  // lane j holds the split's page j's and j + 32's (entries past the live
+  // pages are read, in the table's bounds, and never used)
+  const int32_t* tab = table + static_cast<size_t>(b) * max_pages + j0;
+  const int room = min(split_pages, max_pages - j0);
+  int phys_a = 0, phys_b = 0;
+  if (warp == kConsumerWarps) {
+    if (lane < room) phys_a = tab[lane];
+    if (lane + 32 < room) phys_b = tab[lane + 32];
+  }
+  // and a consumer lane's 8 elements of q likewise
+  const int col = lane % S::kLanes;        // which 8 elements of a row
+  float qv[kVec];
+  if (warp < kConsumerWarps) {
+    const float4* q4 = reinterpret_cast<const float4*>(
+        q + (static_cast<size_t>(b) * nh + h) * D + col * kVec);
+    const float4 a = q4[0];
+    const float4 c = q4[1];
+    qv[0] = a.x; qv[1] = a.y; qv[2] = a.z; qv[3] = a.w;
+    qv[4] = c.x; qv[5] = c.y; qv[6] = c.z; qv[7] = c.w;
+  }
   const int p = pos[b];
   const int n_pages = p < 0 ? 0 : min(p / PS + 1, max_pages);
-  const int j0 = split * split_pages;
   // split 0 always runs, so a slot with no live key still gets its
   // (0 / 0) context, as the TPU kernel's
   if (j0 >= n_pages && split > 0) return;
@@ -260,10 +285,6 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tk,  // K pool
   __syncthreads();
 
   if (warp == kConsumerWarps) {                         // the producer
-    // the split's page-table entries, read once; lane j holds page j's
-    const int32_t* tab = table + static_cast<size_t>(b) * max_pages + j0;
-    const int phys_a = lane < np ? tab[lane] : 0;          // page lane
-    const int phys_b = lane + 32 < np ? tab[lane + 32] : 0;  // lane + 32
     auto phys_of = [&](int j) {
       return __shfl_sync(kAll, j < 32 ? phys_a : phys_b, j % 32);
     };
@@ -299,16 +320,6 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tk,  // K pool
     }
   } else {                                              // a consumer
     const int sub = lane / S::kLanes;      // which row of the warp step
-    const int col = lane % S::kLanes;      // which 8 elements of the row
-    float qv[kVec];
-    {
-      const float4* q4 = reinterpret_cast<const float4*>(
-          q + (static_cast<size_t>(b) * nh + h) * D + col * kVec);
-      const float4 a = q4[0];
-      const float4 c = q4[1];
-      qv[0] = a.x; qv[1] = a.y; qv[2] = a.z; qv[3] = a.w;
-      qv[4] = c.x; qv[5] = c.y; qv[6] = c.z; qv[7] = c.w;
-    }
     // this warp's running softmax state over its pages
     float m = -INFINITY;
     float l = 0.f;        // this lane's rows only; summed over the warp
