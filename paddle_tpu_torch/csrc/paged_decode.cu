@@ -73,11 +73,17 @@
 // * Each consumer warp keeps an online softmax over its pages; the four
 //   are joined through shared memory into the split's (max, sum, d-wide
 //   accumulator). A slot whose context fits one split writes its context
-//   there. Otherwise every split writes its partial to a workspace, and the
-//   last block of a (slot, head) to arrive (a counter in device memory that
-//   the last block resets) joins the live splits in split order, so every
-//   call gives the same bits; it loads the splits' partials all at once,
-//   not as a chain of dependent loads.
+//   there. Otherwise every split writes its partial to a workspace, and a
+//   second launch, one block per (slot, head), joins the live splits in
+//   split order, so every call gives the same bits; it loads the splits'
+//   partials all at once, not as a chain of dependent loads. The join is
+//   a programmatic dependent launch: the split blocks let it start as soon
+//   as they are all resident, its blocks read pos while the splits run,
+//   and wait (griddepcontrol.wait) only before they read the partials, so
+//   the boundary between the launches costs no drain and relaunch. (The
+//   last split block of a (slot, head) to arrive at a device counter can
+//   join them in one launch instead; that form keeps a counter per device
+//   between calls and ties every call on a device to one stream.)
 //   Splits wholly past pos never write and are never read, so they cannot
 //   bring a NaN into the join.
 // * bf16 -> fp32 with __bfloat162float; int8 -> fp32 with one byte permute
@@ -221,7 +227,6 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tk,  // K pool
                     const float* __restrict__ vsc,      // [P] or null
                     float* __restrict__ out,            // [B, nh, D] fp32
                     float* __restrict__ ws,     // [B, nh, splits, D + 4]
-                    int* __restrict__ arrived,  // [B, nh], zero between calls
                     int nh, int max_pages, int split_pages, float scale,
                     WaitRecord* rec) {
   using S = Shape<T, D, PS>;
@@ -233,6 +238,8 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tk,  // K pool
   const int splits = gridDim.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  // the join may launch once every split block has started
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 
   const int j0 = split * split_pages;
   // the producer's page-table entries are read beside pos, not after it:
@@ -269,7 +276,6 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tk,  // K pool
   __shared__ float s_ks[kMaxSplit], s_vs[kMaxSplit];
   __shared__ float s_m[kConsumerWarps], s_l[kConsumerWarps];
   __shared__ __align__(16) float s_acc[kConsumerWarps][D];
-  __shared__ int s_last;
   const uint32_t base = aligned_base(smem_raw);
   const uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));
   const Waiter wt{smem_u32(bars), rec, 1};
@@ -432,53 +438,60 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tk,  // K pool
       }
     }
   }
-  if (live == 1) return;
+}
 
-  // the last split of (b, h) to arrive joins the live splits in order
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    const int before = atomicAdd(arrived + bh, 1);
-    s_last = before == live - 1;
-    if (s_last) arrived[bh] = 0;          // ready for the next call
-  }
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  // every split's (max, sum) at once into the drained ring, then the
-  // weights, then each context column over the splits in order, eight
-  // loads in flight at a time: no chain of dependent loads
+// The second launch: one block of D threads per (slot, head) joins the
+// live splits' partials in split order (a slot whose context fits one
+// split has its context already). Launched as a programmatic dependent of
+// the split kernel: pos is read before griddepcontrol.wait, the partials
+// after it.
+template <int D>
+__global__ void __launch_bounds__(D)
+paged_decode_join_kernel(const int32_t* __restrict__ pos,  // [B]
+                         const float* __restrict__ ws,
+                         float* __restrict__ out,          // [B, nh, D]
+                         int nh, int max_pages, int page_size,
+                         int split_pages, int splits) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int p = pos[b];
+  const int n_pages = p < 0 ? 0 : min(p / page_size + 1, max_pages);
+  const int live = max(1, (n_pages + split_pages - 1) / split_pages);
+  if (live == 1) return;
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  // every split's (max, sum) at once, then the weights, then each context
+  // column over the splits in order, eight loads in flight at a time: no
+  // chain of dependent loads
+  extern __shared__ float sw[];                         // [2 * splits]
+  const size_t bh = static_cast<size_t>(b) * nh + h;
   const float* parts = ws + bh * splits * (D + kPartStride);
-  float* sw = reinterpret_cast<float*>(const_cast<uint8_t*>(smem));
-  for (int k = threadIdx.x; k < live; k += kThreads) {
-    sw[k] = __ldcg(parts + k * (D + kPartStride));
-    sw[live + k] = __ldcg(parts + k * (D + kPartStride) + 1);
+  for (int k = threadIdx.x; k < live; k += D) {
+    sw[k] = parts[k * (D + kPartStride)];
+    sw[live + k] = parts[k * (D + kPartStride) + 1];
   }
   __syncthreads();
   float mx = -INFINITY;
   for (int k = 0; k < live; ++k) mx = fmaxf(mx, sw[k]);
   __syncthreads();
-  for (int k = threadIdx.x; k < live; k += kThreads)
+  for (int k = threadIdx.x; k < live; k += D)
     sw[k] = (sw[k] == -INFINITY) ? 0.f : expf(sw[k] - mx);
   __syncthreads();
   float den = 0.f;
   for (int k = 0; k < live; ++k) den = fmaf(sw[k], sw[live + k], den);
-  for (int e = threadIdx.x; e < D; e += kThreads) {
-    float num = 0.f;
-    for (int k0 = 0; k0 < live; k0 += 8) {
-      float v[8];
+  const int e = threadIdx.x;
+  float num = 0.f;
+  for (int k0 = 0; k0 < live; k0 += 8) {
+    float v[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        v[i] = k0 + i < live
-                   ? __ldcg(parts + (k0 + i) * (D + kPartStride) +
-                            kPartStride + e)
-                   : 0.f;
+    for (int i = 0; i < 8; ++i)
+      v[i] = k0 + i < live
+                 ? parts[(k0 + i) * (D + kPartStride) + kPartStride + e]
+                 : 0.f;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (k0 + i < live) num = fmaf(sw[k0 + i], v[i], num);
-    }
-    out[bh * D + e] = num / den;
+    for (int i = 0; i < 8; ++i)
+      if (k0 + i < live) num = fmaf(sw[k0 + i], v[i], num);
   }
+  out[bh * D + e] = num / den;
 }
 
 template <typename T> constexpr CUtensorMapDataType kMapType =
@@ -538,8 +551,8 @@ int encode_pool(CUtensorMap* map, const void* pool, int P, int nh) {
 template <typename T, int D, int PS>
 int launch(const void* q, const void* kc, const void* vc, const void* table,
            const void* pos, const void* ksc, const void* vsc, void* out,
-           void* ws, void* arrived, int B, int nh, int P, int max_pages,
-           float scale, cudaStream_t stream) {
+           void* ws, int B, int nh, int P, int max_pages, float scale,
+           cudaStream_t stream) {
   using S = Shape<T, D, PS>;
   auto kernel = paged_decode_kernel<T, D, PS>;
   static unsigned ready = 0;
@@ -555,28 +568,42 @@ int launch(const void* q, const void* kc, const void* vc, const void* table,
   int split_pages = 0;
   const int splits = plan(B, nh, max_pages, &split_pages);
   if (splits <= 0) return splits < 0 ? -splits : -1;
-  if (2 * splits * 4 > S::kStages * S::kStageBytes) return -1;
+  if (2 * splits * static_cast<int>(sizeof(float)) > 48 * 1024) return -1;
   const dim3 grid(nh, B, splits);
   kernel<<<grid, kThreads, S::kSmem, stream>>>(
       tk, tv, static_cast<const float*>(q),
       static_cast<const int32_t*>(table),
       static_cast<const int32_t*>(pos), static_cast<const float*>(ksc),
       static_cast<const float*>(vsc), static_cast<float*>(out),
-      static_cast<float*>(ws), static_cast<int*>(arrived), nh, max_pages,
-      split_pages, scale, rec);
-  return cudaGetLastError();
+      static_cast<float*>(ws), nh, max_pages, split_pages, scale, rec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nh, B);
+  cfg.blockDim = dim3(D);
+  cfg.dynamicSmemBytes = 2 * splits * sizeof(float);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, paged_decode_join_kernel<D>,
+                            static_cast<const int32_t*>(pos),
+                            static_cast<const float*>(ws),
+                            static_cast<float*>(out), nh, max_pages, PS,
+                            split_pages, splits);
 }
 
 template <typename T>
 int dispatch(const void* q, const void* kc, const void* vc, const void* table,
              const void* pos, const void* ksc, const void* vsc, void* out,
-             void* ws, void* arrived, int B, int nh, int P, int head_dim,
+             void* ws, int B, int nh, int P, int head_dim,
              int page_size, int max_pages, float scale,
              cudaStream_t stream) {
 #define PAGED_DECODE_CASE(DD, PP)                                          \
   if (head_dim == DD && page_size == PP)                                   \
-    return launch<T, DD, PP>(q, kc, vc, table, pos, ksc, vsc, out, ws,      \
-                             arrived, B, nh, P, max_pages, scale, stream);
+    return launch<T, DD, PP>(q, kc, vc, table, pos, ksc, vsc, out, ws, B,   \
+                             nh, P, max_pages, scale, stream);
   PAGED_DECODE_CASE(64, 8)
   PAGED_DECODE_CASE(64, 16)
   PAGED_DECODE_CASE(64, 32)
@@ -605,14 +632,14 @@ extern "C" long long paged_decode_workspace_floats(int B, int nh,
 // kc, vc: the layer's pools [P, page_size, nh, head_dim]. pool_dtype: 0 =
 // bfloat16, 1 = float32, 2 = int8, 3 = float8_e4m3fn; ksc and vsc are the
 // layer's per-page scales, fp32 [P], for 2 and 3 (null otherwise). ws:
-// paged_decode_workspace_floats fp32; arrived: int32 [B, nh], zero before
-// the first call (every call leaves it zero). Returns 0, a cudaError_t
-// code, or a negative code of paged_decode_error_string.
+// paged_decode_workspace_floats fp32. Two launches on the stream: the
+// splits, then their join. Returns 0, a cudaError_t code, or a negative
+// code of paged_decode_error_string.
 extern "C" int paged_decode_launch(const void* q, const void* kc,
                                    const void* vc, const void* table,
                                    const void* pos, const void* ksc,
                                    const void* vsc, void* out, void* ws,
-                                   void* arrived, int B, int nh, int P,
+                                   int B, int nh, int P,
                                    int head_dim, int page_size,
                                    int max_pages, int pool_dtype,
                                    float scale, void* stream) {
@@ -624,19 +651,19 @@ extern "C" int paged_decode_launch(const void* q, const void* kc,
   switch (pool_dtype) {
     case 0:
       return dispatch<__nv_bfloat16>(q, kc, vc, table, pos, ksc, vsc, out,
-                                     ws, arrived, B, nh, P, head_dim,
+                                     ws, B, nh, P, head_dim,
                                      page_size, max_pages, scale, s);
     case 1:
       return dispatch<float>(q, kc, vc, table, pos, ksc, vsc, out, ws,
-                             arrived, B, nh, P, head_dim, page_size,
+                             B, nh, P, head_dim, page_size,
                              max_pages, scale, s);
     case 2:
       return dispatch<int8_t>(q, kc, vc, table, pos, ksc, vsc, out, ws,
-                              arrived, B, nh, P, head_dim, page_size,
+                              B, nh, P, head_dim, page_size,
                               max_pages, scale, s);
     case 3:
       return dispatch<__nv_fp8_e4m3>(q, kc, vc, table, pos, ksc, vsc, out,
-                                     ws, arrived, B, nh, P, head_dim,
+                                     ws, B, nh, P, head_dim,
                                      page_size, max_pages, scale, s);
   }
   return -1;

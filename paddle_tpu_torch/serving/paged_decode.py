@@ -13,16 +13,14 @@ sum_b (live pages_b * page_size) * nh * d * 2 * itemsize, over the card's
 about 10 us per layer). It splits each slot's pages over blocks (splits
 of 8 to 64 pages, as many as fill the card twice over), loads each
 page's K and V of a head into shared memory with a TMA tile load through
-an mbarrier ring, and joins the splits in
-split order; see the source for the design. A call uses an fp32
-workspace for the splits' partials and a per-device int32 counter per
-(slot, head) that every call leaves at zero, so calls on one device run
-one after another on one stream (as the engine's do).
+an mbarrier ring; a second launch joins the splits in split order. See
+the source for the design. A call uses an fp32 workspace for the splits'
+partials.
 
 ``paged_decode_attention`` takes the plain version only for tensors on
 the CPU. On CUDA it launches the kernel or raises: a failed build or
 launch never falls back. ``paged_decode_attention.launches`` counts the
-kernel's launches.
+kernel's calls (each one launch of the splits and one of their join).
 
 ``paged_decode_attention_q`` is the same for an int8 or float8_e4m3fn
 pool with per-page dequant scales ksc_l/vsc_l [P] float32: it replaces
@@ -170,7 +168,7 @@ def unsupported_reason(head_dim, page_size, pool_dtype):
 def _library():
     lib = load_library("paged_decode", "paged_decode.cu")
     lib.paged_decode_launch.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 +
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 +
         [ctypes.c_float, ctypes.c_void_p])
     lib.paged_decode_launch.restype = ctypes.c_int
     lib.paged_decode_workspace_floats.argtypes = [ctypes.c_int] * 4 + [
@@ -206,19 +204,6 @@ def _workspace_floats(device, B, nh, d, MP):
         raise RuntimeError("paged decode kernel: the device's SM count "
                            "could not be read")
     return floats
-
-
-_ARRIVED = {}               # device -> int32 counters, zero between calls
-
-
-def _arrived(device, n):
-    """At least ``n`` int32 split counters on ``device``, zero between
-    calls (each call's last split of a (slot, head) resets its own)."""
-    buf = _ARRIVED.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _ARRIVED[device] = buf
-    return buf
 
 
 def _check(q, kc_l, vc_l, table, pos, page_size, dtypes):
@@ -283,14 +268,13 @@ def _launch(q, kc_l, vc_l, table, pos, page_size, scales=None):
     out = torch.empty((B, nh, d), dtype=torch.float32, device=q.device)
     ws = torch.empty(_workspace_floats(q.device, B, nh, d, MP),
                      dtype=torch.float32, device=q.device)
-    arrived = _arrived(q.device, B * nh)
     ksc, vsc = (t.data_ptr() for t in scales) if scales else (None, None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.paged_decode_launch(
             q.data_ptr(), kc_l.data_ptr(), vc_l.data_ptr(), table.data_ptr(),
             pos.data_ptr(), ksc, vsc, out.data_ptr(), ws.data_ptr(),
-            arrived.data_ptr(), B, nh, P, d, page_size, MP,
+            B, nh, P, d, page_size, MP,
             dtypes[kc_l.dtype],
             1.0 / d ** 0.5, stream)
     if rc != 0:

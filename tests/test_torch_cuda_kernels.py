@@ -117,10 +117,11 @@ def test_paged_decode_splits_match_plain_on_card(cuda_device, kind, case):
 
 
 @pytest.mark.cuda
-def test_paged_decode_leaves_no_split_counter_behind_on_card(cuda_device):
+def test_paged_decode_calls_back_to_back_give_the_same_bits_on_card(
+        cuda_device):
     """Calls of different shapes one after another with no host
-    synchronisation (the split counters reset by each call's last split),
-    then every counter zero and every result the same bits as alone."""
+    synchronisation (each call's join launch overlapping the next call's
+    splits' start), then every result the same bits as alone."""
     from paddle_tpu_torch.serving import paged_decode as pd
     cases = [_decode_args(cuda_device, "bfloat16", B, pos, seed=40 + i)
              for i, (B, pos) in enumerate(DECODE_SPLIT_CASES)]
@@ -133,7 +134,6 @@ def test_paged_decode_leaves_no_split_counter_behind_on_card(cuda_device):
     torch.cuda.synchronize()
     for i, got in enumerate(mixed):
         assert torch.equal(got, alone[i % len(cases)]), i
-    assert all(int(b.abs().sum()) == 0 for b in pd._ARRIVED.values())
     assert pd.wait_timeout_record() is None
 
 
