@@ -109,7 +109,7 @@
 
 namespace {
 
-constexpr int kSplitPages = 16;            // pages a split takes
+constexpr int kSplitPages = 8;             // pages a split takes
 constexpr int kMaxSplits = 512;            // unless the table needs more
 constexpr int kMaxSplit = 64;              // pages a split takes at most
 constexpr int kRingBytes = 65536;          // eight stages where they fit
@@ -191,9 +191,7 @@ struct Shape {
   static constexpr int kFit = kRingBytes / kStageBytes;
   static constexpr int kMost = kSplitPages < 16 ? kSplitPages : 16;
   static constexpr int kStages =
-      kFit < 4 ? 4
-               : (kFit > kMost ? kMost
-                               : kFit / kConsumerWarps * kConsumerWarps);
+      kFit < 4 ? 4 : (kFit > kMost ? kMost : kFit / 4 * 4);
   static constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment
   static_assert(D % kVec == 0, "head_dim must be a multiple of 8");
   static_assert(kLanes <= 32 && 32 % kLanes == 0,
