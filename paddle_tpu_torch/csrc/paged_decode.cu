@@ -109,12 +109,12 @@
 
 namespace {
 
-constexpr int kSplitPages = 8;             // pages a split takes
-constexpr int kMaxSplits = 512;            // unless the table needs more
-constexpr int kMaxSplit = 64;              // pages a split takes at most
+constexpr int kMinSplit = 8;               // pages a split takes at least
+constexpr int kMaxSplit = 64;              // and at most
 constexpr int kRingBytes = 65536;          // eight stages where they fit
 constexpr int kConsumerWarps = 4;          // warp w consumes pages w + 4i
 constexpr int kThreads = kConsumerWarps * 32 + 32;  // + the producer warp
+constexpr int kFill = 2;                   // blocks a call plans per SM
 constexpr int kVec = 8;                    // pool elements per lane per row
 constexpr int kFullArrivals = 2;           // the bytes' arrival, the scales'
 constexpr int kPartStride = 4;             // floats before a partial's acc
@@ -189,9 +189,8 @@ struct Shape {
   // consumer warps, so a stage is only ever waited on by its one warp, at
   // most one phase ahead of it (page 16, d=128: bf16 8, int8 / fp8 16)
   static constexpr int kFit = kRingBytes / kStageBytes;
-  static constexpr int kMost = kSplitPages < 16 ? kSplitPages : 16;
   static constexpr int kStages =
-      kFit < 4 ? 4 : (kFit > kMost ? kMost : kFit / 4 * 4);
+      kFit < 4 ? 4 : (kFit > 16 ? 16 : kFit / kConsumerWarps * kConsumerWarps);
   static constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment
   static_assert(D % kVec == 0, "head_dim must be a multiple of 8");
   static_assert(kLanes <= 32 && 32 % kLanes == 0,
@@ -502,17 +501,28 @@ template <> constexpr CUtensorMapDataType kMapType<__nv_bfloat16> =
 template <> constexpr CUtensorMapDataType kMapType<float> =
     CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 
-// The splits of a call and their length in pages (*split_pages):
-// kSplitPages a split, or as many more as keep the table within
-// kMaxSplits splits (at most kMaxSplit pages). Static: the table's width
-// only. Returns the split count, or -1 for a table too wide.
-int plan(int max_pages, int* split_pages) {
-  int len = kSplitPages;
-  if ((max_pages + len - 1) / len > kMaxSplits)
-    len = (max_pages + kMaxSplits - 1) / kMaxSplits;
-  if (len > kMaxSplit) return -1;
-  *split_pages = len;
-  return (max_pages + len - 1) / len;
+// The splits of a call and their length in pages (*split_pages): as many
+// splits as fill the card's SMs twice over with B * nh blocks each, within
+// [kMinSplit, kMaxSplit] pages a split. Static: the batch, heads, table
+// width and card. Returns the split count, or minus a cudaError_t.
+int plan(int B, int nh, int max_pages, int* split_pages) {
+  static int sms_of[64] = {};               // each device's SMs, read once
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 64 || sms_of[dev] == 0)) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess && dev < 64) sms_of[dev] = sms;
+  }
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const int sms = dev < 64 ? sms_of[dev] : 132;
+  const long long per = static_cast<long long>(B) * nh;
+  const int want = static_cast<int>((1LL * kFill * sms + per - 1) / per);
+  const int most = (max_pages + kMinSplit - 1) / kMinSplit;
+  const int least = (max_pages + kMaxSplit - 1) / kMaxSplit;
+  const int splits = want < least ? least : (want > most ? most : want);
+  *split_pages = (max_pages + splits - 1) / splits;
+  return (max_pages + *split_pages - 1) / *split_pages;
 }
 
 // The map of a pool [P * PS rows, nh * D]: dims (piece, nh * pieces, rows),
@@ -556,8 +566,8 @@ int launch(const void* q, const void* kc, const void* vc, const void* table,
       (rc = encode_pool<T, D, PS>(&tv, vc, P, nh)))
     return rc;
   int split_pages = 0;
-  const int splits = plan(max_pages, &split_pages);
-  if (splits <= 0) return -1;
+  const int splits = plan(B, nh, max_pages, &split_pages);
+  if (splits <= 0) return splits < 0 ? -splits : -1;
   if (2 * splits * static_cast<int>(sizeof(float)) > 48 * 1024) return -1;
   const dim3 grid(nh, B, splits);
   kernel<<<grid, kThreads, S::kSmem, stream>>>(
@@ -607,13 +617,14 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* table,
 }  // namespace
 
 // Floats of the split workspace ws of a call with B slots, nh heads and a
-// table of max_pages pages (one (max, sum, d-wide sum) partial a split),
-// and the split length in pages (*split_pages); -1 for a table too wide.
+// table of max_pages pages on the current device (one (max, sum, d-wide
+// sum) partial a split), and the split length in pages (*split_pages);
+// -1 when the device cannot be asked.
 extern "C" long long paged_decode_workspace_floats(int B, int nh,
                                                    int head_dim,
                                                    int max_pages,
                                                    int* split_pages) {
-  const int splits = plan(max_pages, split_pages);
+  const int splits = plan(B, nh, max_pages, split_pages);
   if (splits <= 0) return -1;
   return static_cast<long long>(B) * nh * splits * (head_dim + kPartStride);
 }

@@ -11,7 +11,7 @@ The kernel is bound by bytes: it must read every live key and value once,
 sum_b (live pages_b * page_size) * nh * d * 2 * itemsize, over the card's
 3.35 TB/s (B=8 slots of 512 live tokens, nh=16, d=128, bf16: 33.5 MB,
 about 10 us per layer). It splits each slot's pages over blocks (splits
-of a fixed length, set by the table's width alone), loads each
+of 8 to 64 pages, as many as fill the card twice over), loads each
 page's K and V of a head into shared memory with a TMA tile load through
 an mbarrier ring; a second launch joins the splits in split order. See
 the source for the design. A call uses an fp32 workspace for the splits'
@@ -194,14 +194,15 @@ def wait_timeout_record():
 
 
 @functools.lru_cache(maxsize=None)
-def _workspace_floats(B, nh, d, MP):
-    """The fp32 workspace a call of these shapes needs (its split plan
-    depends on the table's width only)."""
-    floats = _library().paged_decode_workspace_floats(
-        B, nh, d, MP, ctypes.byref(ctypes.c_int()))
+def _workspace_floats(device, B, nh, d, MP):
+    """The fp32 workspace a call of these shapes needs on ``device`` (its
+    split plan depends on them and the device's SMs only)."""
+    with torch.cuda.device(device):
+        floats = _library().paged_decode_workspace_floats(
+            B, nh, d, MP, ctypes.byref(ctypes.c_int()))
     if floats < 0:
-        raise ValueError(f"paged decode kernel: a table of {MP} pages is "
-                         f"too wide")
+        raise RuntimeError("paged decode kernel: the device's SM count "
+                           "could not be read")
     return floats
 
 
@@ -265,7 +266,7 @@ def _launch(q, kc_l, vc_l, table, pos, page_size, scales=None):
         raise ValueError("paged decode kernel: the table has no pages")
     lib = _library()
     out = torch.empty((B, nh, d), dtype=torch.float32, device=q.device)
-    ws = torch.empty(_workspace_floats(B, nh, d, MP),
+    ws = torch.empty(_workspace_floats(q.device, B, nh, d, MP),
                      dtype=torch.float32, device=q.device)
     ksc, vsc = (t.data_ptr() for t in scales) if scales else (None, None)
     with torch.cuda.device(q.device):
