@@ -868,7 +868,7 @@ def phase_profile(cfg, eng, rng, steps=10, group=None, tag="profile"):
           f"host wall untraced, {traced * 1e3:.2f} ms traced; device busy "
           f"{busy:.3f} ms/step = {busy / (traced * 1e3):.1%} of the traced "
           f"wall", flush=True)
-    ours = [e for e in events if "paged_decode_kernel" in e.key
+    ours = [e for e in events if "paged_decode" in e.key
             or "quant_gemm" in e.key or "nccl" in e.key.lower()]
     for e in events[:8] + [e for e in ours if e not in events[:8]]:
         print(f"[{tag}]   {dev_us(e) / 1e3 / steps:8.4f} ms/step "
@@ -3703,44 +3703,14 @@ def phase_trajectories(one_card, tp_r0, pp_r0, dp_r0, layout):
               f"{losses[-1] - one_card[-1]:+.4f}")
 
 
-def dp_timing_rank(group, seed):
-    """One rank of ``--only dp-timing``: rows 10-11's whole calls
-    (``phase_dp_timing``) alone."""
-    with peer_record(group):
-        say = (lambda *a: print(*a, flush=True)) if group.rank == 0 else \
-            (lambda *a: None)
-        group.barrier()
-        return {"rank": group.rank, "failed": [],
-                "timing": phase_dp_timing(group, seed, say)}
-
-
-ONLY = {"tp": lambda seed: phase_tp(seed),
-        "dp-timing": lambda seed: env.launch(
-            DP, dp_timing_rank, seed, timeout_s=600,
-            layout="per_card" if torch.cuda.device_count() >= DP
-            else "shared")}
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", default="",
-                    help="comma-separated phases to run alone after the "
-                         "build, for measurements (" + ", ".join(ONLY) +
-                         "); prints no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    if args.only:
-        phases = args.only.split(",")
-        check(all(p in ONLY for p in phases), f"--only takes {list(ONLY)}")
-        phase_build()
-        for p in phases:
-            ONLY[p](args.seed)
-        print(f"[only] {args.only}: done")
-        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")

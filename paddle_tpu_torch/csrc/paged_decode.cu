@@ -40,7 +40,9 @@
 //   than 8 pages nor longer than 64. Longer splits leave fewer blocks that
 //   a short context never reaches and fewer partials to join; a block's
 //   fixed chain of dependent latencies (pos, table, first pages, join)
-//   then weighs less against its bytes. A block whose split starts past
+//   then weighs less against its bytes. (Fixed splits of 8 or 16 pages
+//   were no faster at 8 slots x 512 tokens and up to 1.4x slower at 8 x
+//   2048; PERF.md.) A block whose split starts past
 //   pos[b] exits at once, and the split is the grid's slowest index, so
 //   the live (first) splits of every slot are scheduled before the dead
 //   ones. No host argument depends on the live lengths (pos stays on the
