@@ -3,12 +3,17 @@
 
     python3 chip_compare.py train-turns PARENT_DIR
     python3 chip_compare.py decode-turns PARENT_DIR
+    python3 chip_compare.py serve-turns PARENT_DIR
 
 ``train-turns`` runs chip_smoke's one-card GPT-3 1.3B train step
 (``phase_train``, then ``phase_train_profile``); ``decode-turns`` the
 paged-decode kernels (bf16, int8 and fp8 pools; 16 heads of 128, page
 16, a 128-page table, 24 layer slices cycled) at 8 slots x 512 live
-tokens, 1 x 2048 and 8 x 2048, by CUDA-graph replay. Each runs from the
+tokens, 1 x 2048 and 8 x 2048, by CUDA-graph replay; ``serve-turns``
+chip_smoke's one-card serving of GPT-3 1.3B (``phase_serve``: the 16
+requests, then ``phase_profile``: one [8, 1] decode boundary traced) at
+bf16 and int8 (after one row-1 call's eager host cost at 8 x 512), once
+both trees' kernels are built. Each runs from the
 tree at PARENT_DIR (a ``git archive`` of another commit) and from this
 one, in turns (parent, this, this, parent), each in a process of its
 own, and prints their lines. Needs a CUDA device and exits with another
@@ -68,6 +73,35 @@ for B, live in ((8, 512), (1, 2048), (8, 2048)):
 """
 
 
+SERVE_RUN = """
+import time
+import numpy as np, torch
+import chip_smoke as cs
+from paddle_tpu_torch.serving import paged_decode as pd
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+q, kc, vc, table, pos = cs.decode_inputs(gen, dev, [511] * 8, layers=1)
+for n in (20, 500):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        pd.paged_decode_attention(q, kc[0], vc[0], table, pos, cs.PAGE)
+    torch.cuda.synchronize()
+print(f"[serve-wrapper] paged decode, eager back to back: "
+      f"{(time.perf_counter() - t0) / n * 1e3:.4f} ms a call", flush=True)
+del q, kc, vc
+cfg = cs.GPT_CONFIGS[cs.MODEL]
+params = cs.cast_for_compute(cs.init_gpt_params(
+    cfg, seed=0, device=dev, dtype=torch.bfloat16), cfg)
+for quant in (None, "int8"):
+    run = cs.phase_serve(cfg, params, np.random.default_rng(0), quant=quant)
+    cs.phase_profile(cfg, run["eng"], np.random.default_rng(0))
+    del run
+    torch.cuda.empty_cache()
+"""
+BUILD_RUN = "import chip_smoke as cs; cs.phase_build()"
+
+
 def _say(msg):
     print(msg, flush=True)
 
@@ -106,6 +140,15 @@ def main(argv):
         turns(argv[1], TRAIN_RUN, ("[train]", "[train-profile]"))
     elif argv[:1] == ["decode-turns"] and len(argv) == 2:
         turns(argv[1], DECODE_RUN, ("[decode-turns]",))
+    elif argv[:1] == ["serve-turns"] and len(argv) == 2:
+        builds = [subprocess.Popen(
+            [sys.executable, "-c", BUILD_RUN], cwd=tree,
+            env=dict(os.environ, PYTHONPATH=str(tree)),
+            stdout=subprocess.DEVNULL) for tree in (argv[1], ROOT)]
+        if any(b.wait(timeout=900) for b in builds):
+            raise SystemExit("a build failed")
+        turns(argv[1], SERVE_RUN, ("[serve] {", "[serve-int8] {",
+                                   "[profile]", "[serve-wrapper]"))
     else:
         raise SystemExit(__doc__)
 
