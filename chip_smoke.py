@@ -451,6 +451,7 @@ def phase_build():
                "quant_gemm": "quant_gemm.cu",
                "ring_gemm": "ring_gemm.cu",
                "gemm_rs": "gemm_rs.cu",
+               "ag_gemm": "ag_gemm.cu",
                "rs_bucket": "rs_bucket.cu",
                "ag_bucket": "ag_bucket.cu",
                "peer_mem": "peer_mem.cu"}
@@ -517,6 +518,19 @@ def phase_build():
           f"{spills}")
     check(len(spills) == 11 and not any(any(s) for s in spills.values()),
           f"row 8's kernels spill (or ptxas reported no instance): {spills}")
+    ag = sass_counts(cuda_build.BUILD_INFO["ag_gemm"]["path"],
+                     r"ag_gemm_kernel")
+    check(ag is None or len(ag) == 3,
+          f"rows 7 and 9's GEMM has {len(ag or ())} instances in the SASS, "
+          f"not 3 (NN, NT, TN)")
+    spills = {fn: s for fn, s in ptxas_spills(
+        cuda_build.BUILD_INFO["ag_gemm"]["log"]).items()
+        if "ag_gemm" in fn}
+    print(f"[build] rows 7 and 9 (ag_gemm.cu) ptxas spills (store, load "
+          f"bytes): {spills}")
+    check(len(spills) == 3 and not any(any(s) for s in spills.values()),
+          f"rows 7 and 9's GEMM spills (or ptxas reported no instance): "
+          f"{spills}")
     pd = sass_counts(cuda_build.BUILD_INFO["paged_decode"]["path"],
                      r"paged_decode_kernel", ops=("UTMALDG",))
     check(pd is None or len(pd) == 24,
@@ -2156,12 +2170,12 @@ TP_KERNELS = (  # (kernel, wrapper, TPU kernel it replaces)
      "paddle_tpu/ops/pallas_kernels/fused_collectives.py:307"),
 )
 TP_WRAPPERS = {name: wrapper for name, wrapper, _ in TP_KERNELS}
-# launches a call: rows 7 and 9 one GEMM per ring step; row 8 its GEMM
-# (every chunk) and its reduce
-TP_LAUNCHES = {"ring_ag_gemm": MP, "ring_gemm_rs": 2, "ring_ag_accum": MP}
-TP_SOURCES = {"ring_ag_gemm": "paddle_tpu_torch/csrc/ring_gemm.cu",
+# launches a call: rows 7 and 9 the pull and the GEMM (every chunk); row
+# 8 its GEMM (every chunk) and its reduce
+TP_LAUNCHES = {"ring_ag_gemm": 2, "ring_gemm_rs": 2, "ring_ag_accum": 2}
+TP_SOURCES = {"ring_ag_gemm": "paddle_tpu_torch/csrc/ag_gemm.cu",
               "ring_gemm_rs": "paddle_tpu_torch/csrc/gemm_rs.cu",
-              "ring_ag_accum": "paddle_tpu_torch/csrc/ring_gemm.cu"}
+              "ring_ag_accum": "paddle_tpu_torch/csrc/ag_gemm.cu"}
 TP_PLAIN = {"ring_ag_gemm": rg.ag_gemm_plain, "ring_gemm_rs": rg.gemm_rs_plain,
             "ring_ag_accum": rg.ag_accum_plain}
 TP_PARITY_B = 2             # the 2-layer copy's batch (phase 6's)
@@ -2174,8 +2188,8 @@ def tp_step_calls(L):
     input gradient of ``fused_gemm_rs`` (2L): 6L; ``fused_gemm_rs`` the
     same, out and down (2L + 2L) plus the input gradient of
     ``fused_ag_gemm`` (2L): 6L; the weight-gradient kernel once per fused
-    call in the backward: 4L. Each call launches its kernel MP times, one
-    per ring step."""
+    call in the backward: 4L. Each call launches two kernels
+    (``TP_LAUNCHES``)."""
     return {"ring_ag_gemm": 6 * L, "ring_gemm_rs": 6 * L,
             "ring_ag_accum": 4 * L}
 
@@ -2432,8 +2446,9 @@ def phase_tp_profile(group, step, ids, say, tag="tp-profile"):
     events = sorted((e for e in prof.key_averages() if dev_us(e) > 0),
                     key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events) / 1e3
-    kinds = {"ring GEMM kernels": ("ring_gemm",),
+    kinds = {"rows 7, 9 (ag_gemm pull + GEMM)": ("ag_gemm",),
              "row 8 (gemm_rs GEMM + reduce)": ("gemm_rs",),
+             "ring GEMM kernels (rows 14-15)": ("ring_gemm",),
              "row 10 (rs_pull_kernel)": ("rs_pull_kernel",),
              "row 11 (ag_pull_kernel)": ("ag_pull_kernel",),
              "NCCL": ("nccl",), "flash kernels": ("flash_",),
@@ -2514,16 +2529,16 @@ def phase_tp_parity(group, seed, say):
 
 def phase_tp_timing(group, gen, cfg, say):
     """Each ring kernel at every main-path shape, per rank. With a card per
-    rank: the whole wrapper call (rows 7 and 9: MP GEMM launches and MP -
-    1 NCCL hops; row 8: its GEMM, whose epilogue stores into the peers'
-    slots, and its reduce) by CUDA events over eager calls on every rank,
-    the slowest rank's, its plain version, and the library yardstick (row
+    rank: the whole wrapper call (rows 7 and 9: the pull over the peers'
+    slots and the GEMM; row 8: its GEMM, whose epilogue stores into the
+    peers' slots, and its reduce) by CUDA events over eager calls on every
+    rank, the slowest rank's, its plain version, and the library yardstick (row
     7: ``all_gather_into_tensor`` + ``torch.mm``; row 8: ``torch.mm`` +
     ``reduce_scatter_tensor``; row 9: the gathered ``torch.mm(r^T,
     stat)``); and each call's GEMMs alone (``tp_gemm_only``) on rank 0.
-    With the ranks sharing one card (gloo hops through host memory): the
-    GEMMs alone on rank 0, and row 8's whole call on every rank as a path
-    check (four ranks time-slicing the card). Returns {(kernel, label):
+    With the ranks sharing one card: the GEMMs alone on rank 0, and row
+    8's whole call on every rank as a path check (four ranks time-slicing
+    the card). Returns {(kernel, label):
     timings}."""
     dev = group.device
     per_card = group.backend == "nccl"
@@ -2572,8 +2587,8 @@ def phase_tp_timing(group, gen, cfg, say):
                      covers=("whole call: the GEMM storing into the peers' "
                              "slots + the reduce, slowest rank"
                              if kernel == "ring_gemm_rs" else
-                             "whole call: MP GEMMs + NCCL hops, slowest "
-                             "rank"))
+                             "whole call: the pull over the peers' slots + "
+                             "the GEMM, slowest rank"))
             if group.rank == 0:
                 t["gemm_only"] = tp_gemm_only(kernel, a, b, flag)
         else:
@@ -2595,61 +2610,45 @@ def phase_tp_timing(group, gen, cfg, say):
 
 
 def tp_gemm_only(kernel, a, b, flag):
-    """One rank's GEMMs of a call without its hops: rows 7 and 9 the
-    kernel's step launch, the plain version's fp32 product and torch.mm,
-    each by CUDA-graph replay, times MP; row 8 its GEMM of every chunk in
-    one launch into local memory (``gemm_rs_local``), against MP chunk
-    products of the plain version and of torch.mm. ``tflops``: the
-    kernel's rate."""
-    dev = a.device
+    """One rank's GEMMs of a call without the transfer, by CUDA-graph
+    replay: the kernel's GEMM of every chunk in one launch from local
+    memory (``ag_gemm_local``, ``gemm_rs_local``, ``ag_accum_local``:
+    every rank's chunk taken as this rank's), against MP chunk products of
+    the plain version and of torch.mm. ``tflops``: the kernel's rate."""
     n = MP
     if kernel == "ring_ag_gemm":
         B, s, A = a.shape
-        F_ = b.shape[0] if flag else b.shape[1]
-        out = torch.empty((B, n * s, F_), dtype=a.dtype, device=dev)
-        mode = "NT" if flag else "NN"
+        xs = a.expand(n, *a.shape).contiguous()
 
         def kern():
-            rg.launch(mode, rg._rows(a), rg._rows(b),
-                      rg._rows(out, 0, F_, n * s * F_, s), B * s, F_, A,
-                      True, None, dev)
+            rg.ag_gemm_local(xs, b, 0, flag)
         x2, w2 = a.reshape(-1, A), (b.t() if flag else b)
     elif kernel == "ring_gemm_rs":
         B, S, F_ = a.shape
         s = S // n
-        x2, w2 = a[:, :s].reshape(-1, F_), (b.t() if flag else b)
-        k1 = graph_ms(lambda: rg.gemm_rs_local(a, b, n, 0, flag), iters=8)
-        p = graph_ms(lambda: x2.float() @ w2.float(), iters=2, replays=2)
-        lib = graph_ms(lambda: torch.mm(x2, w2), iters=8)
-        k2 = graph_ms(lambda: rg.gemm_rs_local(a, b, n, 0, flag), iters=8)
-        ms = min(k1, k2)
-        return {"ms": ms, "ms_runs": (k1, k2), "plain_ms": n * p,
-                "library_ms": n * lib,
-                "tflops": 2 * B * S * F_ * w2.shape[1] / ms / 1e9,
-                "covers": "the call's GEMM of every chunk, one launch, no "
-                          "peers"}
-    else:
-        B, s, A = a.shape
-        S, Bf = b.shape[1], b.shape[2]
-        M, N = (Bf, A) if flag else (A, Bf)
-        acc = torch.empty((M, N), dtype=torch.float32, device=dev)
-        ring, stat = rg._rows(a), rg._rows(b, 0, Bf, S * Bf, s)
-        pa, pb = (stat, ring) if flag else (ring, stat)
 
         def kern():
-            rg.launch("TN", pa, pb, rg._rows(acc), M, N, B * s, False,
-                      acc.data_ptr(), dev)
+            rg.gemm_rs_local(a, b, n, 0, flag)
+        x2, w2 = a[:, :s].reshape(-1, F_), (b.t() if flag else b)
+    else:
+        B, s, A = a.shape
+        Bf = b.shape[2]
+        rs = a.expand(n, *a.shape).contiguous()
+
+        def kern():
+            rg.ag_accum_local(rs, b, 0, flag)
         r2, s2 = a.reshape(-1, A), b[:, :s].reshape(-1, Bf)
         x2, w2 = (s2.t(), r2) if flag else (r2.t(), s2)
     k1 = graph_ms(kern, iters=8)
     p = graph_ms(lambda: x2.float() @ w2.float(), iters=2, replays=2)
     lib = graph_ms(lambda: torch.mm(x2, w2), iters=8)
     k2 = graph_ms(kern, iters=8)
-    ms = n * min(k1, k2)
-    return {"ms": ms, "ms_runs": (n * k1, n * k2),
-            "plain_ms": n * p, "library_ms": n * lib,
+    ms = min(k1, k2)
+    return {"ms": ms, "ms_runs": (k1, k2), "plain_ms": n * p,
+            "library_ms": n * lib,
             "tflops": n * 2 * x2.shape[0] * x2.shape[1] * w2.shape[1] / ms
-            / 1e9, "covers": "MP step GEMMs, no hops"}
+            / 1e9, "covers": "the call's GEMM of every chunk, one launch, "
+                             "no peers"}
 
 
 def tp_rank_main(group, seed):
@@ -3703,6 +3702,14 @@ def phase_trajectories(one_card, tp_r0, pp_r0, dp_r0, layout):
               f"{losses[-1] - one_card[-1]:+.4f}")
 
 
+@contextlib.contextmanager
+def phase_clock(name):
+    """Prints the seconds a phase of the run took, as ``[phase] name``."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[phase] {name}: {time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3720,61 +3727,72 @@ def main(argv=None):
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    phase_build()
-    max_abs = phase_kernel_vs_plain(gen, dev)
-    flash_errs = phase_flash_vs_plain(gen, dev)
-    cfg = GPT_CONFIGS[MODEL]
-    quant_errs = phase_quant_vs_plain(gen, dev, cfg)
-    phase_card_tests()
+    with phase_clock("build"):
+        phase_build()
+    with phase_clock("kernels vs plain"):
+        max_abs = phase_kernel_vs_plain(gen, dev)
+        flash_errs = phase_flash_vs_plain(gen, dev)
+        cfg = GPT_CONFIGS[MODEL]
+        quant_errs = phase_quant_vs_plain(gen, dev, cfg)
+    with phase_clock("card tests"):
+        phase_card_tests()
 
-    t0 = time.perf_counter()
-    params = cast_for_compute(
-        init_gpt_params(cfg, seed=args.seed, device=dev,
-                        dtype=torch.bfloat16), cfg)
-    torch.cuda.synchronize()
-    print(f"[model] {MODEL}: H={cfg.hidden_size} L={cfg.num_layers} "
-          f"nh={cfg.num_heads} V={cfg.vocab_size} {cfg.compute_dtype}, "
-          f"random weights (seed {args.seed}) in "
-          f"{time.perf_counter() - t0:.1f}s")
-    fp = phase_serve(cfg, params, np.random.default_rng(args.seed))
-    single = {"bf16": one_card(fp)}
-    phase_logits(cfg, fp["eng"], gen, dev)
-    phase_profile(cfg, fp["eng"], rng)
-    phase_oracle(cfg, params, fp["results"], fp["wave1"])
-    del fp["eng"]
-    torch.cuda.empty_cache()
+    with phase_clock("serving bf16"):
+        t0 = time.perf_counter()
+        params = cast_for_compute(
+            init_gpt_params(cfg, seed=args.seed, device=dev,
+                            dtype=torch.bfloat16), cfg)
+        torch.cuda.synchronize()
+        print(f"[model] {MODEL}: H={cfg.hidden_size} L={cfg.num_layers} "
+              f"nh={cfg.num_heads} V={cfg.vocab_size} {cfg.compute_dtype}, "
+              f"random weights (seed {args.seed}) in "
+              f"{time.perf_counter() - t0:.1f}s")
+        fp = phase_serve(cfg, params, np.random.default_rng(args.seed))
+        single = {"bf16": one_card(fp)}
+        phase_logits(cfg, fp["eng"], gen, dev)
+        phase_profile(cfg, fp["eng"], rng)
+        phase_oracle(cfg, params, fp["results"], fp["wave1"])
+        del fp["eng"]
+        torch.cuda.empty_cache()
     quant_rows = []
     for dtype in QUANT_DTYPES:
-        # the same 16 requests as the bf16 run
-        qs = phase_serve(cfg, params, np.random.default_rng(args.seed),
-                         quant=dtype)
-        single[dtype] = one_card(qs)
-        phase_logits(cfg, qs["eng"], gen, dev)
-        phase_quant_report(cfg, params, fp, qs, rng)
-        if dtype == "int8":
-            phase_profile(cfg, qs["eng"], rng)
-        quant_rows += phase_quant_timing(cfg, qs, dtype, gen, dev,
-                                         quant_errs)
-        del qs
-        torch.cuda.empty_cache()
+        with phase_clock(f"serving {dtype}"):
+            # the same 16 requests as the bf16 run
+            qs = phase_serve(cfg, params, np.random.default_rng(args.seed),
+                             quant=dtype)
+            single[dtype] = one_card(qs)
+            phase_logits(cfg, qs["eng"], gen, dev)
+            phase_quant_report(cfg, params, fp, qs, rng)
+            if dtype == "int8":
+                phase_profile(cfg, qs["eng"], rng)
+            quant_rows += phase_quant_timing(cfg, qs, dtype, gen, dev,
+                                             quant_errs)
+            del qs
+            torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
-    mp_r0, layout = phase_mp(args.seed, single)
-    row = phase_timing(gen, dev, max_abs, fp["counts"]["paged_decode"],
-                       cfg.num_layers)
+    with phase_clock("9 mp serving"):
+        mp_r0, layout = phase_mp(args.seed, single)
+    with phase_clock("decode timing"):
+        row = phase_timing(gen, dev, max_abs, fp["counts"]["paged_decode"],
+                           cfg.num_layers)
 
-    step, ids, counts, one_card_losses = phase_train(args.seed, dev)
-    phase_train_profile(step, ids)
-    del step, ids
-    torch.cuda.empty_cache()
-    phase_train_parity(args.seed, gen, dev)
-    torch.cuda.empty_cache()
-    rows = [row] + quant_rows + phase_flash_timing(gen, dev, flash_errs,
-                                                   counts)
-    torch.cuda.empty_cache()
-    tp_r0, tp_layout = phase_tp(args.seed)
-    pp_outs, pp_layout = phase_pp(args.seed)
-    dp_r0, dp_layout = phase_dp(args.seed)
+    with phase_clock("one-card training"):
+        step, ids, counts, one_card_losses = phase_train(args.seed, dev)
+        phase_train_profile(step, ids)
+        del step, ids
+        torch.cuda.empty_cache()
+        phase_train_parity(args.seed, gen, dev)
+        torch.cuda.empty_cache()
+        rows = [row] + quant_rows + phase_flash_timing(gen, dev, flash_errs,
+                                                       counts)
+        torch.cuda.empty_cache()
+    with phase_clock("10 mp training"):
+        tp_r0, tp_layout = phase_tp(args.seed)
+    with phase_clock("11 pp training"):
+        pp_outs, pp_layout = phase_pp(args.seed)
+    with phase_clock("12 dp training"):
+        dp_r0, dp_layout = phase_dp(args.seed)
     phase_trajectories(one_card_losses, tp_r0, pp_outs[0], dp_r0, tp_layout)
     mp_kernels = mp_rows(mp_r0, layout, cfg)
     return finish(rows + mp_kernels + tp_rows(tp_r0, tp_layout, cfg) +

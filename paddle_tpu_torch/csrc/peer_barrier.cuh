@@ -1,8 +1,9 @@
 // The device side of the symmetric peer buffers (peer_mem.cu), shared by
-// rows 10 and 11 (rs_bucket.cu, ag_bucket.cu) and row 8 (gemm_rs.cu): the
-// layout of a channel's signal pad, the peer pointers a kernel is given,
-// the bounded wait for a peer's flag, and the entry and exit barriers that
-// every block of rows 10-11's one-launch collectives runs.
+// rows 10 and 11 (rs_bucket.cu, ag_bucket.cu), row 8 (gemm_rs.cu) and
+// rows 7 and 9 (ag_gemm.cu): the layout of a channel's signal pad, the
+// peer pointers a kernel is given, the bounded wait for a peer's flag,
+// and the entry and exit barriers that every block of rows 10-11's
+// one-launch collectives runs.
 //
 // A channel is one cudaMalloc per rank: the signal pad (kPadBytes) and,
 // after it, the staging region the caller writes its operand into. Every
@@ -73,6 +74,16 @@ struct Pad {
                                   // is in slot [parity][src] (src writes e)
   uint32_t freed[kMaxRanks];      // [dst]: dst has read this rank's slots of
                                   // call e (dst writes e)
+  // rows 7 and 9 (ag_gemm.cu) number their calls by `calls` (moved by the
+  // GEMM's last block) and use ready and freed as row 8 does, with these:
+  uint32_t published;             // pull blocks done copying the own chunk
+  uint32_t pulled[kMaxRanks];     // [src]: pull blocks done with src's chunk
+  uint32_t gathered[kMaxRanks];   // [src]: src's chunk of call e is in the
+                                  // local gather slot (this rank writes e)
+  uint32_t read[kMaxRanks];       // [src]: GEMM blocks done reading chunk src
+  uint32_t finished;              // GEMM blocks done this call
+  uint32_t split[kMaxBlocks];     // row 9: chunk partials of output tile i
+                                  // stored this call
 };
 
 // the staging region begins this many bytes into a channel (a multiple of
@@ -92,13 +103,15 @@ struct ErrorRecord {
   int code;         // 0: none; 1: the peer's heartbeat stood still for the
                     // timeout; 2: the peer beat but never came before the
                     // backstop
-  int row;          // 8, 10 or 11
+  int row;          // 7, 8, 9, 10 or 11
   int rank;
   int peer;         // the rank whose flag never came
   int block;
   int at_end;       // rows 10-11: 0 entry barrier, 1 exit barrier; row 8:
                     // 0 the GEMM's wait for a freed slot, 1 the reduce's
-                    // wait for a partial
+                    // wait for a partial; rows 7 and 9: 0 the pull's wait
+                    // for a freed slot, 1 the wait for a peer's chunk, 2
+                    // the GEMM's wait for a gathered chunk
   uint32_t epoch;
   uint32_t seen;    // the flag value last read
   uint32_t beat;    // the peer's heartbeat counter last read

@@ -268,6 +268,45 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #define WG_F32(d) WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
 #define WG_F64(d) \
   WG_F32(d), WG_F8(d, 32), WG_F8(d, 40), WG_F8(d, 48), WG_F8(d, 56)
+#define WG_F64_AT(d, i)                                                  \
+  WG_F8(d, (i)), WG_F8(d, (i) + 8), WG_F8(d, (i) + 16), WG_F8(d, (i) + 24), \
+      WG_F8(d, (i) + 32), WG_F8(d, (i) + 40), WG_F8(d, (i) + 48),          \
+      WG_F8(d, (i) + 56)
+#define WG_F128(d) WG_F64_AT(d, 0), WG_F64_AT(d, 64)
+
+// d[64 x 256] += A[64 x 16] B[16 x 256], both in shared memory (the GEMMs
+// of rows 7-9, gemm_rs.cu and ag_gemm.cu): each K-major (0) or MN-major
+// (1, the descriptor's transpose bit); a and b are descriptors' low words.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint32_t a,
+                                              uint32_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "mov.b64 da, {%128, %130};\nmov.b64 db, {%129, %130};\n"
+      "setp.ne.b32 p, %131, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, da, db, p, 1, 1, %132, %133;\n}\n"
+      : WG_F128(d)
+      : "r"(a), "r"(b), "r"(kDescHi), "r"(1), "n"(TA), "n"(TB));
+}
+
+// The descriptor's low word of an MN-major tile of 64-column boxes
+// box_bytes apart (the leading byte offset; the stride byte offset, 1024,
+// is the high word's). A k16 slice starts 16 rows (2048 bytes) further.
+__device__ __forceinline__ uint32_t desc_lo_mn(uint32_t addr,
+                                               uint32_t box_bytes) {
+  return ((addr & 0x3FFFF) >> 4) | ((box_bytes >> 4) << 16);
+}
 
 // Accumulator layout of m64nNk16 (fp32), thread t of the warpgroup, warp
 // w = t / 32, g = (t % 32) / 4, q = t % 4: d[4j + e] holds row 16w + g +

@@ -1,8 +1,9 @@
 """Symmetric peer buffers over CUDA IPC: the memory that rows 10 and 11's
 one-launch collectives (``ops/fused_collectives.py``: ``fused_rs_bucket``,
-``fused_ag_bucket``) read across the ranks of a group, and that row 8's
+``fused_ag_bucket``) read across the ranks of a group, that row 8's
 GEMM + reduce-scatter (``ops/ring_gemm.py:ring_gemm_rs``) writes its
-partials into.
+partials into, and that rows 7 and 9 (``ring_ag_gemm``,
+``ring_ag_accum``) gather their chunks through.
 
 A *channel* is one ``cudaMalloc`` per rank, made by ``csrc/peer_mem.cu``
 outside PyTorch's caching allocator (so ``expandable_segments`` does not
@@ -10,9 +11,11 @@ matter, and a channel is one IPC handle with no offset bookkeeping): a
 signal pad of flags and per-block epochs (``csrc/peer_barrier.cuh``),
 zeroed, then the staging region that the caller writes its operand into.
 A group holds one channel per purpose (``"rs_bucket"``, ``"ag_bucket"``,
-``"gemm_rs"``) in ``MPGroup.peer_channels``. Row 8's staging holds 2n
-fp32 slots of a chunk (by call parity and source rank) that the peers'
-GEMMs store into.
+``"gemm_rs"``, ``"ag_gemm"``, ``"ag_accum"``) in ``MPGroup.peer_channels``.
+Row 8's staging holds 2n fp32 slots of a chunk (by call parity and source
+rank) that the peers' GEMMs store into; rows 7 and 9's 2 + n bf16 slots
+of a chunk: this rank's chunk by call parity, which the peers read, and
+a gather slot per rank that this rank's pull copies the peers' into.
 
 Set-up is collective and happens at a purpose's first call on a group,
 on every rank at once (the SPMD ranks make the same calls in the same
@@ -172,6 +175,10 @@ def raise_for(rc, row, rank, describe):
         if rec.row == 8:
             where = ("reduce's wait for a partial" if rec.at_end else
                      "GEMM's wait for a freed slot")
+        elif rec.row in (7, 9):
+            where = ("pull's wait for a freed slot",
+                     "wait for a peer's chunk",
+                     "GEMM's wait for a gathered chunk")[rec.at_end]
         else:
             where = ("exit" if rec.at_end else "entry") + " barrier"
         why = ("whose heartbeat stood still for the timeout: the process "

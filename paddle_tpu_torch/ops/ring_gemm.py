@@ -1,6 +1,6 @@
 """Ring all-gather + GEMM, GEMM + reduce-scatter and the ring weight
 gradient of sequence-parallel training: the hand-written CUDA kernels
-(``csrc/ring_gemm.cu``, ``csrc/gemm_rs.cu``), their wrappers and their
+(``csrc/ag_gemm.cu``, ``csrc/gemm_rs.cu``), their wrappers and their
 plain PyTorch versions (counterpart of
 ``paddle_tpu/ops/pallas_kernels/fused_collectives.py`` :201-360 and
 :575-650, and of the ring algebra of
@@ -23,17 +23,19 @@ Replaces three TPU kernels, each a ring of n steps over an ``MPGroup``
   stat_src`` (stat's rows of chunk src) to an fp32 [A, Bf] sum: the
   weight gradient of both.
 
-The TPU kernels move chunks with in-kernel remote DMAs. Rows 7 and 9 move
-them with NCCL point-to-point pairs outside the kernel
-(``MPGroup.ring_shift_async``), posting hop t+1 before step t's GEMM of
-``csrc/ring_gemm.cu`` (``mma.sync`` tiles), so the transfer runs under
-the GEMM. Row 8 moves its fp32 partials through symmetric peer buffers
-(``distributed/peer.py``, channel ``"gemm_rs"``): one launch of
-``csrc/gemm_rs.cu``'s wgmma GEMM computes every chunk, remote chunks
-first, and its epilogue stores each remote tile straight into the
-destination rank's slot over NVLink; a second launch at the destination
-sums the slots in the ring's order. No NCCL hop and no host round trip;
-given the same partials the sum is the plain ring's bit for bit.
+The TPU kernels move chunks with in-kernel remote DMAs. Here every chunk
+moves through symmetric peer buffers (``distributed/peer.py``), with no
+NCCL hop and no host round trip. Rows 7 and 9 (channels ``"ag_gemm"``
+and ``"ag_accum"``, 2 + n bf16 slots of a chunk): a pull launch of
+``csrc/ag_gemm.cu`` publishes this rank's chunk into its slot and copies
+each peer's chunk over NVLink into a local gather slot, while the GEMM
+launch (wgmma, row 8's core) computes the own chunk, then each remote
+chunk as it lands; row 9 sums the chunks' fp32 partials in the ring's
+order. Row 8 (channel ``"gemm_rs"``): one launch of ``csrc/gemm_rs.cu``'s
+wgmma GEMM computes every chunk, remote chunks first, and its epilogue
+stores each remote tile straight into the destination rank's slot over
+NVLink; a second launch at the destination sums the slots in the ring's
+order. Given the same partials each sum is the plain ring's bit for bit.
 ``transpose_w`` reads a weight stored [F, A] as its transpose in the
 kernel (the backward's ``w^T``), without a copy.
 
@@ -41,12 +43,13 @@ Beside each, its plain version (``ag_gemm_plain``, ``gemm_rs_plain``,
 ``ag_accum_plain``): the same ring schedule over the group's blocking hops
 with fp32 products and sums (``tp_overlap``'s ring rung runs the same
 loops in the compute dtype, so in fp32 the two are the same bits).
-``gemm_rs_peer_plain`` is row 8's peer schedule in plain form over every
-rank's inputs at once. The wrappers take the plain version for CPU
-tensors only; for CUDA tensors they launch the kernel or raise. Each
-wrapper counts its kernel launches (``.launches``: n per call for rows 7
-and 9, one per ring step; two per call for row 8, the GEMM and the
-reduce), its calls (``.calls``) and its calls by shape (``.shapes``).
+``ag_gemm_peer_plain``, ``gemm_rs_peer_plain`` and ``ag_accum_peer_plain``
+are the peer schedules in plain form over every rank's inputs at once.
+The wrappers take the plain version for CPU tensors only; for CUDA
+tensors they launch the kernels or raise. Each wrapper counts its kernel
+launches (``.launches``: two per call, the pull and the GEMM for rows 7
+and 9, the GEMM and the reduce for row 8), its calls (``.calls``) and its
+calls by shape (``.shapes``).
 """
 from __future__ import annotations
 
@@ -62,6 +65,17 @@ from ..distributed import peer as _peer
 MODES = {"NN": 0, "NT": 1, "TN": 2}
 RS_CHANNEL = "gemm_rs"      # row 8's peer channel: 2n fp32 slots of a chunk
 RS_TILE_ROWS = 128          # csrc/gemm_rs.cu's kBM: s must be a multiple
+# rows 7 and 9's peer channels: 2 + n bf16 slots of a chunk (this rank's
+# chunk by call parity, then the gather slots)
+AG_CHANNEL = "ag_gemm"
+ACCUM_CHANNEL = "ag_accum"
+ACCUM_TILE_ROWS = 64        # csrc/ag_gemm.cu's kBK: row 9's s a multiple
+ACCUM_MAX_TILES = 1024      # row 9's counters a call (peer_barrier.cuh)
+# how rows 7 and 9 reach the remote chunks: "pull" copies each into a
+# local gather slot that the GEMM's TMA loads read; "direct" has the TMA
+# loads read the peers' slots over NVLink
+AG_FORMS = {"pull": 0, "direct": 1}
+AG_FORM = "pull"
 
 # The kernel against its plain version, per element:
 # |kernel - plain| <= ELEMENT_TOL * (|plain| + rms of plain's row), and
@@ -182,6 +196,35 @@ def gemm_rs_peer_plain(ys, ws, transpose_w=False):
     return [ring_order_sum(slots[c], c).to(ys[0].dtype) for c in range(n)]
 
 
+def ag_gemm_peer_plain(xs, w, transpose_w=False):
+    """Row 7's peer schedule in plain form over all n ranks' chunks (``xs``
+    [B, s, A], one per rank) for one rank's w [A, F] (``transpose_w``:
+    stored [F, A]): each gathered chunk src GEMMed into block-row src of
+    [B, n*s, F], rounded once to x's dtype. The same bits as that rank's
+    ``ag_gemm_plain``."""
+    w = w.t() if transpose_w else w
+    return torch.cat([_chunk_mm(lambda a, b: _mm32(a, b).to(x.dtype), x, w)
+                      for x in xs], dim=1)
+
+
+def ag_accum_peer_plain(rs, stat, rank, transpose=False):
+    """Row 9's peer schedule in plain form over all n ranks' ring operands
+    (``rs`` [B, s, A], one per rank) for rank ``rank``'s stationary stat
+    [B, n*s, Bf]: the fp32 partial of each chunk src = rank - t (``r_src^T
+    @ stat_src``; ``transpose``: ``stat_src^T @ r_src``, [Bf, A]), summed
+    in ring-step order t = 0, 1, ..., one fp32 add a term, as the kernel's
+    last block of a tile sums them."""
+    n, s = len(rs), rs[0].shape[1]
+    acc = None
+    for t in range(n):
+        src = (rank - t) % n
+        r = rs[src].reshape(-1, rs[src].shape[-1])
+        st = stat[:, src * s:(src + 1) * s].reshape(-1, stat.shape[-1])
+        part = _mm32(st.t(), r) if transpose else _mm32(r.t(), st)
+        acc = part if acc is None else acc + part
+    return acc
+
+
 def ag_gemm_plain(x, w, group, transpose_w=False):
     """x [B, s, A] @ w [A, F] (``transpose_w``: w stored [F, A]) over the
     ring: [B, n*s, F] in x's dtype, each block-row rounded once."""
@@ -248,10 +291,40 @@ def _rs_library():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _ag_library():
+    lib = load_library("ag_gemm", "ag_gemm.cu")
+    p, i, ll, ull = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_ulonglong)
+    peers = [p, p, ll, p, p, ull, ull, p]
+    lib.ag_gemm_launch.argtypes = [i, i, p, p, p] + [i] * 6 + peers
+    lib.ag_accum_launch.argtypes = [i, i, p, p, p, p] + [i] * 6 + peers
+    lib.ag_gemm_local_launch.argtypes = [i, p, p, p] + [i] * 6 + [p]
+    lib.ag_accum_local_launch.argtypes = [i, p, p, p, p, p] + [i] * 6 + [p]
+    for name in ("ag_gemm_launch", "ag_accum_launch", "ag_gemm_local_launch",
+                 "ag_accum_local_launch"):
+        getattr(lib, name).restype = i
+    lib.ag_accum_tiles.argtypes = [i] * 6
+    lib.ag_accum_tiles.restype = i
+    lib.ag_gemm_wait_record.argtypes = [p]
+    lib.ag_gemm_wait_record.restype = None
+    lib.ag_gemm_error_string.argtypes = [i]
+    lib.ag_gemm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def build():
     """Build (or load the cached builds of) the kernel libraries now."""
     _library()
     _rs_library()
+    _ag_library()
+
+
+def ag_wait_timeout_record():
+    """The record of rows 7 and 9's first mbarrier wait that timed out (a
+    dict of ``cuda_build.WAIT_RECORD_FIELDS``), or None."""
+    from ..cuda_build import wait_record
+    return wait_record(_ag_library().ag_gemm_wait_record)
 
 
 def rs_wait_timeout_record():
@@ -303,36 +376,85 @@ def _check(what, ts, M, N, K):
         raise ValueError(f"{what} kernel: {why}")
 
 
-def ring_ag_gemm(x, w, group, transpose_w=False):
-    """Ring all-gather + GEMM: x [B, s, A] (this rank's seq shard) @ w
-    [A, F] (``transpose_w``: w stored [F, A]) -> [B, n*s, F] in x's dtype.
-    CPU tensors take ``ag_gemm_plain``; CUDA tensors launch the kernel n
-    times, one per ring step, or raise."""
-    if x.device.type == "cpu":
-        return ag_gemm_plain(x, w, group, transpose_w)
+def _peer_group_reason(n):
+    return (None if 2 <= n <= _peer.MAX_RANKS else
+            f"a group of {n} ranks (the peer channels take 2 to "
+            f"{_peer.MAX_RANKS})")
+
+
+def _ag_shapes(x, w, n, transpose_w):
+    """(B, s, A, F) of a row-7 call over n ranks, or ValueError when the
+    operands disagree or the kernel cannot take them."""
     B, s, A = x.shape
     F, Kw = (w.shape if transpose_w else w.shape[::-1])
     if Kw != A:
         raise ValueError(f"ring_ag_gemm: x [B, s, {A}] and w "
                          f"{tuple(w.shape)} (transpose_w={transpose_w}) "
                          f"disagree")
-    M = B * s
-    _check("ring_ag_gemm", (x, w), M, F, A)
+    _check("ring_ag_gemm", (x, w), B * s, F, A)
+    why = _peer_group_reason(n)
+    if why:
+        raise ValueError(f"ring_ag_gemm kernel: {why}")
+    return B, s, A, F
+
+
+def _ag_channel(group, purpose, x):
+    """``group``'s channel for ``purpose`` with 2 + n slots of x's bytes,
+    and the bytes between its slots (the same on every rank)."""
+    k = 2 + group.n
+    ch = _peer.channel(group, purpose, k * x.numel() * x.element_size())
+    return ch, ch.capacity // k // 16 * 16
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def ring_ag_gemm(x, w, group, transpose_w=False):
+    """Ring all-gather + GEMM: x [B, s, A] (this rank's seq shard) @ w
+    [A, F] (``transpose_w``: w stored [F, A]) -> [B, n*s, F] in x's dtype.
+    CPU tensors take ``ag_gemm_plain``; CUDA tensors launch
+    ``ag_gemm.cu``'s pull and GEMM (every rank's chunk gathered through
+    the group's ``"ag_gemm"`` peer channel), or raise. Collective: every
+    rank of ``group`` makes the same calls in the same order."""
+    if x.device.type == "cpu":
+        return ag_gemm_plain(x, w, group, transpose_w)
+    B, s, A, F = _ag_shapes(x, w, group.n, transpose_w)
     n, rank = group.n, group.rank
+    _peer.raise_for(0, 7, rank, None)          # an earlier kernel trapped
+    ch, slot = _ag_channel(group, AG_CHANNEL, x)
     out = torch.empty((B, n * s, F), dtype=x.dtype, device=x.device)
-    mode = "NT" if transpose_w else "NN"
-    chunk = x
-    for t in range(n):
-        src = (rank - t) % n
-        hop = group.ring_shift_async(chunk) if t < n - 1 else None
-        launch(mode, _rows(chunk), _rows(w),
-               _rows(out, src * s * F, F, n * s * F, s), M, F, A, True, None,
-               x.device)
-        ring_ag_gemm.launches += 1
-        if hop is not None:
-            chunk = hop.wait()
+    lib = _ag_library()
+    with torch.cuda.device(x.device):
+        rc = lib.ag_gemm_launch(
+            MODES["NT" if transpose_w else "NN"], AG_FORMS[AG_FORM],
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), B, s, A, F, n, rank,
+            ch.data, ch.pads, slot, _peer.error_pointer(), ch.beats,
+            ch.timeout_ns, ch.backstop_ns, _stream(x.device))
+    _peer.raise_for(rc, 7, rank,
+                    lambda c: lib.ag_gemm_error_string(c).decode())
+    ring_ag_gemm.launches += 2
     ring_ag_gemm.calls += 1
-    ring_ag_gemm.shapes[(M, A, F, transpose_w)] += 1
+    ring_ag_gemm.shapes[(B * s, A, F, transpose_w)] += 1
+    return out
+
+
+def ag_gemm_local(xs, w, rank, transpose_w=False):
+    """Row 7's GEMM alone, without peers: every chunk of xs [n, B, s, A]
+    (rank p's x at p) @ w into [B, n*s, F], in rank ``rank``'s order (the
+    products of a call, timed apart from the transfer). Not counted."""
+    n = xs.shape[0]
+    B, s, A, F = _ag_shapes(xs[0], w, n, transpose_w)
+    out = torch.empty((B, n * s, F), dtype=xs.dtype, device=xs.device)
+    lib = _ag_library()
+    with torch.cuda.device(xs.device):
+        rc = lib.ag_gemm_local_launch(
+            MODES["NT" if transpose_w else "NN"], xs.data_ptr(),
+            w.data_ptr(), out.data_ptr(), B, s, A, F, n, rank,
+            _stream(xs.device))
+    if rc != 0:
+        raise RuntimeError(f"row 7 GEMM launch failed ({rc}): "
+                           f"{lib.ag_gemm_error_string(rc).decode()}")
     return out
 
 
@@ -351,9 +473,8 @@ def _rs_shapes(y, w, n, transpose_w):
     if s % RS_TILE_ROWS:
         why.append(f"a chunk of {s} rows is not a multiple of "
                    f"{RS_TILE_ROWS} (a tile would straddle a batch row)")
-    if not 2 <= n <= _peer.MAX_RANKS:
-        why.append(f"a group of {n} ranks (the peer channels take 2 to "
-                   f"{_peer.MAX_RANKS})")
+    if _peer_group_reason(n):
+        why.append(_peer_group_reason(n))
     if why:
         raise ValueError("ring_gemm_rs kernel: " + "; ".join(why))
     return B, S, F, A, s
@@ -409,40 +530,82 @@ def gemm_rs_local(y, w, n, rank, transpose_w=False):
     return out
 
 
-def ring_ag_accum(r, stat, group, transpose=False):
-    """Ring weight gradient: the fp32 sum over the ring steps of ``r_src^T
-    @ stat_src`` -> [A, Bf] (``transpose``: [Bf, A], computed as
-    ``stat_src^T @ r_src``), r [B, s, A] ringing past, stat [B, S, Bf]
-    stationary. CPU tensors take ``ag_accum_plain``; CUDA tensors launch
-    the kernel n times, or raise."""
-    if r.device.type == "cpu":
-        return ag_accum_plain(r, stat, group, transpose)
+def _accum_shapes(r, stat, n, transpose):
+    """(B, s, A, Bf, M, N) of a row-9 call over n ranks, or ValueError
+    when the operands disagree or the kernel cannot take them."""
     B, s, A = r.shape
-    n, rank = group.n, group.rank
     Bs, S, Bf = stat.shape
     if Bs != B or S != n * s:
         raise ValueError(f"ring_ag_accum: r {tuple(r.shape)} and stat "
                          f"{tuple(stat.shape)} disagree (stat must be "
                          f"[B, n*s, Bf])")
-    K = B * s
     M, N = (Bf, A) if transpose else (A, Bf)
-    _check("ring_ag_accum", (r, stat), M, N, K)
+    _check("ring_ag_accum", (r, stat), M, N, B * s)
+    why = [w for w in (_peer_group_reason(n),) if w]
+    if s % ACCUM_TILE_ROWS:
+        why.append(f"a chunk of {s} rows per batch row is not a multiple "
+                   f"of {ACCUM_TILE_ROWS} (a k step would straddle a batch "
+                   f"row)")
+    tiles = -(-M // 128) * -(-N // 256)
+    if tiles > ACCUM_MAX_TILES:
+        why.append(f"{tiles} output tiles of 128 x 256 (the kernel's "
+                   f"counters take {ACCUM_MAX_TILES})")
+    if why:
+        raise ValueError("ring_ag_accum kernel: " + "; ".join(why))
+    return B, s, A, Bf, M, N
+
+
+def ring_ag_accum(r, stat, group, transpose=False):
+    """Ring weight gradient: the fp32 sum over the ring steps of ``r_src^T
+    @ stat_src`` -> [A, Bf] (``transpose``: [Bf, A], computed as
+    ``stat_src^T @ r_src``), r [B, s, A] ringing past, stat [B, S, Bf]
+    stationary. CPU tensors take ``ag_accum_plain``; CUDA tensors launch
+    ``ag_gemm.cu``'s pull and GEMM (every rank's r gathered through the
+    group's ``"ag_accum"`` peer channel; the chunks' fp32 partials summed
+    in ring order), or raise. Collective, as ``ring_ag_gemm``."""
+    if r.device.type == "cpu":
+        return ag_accum_plain(r, stat, group, transpose)
+    n, rank = group.n, group.rank
+    B, s, A, Bf, M, N = _accum_shapes(r, stat, n, transpose)
+    _peer.raise_for(0, 9, rank, None)          # an earlier kernel trapped
+    ch, slot = _ag_channel(group, ACCUM_CHANNEL, r)
     out = torch.empty((M, N), dtype=torch.float32, device=r.device)
-    chunk = r
-    for t in range(n):
-        src = (rank - t) % n
-        hop = group.ring_shift_async(chunk) if t < n - 1 else None
-        ring_rows = _rows(chunk)
-        stat_rows = _rows(stat, src * s * Bf, Bf, S * Bf, s)
-        a, b = (stat_rows, ring_rows) if transpose else (ring_rows,
-                                                          stat_rows)
-        launch("TN", a, b, _rows(out), M, N, K, False,
-               out.data_ptr() if t > 0 else None, r.device)
-        ring_ag_accum.launches += 1
-        if hop is not None:
-            chunk = hop.wait()
+    ws = torch.empty((n, M, N), dtype=torch.float32, device=r.device)
+    lib = _ag_library()
+    with torch.cuda.device(r.device):
+        rc = lib.ag_accum_launch(
+            int(transpose), AG_FORMS[AG_FORM], r.data_ptr(), stat.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), B, s, A, Bf, n, rank, ch.data,
+            ch.pads, slot, _peer.error_pointer(), ch.beats, ch.timeout_ns,
+            ch.backstop_ns, _stream(r.device))
+    _peer.raise_for(rc, 9, rank,
+                    lambda c: lib.ag_gemm_error_string(c).decode())
+    ring_ag_accum.launches += 2
     ring_ag_accum.calls += 1
-    ring_ag_accum.shapes[(K, M, N, transpose)] += 1
+    ring_ag_accum.shapes[(B * s, M, N, transpose)] += 1
+    return out
+
+
+def ag_accum_local(rs, stat, rank, transpose=False):
+    """Row 9's GEMM alone, without peers: rs [n, B, s, A] (rank p's r at
+    p) against stat, summed as ``ring_ag_accum`` sums, in rank ``rank``'s
+    order. Not counted."""
+    n = rs.shape[0]
+    B, s, A, Bf, M, N = _accum_shapes(rs[0], stat, n, transpose)
+    dev = rs.device
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    ws = torch.empty((n, M, N), dtype=torch.float32, device=dev)
+    lib = _ag_library()
+    split = torch.zeros(lib.ag_accum_tiles(B, s, A, Bf, n, int(transpose)),
+                        dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ag_accum_local_launch(
+            int(transpose), rs.data_ptr(), stat.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), split.data_ptr(), B, s, A, Bf, n, rank,
+            _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"row 9 GEMM launch failed ({rc}): "
+                           f"{lib.ag_gemm_error_string(rc).decode()}")
     return out
 
 

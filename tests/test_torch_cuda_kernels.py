@@ -941,8 +941,10 @@ def test_ring_kernels_match_plain_on_card(cuda_device, tmp_path):
     weight-gradient kernels (``ops/ring_gemm.py``), each plain and with its
     weight read transposed, against their plain versions on two ranks
     sharing the card over gloo: per element and per 128-row tile, at a
-    shape with ragged tiles and one of several tiles; n launches per
-    call."""
+    shape whose chunk is not a whole number of tiles (rows 7 and 9: 48 and
+    192 rows against 128-row tiles; A and F past the tiles' edges) and one
+    of several tiles; two launches a call (rows 7 and 9: the pull and the
+    GEMM; row 8: the GEMM and the reduce)."""
     import torch_tp_train_ranks as ranks
     from paddle_tpu_torch.distributed import env
     from paddle_tpu_torch.ops import ring_gemm
@@ -959,12 +961,19 @@ def test_ring_kernels_match_plain_on_card(cuda_device, tmp_path):
 
 @pytest.mark.cuda
 def test_ring_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
-    """fp32 operands, a width that is not a multiple of 16 and a
-    non-contiguous operand raise (one rank: nothing reaches a hop)."""
+    """fp32 operands, a width that is not a multiple of 16, a
+    non-contiguous operand, row 9's chunk of s rows that is not a
+    multiple of its 64-row k step, and groups of 1 and 9 ranks (the peer
+    channels take 2 to 8) raise before any channel opens; nothing falls
+    back to a ring or to NCCL, and no launch is counted."""
+    import types
     from paddle_tpu_torch.ops import ring_gemm
-    group = _StubGroup(2, 0)
-    x = torch.zeros(2, 16, 64, device=cuda_device, dtype=torch.bfloat16)
-    w = torch.zeros(64, 32, device=cuda_device, dtype=torch.bfloat16)
+    group = types.SimpleNamespace(n=2, rank=0, device=torch.device(
+        cuda_device), peer_channels={})
+    bf = dict(device=cuda_device, dtype=torch.bfloat16)
+    x = torch.zeros(2, 16, 64, **bf)
+    w = torch.zeros(64, 32, **bf)
+    before = [(k.calls, k.launches) for k in ring_gemm.KERNELS]
     with pytest.raises(ValueError, match="not bfloat16"):
         ring_gemm.ring_ag_gemm(x.float(), w.float(), group)
     with pytest.raises(ValueError, match="columns 40 not a multiple of 16"):
@@ -972,6 +981,24 @@ def test_ring_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
                                group)
     with pytest.raises(ValueError, match="not contiguous"):
         ring_gemm.ring_ag_gemm(x.transpose(0, 1), w, group)
+    r = torch.zeros(2, 96, 64, **bf)
+    with pytest.raises(ValueError, match="96 rows per batch row is not a "
+                                         "multiple of 64"):
+        ring_gemm.ring_ag_accum(r, torch.zeros(2, 192, 32, **bf), group)
+    with pytest.raises(ValueError, match="not bfloat16"):
+        ring_gemm.ring_ag_accum(x.float(), torch.zeros(
+            2, 32, 32, device=cuda_device), group)
+    for n in (1, 9):
+        g = types.SimpleNamespace(n=n, rank=0, device=group.device,
+                                  peer_channels={})
+        with pytest.raises(ValueError, match=f"a group of {n} ranks"):
+            ring_gemm.ring_ag_gemm(x, w, g)
+        with pytest.raises(ValueError, match=f"a group of {n} ranks"):
+            ring_gemm.ring_ag_accum(torch.zeros(2, 64, 64, **bf),
+                                    torch.zeros(2, 64 * n, 32, **bf), g)
+        assert not g.peer_channels
+    assert not group.peer_channels
+    assert [(k.calls, k.launches) for k in ring_gemm.KERNELS] == before
 
 
 @pytest.mark.cuda
@@ -1022,7 +1049,8 @@ def test_pp_boundary_wrappers_refuse_what_the_kernels_do_not_take(
 @pytest.fixture(scope="module")
 def shared_rows(tmp_path_factory):
     """The peer-buffer card checks (``torch_dp_train_ranks.card_rows``:
-    row 8's, then rows 10-11's) on 2 and 4 gloo ranks sharing the card
+    row 8's, rows 7 and 9's, then rows 10-11's) on 2 and 4 gloo ranks
+    sharing the card
     (the ``shared`` layout), one spawn per degree for all the tests
     below: {n: the ranks' results}."""
     if not torch.cuda.is_available():
@@ -1278,6 +1306,113 @@ def test_row8_gone_peer_leaves_a_filled_record_on_card(cuda_device,
     assert got["seconds"] < 30, got
     assert "row 8: rank 0's reduce's wait for a partial at epoch 1" in \
         got["next_call"]
+    assert "the process is gone" in got["next_call"]
+    assert outs[1:] == [{}]
+
+
+# -------------------------------------- rows 7 and 9 over the peer buffers
+@pytest.fixture(scope="module")
+def ag_runs(shared_rows, tmp_path_factory):
+    """Rows 7 and 9's card checks (``torch_tp_train_ranks.card_ag``) on 2
+    and 4 gloo ranks sharing the card (from the ``shared_rows`` spawns)
+    and, where the machine has 4 cards, on 4 NCCL ranks with a card each:
+    {(layout, n): the ranks' results}."""
+    import torch_tp_train_ranks as ranks
+    from paddle_tpu_torch.distributed import env
+    runs = {("shared", n): [o["ag"] for o in outs]
+            for n, outs in shared_rows.items()}
+    if torch.cuda.device_count() >= 4:
+        runs[("per_card", 4)] = env.launch(
+            4, ranks.card_ag, 9, layout="per_card", timeout_s=600,
+            init_dir=tmp_path_factory.mktemp("agper_card"))
+    return runs
+
+
+@pytest.mark.cuda
+def test_rows_7_9_match_plain_on_card(cuda_device, ag_runs):
+    """Rows 7 (NN, NT) and 9 (plain, transposed) at every ``AG_SHAPES`` /
+    ``ACCUM_SHAPES`` (a chunk under one tile or 1.5 tiles with A and F
+    past the tiles' edges, several tiles, a main-path chunk) on every
+    layout the machine has: per element and per 128-row tile against the
+    plain rings (their gates, ops/ring_gemm.py), two launches a call (the
+    pull and the GEMM)."""
+    import torch_tp_train_ranks as ranks
+    n_ag = 2 * len(ranks.AG_SHAPES)                 # the cases of each row
+    n_cases = n_ag + 2 * len(ranks.ACCUM_SHAPES)
+    reuse_ag = sum((5 * i) % n_cases < n_ag
+                   for i in range(ranks.AG_REUSE_CALLS))
+    calls = {"ring_ag_gemm": 2 * n_ag + reuse_ag,
+             "ring_ag_accum": 2 * (n_cases - n_ag) + ranks.AG_REUSE_CALLS -
+             reuse_ag}
+    for run, outs in ag_runs.items():
+        for o in outs:
+            for case, r, ok in o["readings"]:
+                if case[0] == "plain":
+                    assert ok, (run, case, r)
+            for name, c in calls.items():
+                assert o["counts"][name] == (c, 2 * c), run
+
+
+@pytest.mark.cuda
+def test_rows_7_9_give_the_same_bits_on_every_call_on_card(cuda_device,
+                                                           ag_runs):
+    """A second call of each case, and every one of the back-to-back calls
+    (rows, modes and shapes alternating, the slots reused by call parity,
+    no host synchronisation between them), gives the first call's
+    bits."""
+    for run, outs in ag_runs.items():
+        for o in outs:
+            for case, _, same in o["readings"]:
+                if case[0] in ("same bits", "reuse"):
+                    assert same, (run, case)
+
+
+@pytest.mark.cuda
+def test_rows_7_9_survive_a_late_peer_on_card(cuda_device, ag_runs):
+    """With the channels' timeout shortened to 1.5 s the last rank sleeps
+    three timeouts before a row-7 and a row-9 call; the others wait for
+    its chunk (longer than two timeouts) without giving up, no rank's
+    error record is set, and both results are the same bits as their
+    cases' first calls."""
+    import torch_tp_train_ranks as ranks
+    for run, outs in ag_runs.items():
+        n = len(outs)
+        assert [o["late"] for o in outs] == [False] * (n - 1) + [True]
+        for r, o in enumerate(outs):
+            assert o["code"] == 0, (run, r)
+            late = [same for case, _, same in o["readings"]
+                    if case[0] == "late"]
+            assert late == [True, True], (run, r)
+            if not o["late"]:
+                assert o["waited"] > 2 * ranks.AG_LATE_TIMEOUT_S, (run, r)
+
+
+@pytest.mark.cuda
+def test_row7_gone_peer_leaves_a_filled_record_on_card(cuda_device,
+                                                       tmp_path):
+    """Row 7 on two ranks sharing the card, called by rank 0 alone while
+    its peer's process ends a second after the group barrier: rank 0's
+    pull publishes its chunk, then its wait for the peer's chunk (or its
+    GEMM's wait for the gathered chunk) gives up once the peer's
+    heartbeat has stood still for the 2 s timeout, fills the error record
+    (code 1, row 7, rank 0, call 1, peer 1) and traps; synchronising
+    raises and the next call names it."""
+    import torch_tp_train_ranks as ranks
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.ops import ring_gemm
+    ring_gemm.build()            # once, here: the ranks only load it
+    outs = env.launch(2, ranks.card_ag_gone_peer, 2.0, layout="shared",
+                      timeout_s=300, init_dir=tmp_path)
+    got = outs[0]
+    rec = got["record"]
+    assert got["raised"], got
+    assert rec["code"] == 1 and rec["row"] == 7 and rec["rank"] == 0, rec
+    assert rec["at_end"] in (1, 2) and rec["epoch"] == 1, rec
+    assert rec["peer"] == 1, rec
+    assert got["seconds"] < 30, got
+    where = ("wait for a peer's chunk" if rec["at_end"] == 1 else
+             "GEMM's wait for a gathered chunk")
+    assert f"row 7: rank 0's {where} at epoch 1" in got["next_call"]
     assert "the process is gone" in got["next_call"]
     assert outs[1:] == [{}]
 

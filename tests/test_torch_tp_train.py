@@ -65,6 +65,11 @@ DEGREES = (2, 4)
 # ops case: x [B, S, A], w [A, F]; S, F divisible by both degrees
 OB, OS, OA, OF = 2, 8, 16, 24
 OP_TOL = 1e-5
+# row 9's peer schedule in plain form against the plain ring: both sum the
+# chunks' fp32 partials in ring order, but the transposed form computes
+# stat^T @ r where the ring transposes r^T @ stat, so its products may sum
+# in another order (fp32 rounding, ~1e-7 of the values)
+ACCUM_PEER_TOL = 1e-6
 # final params after 5 AdamW steps: the reference's own gate. Adam divides
 # each update by sqrt(v), so an element whose gradient is mostly
 # summation-order noise moves by up to lr a step in either framework or
@@ -258,6 +263,69 @@ def test_row8_peer_schedule_is_the_plain_ring(run, ref, inputs, transpose):
         np.testing.assert_array_equal(got[r].numpy(), o["ops"][key])
         np.testing.assert_allclose(got[r].numpy(), _cols(want, r, n, 1),
                                    rtol=OP_TOL,
+                                   atol=OP_TOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["NN", "NT"])
+def test_row7_peer_schedule_is_the_plain_ring(run, ref, inputs, transpose):
+    """Row 7's peer schedule in plain form (``ag_gemm_peer_plain``: every
+    rank's chunk gathered, each GEMMed into its block-row) over all n
+    ranks' shards: the same bits as each rank's ``ag_gemm_plain`` (the
+    ring of hops, fp32), and within OP_TOL of the reference's ring (NN:
+    its ``ring_ag_gemm``; NT: dy of its ``gemm_ring_rs`` by JAX autodiff,
+    which is the all-gather + GEMM of gx by w2^T). The reference's
+    ``_ag_gemm_kernel`` lives in a module that does not import under this
+    image's jax (fused_collectives.py:63), so its ring algebra stands in
+    for it, as in the tests above."""
+    from paddle_tpu_torch.ops import ring_gemm as rg
+    n, outs = run
+    c = {k: torch.from_numpy(v) for k, v in inputs["case"].items()}
+    if transpose:
+        xs = [t.contiguous() for t in c["gx"].chunk(n, dim=1)]
+        ws = [t.contiguous() for t in c["w2"].chunk(n, dim=0)]
+        key, want = "ag/plain_t", ref[n]["ops"]["rs"][1]
+    else:
+        xs = [t.contiguous() for t in c["x"].chunk(n, dim=1)]
+        ws = [t.contiguous() for t in c["w"].chunk(n, dim=1)]
+        key, want = "ag/plain", ref[n]["ops"]["ag"][0]
+    for o in outs:
+        r = o["rank"]
+        got = rg.ag_gemm_peer_plain(xs, ws[r], transpose_w=transpose)
+        np.testing.assert_array_equal(got.numpy(), o["ops"][key])
+        np.testing.assert_allclose(got.numpy(), _cols(want, r, n, 2),
+                                   rtol=OP_TOL,
+                                   atol=OP_TOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("transpose", [False, True],
+                         ids=["plain", "transposed"])
+def test_row9_peer_schedule_matches_the_plain_ring(run, ref, inputs,
+                                                   transpose):
+    """Row 9's peer schedule in plain form (``ag_accum_peer_plain``: each
+    gathered chunk's fp32 partial, summed in ring-step order as the
+    kernel's last block of a tile sums them) over all n ranks' ring
+    operands: within ACCUM_PEER_TOL of each rank's ``ag_accum_plain`` (the
+    ring of hops), and within OP_TOL of the reference's weight gradients
+    by JAX autodiff (plain: dw of its ``ring_ag_gemm``; transposed: dw of
+    its ``gemm_ring_rs``)."""
+    from paddle_tpu_torch.ops import ring_gemm as rg
+    n, outs = run
+    c = {k: torch.from_numpy(v) for k, v in inputs["case"].items()}
+    if transpose:
+        rs = [t.contiguous() for t in c["gx"].chunk(n, dim=1)]
+        stats = [t.contiguous() for t in c["y"].chunk(n, dim=2)]
+        key, want, dim = "accum_t", ref[n]["ops"]["rs"][2], 0
+    else:
+        rs = [t.contiguous() for t in c["x"].chunk(n, dim=1)]
+        stats = [t.contiguous() for t in c["gy"].chunk(n, dim=2)]
+        key, want, dim = "accum", ref[n]["ops"]["ag"][2], 1
+    for o in outs:
+        r = o["rank"]
+        got = rg.ag_accum_peer_plain(rs, stats[r], r, transpose).numpy()
+        ring = o["ops"][key]
+        np.testing.assert_allclose(got, ring, rtol=ACCUM_PEER_TOL,
+                                   atol=ACCUM_PEER_TOL * np.abs(ring).max())
+        np.testing.assert_allclose(got, _cols(want, r, n, dim), rtol=OP_TOL,
                                    atol=OP_TOL * np.abs(want).max())
 
 

@@ -76,6 +76,8 @@ def ops(group, case):
         o, (dy, dw2) = _grads(rs[rung], (y_r, w2_r), gx_r)
         out[f"rs/{rung}"] = (_np(o), _np(dy), _np(dw2))
     out["ag/plain"] = _np(rg.ring_ag_gemm(x_r, w_r, group))
+    out["ag/plain_t"] = _np(rg.ring_ag_gemm(gx_r, w2_r, group,
+                                            transpose_w=True))
     out["rs/plain"] = _np(rg.ring_gemm_rs(y_r, w2_r, group))
     out["rs/plain_t"] = _np(rg.ring_gemm_rs(gy_r, w_r, group,
                                             transpose_w=True))
@@ -129,9 +131,12 @@ def checks(group, payload):
     return out
 
 
-# the ring kernels' card check: (B, s, A, F) per rank; A and F not
-# multiples of the 128-wide tiles in the first, several tiles in the second
+# the ring kernels' card check: (B, s, A, F) per rank. Row 7: a chunk of
+# 48 rows (under one 128-row tile) with A and F past the tiles' edges,
+# then several tiles; row 9 (s a multiple of its 64-row k step): a chunk
+# of 192 rows (1.5 tiles) with outputs past the edges, then several tiles
 CARD_SHAPES = ((2, 24, 96, 48), (2, 256, 512, 384))
+ACCUM_CARD_SHAPES = ((3, 64, 96, 48), (2, 256, 512, 384))
 # row 8's (its chunk of s rows is a multiple of the 128-row tile): A and F
 # past the 256 x 64 tile's edges in the first, several tiles in the second
 RS_CARD_SHAPES = ((2, 128, 272, 80), (2, 256, 512, 384))
@@ -149,11 +154,13 @@ def card_kernels(group, seed):
 
     rg.reset_counts()
     out = []
-    for (B, s, A, Fd), rs_shape in zip(CARD_SHAPES, RS_CARD_SHAPES):
-        S = group.n * s
+    for (B, s, A, Fd), (aB, a_s, aA, aF), rs_shape in zip(
+            CARD_SHAPES, ACCUM_CARD_SHAPES, RS_CARD_SHAPES):
         x, gx = rand(B, s, A), rand(B, s, A)
-        y, gy = rand(B, S, Fd), rand(B, S, Fd)
         w, w2 = rand(A, Fd), rand(Fd, A)
+        r, gr = rand(aB, a_s, aA), rand(aB, a_s, aA)
+        S = group.n * a_s
+        y, gy = rand(aB, S, aF), rand(aB, S, aF)
         rB, rs, rA, rF = rs_shape
         ry, rgy = rand(rB, group.n * rs, rF), rand(rB, group.n * rs, rF)
         rw, rw2 = rand(rA, rF), rand(rF, rA)
@@ -166,20 +173,152 @@ def card_kernels(group, seed):
                         rg.gemm_rs_plain(ry, rw2, group)),
             "gemm_rs_t": (rg.ring_gemm_rs(rgy, rw, group, transpose_w=True),
                           rg.gemm_rs_plain(rgy, rw, group, True)),
-            "ag_accum": (rg.ring_ag_accum(x, gy, group),
-                         rg.ag_accum_plain(x, gy, group)),
-            "ag_accum_t": (rg.ring_ag_accum(gx, y, group, transpose=True),
-                           rg.ag_accum_plain(gx, y, group, True)),
+            "ag_accum": (rg.ring_ag_accum(r, gy, group),
+                         rg.ag_accum_plain(r, gy, group)),
+            "ag_accum_t": (rg.ring_ag_accum(gr, y, group, transpose=True),
+                           rg.ag_accum_plain(gr, y, group, True)),
         }
         torch.cuda.synchronize()
         for name, (got, want) in cases.items():
-            r = rg.error_vs_plain(got, want)
+            r_ = rg.error_vs_plain(got, want)
             ok = bool(torch.isfinite(got).all()) and \
                 got.shape == want.shape and got.dtype == want.dtype and \
-                rg.within_tolerance(r, got.dtype)
-            out.append(((name, B, s, A, Fd), r, ok))
+                rg.within_tolerance(r_, got.dtype)
+            out.append(((name, B, s, A, Fd), r_, ok))
     counts = {k.__name__: (k.calls, k.launches) for k in rg.KERNELS}
     return {"readings": out, "counts": counts}
+
+
+# rows 7 and 9's card checks (``card_ag``): (B, s, A, F) per rank, the
+# first two as in CARD_SHAPES / ACCUM_CARD_SHAPES, the third a main-path
+# chunk (s = 512, A = 2048)
+AG_SHAPES = CARD_SHAPES + ((1, 512, 2048, 512),)
+ACCUM_SHAPES = ACCUM_CARD_SHAPES + ((1, 512, 2048, 512),)
+AG_REUSE_CALLS = 12
+AG_LATE_TIMEOUT_S = 1.5             # the late-peer check's timeout
+AG_LATE_BY = 3.0                    # how late its late rank is: timeouts
+
+
+def card_ag(group, seed):
+    """Rows 7 and 9 (``ring_ag_gemm``, ``ring_ag_accum``: the pull over
+    the peers' slots, then the wgmma GEMM) on the card, every rank its own
+    operands: both modes at every ``AG_SHAPES`` / ``ACCUM_SHAPES`` against
+    the plain ring (per element and per 128-row tile) and the same bits on
+    a second call; ``AG_REUSE_CALLS`` calls back to back, rows, modes and
+    shapes alternating, with no host synchronisation (the slots reused by
+    call parity), each the same bits as that case's first call; a late
+    peer: the last rank sleeps ``AG_LATE_BY`` timeouts of
+    ``AG_LATE_TIMEOUT_S`` before a row-7 and a row-9 call while the others
+    wait for its chunk, no rank's error record set, both results the same
+    bits. Returns the readings, the (calls, launches) of each row, how
+    long the late calls took on this rank and whether it was the late
+    one."""
+    import time
+    from paddle_tpu_torch.distributed import peer
+    dev, n = group.device, group.n
+    g = torch.Generator(device=dev).manual_seed(seed + group.rank)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    rg.reset_counts()
+    cases = []
+    for B, s, A, Fd in AG_SHAPES:
+        x = rand(B, s, A)
+        for t in (False, True):
+            w = rand(Fd, A) if t else rand(A, Fd)
+            cases.append((("ag", B, s, A, Fd, t), rg.ring_ag_gemm,
+                          rg.ag_gemm_plain, x, w))
+    for B, s, A, Fd in ACCUM_SHAPES:
+        r, stat = rand(B, s, A), rand(B, n * s, Fd)
+        for t in (False, True):
+            cases.append((("accum", B, s, A, Fd, t), rg.ring_ag_accum,
+                          rg.ag_accum_plain, r, stat))
+    readings, first = [], {}
+    for key, kern, plain, a, b in cases:
+        got = kern(a, b, group, key[-1])
+        again = kern(a, b, group, key[-1])
+        want = plain(a, b, group, key[-1])
+        torch.cuda.synchronize(dev)
+        ok, r_ = _row8_ok(got, want)
+        readings.append((("plain",) + key, r_, ok))
+        readings.append((("same bits",) + key, None,
+                         bool(torch.equal(got, again))))
+        first[key] = got
+    outs = [(key, kern(a, b, group, key[-1]))
+            for i in range(AG_REUSE_CALLS)
+            for key, kern, _, a, b in [cases[(5 * i) % len(cases)]]]
+    torch.cuda.synchronize(dev)
+    for i, (key, got) in enumerate(outs):
+        readings.append((("reuse", i) + key, None,
+                         bool(torch.equal(got, first[key]))))
+    counts = {k.__name__: (k.calls, k.launches)
+              for k in (rg.ring_ag_gemm, rg.ring_ag_accum)}
+    # the late peer
+    late_cases = [cases[2 * len(AG_SHAPES) - 1], cases[-1]]
+    chans = [group.peer_channels[c] for c in (rg.AG_CHANNEL,
+                                              rg.ACCUM_CHANNEL)]
+    before = [ch.timeout_ns for ch in chans]
+    for ch in chans:
+        ch.timeout_ns = int(AG_LATE_TIMEOUT_S * 1e9)
+    group.barrier()
+    late = group.rank == n - 1
+    if late:
+        time.sleep(AG_LATE_BY * AG_LATE_TIMEOUT_S)
+    t0 = time.perf_counter()
+    got = [kern(a, b, group, key[-1]) for key, kern, _, a, b in late_cases]
+    torch.cuda.synchronize(dev)
+    waited = time.perf_counter() - t0
+    for ch, ns in zip(chans, before):
+        ch.timeout_ns = ns
+    for (key, *_), o in zip(late_cases, got):
+        readings.append((("late",) + key, None, bool(torch.equal(o,
+                                                                 first[key]))))
+    return {"readings": readings, "counts": counts, "waited": waited,
+            "late": late, "code": peer.error_record()["code"]}
+
+
+def card_ag_gone_peer(group, timeout_s):
+    """Row 7 where rank 0 alone calls ``ring_ag_gemm`` and its peers'
+    processes end ``ROW8_DEAD_AFTER_S`` after the group barrier, as a
+    crash would: rank 0's pull publishes its chunk, then its waits for the
+    peers' chunks (the pull's, and the GEMM's for the gathered chunk)
+    give up once a peer's heartbeat has stood still for ``timeout_s``.
+    Returns, on rank 0, what synchronising raised, the error record, what
+    the next call raised and how long the call took to fail. Rank 0's
+    CUDA context is lost, so no rank tears its channel or heartbeat
+    down."""
+    import time
+    from paddle_tpu_torch.distributed import env, peer
+    dev, n = group.device, group.n
+    x = torch.ones((1, 128, 64), device=dev, dtype=torch.bfloat16)
+    w = torch.ones((64, 64), device=dev, dtype=torch.bfloat16)
+    rg.ag_gemm_plain(x, w, group)           # every rank: the group works
+    peer.channel(group, rg.AG_CHANNEL, (2 + n) * x.numel() * 2)
+    torch.cuda.synchronize(dev)
+    group.barrier()
+    if group.rank != 0:
+        time.sleep(ROW8_DEAD_AFTER_S)
+        env.exit_rank({})
+    group.peer_channels[rg.AG_CHANNEL].timeout_ns = int(timeout_s * 1e9)
+    out = {}
+    t0 = time.perf_counter()
+    rg.ring_ag_gemm(x, w, group)
+    try:
+        torch.cuda.synchronize(dev)
+        out["raised"] = None
+    except RuntimeError as e:
+        out["raised"] = str(e)
+    out["seconds"] = time.perf_counter() - t0
+    out["record"] = peer.error_record()
+    try:
+        rg.ring_ag_gemm(x, w, group)
+        out["next_call"] = None
+    except RuntimeError as e:
+        out["next_call"] = str(e)
+    group.peer_channels.clear()
+    group.peer_beat = None
+    return out
 
 
 # row 8's card checks (``card_row8``): (B, s, A, F) per rank, the first
