@@ -4,6 +4,7 @@
     python3 chip_compare.py train-turns PARENT_DIR
     python3 chip_compare.py decode-turns PARENT_DIR
     python3 chip_compare.py serve-turns PARENT_DIR
+    python3 chip_compare.py tp-turns PARENT_DIR [FORM ...]
 
 ``train-turns`` runs chip_smoke's one-card GPT-3 1.3B train step
 (``phase_train``, then ``phase_train_profile``); ``decode-turns`` the
@@ -13,15 +14,23 @@ tokens, 1 x 2048 and 8 x 2048, by CUDA-graph replay; ``serve-turns``
 chip_smoke's one-card serving of GPT-3 1.3B (``phase_serve``: the 16
 requests, then ``phase_profile``: one [8, 1] decode boundary traced) at
 bf16 and int8 (after one row-1 call's eager host cost at 8 x 512), once
-both trees' kernels are built. Each runs from the
+both trees' kernels are built; ``tp-turns`` chip_smoke's tensor-parallel
+GPT-3 1.3B step on the fused rung (``phase_tp_train``: 2 + 5 steps at
+full depth, then ``phase_tp_profile``) and each ring kernel's whole call
+and GEMMs alone (``phase_tp_timing``) in MP ranks, a card each where
+there are MP cards, with this tree's turns once per FORM of rows 7 and 9
+(``ops/ring_gemm.py:AG_FORMS``; by default the shipped one). Each runs
+from the
 tree at PARENT_DIR (a ``git archive`` of another commit) and from this
 one, in turns (parent, this, this, parent), each in a process of its
-own, and prints their lines. Needs a CUDA device and exits with another
-code than 0 without one.
+own, and prints their lines (``tp-turns``: parent, each form, each form
+in reverse, parent). Needs a CUDA device and exits with another code
+than 0 without one.
 """
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -100,24 +109,60 @@ for quant in (None, "int8"):
     torch.cuda.empty_cache()
 """
 BUILD_RUN = "import chip_smoke as cs; cs.phase_build()"
+# a module of its own (spawned ranks import the module of their function)
+TP_RANK = """
+import os
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch.ops import ring_gemm as rg
+
+
+def rank(group, seed):
+    if os.environ.get("TP_TURNS_FORM"):
+        rg.AG_FORM = os.environ["TP_TURNS_FORM"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say = (lambda *a: print(*a, flush=True)) if group.rank == 0 else \\
+        (lambda *a: None)
+    step, ids, _, failed = cs.phase_tp_train(group, seed, say)
+    cs.phase_tp_profile(group, step, ids, say)
+    del step, ids
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=group.device).manual_seed(seed + 5)
+    cs.phase_tp_timing(group, gen, cs.GPT_CONFIGS[cs.MODEL], say)
+    return failed
+"""
+TP_RUN = """
+import chip_smoke as cs
+import tp_turns_rank
+from paddle_tpu_torch.distributed import env
+cs.phase_build()
+outs = env.launch(cs.MP, tp_turns_rank.rank, 0, layout=cs.mp_layout(),
+                  timeout_s=900)
+print(f"[tp-turns] failures: {sum(outs, [])}", flush=True)
+"""
 
 
 def _say(msg):
     print(msg, flush=True)
 
 
-def turns(parent, run, prefixes):
+def turns(parent, run, prefixes, forms=(None,), path=()):
     """``run`` (Python source) from the tree at ``parent`` and from this
-    one, in turns, each in a process of its own; prints the lines that
-    start with one of ``prefixes``."""
+    one, in turns (this tree once per form of ``forms``, set in
+    ``TP_TURNS_FORM``), each in a process of its own with ``path`` on
+    PYTHONPATH; prints the lines that start with one of ``prefixes``."""
     parent = Path(parent).resolve()
     if not (parent / "chip_smoke.py").exists():
         raise SystemExit(f"{parent} holds no chip_smoke.py")
+    mine = [(f"this {f}" if f else "this", ROOT, f) for f in forms]
     failed = False
-    for name, tree in (("parent", parent), ("this", ROOT), ("this", ROOT),
-                       ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", run], cwd=tree,
-                              env=dict(os.environ, PYTHONPATH=str(tree)),
+    for name, tree, form in ([("parent", parent, None)] + mine +
+                             mine[::-1] + [("parent", parent, None)]):
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(tree), *map(str, path)]))
+        if form:
+            env["TP_TURNS_FORM"] = form
+        proc = subprocess.run([sys.executable, "-c", run], cwd=tree, env=env,
                               capture_output=True, text=True, timeout=900)
         for line in proc.stdout.splitlines():
             if line.startswith(prefixes):
@@ -149,6 +194,12 @@ def main(argv):
             raise SystemExit("a build failed")
         turns(argv[1], SERVE_RUN, ("[serve] {", "[serve-int8] {",
                                    "[profile]", "[serve-wrapper]"))
+    elif argv[:1] == ["tp-turns"] and len(argv) >= 2:
+        with tempfile.TemporaryDirectory() as tmp:
+            Path(tmp, "tp_turns_rank.py").write_text(TP_RANK)
+            turns(argv[1], TP_RUN, ("[tp-train]", "[tp-profile]",
+                                    "[tp-timing]", "[tp-turns]"),
+                  forms=tuple(argv[2:]) or (None,), path=(tmp,))
     else:
         raise SystemExit(__doc__)
 

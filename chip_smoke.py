@@ -1314,14 +1314,18 @@ def phase_flash_vs_plain(gen, dev):
 def phase_card_tests():
     """The card-only tests of tests/test_torch_cuda_kernels.py (the same
     flash cases, the paged-decode kernel, the small engine) in a pytest
-    process of their own, which loads the kernels built above."""
+    process of their own, which loads the kernels built above; prints the
+    slowest tests' seconds (fixtures counted in their first test)."""
     root = pathlib.Path(__file__).resolve().parent
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q",
-         "-p", "no:cacheprovider", "-p", "no:warnings",
+         "-p", "no:cacheprovider", "-p", "no:warnings", "--durations=12",
          "tests/test_torch_cuda_kernels.py"],
         cwd=root, capture_output=True, text=True, timeout=600)
     lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        if re.match(r"\d+\.\d+s (setup|call|teardown) ", line):
+            print(f"[card-tests]   {line}")
     print(f"[card-tests] {lines[-1] if lines else proc.stderr[-500:]}")
     check(proc.returncode == 0, "card tests failed:\n" + proc.stdout[-4000:])
 

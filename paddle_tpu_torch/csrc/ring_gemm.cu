@@ -1,21 +1,7 @@
-// The local GEMMs of the ring collectives of sequence-parallel training and
-// of the pipeline boundary, for Hopper (sm_90a).
+// The local GEMMs of the pipeline boundary, for Hopper (sm_90a).
 //
-// Replaces four TPU kernels of paddle_tpu/ops/pallas_kernels/
-// fused_collectives.py. Two are a ring of n steps in which a chunk of the
-// sequence moves to the right neighbour while the chunk in hand is GEMMed:
-//
-// * _ag_gemm_kernel (:201, the pallas_call at :590): ring all-gather of the
-//   seq shard x [B, s, A] with each arriving chunk GEMMed against the
-//   column shard w [A, F] into its block-row of [B, n*s, F];
-// * _ag_accum_kernel (:307, :631): the weight gradient of rows 7 and 8,
-//   sum over the ring steps of r_c^T @ stat_c in fp32, [A, Bf].
-//
-// (Row 8, _gemm_rs_kernel (:249, :610), ran here until it moved to
-// gemm_rs.cu: a wgmma GEMM whose epilogue stores into the peers' NVLink
-// buffers. Rows 7, 9, 14 and 15 keep this file's mma.sync core.)
-//
-// Two are the last GEMM of a pipeline stage and its backward:
+// Replaces two TPU kernels of paddle_tpu/ops/pallas_kernels/
+// fused_collectives.py, the last GEMM of a pipeline stage and its backward:
 //
 // * _gemm_ppsend_kernel (:792, the pallas_call at :886): the stage tail
 //   y = r + (x @ w + b) (x the last block's gelu activation [R, 4H], w
@@ -23,22 +9,18 @@
 // * _gemm_pprecv_kernel (:826, :904): its backward, dr = gy + gwire as
 //   the next stage's cotangent lands, then dx = dr @ w^T and dw = x^T @ dr.
 //
-// The TPU kernels move data with in-kernel remote DMAs. Hopper has no
-// in-kernel remote copy this port may write, so every hop is an NCCL
-// point-to-point pair outside the kernel (paddle_tpu_torch/ops/
-// ring_gemm.py, ops/pp_boundary.py), and each step launches kernels of
-// this file: a tile GEMM with bf16 operands, fp32 accumulation on the
-// tensor cores, and an epilogue that does the schedule's own work:
+// (Rows 7 and 9 ran on this file's core until they moved to ag_gemm.cu,
+// row 8 until it moved to gemm_rs.cu: wgmma GEMMs over NVLink peer
+// buffers. Their paths here, mode NN of ring_gemm_launch, the fp32 addend
+// of the ring's running sum and the batched row maps of the gathered
+// output, went with them.)
 //
-// * row 7, mode NN (and NT for the backward's w^T): stores the bf16 block
-//   straight into the chunk's rows of the [B, n*s, F] output (a row map:
-//   row r of the chunk lands at b * (n*s*F) + (src*s + i) * F with
-//   b = r / s, i = r % s), so the gathered result needs no relayout;
-// * row 9, mode TN: both operands row-major over the B*s contraction rows
-//   (the ring chunk, and the rows of the stationary operand belonging to
-//   chunk src, read in place through the row map); the transposed operand
-//   comes from shared memory by ldmatrix.trans. fp32 output, with
-//   out += part after the first step;
+// The TPU kernels move data with in-kernel remote DMAs; here every hop is
+// an NCCL point-to-point pair outside the kernel (paddle_tpu_torch/ops/
+// pp_boundary.py), and each step launches kernels of this file: a tile
+// GEMM with bf16 operands, fp32 accumulation on the tensor cores, and an
+// epilogue that does the schedule's own work:
+//
 // * row 14, mode NN with the bias + residual epilogue: y = r + (acc + b)
 //   in fp32 (the reference's association; one rounding to bf16 where the
 //   reference rounds after each op), one launch over all R rows (a launch
@@ -47,44 +29,35 @@
 // * row 15: pp_add_kernel, dr = gy + gwire elementwise in fp32 rounded to
 //   bf16 (the bits of PyTorch's bf16 add), once the received cotangent has
 //   landed; then this GEMM in mode NT for dx = dr @ w^T (bf16) and in mode
-//   TN for dw = x^T @ dr (fp32). db is a sum of dr outside the kernel.
+//   TN for dw = x^T @ dr (fp32; the transposed operand comes from shared
+//   memory by ldmatrix.trans). db is a sum of dr outside the kernel.
 //   The TPU kernel keeps one full-matrix product so that the fused rung
 //   equals the unfused one bit for bit (:805-807); here every output
 //   element is summed over k in the same order whatever rows a launch
 //   covers, so one launch over all rows keeps that property.
 //
-// What bounds them on an H100. Rows 7 and 9, per rank at GPT-3 1.3B, B=8,
-// S=2048, n=4 (chunk rows B*s = 4096): one qkv chunk GEMM is
-// 2*4096*2048*1536 = 25.8 GFLOP, 26 us at 989 TFLOP/s (operations: ~1,900
-// flops per byte moved); the hop beside it moves a 16.8 MB bf16 chunk,
-// 37 us at 450 GB/s NVLink. Row 7 posts hop t+1 before launching step t's
-// GEMM, so the transfer runs under the GEMM, as the TPU kernel's double
-// buffer does; row 9 likewise.
-// Row 14 at pp=4, M=8 (R = 2048 rows a microbatch, K = 8192, F = 2048):
-// 2*2048*8192*2048 = 68.7 GFLOP, 69.5 us at 989 TFLOP/s, against ~84 MB
-// of HBM traffic (25 us) and an 8.39 MB hop (18.6 us at 450 GB/s): bound
-// by operations. Row 15: two such GEMMs, 137.4 GFLOP, 139 us. The TPU
-// kernel sends y in chunks from its epilogue so that the hop overlaps the
-// GEMM; here the hop follows the launch on NCCL's stream and overlaps the
-// next microbatch's work instead. An epilogue that stores into the next
-// card's buffer (CUDA IPC) is the NVLink design of later work.
+// What bounds them on an H100. Row 14 at pp=4, M=8 (R = 2048 rows a
+// microbatch, K = 8192, F = 2048): 2*2048*8192*2048 = 68.7 GFLOP, 69.5 us
+// at 989 TFLOP/s, against ~84 MB of HBM traffic (25 us) and an 8.39 MB
+// hop (18.6 us at 450 GB/s): bound by operations. Row 15: two such GEMMs,
+// 137.4 GFLOP, 139 us. The TPU kernel sends y in chunks from its epilogue
+// so that the hop overlaps the GEMM; here the hop follows the launch on
+// NCCL's stream and overlaps the next microbatch's work instead. An
+// epilogue that stores into the next card's buffer (CUDA IPC) is the
+// NVLink design of later work.
 //
 // Design of the GEMM: a 128 x 128 output tile per block of 8 warps (each
 // warp 64 x 32), k steps of 32, a four-stage cp.async ring of shared-memory
 // tiles (80 KB of dynamic shared memory, two blocks an SM: three k steps
 // load while one computes), fragments by ldmatrix (.trans for a k-major
 // operand), mma.sync m16n8k16 bf16 with fp32 accumulators (the fragment
-// layouts of quant_gemm.cu). The row map's division is done once per
-// thread: a load walks its k rows with a cursor. With two stages and the
-// division in the loop the same GEMMs ran at 55-188 TFLOP/s on an H100,
-// with these changes at 111-284 (PERF.md). wgmma, TMA (gemm_rs.cu's core)
-// and split k for the few-tile weight gradients are later work here.
+// layouts of quant_gemm.cu). wgmma and TMA (ag_gemm.cu's and gemm_rs.cu's
+// core) are later work here.
 //
 // Built by paddle_tpu_torch/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
-// and bound with ctypes (paddle_tpu_torch/ops/ring_gemm.py,
-// ops/pp_boundary.py).
+// and bound with ctypes (paddle_tpu_torch/ops/pp_boundary.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,44 +82,9 @@ constexpr int kNT = 1;   // A row-major [M][K], B stored [N][K] (B = W^T)
 constexpr int kTN = 2;   // A stored [K][M] (A = P^T), B row-major [K][N]
 
 // epilogues: v = acc in fp32, then
-constexpr int kEpiAddend = 0;     // v = addend + v (addend fp32 [M][N], or
-                                  // none)
+constexpr int kEpiPlain = 0;      // stored as it is
 constexpr int kEpiBiasResid = 1;  // v = resid + (v + bias): bias bf16 [N],
                                   // resid bf16 [M][N] (row 14)
-
-// Where storage row r of an operand lies: rows come in batches of `rpb`
-// rows, `bstride` elements apart, rows of a batch `ld` elements apart. A
-// contiguous matrix has rpb >= its rows (one batch).
-struct RowMap {
-  long long ld;
-  long long bstride;
-  int rpb;
-};
-
-__device__ __forceinline__ long long row_off(const RowMap& m, int r) {
-  return static_cast<long long>(r / m.rpb) * m.bstride +
-         static_cast<long long>(r % m.rpb) * m.ld;
-}
-
-// the offset of storage row r and its place in its batch, moved kBK rows
-// on by `advance`
-struct Cursor {
-  long long off;
-  int rem;
-};
-
-__device__ __forceinline__ Cursor cursor_at(const RowMap& m, int r) {
-  return Cursor{row_off(m, r), r % m.rpb};
-}
-
-__device__ __forceinline__ void advance(Cursor& c, const RowMap& m) {
-  c.off += kBK * m.ld;
-  c.rem += kBK;
-  while (c.rem >= m.rpb) {
-    c.rem -= m.rpb;
-    c.off += m.bstride - static_cast<long long>(m.rpb) * m.ld;
-  }
-}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
@@ -208,9 +146,9 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
 //   B [n][k], no trans:   matrix i = (n 8*(i/2), k 8*(i%2))
 template <int MODE, bool OUT_BF16, int EPI>
 __global__ void __launch_bounds__(kThreads)
-ring_gemm_tile_kernel(const __nv_bfloat16* a, RowMap am,
-                      const __nv_bfloat16* b, RowMap bm, void* c, RowMap cm,
-                      const float* addend, const __nv_bfloat16* bias,
+ring_gemm_tile_kernel(const __nv_bfloat16* a, long long lda,
+                      const __nv_bfloat16* b, long long ldb, void* c,
+                      long long ldc, const __nv_bfloat16* bias,
                       const __nv_bfloat16* resid, int M, int N, int K) {
   // kStages x {A tile, B tile}, dynamic: above the 48 KB of static memory
   extern __shared__ __align__(16) __nv_bfloat16 smem[];
@@ -234,22 +172,7 @@ ring_gemm_tile_kernel(const __nv_bfloat16* a, RowMap am,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
-  // each tile is 4096 bf16 = 512 chunks of 16 bytes, two a thread. A
-  // chunk whose storage row is fixed (an m row of A [M][K], an n row of B
-  // [N][K]) has its row's offset computed once; a chunk on a k row (A
-  // [K][M], B [K][N]) walks the k rows with a cursor, kBK rows a load:
-  // no integer division in the loop
-  long long fixed_a[2], fixed_b[2];
-  Cursor ka[2], kb[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int ch = tid + i * kThreads;
-    if constexpr (MODE == kTN) ka[i] = cursor_at(am, ch / 16);
-    else fixed_a[i] = row0 + ch / 4 < M ? row_off(am, row0 + ch / 4) : 0;
-    if constexpr (MODE == kNT)
-      fixed_b[i] = col0 + ch / 4 < N ? row_off(bm, col0 + ch / 4) : 0;
-    else kb[i] = cursor_at(bm, ch / 16);
-  }
+  // each tile is 4096 bf16 = 512 chunks of 16 bytes, two a thread
   auto load = [&](int stage, int k0) {      // k steps in order, from 0
     __nv_bfloat16* As = smem + stage * 2 * kTileElems;
     __nv_bfloat16* Bs = As + kTileElems;
@@ -259,22 +182,24 @@ ring_gemm_tile_kernel(const __nv_bfloat16* a, RowMap am,
       if constexpr (MODE == kTN) {          // A stored [K][M]: 32 x 128
         const int k = ch / 16, m = (ch % 16) * 8;
         const bool ok = k0 + k < K && row0 + m < M;
-        cp_async16(&As[k * kLdA + m], ok ? a + ka[i].off + row0 + m : a, ok);
-        advance(ka[i], am);
+        cp_async16(&As[k * kLdA + m],
+                   ok ? a + (k0 + k) * lda + row0 + m : a, ok);
       } else {                              // A [M][K]: 128 x 32
         const int m = ch / 4, k = (ch % 4) * 8;
         const bool ok = row0 + m < M && k0 + k < K;
-        cp_async16(&As[m * kLdA + k], ok ? a + fixed_a[i] + k0 + k : a, ok);
+        cp_async16(&As[m * kLdA + k],
+                   ok ? a + (row0 + m) * lda + k0 + k : a, ok);
       }
       if constexpr (MODE == kNT) {          // B stored [N][K]: 128 x 32
         const int n = ch / 4, k = (ch % 4) * 8;
         const bool ok = col0 + n < N && k0 + k < K;
-        cp_async16(&Bs[n * kLdB + k], ok ? b + fixed_b[i] + k0 + k : b, ok);
+        cp_async16(&Bs[n * kLdB + k],
+                   ok ? b + (col0 + n) * ldb + k0 + k : b, ok);
       } else {                              // B [K][N]: 32 x 128
         const int k = ch / 16, n = (ch % 16) * 8;
         const bool ok = k0 + k < K && col0 + n < N;
-        cp_async16(&Bs[k * kLdB + n], ok ? b + kb[i].off + col0 + n : b, ok);
-        advance(kb[i], bm);
+        cp_async16(&Bs[k * kLdB + n],
+                   ok ? b + (k0 + k) * ldb + col0 + n : b, ok);
       }
     }
   };
@@ -328,9 +253,8 @@ ring_gemm_tile_kernel(const __nv_bfloat16* a, RowMap am,
     }
   }
 
-  // epilogue: v = addend + part in fp32 (the reference's recv + part), or
-  // v = resid + (part + bias) (its stage tail), one rounding to bf16 or
-  // stored in fp32
+  // epilogue: v = part, or v = resid + (part + bias) (the reference's
+  // stage tail), in fp32, one rounding to bf16 or stored in fp32
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -351,13 +275,8 @@ ring_gemm_tile_kernel(const __nv_bfloat16* a, RowMap am,
                   resid + static_cast<long long>(row) * N + col));
           v0 = rr.x + (v0 + bb.x);
           v1 = rr.y + (v1 + bb.y);
-        } else if (addend != nullptr) {
-          const float2 s = *reinterpret_cast<const float2*>(
-              addend + static_cast<long long>(row) * N + col);
-          v0 = s.x + v0;
-          v1 = s.y + v1;
         }
-        const long long o = row_off(cm, row) + col;
+        const long long o = row * ldc + col;
         if constexpr (OUT_BF16)
           *reinterpret_cast<__nv_bfloat162*>(
               static_cast<__nv_bfloat16*>(c) + o) =
@@ -369,9 +288,9 @@ ring_gemm_tile_kernel(const __nv_bfloat16* a, RowMap am,
     }
 }
 
-template <int MODE, bool OUT_BF16, int EPI = kEpiAddend>
-cudaError_t launch(const void* a, RowMap am, const void* b, RowMap bm,
-                   void* c, RowMap cm, const void* addend, int M, int N,
+template <int MODE, bool OUT_BF16, int EPI = kEpiPlain>
+cudaError_t launch(const void* a, long long lda, const void* b,
+                   long long ldb, void* c, long long ldc, int M, int N,
                    int K, cudaStream_t s, const void* bias = nullptr,
                    const void* resid = nullptr) {
   static bool opted_in[64] = {};            // above 48 KB: opt in once
@@ -388,9 +307,8 @@ cudaError_t launch(const void* a, RowMap am, const void* b, RowMap bm,
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   ring_gemm_tile_kernel<MODE, OUT_BF16, EPI>
       <<<grid, kThreads, kSmemBytes, s>>>(
-          static_cast<const __nv_bfloat16*>(a), am,
-          static_cast<const __nv_bfloat16*>(b), bm, c, cm,
-          static_cast<const float*>(addend),
+          static_cast<const __nv_bfloat16*>(a), lda,
+          static_cast<const __nv_bfloat16*>(b), ldb, c, ldc,
           static_cast<const __nv_bfloat16*>(bias),
           static_cast<const __nv_bfloat16*>(resid), M, N, K);
   return cudaGetLastError();
@@ -418,50 +336,31 @@ pp_add_kernel(const uint4* a, const uint4* b, uint4* out, long long n8) {
   }
 }
 
-template <int MODE>
-cudaError_t launch_mode(const void* a, RowMap am, const void* b, RowMap bm,
-                        void* c, RowMap cm, int out_bf16, const void* addend,
-                        int M, int N, int K, cudaStream_t s) {
-  return out_bf16 ? launch<MODE, true>(a, am, b, bm, c, cm, addend, M, N, K, s)
-                  : launch<MODE, false>(a, am, b, bm, c, cm, addend, M, N, K,
-                                        s);
-}
-
 }  // namespace
 
-// One ring step's GEMM on `stream`: C[M, N] = addend + A @ B in fp32, stored
-// as bf16 (out_bf16) or fp32. mode 0 (NN): A row-major [M][K], B row-major
-// [K][N]; 1 (NT): B stored [N][K]; 2 (TN): A stored [K][M]. Each operand's
-// storage rows are placed by (ld, bstride, rpb) as RowMap says, in
-// elements; addend (fp32, may be null, may be C itself) is contiguous
-// [M][N]. M, N, K multiples of 16, every row 16-byte aligned. Returns 0, a
-// cudaError_t code, or -1 for arguments this library does not take.
+// Row 15's GEMMs on `stream`: C[M, N] = A @ B in fp32, stored as bf16
+// (out_bf16) or fp32. mode 1 (NT): A row-major [M][K], B stored [N][K]; 2
+// (TN): A stored [K][M], B row-major [K][N]. Rows of A, B and C are lda,
+// ldb and ldc elements apart. M, N, K multiples of 16, every row 16-byte
+// aligned. Returns 0, a cudaError_t code, or -1 for arguments this
+// library does not take.
 extern "C" int ring_gemm_launch(int mode, const void* a, long long lda,
-                                long long a_bstride, int a_rpb,
-                                const void* b, long long ldb,
-                                long long b_bstride, int b_rpb, void* c,
-                                long long ldc, long long c_bstride, int c_rpb,
-                                int out_bf16, const void* addend, int M,
-                                int N, int K, void* stream) {
+                                const void* b, long long ldb, void* c,
+                                long long ldc, int out_bf16, int M, int N,
+                                int K, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return 0;
-  if (M % 16 || N % 16 || K % 16 || lda % 8 || ldb % 8 || ldc % 8 ||
-      a_bstride % 8 || b_bstride % 8 || c_bstride % 8 || a_rpb <= 0 ||
-      b_rpb <= 0 || c_rpb <= 0 || (out_bf16 && addend == c))
+  if (M % 16 || N % 16 || K % 16 || lda % 8 || ldb % 8 || ldc % 8)
     return -1;
-  const RowMap am{lda, a_bstride, a_rpb};
-  const RowMap bm{ldb, b_bstride, b_rpb};
-  const RowMap cm{ldc, c_bstride, c_rpb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kNN:
-      return launch_mode<kNN>(a, am, b, bm, c, cm, out_bf16, addend, M, N, K,
-                              s);
     case kNT:
-      return launch_mode<kNT>(a, am, b, bm, c, cm, out_bf16, addend, M, N, K,
-                              s);
+      return out_bf16 ? launch<kNT, true>(a, lda, b, ldb, c, ldc, M, N, K, s)
+                      : launch<kNT, false>(a, lda, b, ldb, c, ldc, M, N, K,
+                                           s);
     case kTN:
-      return launch_mode<kTN>(a, am, b, bm, c, cm, out_bf16, addend, M, N, K,
-                              s);
+      return out_bf16 ? launch<kTN, true>(a, lda, b, ldb, c, ldc, M, N, K, s)
+                      : launch<kTN, false>(a, lda, b, ldb, c, ldc, M, N, K,
+                                           s);
   }
   return -1;
 }
@@ -475,10 +374,9 @@ extern "C" int pp_gemm_launch(const void* x, const void* w, const void* bias,
                               void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return 0;
   if (M % 16 || N % 16 || K % 16 || resid == y) return -1;
-  const int all = 1 << 30;                  // one batch of rows
-  return launch<kNN, true, kEpiBiasResid>(
-      x, RowMap{K, 0, all}, w, RowMap{N, 0, all}, y, RowMap{N, 0, all},
-      nullptr, M, N, K, static_cast<cudaStream_t>(stream), bias, resid);
+  return launch<kNN, true, kEpiBiasResid>(x, K, w, N, y, N, M, N, K,
+                                          static_cast<cudaStream_t>(stream),
+                                          bias, resid);
 }
 
 // Row 15's elementwise part: out[n] = a + b, bf16, n a multiple of 8,

@@ -39,6 +39,7 @@ import functools
 
 import torch
 
+from ..cuda_build import load_library
 from . import ring_gemm as rg
 # the kernels against their plain versions: ring_gemm's readings and gates
 from .ring_gemm import (ELEMENT_TOL, TILE_TOL, error_vs_plain,  # noqa: F401
@@ -80,13 +81,15 @@ def gemm_pprecv_plain(gy, gwire, x, w, rows=None):
 # ----------------------------------------------------------------- kernels
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = rg._library()
-    p = ctypes.c_void_p
-    lib.pp_gemm_launch.argtypes = [p, p, p, p, p, ctypes.c_int,
-                                   ctypes.c_int, ctypes.c_int, p]
-    lib.pp_gemm_launch.restype = ctypes.c_int
-    lib.pp_add_launch.argtypes = [p, p, p, ctypes.c_longlong, p]
-    lib.pp_add_launch.restype = ctypes.c_int
+    lib = load_library("ring_gemm", "ring_gemm.cu")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ring_gemm_launch.argtypes = [i, p, ll, p, ll, p, ll, i, i, i, i, p]
+    lib.pp_gemm_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.pp_add_launch.argtypes = [p, p, p, ll, p]
+    for name in ("ring_gemm_launch", "pp_gemm_launch", "pp_add_launch"):
+        getattr(lib, name).restype = i
+    lib.ring_gemm_error_string.argtypes = [i]
+    lib.ring_gemm_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -103,6 +106,18 @@ def _raise_on(rc, what):
 
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _mm(mode, a, b, c, M, N, K, dev):
+    """One of row 15's GEMMs on ``dev``'s current stream: c [M, N] = A @ B
+    in c's dtype (bf16 or fp32), mode "NT" (B is b stored [N, K]) or "TN"
+    (A is a stored [K, M]); contiguous operands."""
+    with torch.cuda.device(dev):
+        rc = _library().ring_gemm_launch(
+            rg.MODES[mode], a.data_ptr(), a.shape[-1], b.data_ptr(),
+            b.shape[-1], c.data_ptr(), c.shape[-1],
+            int(c.dtype == torch.bfloat16), M, N, K, _stream(dev))
+    _raise_on(rc, f"gemm_pprecv {mode}")
 
 
 def gemm_ppsend(x, w, b, r):
@@ -154,10 +169,8 @@ def gemm_pprecv(gy, gwire, x, w, rows=None):
     _raise_on(rc, "gemm_pprecv add")
     dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
     dw = torch.empty((K, F), dtype=torch.float32, device=dev)
-    rg.launch("NT", rg._rows(dr), rg._rows(w), rg._rows(dx), R, K, F, True,
-              None, dev)
-    rg.launch("TN", rg._rows(x), rg._rows(dr), rg._rows(dw), K, F, R, False,
-              None, dev)
+    _mm("NT", dr, w, dx, R, K, F, dev)
+    _mm("TN", x, dr, dw, K, F, R, dev)
     gemm_pprecv.launches += 3
     gemm_pprecv.calls += 1
     rows = tuple(dr.shape[:-1]) if rows is None else tuple(rows)

@@ -261,20 +261,6 @@ def ag_accum_plain(r, stat, group, transpose=False):
 
 # ----------------------------------------------------------------- kernels
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("ring_gemm", "ring_gemm.cu")
-    row = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-           ctypes.c_int]
-    lib.ring_gemm_launch.argtypes = (
-        [ctypes.c_int] + row * 3 + [ctypes.c_int, ctypes.c_void_p]
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.ring_gemm_launch.restype = ctypes.c_int
-    lib.ring_gemm_error_string.argtypes = [ctypes.c_int]
-    lib.ring_gemm_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
 def _rs_library():
     lib = load_library("gemm_rs", "gemm_rs.cu")
     p, i, ll, ull = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -315,7 +301,6 @@ def _ag_library():
 
 def build():
     """Build (or load the cached builds of) the kernel libraries now."""
-    _library()
     _rs_library()
     _ag_library()
 
@@ -332,28 +317,6 @@ def rs_wait_timeout_record():
     ``cuda_build.WAIT_RECORD_FIELDS``), or None."""
     from ..cuda_build import wait_record
     return wait_record(_rs_library().gemm_rs_wait_record)
-
-
-def _rows(t, offset=0, ld=None, bstride=0, rpb=1 << 30):
-    """(pointer, ld, batch stride, rows per batch) of an operand's storage
-    rows: ``offset`` elements into ``t``; rows ``ld`` apart, in batches of
-    ``rpb`` rows ``bstride`` apart."""
-    return [t.data_ptr() + offset * t.element_size(),
-            t.shape[-1] if ld is None else ld, bstride, rpb]
-
-
-def launch(mode, a, b, c, M, N, K, out_bf16, addend, device):
-    """One step GEMM on ``device``'s current stream: C[M, N] = addend + A @
-    B (``MODES``; ``addend`` an fp32 [M, N] pointer or None), each
-    operand's storage rows as ``_rows`` gives them."""
-    lib = _library()
-    with torch.cuda.device(device):
-        rc = lib.ring_gemm_launch(
-            MODES[mode], *a, *b, *c, int(out_bf16), addend, M, N, K,
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ring GEMM kernel launch failed ({rc}): "
-                           f"{lib.ring_gemm_error_string(rc).decode()}")
 
 
 def _check(what, ts, M, N, K):
