@@ -4,7 +4,7 @@
     python3 chip_compare.py train-turns PARENT_DIR
     python3 chip_compare.py decode-turns PARENT_DIR
     python3 chip_compare.py serve-turns PARENT_DIR
-    python3 chip_compare.py tp-turns PARENT_DIR [FORM ...]
+    python3 chip_compare.py tp-turns PARENT_DIR
 
 ``train-turns`` runs chip_smoke's one-card GPT-3 1.3B train step
 (``phase_train``, then ``phase_train_profile``); ``decode-turns`` the
@@ -18,14 +18,11 @@ both trees' kernels are built; ``tp-turns`` chip_smoke's tensor-parallel
 GPT-3 1.3B step on the fused rung (``phase_tp_train``: 2 + 5 steps at
 full depth, then ``phase_tp_profile``) and each ring kernel's whole call
 and GEMMs alone (``phase_tp_timing``) in MP ranks, a card each where
-there are MP cards, with this tree's turns once per FORM of rows 7 and 9
-(``ops/ring_gemm.py:AG_FORMS``; by default the shipped one). Each runs
-from the
+there are MP cards. Each runs from the
 tree at PARENT_DIR (a ``git archive`` of another commit) and from this
 one, in turns (parent, this, this, parent), each in a process of its
-own, and prints their lines (``tp-turns``: parent, each form, each form
-in reverse, parent). Needs a CUDA device and exits with another code
-than 0 without one.
+own, and prints their lines. Needs a CUDA device and exits with another
+code than 0 without one.
 """
 import os
 import subprocess
@@ -111,15 +108,11 @@ for quant in (None, "int8"):
 BUILD_RUN = "import chip_smoke as cs; cs.phase_build()"
 # a module of its own (spawned ranks import the module of their function)
 TP_RANK = """
-import os
 import torch
 import chip_smoke as cs
-from paddle_tpu_torch.ops import ring_gemm as rg
 
 
 def rank(group, seed):
-    if os.environ.get("TP_TURNS_FORM"):
-        rg.AG_FORM = os.environ["TP_TURNS_FORM"]
     torch.backends.cuda.matmul.allow_tf32 = False
     say = (lambda *a: print(*a, flush=True)) if group.rank == 0 else \\
         (lambda *a: None)
@@ -146,22 +139,18 @@ def _say(msg):
     print(msg, flush=True)
 
 
-def turns(parent, run, prefixes, forms=(None,), path=()):
+def turns(parent, run, prefixes, path=()):
     """``run`` (Python source) from the tree at ``parent`` and from this
-    one, in turns (this tree once per form of ``forms``, set in
-    ``TP_TURNS_FORM``), each in a process of its own with ``path`` on
+    one, in turns, each in a process of its own with ``path`` on
     PYTHONPATH; prints the lines that start with one of ``prefixes``."""
     parent = Path(parent).resolve()
     if not (parent / "chip_smoke.py").exists():
         raise SystemExit(f"{parent} holds no chip_smoke.py")
-    mine = [(f"this {f}" if f else "this", ROOT, f) for f in forms]
     failed = False
-    for name, tree, form in ([("parent", parent, None)] + mine +
-                             mine[::-1] + [("parent", parent, None)]):
+    for name, tree in (("parent", parent), ("this", ROOT), ("this", ROOT),
+                       ("parent", parent)):
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [str(tree), *map(str, path)]))
-        if form:
-            env["TP_TURNS_FORM"] = form
         proc = subprocess.run([sys.executable, "-c", run], cwd=tree, env=env,
                               capture_output=True, text=True, timeout=900)
         for line in proc.stdout.splitlines():
@@ -194,12 +183,12 @@ def main(argv):
             raise SystemExit("a build failed")
         turns(argv[1], SERVE_RUN, ("[serve] {", "[serve-int8] {",
                                    "[profile]", "[serve-wrapper]"))
-    elif argv[:1] == ["tp-turns"] and len(argv) >= 2:
+    elif argv[:1] == ["tp-turns"] and len(argv) == 2:
         with tempfile.TemporaryDirectory() as tmp:
             Path(tmp, "tp_turns_rank.py").write_text(TP_RANK)
             turns(argv[1], TP_RUN, ("[tp-train]", "[tp-profile]",
                                     "[tp-timing]", "[tp-turns]"),
-                  forms=tuple(argv[2:]) or (None,), path=(tmp,))
+                  path=(tmp,))
     else:
         raise SystemExit(__doc__)
 

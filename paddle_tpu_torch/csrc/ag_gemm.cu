@@ -25,23 +25,22 @@
 // * ag_gemm_pull_kernel, the first launch: waits until every peer has read
 //   this rank's slot of call e - 2, copies x (r) into slot [e & 1] of its
 //   own channel, and tells each peer (ready[e & 1][rank] in the peer's
-//   pad, a system-scope release). In form kPull it then copies each
-//   remote chunk, in ring order (src = rank - 1, rank - 2, ...), from the
-//   peer's slot into a local gather slot, sets gathered[src] in its own
-//   pad and tells src that its slot is read (freed[rank] in src's pad).
-//   It lets the GEMM launch at once (griddepcontrol.launch_dependents;
-//   the GEMM is a programmatic dependent launch), so the pulls run under
-//   the own chunk's products.
+//   pad, a system-scope release). It then copies each remote chunk, in
+//   ring order (src = rank - 1, rank - 2, ...), from the peer's slot over
+//   NVLink into a local gather slot, sets gathered[src] in its own pad
+//   and tells src that its slot is read (freed[rank] in src's pad). It
+//   lets the GEMM launch at once (griddepcontrol.launch_dependents; the
+//   GEMM is a programmatic dependent launch), so the pulls run under the
+//   own chunk's products. Each remote chunk crosses NVLink once (TMA
+//   loads straight from the peers' slots, the other form timed, fetch
+//   each remote tile once per 256-column output tile: PERF.md §6).
 // * ag_gemm_kernel, the second launch: a 128 x 256 output tile a block,
 //   warpgroup products (wgmma m64n256k16, bf16 in, fp32 accumulators) fed
 //   by TMA through a 4-stage full/empty mbarrier ring from a producer
 //   warp, two consumer warpgroups of 64 rows, 128-byte swizzle: row 8's
 //   core (gemm_rs.cu, sm90.cuh). The grid runs the chunks in ring order,
 //   the own chunk's tiles first (read from x in place); a block of a
-//   remote chunk first waits for that chunk (form kPull: gathered[src];
-//   form kDirect: ready from src, and then its TMA loads read src's slot
-//   over NVLink straight from the peer's memory, and the last block to
-//   read a chunk tells src that its slot is read).
+//   remote chunk first waits for its gather slot (gathered[src]).
 //   Row 7, modes NN and NT: A is the chunk [B*s, A] K-major; NN reads w [A,
 //   F] MN-major through the descriptor's transpose bit (one 256-wide
 //   product spans four 64-column boxes), NT reads w [F, A] K-major. The
@@ -68,7 +67,7 @@
 // * Every wait is bounded and reads the awaited peer's heartbeat
 //   (peer_barrier.cuh's wait_flag): a late but live peer is waited for, a
 //   gone one ends the wait after the channel's timeout with the error
-//   record (row 7 or 9; at_end 0 the pull's wait for a freed slot, 1 the
+//   record (row 7 or 9; at_end 0 the pull's wait for a freed slot, 1 its
 //   wait for a peer's chunk, 2 the GEMM's wait for a gathered chunk) and a
 //   trap. The pull waits only for the peers' pulls, and the GEMM only for
 //   its own pull, which is resident before any GEMM block starts; so
@@ -117,21 +116,16 @@ constexpr int kUnroll = 4;
 constexpr int kNN = 0;
 constexpr int kNT = 1;
 constexpr int kTN = 2;
-// forms: (b) pull each remote chunk into a local gather slot; (a) the
-// GEMM's TMA loads read the peers' slots; local: every chunk from a local
-// buffer, no peers
-constexpr int kPull = 0;
-constexpr int kDirect = 1;
-constexpr int kLocal = 2;
 constexpr int kAtFreed = 0;      // the error record's at_end codes
 constexpr int kAtChunk = 1;
 constexpr int kAtGathered = 2;
 constexpr int kErrUnsupported = -1;
 
 struct Maps {
-  CUtensorMap own;                          // this rank's chunk, in place
-  CUtensorMap ring[2 * peer::kMaxRanks];    // [2 src + parity]: chunk src
-  CUtensorMap other;                        // w (row 7) or stat (row 9)
+  CUtensorMap own;                      // this rank's chunk, in place
+  CUtensorMap ring[peer::kMaxRanks];    // chunk src: its gather slot (or
+                                        // the local buffer's chunk)
+  CUtensorMap other;                    // w (row 7) or stat (row 9)
 };
 
 struct Geo {
@@ -175,12 +169,12 @@ __device__ __forceinline__ void copy16(uint4* __restrict__ dst,
   }
 }
 
-// Publish this rank's chunk (x, chunk bytes) into slot [e & 1] of its
-// staging and, in form kPull, gather every remote chunk into gather slot
+// Publish this rank's chunk (x, chunk16 units of 16 bytes) into slot
+// [e & 1] of its staging and gather every remote chunk into gather slot
 // src (staging + (2 + src) * slot bytes).
 __global__ void __launch_bounds__(kPullThreads)
 ag_gemm_pull_kernel(const peer::Peers a, const uint4* __restrict__ x,
-               long long chunk16, long long slot_bytes, int form) {
+                    long long chunk16, long long slot_bytes) {
   peer::Pad* mine = a.pad[a.rank];
   const uint32_t e = load_calls(mine) + 1;
   // the GEMM may start: its own chunk needs nothing of this kernel
@@ -201,7 +195,6 @@ ag_gemm_pull_kernel(const peer::Peers a, const uint4* __restrict__ x,
     for (int q = 0; q < a.n; ++q)
       if (q != a.rank) peer::st_release_sys(&a.pad[q]->ready[par][a.rank], e);
   }
-  if (form != kPull) return;
   for (int t = 1; t < a.n; ++t) {
     const int src = (a.rank - t + a.n) % a.n;
     if (threadIdx.x == 0)
@@ -223,12 +216,13 @@ ag_gemm_pull_kernel(const peer::Peers a, const uint4* __restrict__ x,
 }
 
 // One block: output tile (m0, n0) of chunk step t (chunk src = rank - t),
-// as the note above says.
+// as the note above says; without peers every chunk from the local
+// buffer's maps, no flags.
 template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
 ag_gemm_kernel(const __grid_constant__ Maps maps, const peer::Peers a,
                const Geo g, void* __restrict__ out, float* __restrict__ ws,
-               uint32_t* __restrict__ split, int form, WaitRecord* rec) {
+               uint32_t* __restrict__ split, bool peers, WaitRecord* rec) {
   extern __shared__ uint8_t smem[];
   __shared__ __align__(8) uint64_t bars[2 * kStages];
   __shared__ int last_split;
@@ -243,21 +237,15 @@ ag_gemm_kernel(const __grid_constant__ Maps maps, const peer::Peers a,
   const int tile_id = blockIdx.x - t * tpc;
   const int m0 = (tile_id / g.tiles_n) * kBM;
   const int n0 = (tile_id % g.tiles_n) * kBN;
-  const bool peers = form != kLocal;
   peer::Pad* mine = peers ? a.pad[a.rank] : nullptr;
   const uint32_t e = peers ? load_calls(mine) + 1 : 0;
-  // the chunk's map: x in place, the gather slot, the peer's slot or the
-  // local buffer's chunk
-  const CUtensorMap* ring =
-      peers && t == 0 ? &maps.own : &maps.ring[2 * src + (e & 1)];
+  // the chunk's map: x in place, the gather slot or the local buffer's
+  // chunk
+  const CUtensorMap* ring = peers && t == 0 ? &maps.own : &maps.ring[src];
 
   if (threadIdx.x == 0) {
-    if (peers && t > 0) {
-      if (form == kPull)
-        peer::wait_flag(a, &mine->gathered[src], e, src, kAtGathered);
-      else
-        peer::wait_flag(a, &mine->ready[e & 1][src], e, src, kAtChunk);
-    }
+    if (peers && t > 0)
+      peer::wait_flag(a, &mine->gathered[src], e, src, kAtGathered);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(wt.at(st), 1);
       mbar_init(wt.at(kStages + st), kConsumers / 32);   // a warp each
@@ -341,20 +329,11 @@ ag_gemm_kernel(const __grid_constant__ Maps maps, const peer::Peers a,
   wgmma_wait<0>();
   fence_regs(acc);
 
-  // every load of the block has landed: the last block to read a peer's
-  // slot (form kDirect) tells it
+  // the epilogue: both warpgroups' products are done with the ring,
+  // which now holds the fp32 tile. Accumulator d[4j + e] holds row 16w +
+  // g + 8 (e / 2), column 8j + 2q + e % 2; lanes q and q ^ 1 trade halves
+  // so that each stores four adjacent columns of one row.
   consumers_sync();
-  if (form == kDirect && t > 0 && threadIdx.x == 0 &&
-      atomicAdd(&mine->read[src], 1u) == static_cast<uint32_t>(tpc - 1)) {
-    mine->read[src] = 0;
-    __threadfence_system();
-    peer::st_release_sys(&a.pad[src]->freed[a.rank], e);
-  }
-
-  // the epilogue: the drained ring holds the fp32 tile. Accumulator
-  // d[4j + e] holds row 16w + g + 8 (e / 2), column 8j + 2q + e % 2;
-  // lanes q and q ^ 1 trade halves so that each stores four adjacent
-  // columns of one row.
   float* tile = reinterpret_cast<float*>(sm);
   {
     const int w = warp % 4, gq = lane / 4, q = lane % 4;
@@ -465,15 +444,15 @@ int pull_grid() {
   return sms;
 }
 
-// The maps, grids and launches of one call: the pull (peer forms) and the
-// GEMM, a programmatic dependent launch after it. ring[p] the start of
-// chunk p (the gather slot, the peer's slot of each parity, or the local
-// buffer's chunk: ring[2 p + parity]); x this rank's chunk; other w or
-// stat; rows the chunk rows, cols A.
+// The maps, grids and launches of one call: with peers, the pull and the
+// GEMM, a programmatic dependent launch after it; without, the GEMM over
+// the local buffer. ring[p] the start of chunk p (its gather slot, or the
+// local buffer's chunk); x this rank's chunk; other w or stat; the chunks
+// [geo.rows, A].
 template <int MODE>
 int launch(const void* const* ring, const void* x, const void* other,
            long long other_rows, long long other_cols, void* out, float* ws,
-           uint32_t* split, const peer::Peers& a, const Geo& geo, int form,
+           uint32_t* split, const peer::Peers& a, const Geo& geo, bool peers,
            long long slot_bytes, int A, cudaStream_t stream) {
   auto kernel = ag_gemm_kernel<MODE>;
   static unsigned ready = 0;
@@ -485,22 +464,21 @@ int launch(const void* const* ring, const void* x, const void* other,
   const int box_rows = MODE == kTN ? kBK : kBM;   // a chunk's box
   int rc = encode_2d(&maps.own, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x,
                      geo.rows, A, 64, box_rows);
-  for (int i = 0; i < 2 * a.n && rc == 0; ++i)
-    rc = encode_2d(&maps.ring[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                   ring[i], geo.rows, A, 64, box_rows);
+  for (int p = 0; p < a.n && rc == 0; ++p)
+    rc = encode_2d(&maps.ring[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                   ring[p], geo.rows, A, 64, box_rows);
   if (rc == 0)
     rc = encode_2d(&maps.other, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, other,
-                   other_rows, other_cols, 64,
-                   MODE == kNT ? kBN : kBK);
+                   other_rows, other_cols, 64, MODE == kNT ? kBN : kBK);
   if (rc) return rc;
-  if (form != kLocal) {
+  if (peers) {
     const long long chunk16 = static_cast<long long>(geo.rows) * A * 2 / 16;
     const long long want =
         (chunk16 + kUnroll * kPullThreads - 1) / (kUnroll * kPullThreads);
     const int most = pull_grid();
     ag_gemm_pull_kernel<<<static_cast<int>(want < most ? want : most),
-                     kPullThreads, 0, stream>>>(
-        a, static_cast<const uint4*>(x), chunk16, slot_bytes, form);
+                          kPullThreads, 0, stream>>>(
+        a, static_cast<const uint4*>(x), chunk16, slot_bytes);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   cudaLaunchConfig_t cfg = {};
@@ -512,8 +490,8 @@ int launch(const void* const* ring, const void* x, const void* other,
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = form != kLocal ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, maps, a, geo, out, ws, split, form,
+  cfg.numAttrs = peers ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, maps, a, geo, out, ws, split, peers,
                            rec);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -542,28 +520,15 @@ peer::Peers peers_of(int n, int rank, int row, void* const* data,
   return a;
 }
 
-// The chunk starts of every ring step's map: in the peer forms the gather
-// slots (kPull) or the peers' slots of each parity (kDirect), from the
-// staging pointers; locally chunk p of `local`.
-void ring_starts(const void** ring, int form, const peer::Peers& a,
-                 const void* local, long long slot_bytes,
-                 long long chunk_bytes) {
-  for (int p = 0; p < a.n; ++p)
-    for (int par = 0; par < 2; ++par) {
-      const uint8_t* s =
-          form == kLocal
-              ? static_cast<const uint8_t*>(local) + p * chunk_bytes
-          : form == kPull
-              ? static_cast<const uint8_t*>(a.data[a.rank]) +
-                    (2 + p) * slot_bytes
-              : static_cast<const uint8_t*>(a.data[p]) + par * slot_bytes;
-      ring[2 * p + par] = s;
-    }
+// The chunk starts of the maps: the gather slots of this rank's staging,
+// or, locally, chunk p of `local` (chunk bytes apart).
+void ring_starts(const void** ring, int n, const uint8_t* base,
+                 long long stride) {
+  for (int p = 0; p < n; ++p) ring[p] = base + p * stride;
 }
 
-bool group_ok(int n, int rank, int form) {
-  return n >= 2 && n <= peer::kMaxRanks && rank >= 0 && rank < n &&
-         (form == kPull || form == kDirect || form == kLocal);
+bool group_ok(int n, int rank) {
+  return n >= 2 && n <= peer::kMaxRanks && rank >= 0 && rank < n;
 }
 
 // row 7's geometry, or false
@@ -587,44 +552,47 @@ bool accum_geo(int B, int s, int A, int Bf, int n, int swap, Geo* g) {
 
 int ag_dispatch(int mode, const void* const* ring, const void* x,
                 const void* w, void* out, const peer::Peers& a, const Geo& g,
-                int form, long long slot_bytes, int A, cudaStream_t s) {
+                bool peers, long long slot_bytes, int A, cudaStream_t s) {
   // NN: w [A, F]; NT: w stored [F, A]
   return mode == kNN
              ? launch<kNN>(ring, x, w, A, g.N, out, nullptr, nullptr, a, g,
-                           form, slot_bytes, A, s)
+                           peers, slot_bytes, A, s)
              : launch<kNT>(ring, x, w, g.N, A, out, nullptr, nullptr, a, g,
-                           form, slot_bytes, A, s);
+                           peers, slot_bytes, A, s);
+}
+
+bool slots_ok(long long slot_bytes, int B, int s, int A) {
+  return slot_bytes >= 2LL * B * s * A && slot_bytes % 16 == 0;
 }
 
 }  // namespace
 
 // One row-7 call on `stream`: the pull and the GEMM of every chunk into
 // out, bf16 [B, n*s, F]. mode 0: w [A, F]; 1: w stored [F, A]. x bf16 [B,
-// s, A]. form 0 pulls the remote chunks into gather slots, 1 reads them
-// from the peers' slots. data[p], pads[p]: rank p's staging and signal pad
-// as mapped here; slot_bytes: bytes between the staging's 2 + n slots (at
-// least B*s*A*2, a multiple of 16); err, beats, timeout_ns, backstop_ns as
+// s, A]. data[p], pads[p]: rank p's staging and signal pad as mapped here;
+// slot_bytes: bytes between the staging's 2 + n slots (at least B*s*A*2,
+// a multiple of 16); err, beats, timeout_ns, backstop_ns as
 // rs_pull_launch's (rs_bucket.cu). Returns 0, a cudaError_t code, or a
 // negative code of ag_gemm_error_string.
-extern "C" int ag_gemm_launch(int mode, int form, const void* x,
-                              const void* w, void* out, int B, int s, int A,
-                              int F, int n, int rank, void* const* data,
-                              void* const* pads, long long slot_bytes,
-                              void* err, const void* beats,
+extern "C" int ag_gemm_launch(int mode, const void* x, const void* w,
+                              void* out, int B, int s, int A, int F, int n,
+                              int rank, void* const* data, void* const* pads,
+                              long long slot_bytes, void* err,
+                              const void* beats,
                               unsigned long long timeout_ns,
                               unsigned long long backstop_ns, void* stream) {
   Geo g;
-  if ((mode != kNN && mode != kNT) || form == kLocal ||
-      !group_ok(n, rank, form) || !ag_geo(B, s, A, F, n, &g) ||
-      slot_bytes < 2LL * B * s * A || slot_bytes % 16)
+  if ((mode != kNN && mode != kNT) || !group_ok(n, rank) ||
+      !ag_geo(B, s, A, F, n, &g) || !slots_ok(slot_bytes, B, s, A))
     return kErrUnsupported;
   int rc;
   const peer::Peers a = peers_of(n, rank, 7, data, pads, err, beats,
                                  timeout_ns, backstop_ns, &rc);
   if (rc) return rc;
-  const void* ring[2 * peer::kMaxRanks];
-  ring_starts(ring, form, a, nullptr, slot_bytes, 0);
-  return ag_dispatch(mode, ring, x, w, out, a, g, form, slot_bytes, A,
+  const void* ring[peer::kMaxRanks];
+  ring_starts(ring, n, static_cast<const uint8_t*>(data[rank]) +
+                           2 * slot_bytes, slot_bytes);
+  return ag_dispatch(mode, ring, x, w, out, a, g, true, slot_bytes, A,
                      static_cast<cudaStream_t>(stream));
 }
 
@@ -632,48 +600,47 @@ extern "C" int ag_gemm_launch(int mode, int form, const void* x,
 // partial into ws (fp32 [n, M, N]), summed in ring order into out (fp32
 // [M, N]: [A, Bf], or [Bf, A] with swap). r bf16 [B, s, A], stat bf16 [B,
 // n*s, Bf], s a multiple of 64; the rest as ag_gemm_launch.
-extern "C" int ag_accum_launch(int swap, int form, const void* r,
-                               const void* stat, void* out, void* ws, int B,
-                               int s, int A, int Bf, int n, int rank,
-                               void* const* data, void* const* pads,
-                               long long slot_bytes, void* err,
-                               const void* beats,
+extern "C" int ag_accum_launch(int swap, const void* r, const void* stat,
+                               void* out, void* ws, int B, int s, int A,
+                               int Bf, int n, int rank, void* const* data,
+                               void* const* pads, long long slot_bytes,
+                               void* err, const void* beats,
                                unsigned long long timeout_ns,
                                unsigned long long backstop_ns, void* stream) {
   Geo g;
-  if (form == kLocal || !group_ok(n, rank, form) ||
-      !accum_geo(B, s, A, Bf, n, swap, &g) || ws == nullptr ||
-      slot_bytes < 2LL * B * s * A || slot_bytes % 16)
+  if (!group_ok(n, rank) || !accum_geo(B, s, A, Bf, n, swap, &g) ||
+      ws == nullptr || !slots_ok(slot_bytes, B, s, A))
     return kErrUnsupported;
   int rc;
   const peer::Peers a = peers_of(n, rank, 9, data, pads, err, beats,
                                  timeout_ns, backstop_ns, &rc);
   if (rc) return rc;
-  const void* ring[2 * peer::kMaxRanks];
-  ring_starts(ring, form, a, nullptr, slot_bytes, 0);
+  const void* ring[peer::kMaxRanks];
+  ring_starts(ring, n, static_cast<const uint8_t*>(data[rank]) +
+                           2 * slot_bytes, slot_bytes);
   return launch<kTN>(ring, r, stat, static_cast<long long>(B) * n * s, Bf,
                      out, static_cast<float*>(ws), a.pad[rank]->split, a, g,
-                     form, slot_bytes, A, static_cast<cudaStream_t>(stream));
+                     true, slot_bytes, A, static_cast<cudaStream_t>(stream));
 }
 
 // The GEMMs alone: every chunk from local [n, B*s, A] (chunk p = rank p's
 // x or r), in rank `rank`'s order; no peers, no flags. Row 7 writes out as
-// ag_gemm_launch; row 9 needs split, n*tiles zeroed counters it leaves
-// zeroed, and ws as ag_accum_launch.
+// ag_gemm_launch; row 9 needs split, its tiles' counters zeroed (it leaves
+// them zeroed), and ws as ag_accum_launch.
 extern "C" int ag_gemm_local_launch(int mode, const void* local,
                                     const void* w, void* out, int B, int s,
                                     int A, int F, int n, int rank,
                                     void* stream) {
   Geo g;
-  if ((mode != kNN && mode != kNT) || !group_ok(n, rank, kLocal) ||
+  if ((mode != kNN && mode != kNT) || !group_ok(n, rank) ||
       !ag_geo(B, s, A, F, n, &g) || local == nullptr)
     return kErrUnsupported;
   peer::Peers a = {};
   a.n = n;
   a.rank = rank;
-  const void* ring[2 * peer::kMaxRanks];
-  ring_starts(ring, kLocal, a, local, 0, 2LL * B * s * A);
-  return ag_dispatch(mode, ring, ring[2 * rank], w, out, a, g, kLocal, 0, A,
+  const void* ring[peer::kMaxRanks];
+  ring_starts(ring, n, static_cast<const uint8_t*>(local), 2LL * B * s * A);
+  return ag_dispatch(mode, ring, ring[rank], w, out, a, g, false, 0, A,
                      static_cast<cudaStream_t>(stream));
 }
 
@@ -682,18 +649,18 @@ extern "C" int ag_accum_local_launch(int swap, const void* local,
                                      void* split, int B, int s, int A,
                                      int Bf, int n, int rank, void* stream) {
   Geo g;
-  if (!group_ok(n, rank, kLocal) || !accum_geo(B, s, A, Bf, n, swap, &g) ||
+  if (!group_ok(n, rank) || !accum_geo(B, s, A, Bf, n, swap, &g) ||
       local == nullptr || ws == nullptr || split == nullptr)
     return kErrUnsupported;
   peer::Peers a = {};
   a.n = n;
   a.rank = rank;
-  const void* ring[2 * peer::kMaxRanks];
-  ring_starts(ring, kLocal, a, local, 0, 2LL * B * s * A);
-  return launch<kTN>(ring, ring[2 * rank], stat,
+  const void* ring[peer::kMaxRanks];
+  ring_starts(ring, n, static_cast<const uint8_t*>(local), 2LL * B * s * A);
+  return launch<kTN>(ring, ring[rank], stat,
                      static_cast<long long>(B) * n * s, Bf, out,
                      static_cast<float*>(ws), static_cast<uint32_t*>(split),
-                     a, g, kLocal, 0, A, static_cast<cudaStream_t>(stream));
+                     a, g, false, 0, A, static_cast<cudaStream_t>(stream));
 }
 
 // The output tiles of a row-9 call (its per-tile counters), or -1.
@@ -712,7 +679,7 @@ extern "C" void ag_gemm_wait_record(int* out) {
 extern "C" const char* ag_gemm_error_string(int code) {
   switch (code) {
     case kErrUnsupported:
-      return "unsupported mode, form, shape, group or missing operand";
+      return "unsupported mode, shape, group or missing operand";
     case kErrEntryPoint:
       return "cuTensorMapEncodeTiled not found through "
              "cudaGetDriverEntryPoint";

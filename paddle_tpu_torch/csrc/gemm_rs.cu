@@ -63,8 +63,8 @@
 //   for peers' reduces of call e - 2, the reduce of call e for peers'
 //   GEMMs of call e.
 //
-// Rows 7 (ring_ag_gemm), 9 (ring_ag_accum), 14 and 15 keep ring_gemm.cu's
-// mma.sync core and NCCL hops.
+// Rows 7 and 9 (ag_gemm.cu) run this core over the peer buffers too;
+// rows 14 and 15 keep ring_gemm.cu's mma.sync core and NCCL hops.
 //
 // gemm_rs_local_launch runs the same GEMM with every chunk's partial into
 // a local buffer [n, B*s, A] (no peers, no flags): the products alone, for

@@ -80,7 +80,6 @@ struct Pad {
   uint32_t pulled[kMaxRanks];     // [src]: pull blocks done with src's chunk
   uint32_t gathered[kMaxRanks];   // [src]: src's chunk of call e is in the
                                   // local gather slot (this rank writes e)
-  uint32_t read[kMaxRanks];       // [src]: GEMM blocks done reading chunk src
   uint32_t finished;              // GEMM blocks done this call
   uint32_t split[kMaxBlocks];     // row 9: chunk partials of output tile i
                                   // stored this call
@@ -110,7 +109,7 @@ struct ErrorRecord {
   int at_end;       // rows 10-11: 0 entry barrier, 1 exit barrier; row 8:
                     // 0 the GEMM's wait for a freed slot, 1 the reduce's
                     // wait for a partial; rows 7 and 9: 0 the pull's wait
-                    // for a freed slot, 1 the wait for a peer's chunk, 2
+                    // for a freed slot, 1 its wait for a peer's chunk, 2
                     // the GEMM's wait for a gathered chunk
   uint32_t epoch;
   uint32_t seen;    // the flag value last read

@@ -9,12 +9,6 @@
 // * _gemm_pprecv_kernel (:826, :904): its backward, dr = gy + gwire as
 //   the next stage's cotangent lands, then dx = dr @ w^T and dw = x^T @ dr.
 //
-// (Rows 7 and 9 ran on this file's core until they moved to ag_gemm.cu,
-// row 8 until it moved to gemm_rs.cu: wgmma GEMMs over NVLink peer
-// buffers. Their paths here, mode NN of ring_gemm_launch, the fp32 addend
-// of the ring's running sum and the batched row maps of the gathered
-// output, went with them.)
-//
 // The TPU kernels move data with in-kernel remote DMAs; here every hop is
 // an NCCL point-to-point pair outside the kernel (paddle_tpu_torch/ops/
 // pp_boundary.py), and each step launches kernels of this file: a tile

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels written for it:
-// flash_sm90.cu (rows 4-6), quant_gemm.cu (row 3), gemm_rs.cu (row 8) and
-// paged_decode.cu (rows 1-2; its mbarriers and bounded waits).
+// flash_sm90.cu (rows 4-6), quant_gemm.cu (row 3), gemm_rs.cu (row 8),
+// ag_gemm.cu (rows 7 and 9) and paged_decode.cu (rows 1-2; its mbarriers
+// and bounded waits).
 //
 // * mbarriers (init, arrive, arrive with a TMA transaction count, parity
 //   waits), every wait bounded by %globaltimer: a wait that outlasts
@@ -45,7 +46,7 @@ constexpr unsigned long long kWaitTimeoutNs = SM90_WAIT_TIMEOUT_NS;
 struct WaitRecord {
   int code;       // 0: none; 1: an mbarrier wait timed out
   int row;        // the kernel's PERF.md row (1 paged decode, 3 quant
-                  // GEMM, 4-6 flash, 8 GEMM + reduce-scatter)
+                  // GEMM, 4-6 flash, 7-9 the ring GEMMs)
   int block_x;
   int block_y;
   int warp;       // the waiting warp (a producer's or a consumer's)

@@ -177,7 +177,7 @@ def raise_for(rc, row, rank, describe):
                      "GEMM's wait for a freed slot")
         elif rec.row in (7, 9):
             where = ("pull's wait for a freed slot",
-                     "wait for a peer's chunk",
+                     "pull's wait for a peer's chunk",
                      "GEMM's wait for a gathered chunk")[rec.at_end]
         else:
             where = ("exit" if rec.at_end else "entry") + " barrier"

@@ -71,11 +71,6 @@ AG_CHANNEL = "ag_gemm"
 ACCUM_CHANNEL = "ag_accum"
 ACCUM_TILE_ROWS = 64        # csrc/ag_gemm.cu's kBK: row 9's s a multiple
 ACCUM_MAX_TILES = 1024      # row 9's counters a call (peer_barrier.cuh)
-# how rows 7 and 9 reach the remote chunks: "pull" copies each into a
-# local gather slot that the GEMM's TMA loads read; "direct" has the TMA
-# loads read the peers' slots over NVLink
-AG_FORMS = {"pull": 0, "direct": 1}
-AG_FORM = "pull"
 
 # The kernel against its plain version, per element:
 # |kernel - plain| <= ELEMENT_TOL * (|plain| + rms of plain's row), and
@@ -283,8 +278,8 @@ def _ag_library():
     p, i, ll, ull = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                      ctypes.c_ulonglong)
     peers = [p, p, ll, p, p, ull, ull, p]
-    lib.ag_gemm_launch.argtypes = [i, i, p, p, p] + [i] * 6 + peers
-    lib.ag_accum_launch.argtypes = [i, i, p, p, p, p] + [i] * 6 + peers
+    lib.ag_gemm_launch.argtypes = [i, p, p, p] + [i] * 6 + peers
+    lib.ag_accum_launch.argtypes = [i, p, p, p, p] + [i] * 6 + peers
     lib.ag_gemm_local_launch.argtypes = [i, p, p, p] + [i] * 6 + [p]
     lib.ag_accum_local_launch.argtypes = [i, p, p, p, p, p] + [i] * 6 + [p]
     for name in ("ag_gemm_launch", "ag_accum_launch", "ag_gemm_local_launch",
@@ -390,8 +385,8 @@ def ring_ag_gemm(x, w, group, transpose_w=False):
     lib = _ag_library()
     with torch.cuda.device(x.device):
         rc = lib.ag_gemm_launch(
-            MODES["NT" if transpose_w else "NN"], AG_FORMS[AG_FORM],
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), B, s, A, F, n, rank,
+            MODES["NT" if transpose_w else "NN"], x.data_ptr(),
+            w.data_ptr(), out.data_ptr(), B, s, A, F, n, rank,
             ch.data, ch.pads, slot, _peer.error_pointer(), ch.beats,
             ch.timeout_ns, ch.backstop_ns, _stream(x.device))
     _peer.raise_for(rc, 7, rank,
@@ -537,8 +532,8 @@ def ring_ag_accum(r, stat, group, transpose=False):
     lib = _ag_library()
     with torch.cuda.device(r.device):
         rc = lib.ag_accum_launch(
-            int(transpose), AG_FORMS[AG_FORM], r.data_ptr(), stat.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), B, s, A, Bf, n, rank, ch.data,
+            int(transpose), r.data_ptr(), stat.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), B, s, A, Bf, n, rank, ch.data,
             ch.pads, slot, _peer.error_pointer(), ch.beats, ch.timeout_ns,
             ch.backstop_ns, _stream(r.device))
     _peer.raise_for(rc, 9, rank,

@@ -1410,7 +1410,7 @@ def test_row7_gone_peer_leaves_a_filled_record_on_card(cuda_device,
     assert rec["at_end"] in (1, 2) and rec["epoch"] == 1, rec
     assert rec["peer"] == 1, rec
     assert got["seconds"] < 30, got
-    where = ("wait for a peer's chunk" if rec["at_end"] == 1 else
+    where = ("pull's wait for a peer's chunk" if rec["at_end"] == 1 else
              "GEMM's wait for a gathered chunk")
     assert f"row 7: rank 0's {where} at epoch 1" in got["next_call"]
     assert "the process is gone" in got["next_call"]
