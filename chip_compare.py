@@ -5,6 +5,8 @@
     python3 chip_compare.py decode-turns PARENT_DIR
     python3 chip_compare.py serve-turns PARENT_DIR
     python3 chip_compare.py tp-turns PARENT_DIR
+    python3 chip_compare.py pp-turns PARENT_DIR
+    python3 chip_compare.py tp-forms DIR FORM [FORM ...]
 
 ``train-turns`` runs chip_smoke's one-card GPT-3 1.3B train step
 (``phase_train``, then ``phase_train_profile``); ``decode-turns`` the
@@ -18,11 +20,15 @@ both trees' kernels are built; ``tp-turns`` chip_smoke's tensor-parallel
 GPT-3 1.3B step on the fused rung (``phase_tp_train``: 2 + 5 steps at
 full depth, then ``phase_tp_profile``) and each ring kernel's whole call
 and GEMMs alone (``phase_tp_timing``) in MP ranks, a card each where
-there are MP cards. Each runs from the
-tree at PARENT_DIR (a ``git archive`` of another commit) and from this
-one, in turns (parent, this, this, parent), each in a process of its
-own, and prints their lines. Needs a CUDA device and exits with another
-code than 0 without one.
+there are MP cards; ``pp-turns`` rows 14-15 alone (``gemm_ppsend``,
+``gemm_pprecv``) at the pp=4 shape by CUDA-graph replay. Each runs from
+the tree at PARENT_DIR (a ``git archive`` of another commit) and from
+this one, in turns (parent, this, this, parent), each in a process of
+its own, and prints their lines. ``tp-forms`` runs ``phase_tp_timing``
+in the tree at DIR once per form of rows 7 and 9 that its
+``ops/ring_gemm.py`` offers (``AG_FORM``), in turns (the forms, then in
+reverse) in one process group. Needs a CUDA device and exits with
+another code than 0 without one.
 """
 import os
 import subprocess
@@ -124,11 +130,57 @@ def rank(group, seed):
     cs.phase_tp_timing(group, gen, cs.GPT_CONFIGS[cs.MODEL], say)
     return failed
 """
+TP_FORMS_RANK = """
+import os
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch.ops import ring_gemm as rg
+
+
+def rank(group, seed):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    forms = os.environ["TP_FORMS"].split()
+    for form in forms + forms[::-1]:
+        rg.AG_FORM = form
+
+        def say(*a, form=form):
+            if group.rank == 0:
+                print(f"<{form}>", *a, flush=True)
+        gen = torch.Generator(device=group.device).manual_seed(seed + 5)
+        cs.phase_tp_timing(group, gen, cs.GPT_CONFIGS[cs.MODEL], say)
+    return []
+"""
+PP_RUN = """
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch.ops import pp_boundary as ppb
+ppb.build()
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(0)
+R, K, F = 2048, 8192, 2048
+
+
+def rand(*shape, scale=1.0):
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(
+        torch.bfloat16)
+
+
+x, w, b, r = rand(R, K), rand(K, F, scale=K ** -0.5), rand(F), rand(R, F)
+gy, gw = rand(R, F), rand(R, F)
+for _ in range(2):
+    s = cs.graph_ms(lambda: ppb.gemm_ppsend(x, w, b, r), iters=8)
+    v = cs.graph_ms(lambda: ppb.gemm_pprecv(gy, gw, x, w), iters=8)
+    print(f"[pp-alone] R={R} K={K} F={F}: gemm_ppsend {s:.4f} ms, "
+          f"gemm_pprecv {v:.4f} ms", flush=True)
+"""
 TP_RUN = """
 import chip_smoke as cs
 import tp_turns_rank
-from paddle_tpu_torch.distributed import env
-cs.phase_build()
+from paddle_tpu_torch.distributed import env, peer
+from paddle_tpu_torch.ops import flash_attention as fa, ring_gemm as rg
+fa.build()
+rg.build()
+peer.build()
 outs = env.launch(cs.MP, tp_turns_rank.rank, 0, layout=cs.mp_layout(),
                   timeout_s=900)
 print(f"[tp-turns] failures: {sum(outs, [])}", flush=True)
@@ -183,6 +235,18 @@ def main(argv):
             raise SystemExit("a build failed")
         turns(argv[1], SERVE_RUN, ("[serve] {", "[serve-int8] {",
                                    "[profile]", "[serve-wrapper]"))
+    elif argv[:1] == ["pp-turns"] and len(argv) == 2:
+        turns(argv[1], PP_RUN, ("[pp-alone]",))
+    elif argv[:1] == ["tp-forms"] and len(argv) >= 3:
+        tree = Path(argv[1]).resolve()
+        with tempfile.TemporaryDirectory() as tmp:
+            Path(tmp, "tp_turns_rank.py").write_text(TP_FORMS_RANK)
+            proc = subprocess.run(
+                [sys.executable, "-c", TP_RUN], cwd=tree, timeout=900,
+                env=dict(os.environ, TP_FORMS=" ".join(argv[2:]),
+                         PYTHONPATH=os.pathsep.join([str(tree), tmp])))
+        if proc.returncode:
+            raise SystemExit(f"tp-forms exit {proc.returncode}")
     elif argv[:1] == ["tp-turns"] and len(argv) == 2:
         with tempfile.TemporaryDirectory() as tmp:
             Path(tmp, "tp_turns_rank.py").write_text(TP_RANK)
