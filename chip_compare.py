@@ -6,7 +6,6 @@
     python3 chip_compare.py serve-turns PARENT_DIR
     python3 chip_compare.py tp-turns PARENT_DIR
     python3 chip_compare.py pp-turns PARENT_DIR
-    python3 chip_compare.py tp-forms DIR FORM [FORM ...]
 
 ``train-turns`` runs chip_smoke's one-card GPT-3 1.3B train step
 (``phase_train``, then ``phase_train_profile``); ``decode-turns`` the
@@ -24,10 +23,7 @@ there are MP cards; ``pp-turns`` rows 14-15 alone (``gemm_ppsend``,
 ``gemm_pprecv``) at the pp=4 shape by CUDA-graph replay. Each runs from
 the tree at PARENT_DIR (a ``git archive`` of another commit) and from
 this one, in turns (parent, this, this, parent), each in a process of
-its own, and prints their lines. ``tp-forms`` runs ``phase_tp_timing``
-in the tree at DIR once per form of rows 7 and 9 that its
-``ops/ring_gemm.py`` offers (``AG_FORM``), in turns (the forms, then in
-reverse) in one process group. Needs a CUDA device and exits with
+its own, and prints their lines. Needs a CUDA device and exits with
 another code than 0 without one.
 """
 import os
@@ -130,26 +126,6 @@ def rank(group, seed):
     cs.phase_tp_timing(group, gen, cs.GPT_CONFIGS[cs.MODEL], say)
     return failed
 """
-TP_FORMS_RANK = """
-import os
-import torch
-import chip_smoke as cs
-from paddle_tpu_torch.ops import ring_gemm as rg
-
-
-def rank(group, seed):
-    torch.backends.cuda.matmul.allow_tf32 = False
-    forms = os.environ["TP_FORMS"].split()
-    for form in forms + forms[::-1]:
-        rg.AG_FORM = form
-
-        def say(*a, form=form):
-            if group.rank == 0:
-                print(f"<{form}>", *a, flush=True)
-        gen = torch.Generator(device=group.device).manual_seed(seed + 5)
-        cs.phase_tp_timing(group, gen, cs.GPT_CONFIGS[cs.MODEL], say)
-    return []
-"""
 PP_RUN = """
 import torch
 import chip_smoke as cs
@@ -237,16 +213,6 @@ def main(argv):
                                    "[profile]", "[serve-wrapper]"))
     elif argv[:1] == ["pp-turns"] and len(argv) == 2:
         turns(argv[1], PP_RUN, ("[pp-alone]",))
-    elif argv[:1] == ["tp-forms"] and len(argv) >= 3:
-        tree = Path(argv[1]).resolve()
-        with tempfile.TemporaryDirectory() as tmp:
-            Path(tmp, "tp_turns_rank.py").write_text(TP_FORMS_RANK)
-            proc = subprocess.run(
-                [sys.executable, "-c", TP_RUN], cwd=tree, timeout=900,
-                env=dict(os.environ, TP_FORMS=" ".join(argv[2:]),
-                         PYTHONPATH=os.pathsep.join([str(tree), tmp])))
-        if proc.returncode:
-            raise SystemExit(f"tp-forms exit {proc.returncode}")
     elif argv[:1] == ["tp-turns"] and len(argv) == 2:
         with tempfile.TemporaryDirectory() as tmp:
             Path(tmp, "tp_turns_rank.py").write_text(TP_RANK)

@@ -2729,7 +2729,8 @@ def phase_tp(seed):
 def tp_rows(r0, layout, cfg):
     """The ``kernels`` rows of rows 7-9, one per main-path shape, from rank
     0's readings: launches from the main path's run at that shape (calls
-    times MP ring steps; on one card the 2-layer run); ms, plain and
+    times ``TP_LAUNCHES``: the pull and the GEMM for rows 7 and 9, the GEMM
+    and the reduce for row 8; on one card the 2-layer run); ms, plain and
     library as ``phase_tp_timing`` took them (``covers`` says what)."""
     per_card = layout == "per_card"
     rows = []

@@ -45,8 +45,10 @@
 // tiles (80 KB of dynamic shared memory, two blocks an SM: three k steps
 // load while one computes), fragments by ldmatrix (.trans for a k-major
 // operand), mma.sync m16n8k16 bf16 with fp32 accumulators (the fragment
-// layouts of quant_gemm.cu). wgmma and TMA (ag_gemm.cu's and gemm_rs.cu's
-// core) are later work here.
+// layouts of quant_gemm.cu). Each thread's row offsets are computed once:
+// a load adds an offset, with no row multiply in the k loop (with the
+// multiply row 14 ran 6-9 % slower, PERF.md). wgmma and TMA (ag_gemm.cu's
+// and gemm_rs.cu's core) are later work here.
 //
 // Built by paddle_tpu_torch/cuda_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -166,7 +168,21 @@ ring_gemm_tile_kernel(const __nv_bfloat16* a, long long lda,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
-  // each tile is 4096 bf16 = 512 chunks of 16 bytes, two a thread
+  // each tile is 4096 bf16 = 512 chunks of 16 bytes, two a thread. A
+  // chunk whose storage row is fixed (an m row of A [M][K], an n row of B
+  // [N][K]) has its row's offset computed once; a chunk on a k row (A
+  // [K][M], B [K][N]) moves its offset kBK rows on with each load: no
+  // row multiply in the loop
+  long long fixed_a[2], fixed_b[2], ka[2], kb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int ch = tid + i * kThreads;
+    if constexpr (MODE == kTN) ka[i] = (ch / 16) * lda;
+    else fixed_a[i] = row0 + ch / 4 < M ? (row0 + ch / 4) * lda : 0;
+    if constexpr (MODE == kNT)
+      fixed_b[i] = col0 + ch / 4 < N ? (col0 + ch / 4) * ldb : 0;
+    else kb[i] = (ch / 16) * ldb;
+  }
   auto load = [&](int stage, int k0) {      // k steps in order, from 0
     __nv_bfloat16* As = smem + stage * 2 * kTileElems;
     __nv_bfloat16* Bs = As + kTileElems;
@@ -176,24 +192,22 @@ ring_gemm_tile_kernel(const __nv_bfloat16* a, long long lda,
       if constexpr (MODE == kTN) {          // A stored [K][M]: 32 x 128
         const int k = ch / 16, m = (ch % 16) * 8;
         const bool ok = k0 + k < K && row0 + m < M;
-        cp_async16(&As[k * kLdA + m],
-                   ok ? a + (k0 + k) * lda + row0 + m : a, ok);
+        cp_async16(&As[k * kLdA + m], ok ? a + ka[i] + row0 + m : a, ok);
+        ka[i] += kBK * lda;
       } else {                              // A [M][K]: 128 x 32
         const int m = ch / 4, k = (ch % 4) * 8;
         const bool ok = row0 + m < M && k0 + k < K;
-        cp_async16(&As[m * kLdA + k],
-                   ok ? a + (row0 + m) * lda + k0 + k : a, ok);
+        cp_async16(&As[m * kLdA + k], ok ? a + fixed_a[i] + k0 + k : a, ok);
       }
       if constexpr (MODE == kNT) {          // B stored [N][K]: 128 x 32
         const int n = ch / 4, k = (ch % 4) * 8;
         const bool ok = col0 + n < N && k0 + k < K;
-        cp_async16(&Bs[n * kLdB + k],
-                   ok ? b + (col0 + n) * ldb + k0 + k : b, ok);
+        cp_async16(&Bs[n * kLdB + k], ok ? b + fixed_b[i] + k0 + k : b, ok);
       } else {                              // B [K][N]: 32 x 128
         const int k = ch / 16, n = (ch % 16) * 8;
         const bool ok = k0 + k < K && col0 + n < N;
-        cp_async16(&Bs[k * kLdB + n],
-                   ok ? b + (k0 + k) * ldb + col0 + n : b, ok);
+        cp_async16(&Bs[k * kLdB + n], ok ? b + kb[i] + col0 + n : b, ok);
+        kb[i] += kBK * ldb;
       }
     }
   };

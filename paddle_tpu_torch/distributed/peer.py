@@ -11,7 +11,7 @@ matter, and a channel is one IPC handle with no offset bookkeeping): a
 signal pad of flags and per-block epochs (``csrc/peer_barrier.cuh``),
 zeroed, then the staging region that the caller writes its operand into.
 A group holds one channel per purpose (``"rs_bucket"``, ``"ag_bucket"``,
-``"gemm_rs"``, ``"ag_gemm"``, ``"ag_accum"``) in ``MPGroup.peer_channels``.
+``"gemm_rs"``, ``"ag_gemm"``: rows 7 and 9) in ``MPGroup.peer_channels``.
 Row 8's staging holds 2n fp32 slots of a chunk (by call parity and source
 rank) that the peers' GEMMs store into; rows 7 and 9's 2 + n bf16 slots
 of a chunk: this rank's chunk by call parity, which the peers read, and

@@ -25,8 +25,8 @@ Replaces three TPU kernels, each a ring of n steps over an ``MPGroup``
 
 The TPU kernels move chunks with in-kernel remote DMAs. Here every chunk
 moves through symmetric peer buffers (``distributed/peer.py``), with no
-NCCL hop and no host round trip. Rows 7 and 9 (channels ``"ag_gemm"``
-and ``"ag_accum"``, 2 + n bf16 slots of a chunk): a pull launch of
+NCCL hop and no host round trip. Rows 7 and 9 (one channel,
+``"ag_gemm"``, 2 + n bf16 slots of a chunk): a pull launch of
 ``csrc/ag_gemm.cu`` publishes this rank's chunk into its slot and copies
 each peer's chunk over NVLink into a local gather slot, while the GEMM
 launch (wgmma, row 8's core) computes the own chunk, then each remote
@@ -65,10 +65,12 @@ from ..distributed import peer as _peer
 MODES = {"NN": 0, "NT": 1, "TN": 2}
 RS_CHANNEL = "gemm_rs"      # row 8's peer channel: 2n fp32 slots of a chunk
 RS_TILE_ROWS = 128          # csrc/gemm_rs.cu's kBM: s must be a multiple
-# rows 7 and 9's peer channels: 2 + n bf16 slots of a chunk (this rank's
-# chunk by call parity, then the gather slots)
+# rows 7 and 9's peer channel: 2 + n bf16 slots of a chunk (this rank's
+# chunk by call parity, then the gather slots). The two rows share it: their
+# calls run in stream order and the pad's call counter numbers them as one
+# sequence, so a slot is reused only after its readers have freed it,
+# whichever row wrote it
 AG_CHANNEL = "ag_gemm"
-ACCUM_CHANNEL = "ag_accum"
 ACCUM_TILE_ROWS = 64        # csrc/ag_gemm.cu's kBK: row 9's s a multiple
 ACCUM_MAX_TILES = 1024      # row 9's counters a call (peer_barrier.cuh)
 
@@ -356,11 +358,11 @@ def _ag_shapes(x, w, n, transpose_w):
     return B, s, A, F
 
 
-def _ag_channel(group, purpose, x):
-    """``group``'s channel for ``purpose`` with 2 + n slots of x's bytes,
-    and the bytes between its slots (the same on every rank)."""
+def _ag_channel(group, x):
+    """``group``'s rows 7 and 9 channel with 2 + n slots of x's bytes, and
+    the bytes between its slots (the same on every rank)."""
     k = 2 + group.n
-    ch = _peer.channel(group, purpose, k * x.numel() * x.element_size())
+    ch = _peer.channel(group, AG_CHANNEL, k * x.numel() * x.element_size())
     return ch, ch.capacity // k // 16 * 16
 
 
@@ -380,7 +382,7 @@ def ring_ag_gemm(x, w, group, transpose_w=False):
     B, s, A, F = _ag_shapes(x, w, group.n, transpose_w)
     n, rank = group.n, group.rank
     _peer.raise_for(0, 7, rank, None)          # an earlier kernel trapped
-    ch, slot = _ag_channel(group, AG_CHANNEL, x)
+    ch, slot = _ag_channel(group, x)
     out = torch.empty((B, n * s, F), dtype=x.dtype, device=x.device)
     lib = _ag_library()
     with torch.cuda.device(x.device):
@@ -519,14 +521,14 @@ def ring_ag_accum(r, stat, group, transpose=False):
     ``stat_src^T @ r_src``), r [B, s, A] ringing past, stat [B, S, Bf]
     stationary. CPU tensors take ``ag_accum_plain``; CUDA tensors launch
     ``ag_gemm.cu``'s pull and GEMM (every rank's r gathered through the
-    group's ``"ag_accum"`` peer channel; the chunks' fp32 partials summed
+    group's ``"ag_gemm"`` peer channel; the chunks' fp32 partials summed
     in ring order), or raise. Collective, as ``ring_ag_gemm``."""
     if r.device.type == "cpu":
         return ag_accum_plain(r, stat, group, transpose)
     n, rank = group.n, group.rank
     B, s, A, Bf, M, N = _accum_shapes(r, stat, n, transpose)
     _peer.raise_for(0, 9, rank, None)          # an earlier kernel trapped
-    ch, slot = _ag_channel(group, ACCUM_CHANNEL, r)
+    ch, slot = _ag_channel(group, r)
     out = torch.empty((M, N), dtype=torch.float32, device=r.device)
     ws = torch.empty((n, M, N), dtype=torch.float32, device=r.device)
     lib = _ag_library()
