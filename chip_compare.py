@@ -20,8 +20,12 @@ GPT-3 1.3B step on the fused rung (``phase_tp_train``: 2 + 5 steps at
 full depth, then ``phase_tp_profile``) and each ring kernel's whole call
 and GEMMs alone (``phase_tp_timing``) in MP ranks, a card each where
 there are MP cards; ``pp-turns`` rows 14-15 alone (``gemm_ppsend``,
-``gemm_pprecv``) at the pp=4 shape by CUDA-graph replay. Each runs from
-the tree at PARENT_DIR (a ``git archive`` of another commit) and from
+``gemm_pprecv``, and row 15's two products apart where the tree has
+``pprecv_gemms``) at the pp=4 shape by CUDA-graph replay and, where
+there are PP cards, chip_smoke's pp=4 GPT-3 1.3B step on the fused
+rung (``phase_pp_train``: 2 + 5 steps at full depth, a card a stage).
+Each runs from the tree at PARENT_DIR (a ``git archive`` of another
+commit) and from
 this one, in turns (parent, this, this, parent), each in a process of
 its own, and prints their lines. Needs a CUDA device and exits with
 another code than 0 without one.
@@ -148,6 +152,33 @@ for _ in range(2):
     v = cs.graph_ms(lambda: ppb.gemm_pprecv(gy, gw, x, w), iters=8)
     print(f"[pp-alone] R={R} K={K} F={F}: gemm_ppsend {s:.4f} ms, "
           f"gemm_pprecv {v:.4f} ms", flush=True)
+if hasattr(ppb, "pprecv_gemms"):      # row 15's products apart
+    dr = gy + gw
+    for p in ("dx", "dw"):
+        ms = min(cs.graph_ms(lambda: ppb.pprecv_gemms(dr, x, w, (p,)),
+                             iters=8) for _ in range(2))
+        print(f"[pp-alone] gemm_pprecv's {p} alone: {ms:.4f} ms = "
+              f"{2 * R * K * F / ms / 1e9:.1f} TFLOP/s", flush=True)
+if torch.cuda.device_count() >= cs.PP:    # the pp=4 step, a card a stage
+    import pp_turns_rank
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.ops import flash_attention as fa
+    fa.build()
+    outs = env.launch(cs.PP, pp_turns_rank.rank, 0, layout="per_card",
+                      timeout_s=900)
+    print(f"[pp-turns] failures: {sum(outs, [])}", flush=True)
+"""
+PP_RANK = """
+import torch
+import chip_smoke as cs
+
+
+def rank(group, seed):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say = (lambda *a: print(*a, flush=True)) if group.rank == 0 else \\
+        (lambda *a: None)
+    return cs.phase_pp_train(group, seed, say, "fused", "pp=fused",
+                             "gpipe")[3]
 """
 TP_RUN = """
 import chip_smoke as cs
@@ -212,7 +243,10 @@ def main(argv):
         turns(argv[1], SERVE_RUN, ("[serve] {", "[serve-int8] {",
                                    "[profile]", "[serve-wrapper]"))
     elif argv[:1] == ["pp-turns"] and len(argv) == 2:
-        turns(argv[1], PP_RUN, ("[pp-alone]",))
+        with tempfile.TemporaryDirectory() as tmp:
+            Path(tmp, "pp_turns_rank.py").write_text(PP_RANK)
+            turns(argv[1], PP_RUN, ("[pp-alone]", "[pp-train fused]",
+                                    "[pp-turns]"), path=(tmp,))
     elif argv[:1] == ["tp-turns"] and len(argv) == 2:
         with tempfile.TemporaryDirectory() as tmp:
             Path(tmp, "tp_turns_rank.py").write_text(TP_RANK)

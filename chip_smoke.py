@@ -121,7 +121,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    cards, the schedule's bubble, peak memory and boundary bytes per rank;
    one fused step of a 4-layer copy (B=2, one layer a stage) against the
    one-card step on the same weights within phase 6's tolerances; rows
-   14-15's times alone, and with a card per rank with their hops.
+   14-15's times alone (row 15's two products also apart, in TFLOP/s),
+   and with a card per rank with their hops.
 
 12. data-parallel training, in DP = 4 replicas laid out as in phase 9:
    row 10, the bucketed reduce-scatter (``ops/fused_collectives.py:
@@ -449,7 +450,7 @@ def phase_build():
     sources = {"paged_decode": "paged_decode.cu",
                "flash_sm90": "flash_sm90.cu",
                "quant_gemm": "quant_gemm.cu",
-               "ring_gemm": "ring_gemm.cu",
+               "pp_gemm": "pp_gemm.cu",
                "gemm_rs": "gemm_rs.cu",
                "ag_gemm": "ag_gemm.cu",
                "rs_bucket": "rs_bucket.cu",
@@ -531,6 +532,19 @@ def phase_build():
     check(len(spills) == 3 and not any(any(s) for s in spills.values()),
           f"rows 7 and 9's GEMM spills (or ptxas reported no instance): "
           f"{spills}")
+    pp = sass_counts(cuda_build.BUILD_INFO["pp_gemm"]["path"],
+                     r"pp_gemm_kernel", absent=("HMMA",))
+    check(pp is None or len(pp) == 2,
+          f"rows 14-15's GEMM has {len(pp or ())} instances in the SASS, "
+          f"not 2 (row 14; row 15's dx and dw)")
+    spills = {fn: s for fn, s in ptxas_spills(
+        cuda_build.BUILD_INFO["pp_gemm"]["log"]).items()
+        if "pp_gemm" in fn}
+    print(f"[build] rows 14-15 (pp_gemm.cu) ptxas spills (store, load "
+          f"bytes): {spills}")
+    check(len(spills) == 2 and not any(any(s) for s in spills.values()),
+          f"rows 14-15's GEMM spills (or ptxas reported no instance): "
+          f"{spills}")
     pd = sass_counts(cuda_build.BUILD_INFO["paged_decode"]["path"],
                      r"paged_decode_kernel", ops=("UTMALDG",))
     check(pd is None or len(pd) == 24,
@@ -563,12 +577,13 @@ def ptxas_spills(log):
     return out
 
 
-def sass_counts(lib, pattern, ops=("HGMMA", "UTMALDG")):
+def sass_counts(lib, pattern, ops=("HGMMA", "UTMALDG"), absent=()):
     """The SASS of a library's kernels named by ``pattern`` (cuobjdump,
     where the toolkit has it): the count of each of ``ops`` in each
     instance (by default the warpgroup products, HGMMA, and TMA tile
-    loads, UTMALDG), which must have all. Returns {kernel<template args>:
-    counts}, or None without cuobjdump."""
+    loads, UTMALDG), which must have all, and of each of ``absent``
+    (HMMA: mma.sync's products), which must have none. Returns
+    {kernel<template args>: counts}, or None without cuobjdump."""
     tool = pathlib.Path(cuda_build.nvcc_path()).parent / "cuobjdump"
     if not tool.exists():
         print(f"[build] no {tool}: SASS not counted")
@@ -581,15 +596,17 @@ def sass_counts(lib, pattern, ops=("HGMMA", "UTMALDG")):
             m = re.search(rf"({pattern})I(\w+?)EEEv", line)
             fn = f"{m.group(1)}<{m.group(2)}>" if m else None
             if fn:
-                counts[fn] = dict.fromkeys(ops, 0)
+                counts[fn] = dict.fromkeys(ops + tuple(absent), 0)
         elif fn:
             for op in counts[fn]:
                 counts[fn][op] += op in line
     for fn, c in counts.items():
         print(f"[build] SASS {fn}: " + ", ".join(f"{v} {k}"
                                                  for k, v in c.items()))
-    check(counts and all(all(c.values()) for c in counts.values()),
+    check(counts and all(all(c[op] for op in ops) for c in counts.values()),
           f"a {pattern} instance lacks one of {ops}: {counts}")
+    check(not any(c[op] for c in counts.values() for op in absent),
+          f"a {pattern} instance has one of {absent}: {counts}")
     return counts
 
 
@@ -2452,7 +2469,7 @@ def phase_tp_profile(group, step, ids, say, tag="tp-profile"):
     busy = sum(dev_us(e) for e in events) / 1e3
     kinds = {"rows 7, 9 (ag_gemm pull + GEMM)": ("ag_gemm",),
              "row 8 (gemm_rs GEMM + reduce)": ("gemm_rs",),
-             "ring GEMM kernels (rows 14-15)": ("ring_gemm",),
+             "boundary kernels (rows 14-15)": ("pp_gemm", "pp_add"),
              "row 10 (rs_pull_kernel)": ("rs_pull_kernel",),
              "row 11 (ag_pull_kernel)": ("ag_pull_kernel",),
              "NCCL": ("nccl",), "flash kernels": ("flash_",),
@@ -2810,9 +2827,11 @@ def _pp_operands(gen, dev, R, K, F):
 def phase_pp_kernels(group, seed, cfg, say):
     """Rows 14-15 at the main path's shapes, each rank with its own
     operands: y, dx (bf16) and dw (fp32) against the plain versions per
-    element and per 128-row tile, dr and db bit for bit, and the boundary
-    op's hop: rank r's y arrives on rank r + 1 byte for byte. Returns
-    ({output: readings}, failures)."""
+    element and per 128-row tile, dr and db bit for bit, row 15's
+    products launched alone (``pprecv_gemms``, as the timings run them)
+    bit for bit those of the call, and the boundary op's hop: rank r's y
+    arrives on rank r + 1 byte for byte. Returns ({output: readings},
+    failures)."""
     dev = group.device
     R, K, F = pp_shapes(cfg)
     own = torch.Generator(device=dev).manual_seed(seed + 3000 + group.rank)
@@ -2839,6 +2858,13 @@ def phase_pp_kernels(group, seed, cfg, say):
     say(f"[pp-kernel] dr and db bit for bit: {same}")
     if not same:
         failed.append("pp kernel dr/db")
+    # row 15's products alone (the timing's launches): the same bits
+    apart = torch.equal(ppb.pprecv_gemms(dr, o["x"], o["w"], ("dx",))[0],
+                        dx) and \
+        torch.equal(ppb.pprecv_gemms(dr, o["x"], o["w"], ("dw",))[1], dw)
+    say(f"[pp-kernel] dx and dw alone as in the call, bit for bit: {apart}")
+    if not apart:
+        failed.append("pp kernel products apart")
     # the hop: y to the next rank through the boundary op
     pending = []
     if group.rank < group.n - 1:
@@ -2877,11 +2903,11 @@ def pp_train_step(cfg, group, comm_backend, schedule, params=None, seed=0,
 def pp_step_calls(rung, stage, n, M):
     """Row 14 and 15 calls per step on ``stage``: once per microbatch on
     every stage that sends (all but the last) on the fused rung; none on
-    the ring rung. Row 14 launches one kernel a call, row 15 three (the
-    add, dx, dw)."""
+    the ring rung. Row 14 launches one kernel a call, row 15 two (the
+    add, then one GEMM launch of dx's and dw's tiles)."""
     calls = M if rung == "fused" and stage < n - 1 else 0
     return {"gemm_ppsend": (calls, calls),
-            "gemm_pprecv": (calls, 3 * calls)}
+            "gemm_pprecv": (calls, 2 * calls)}
 
 
 def phase_pp_train(group, seed, say, rung, comm_backend, schedule,
@@ -3020,7 +3046,8 @@ def phase_pp_timing(group, seed, cfg, say):
     """Rows 14-15 at the main path's shapes. On rank 0, by CUDA-graph
     replay: the kernels alone (row 15 with db's sum), the plain versions,
     and the library calls (row 14: ``torch.addmm`` + add; row 15: add + two
-    ``torch.mm``). With a card per rank, on every rank by CUDA events over
+    ``torch.mm``), and row 15's products apart (``pp_products``). With a
+    card per rank, on every rank by CUDA events over
     eager calls, the slowest rank reported: each with its hop as a
     pipeline posts it (row 14: y to the next stage, its input from the
     previous one; row 15: a cotangent from the next stage, one to the
@@ -3050,6 +3077,9 @@ def phase_pp_timing(group, seed, cfg, say):
             k2 = graph_ms(fns["kernel"], iters=8)
             t["kernel_alone_ms"] = min(k1, k2)
             t["kernel_alone_runs"] = (k1, k2)
+            t["tflops"] = (2 if name == "gemm_ppsend" else 4) * R * K * F \
+                / t["kernel_alone_ms"] / 1e9
+        out["gemm_pprecv"]["products"] = pp_products(gy, gw, x, w, say)
     group.barrier()
     if per_card:
         def fwd_hop(y):
@@ -3092,7 +3122,36 @@ def phase_pp_timing(group, seed, cfg, say):
         for name, t in out.items():
             say(f"[pp-timing] {name} R={R} K={K} F={F}: " + ", ".join(
                 f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-                for k, v in t.items()) + " ms")
+                for k, v in t.items() if k != "products") + " ms")
+    return out
+
+
+def pp_products(gy, gw, x, w, say):
+    """Row 15's GEMM launch alone (``pprecv_gemms`` on dr = gy + gw), by
+    CUDA-graph replay as ``tp_gemm_only`` times rows 7-9's GEMMs: dx and
+    dw apart and both in one launch (the main path's), each against
+    ``torch.mm`` of the same products. ``tflops``: the kernel's rate.
+    Returns {products: timings}."""
+    dr = gy + gw
+    R, K = x.shape
+    F = dr.shape[-1]
+    out = {}
+    for name, products, library in (
+            ("dx", ("dx",), lambda: torch.mm(dr, w.t())),
+            ("dw", ("dw",), lambda: torch.mm(x.t(), dr)),
+            ("dx+dw", ("dx", "dw"), lambda: (torch.mm(dr, w.t()),
+                                             torch.mm(x.t(), dr)))):
+        def kern(products=products):
+            ppb.pprecv_gemms(dr, x, w, products)
+        k1 = graph_ms(kern, iters=8)
+        lib = graph_ms(library, iters=8)
+        k2 = graph_ms(kern, iters=8)
+        ms = min(k1, k2)
+        out[name] = {"ms": ms, "ms_runs": (k1, k2), "library_ms": lib,
+                     "tflops": 2 * R * K * F * len(products) / ms / 1e9}
+        say(f"[pp-timing] gemm_pprecv's GEMM, {name} alone: {ms:.4f} ms "
+            f"({k1:.4f}, {k2:.4f}) = {out[name]['tflops']:.1f} TFLOP/s, "
+            f"torch.mm {lib:.4f} ms")
     return out
 
 
@@ -3163,12 +3222,13 @@ def pp_rows(outs, layout, cfg):
         bound, by = pp_bound(kernel, R, K, F, per_card)
         err = r0["errs"]["y" if kernel == "gemm_ppsend" else "dx"]
         row = {"name": f"{kernel}[R={R} K={K} F={F}]", "route": "cuda",
-               "source": "paddle_tpu_torch/csrc/ring_gemm.cu",
+               "source": "paddle_tpu_torch/csrc/pp_gemm.cu",
                "replaces": replaces,
                "launches": sum(o["train"]["fused"]["counts"][kernel][1]
                                for o in outs),
                "max_abs_err": err["max_abs"], "bound_ms": bound,
-               "bound_by": by, "kernel_alone_ms": t["kernel_alone_ms"]}
+               "bound_by": by, "kernel_alone_ms": t["kernel_alone_ms"],
+               "tflops": t["tflops"]}
         if per_card:
             row.update(ms=t["call_ms"], plain_ms=t["plain_call_ms"],
                        library_ms=t["library_call_ms"], hop_ms=t["hop_ms"],
@@ -3180,6 +3240,7 @@ def pp_rows(outs, layout, cfg):
                        covers="kernels alone, CUDA-graph replay")
         if kernel == "gemm_pprecv":
             row["max_abs_err_dw"] = r0["errs"]["dw"]["max_abs"]
+            row["products"] = t["products"]
         rows.append(row)
     return rows
 

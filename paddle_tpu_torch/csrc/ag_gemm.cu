@@ -38,9 +38,10 @@
 //   warpgroup products (wgmma m64n256k16, bf16 in, fp32 accumulators) fed
 //   by TMA through a 4-stage full/empty mbarrier ring from a producer
 //   warp, two consumer warpgroups of 64 rows, 128-byte swizzle: row 8's
-//   core (gemm_rs.cu, sm90.cuh). The grid runs the chunks in ring order,
-//   the own chunk's tiles first (read from x in place); a block of a
-//   remote chunk first waits for its gather slot (gathered[src]).
+//   core (sm90.cuh's tile256, shared with gemm_rs.cu and pp_gemm.cu).
+//   The grid runs the chunks in ring order, the own chunk's tiles first
+//   (read from x in place); a block of a remote chunk first waits for its
+//   gather slot (gathered[src]).
 //   Row 7, modes NN and NT: A is the chunk [B*s, A] K-major; NN reads w [A,
 //   F] MN-major through the descriptor's transpose bit (one 256-wide
 //   product spans four 64-column boxes), NT reads w [F, A] K-major. The
@@ -96,26 +97,11 @@
 
 namespace {
 
-constexpr int kConsumers = 256;               // two consumer warpgroups
-constexpr int kThreads = kConsumers + 32;     // + the producer warp
-constexpr int kBM = 128;                      // output rows a block
-constexpr int kBN = 256;                      // output columns a block
-constexpr int kBK = 64;                       // k a stage
-constexpr int kStages = 4;
-constexpr int kABytes = kBM * kBK * 2;        // A's tile
-constexpr int kBoxBytes = kBK * 64 * 2;       // one 64-column box, 64 k rows
-constexpr int kBBytes = kBK * kBN * 2;        // B's tile
-constexpr int kStageBytes = kABytes + kBBytes;
-constexpr int kSmemBytes = kStages * kStageBytes + 1024;   // + alignment
-// the epilogue's fp32 tile in the drained ring, rows padded by 16 bytes
-constexpr int kTileRow = kBN + 4;
-static_assert(kBM * kTileRow * 4 <= kStages * kStageBytes, "tile staging");
+// modes (tile256): row 7 NN (w [A, F]), NT (w stored [F, A]); row 9 TN
+using namespace tile256;
+
 constexpr int kPullThreads = 512;
 constexpr int kUnroll = 4;
-// modes: row 7 NN (w [A, F]), NT (w stored [F, A]); row 9 TN
-constexpr int kNN = 0;
-constexpr int kNT = 1;
-constexpr int kTN = 2;
 constexpr int kAtFreed = 0;      // the error record's at_end codes
 constexpr int kAtChunk = 1;
 constexpr int kAtGathered = 2;
@@ -138,10 +124,6 @@ struct Geo {
   int tiles_m, tiles_n;
   int swap;       // row 9: stat is A (the transposed result)
 };
-
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
 
 __device__ __forceinline__ void fence_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
@@ -246,112 +228,38 @@ ag_gemm_kernel(const __grid_constant__ Maps maps, const peer::Peers a,
   if (threadIdx.x == 0) {
     if (peers && t > 0)
       peer::wait_flag(a, &mine->gathered[src], e, src, kAtGathered);
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(wt.at(st), 1);
-      mbar_init(wt.at(kStages + st), kConsumers / 32);   // a warp each
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    init_ring(wt);
   }
   __syncthreads();
 
   if (warp == kConsumers / 32) {                      // the producer
     if (lane == 0) {
       fence_async_global();      // the chunk's bytes, acquired above
-      for (int it = 0; it < g.k_steps; ++it) {
-        const int st = it % kStages;
-        if (it >= kStages)
-          wt.wait(kStages + st, ((it / kStages) - 1) & 1, it);
-        const uint32_t dst = base + st * kStageBytes;
-        const int k = it * kBK;
-        mbar_expect_tx(wt.at(st), kStageBytes);
+      produce(wt, base, g.k_steps, [&](uint32_t dst, uint32_t bar, int k) {
         if constexpr (MODE == kTN) {
           // k rows of the chunk; stat's row of chunk row k
           const int srow = (k / g.s) * g.S + src * g.s + k % g.s;
-          const CUtensorMap* am = g.swap ? &maps.other : ring;
-          const CUtensorMap* bm = g.swap ? ring : &maps.other;
-          const int ar = g.swap ? srow : k, br = g.swap ? k : srow;
-#pragma unroll
-          for (int h = 0; h < kBM / 64; ++h)
-            tma_load_2d(dst + h * kBoxBytes, am, wt.at(st), m0 + 64 * h, ar);
-#pragma unroll
-          for (int b = 0; b < kBN / 64; ++b)
-            tma_load_2d(dst + kABytes + b * kBoxBytes, bm, wt.at(st),
-                        n0 + 64 * b, br);
+          load_a<MODE>(dst, g.swap ? &maps.other : ring, bar, m0,
+                       g.swap ? srow : k);
+          load_b<MODE>(dst, g.swap ? ring : &maps.other, bar, n0,
+                       g.swap ? k : srow);
         } else {
-          tma_load_2d(dst, ring, wt.at(st), k, m0);
-          if constexpr (MODE == kNN) {
-#pragma unroll
-            for (int b = 0; b < kBN / 64; ++b)
-              tma_load_2d(dst + kABytes + b * kBoxBytes, &maps.other,
-                          wt.at(st), n0 + 64 * b, k);
-          } else {
-            tma_load_2d(dst + kABytes, &maps.other, wt.at(st), k, n0);
-          }
+          load_a<MODE>(dst, ring, bar, m0, k);
+          load_b<MODE>(dst, &maps.other, bar, n0, k);
         }
-      }
+      });
     }
     return;
   }
 
-  // a consumer: warpgroup wg owns the tile's rows [64 wg, 64 wg + 64)
+  // a consumer: warpgroup wg owns the tile's rows [64 wg, 64 wg + 64);
+  // the epilogue stages the fp32 tile in the drained ring
   const int wg = warpgroup();
   float acc[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-  for (int it = 0; it < g.k_steps; ++it) {
-    const int st = it % kStages;
-    wt.wait(st, (it / kStages) & 1, it);
-    __syncwarp();
-    const uint32_t tile = base + st * kStageBytes;
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      if constexpr (MODE == kTN)
-        wgmma_ss_n256<1, 1>(
-            acc, desc_lo_mn(tile + wg * kBoxBytes + 16 * j * 128, kBoxBytes),
-            desc_lo_mn(tile + kABytes + 16 * j * 128, kBoxBytes));
-      else if constexpr (MODE == kNN)
-        wgmma_ss_n256<0, 1>(
-            acc, desc_at(desc_lo(tile + wg * 64 * 128), 32 * j),
-            desc_lo_mn(tile + kABytes + 16 * j * 128, kBoxBytes));
-      else
-        wgmma_ss_n256<0, 0>(
-            acc, desc_at(desc_lo(tile + wg * 64 * 128), 32 * j),
-            desc_at(desc_lo(tile + kABytes), 32 * j));
-    }
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs(acc);
-    __syncwarp();
-    if (it > 0 && lane == 0) mbar_arrive(wt.at(kStages + (it - 1) % kStages));
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-
-  // the epilogue: both warpgroups' products are done with the ring,
-  // which now holds the fp32 tile. Accumulator d[4j + e] holds row 16w +
-  // g + 8 (e / 2), column 8j + 2q + e % 2; lanes q and q ^ 1 trade halves
-  // so that each stores four adjacent columns of one row.
+  consume<MODE>(acc, wt, base, g.k_steps, wg, lane);
   consumers_sync();
   float* tile = reinterpret_cast<float*>(sm);
-  {
-    const int w = warp % 4, gq = lane / 4, q = lane % 4;
-    const bool odd = q & 1;
-    const int row = wg * 64 + 16 * w + gq + (odd ? 8 : 0);
-    const int col = 2 * (q & ~1);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float s0 = odd ? acc[4 * j] : acc[4 * j + 2];
-      const float s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
-      const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-      const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-      const float4 v = odd ? make_float4(r0, r1, acc[4 * j + 2],
-                                         acc[4 * j + 3])
-                           : make_float4(acc[4 * j], acc[4 * j + 1], r0, r1);
-      *reinterpret_cast<float4*>(tile + row * kTileRow + 8 * j + col) = v;
-    }
-  }
+  stage_tile(acc, tile, wg, warp, lane);
   consumers_sync();
   if constexpr (MODE == kTN) {
     // this chunk's partial into ws[t]; the tile's last block sums them

@@ -23,7 +23,7 @@
 // * gemm_rs_kernel, one launch: a 128 x 256 output tile a block, warpgroup
 //   products (wgmma m64n256k16, bf16 in, fp32 accumulators) fed by TMA
 //   through a 4-stage full/empty mbarrier ring from a producer warp, two
-//   consumer warpgroups of 64 rows (csrc/sm90.cuh's helpers; 128-byte
+//   consumer warpgroups of 64 rows (sm90.cuh's tile256 core; 128-byte
 //   swizzle, 64-column boxes). y's chunk rows are read in place through a
 //   2-D map over [B*S, F]: a chunk's 128-row tile lies inside one batch
 //   row because s is a multiple of 128 (the wrapper refuses other s). Mode
@@ -64,7 +64,7 @@
 //   GEMMs of call e.
 //
 // Rows 7 and 9 (ag_gemm.cu) run this core over the peer buffers too;
-// rows 14 and 15 keep ring_gemm.cu's mma.sync core and NCCL hops.
+// rows 14 and 15 (pp_gemm.cu) run it with NCCL hops.
 //
 // gemm_rs_local_launch runs the same GEMM with every chunk's partial into
 // a local buffer [n, B*s, A] (no peers, no flags): the products alone, for
@@ -87,29 +87,10 @@
 
 namespace {
 
-constexpr int kConsumers = 256;               // two consumer warpgroups
-constexpr int kThreads = kConsumers + 32;     // + the producer warp
-constexpr int kBM = 128;                      // output rows a block
-constexpr int kBN = 256;                      // output columns a block
-constexpr int kBK = 64;                       // k a stage
-constexpr int kStages = 4;
-constexpr int kABytes = kBM * kBK * 2;        // y's tile: one box
-constexpr int kBoxBytes = kBK * 64 * 2;       // NN: one 64-column box of w
-constexpr int kBBytes = kBK * kBN * 2;        // w's tile
-constexpr int kStageBytes = kABytes + kBBytes;
-constexpr int kSmemBytes = kStages * kStageBytes + 1024;   // + alignment
-// the epilogue's fp32 tile in the drained ring, rows padded by 16 bytes so
-// that the fragment stores spread over the banks
-constexpr int kTileRow = kBN + 4;
-static_assert(kBM * kTileRow * 4 <= kStages * kStageBytes, "tile staging");
-constexpr int kReduceThreads = 512;
-constexpr int kNN = 0;
-constexpr int kNT = 1;
-constexpr int kErrUnsupported = -1;
+using namespace tile256;
 
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
+constexpr int kReduceThreads = 512;
+constexpr int kErrUnsupported = -1;
 
 // One tile: output rows [m0, m0 + 128) of chunk c (rows of the chunk's
 // [B*s, A] result) and columns [n0, n0 + 256). PEER: the partial goes into
@@ -137,93 +118,26 @@ gemm_rs_kernel(const __grid_constant__ CUtensorMap ty,
   const int n0 = (within % tiles_n) * kBN;
   const int yrow = (m0 / s) * S + c * s + m0 % s;     // y's row of m0
 
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(wt.at(st), 1);
-      mbar_init(wt.at(kStages + st), kConsumers / 32);   // a warp each
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) init_ring(wt);
   __syncthreads();
 
   if (warp == kConsumers / 32) {                      // the producer
-    if (lane == 0) {
-      for (int it = 0; it < k_steps; ++it) {
-        const int st = it % kStages;
-        if (it >= kStages)
-          wt.wait(kStages + st, ((it / kStages) - 1) & 1, it);
-        const uint32_t dst = base + st * kStageBytes;
-        const int k = it * kBK;
-        mbar_expect_tx(wt.at(st), kStageBytes);
-        tma_load_2d(dst, &ty, wt.at(st), k, yrow);
-        if constexpr (MODE == kNN) {
-#pragma unroll
-          for (int b = 0; b < kBN / 64; ++b)
-            tma_load_2d(dst + kABytes + b * kBoxBytes, &tw, wt.at(st),
-                        n0 + 64 * b, k);
-        } else {
-          tma_load_2d(dst + kABytes, &tw, wt.at(st), k, n0);
-        }
-      }
-    }
+    if (lane == 0)
+      produce(wt, base, k_steps, [&](uint32_t dst, uint32_t bar, int k) {
+        load_a<MODE>(dst, &ty, bar, yrow, k);
+        load_b<MODE>(dst, &tw, bar, n0, k);
+      });
     return;
   }
 
-  // a consumer: warpgroup wg owns the tile's rows [64 wg, 64 wg + 64)
+  // a consumer: warpgroup wg owns the tile's rows [64 wg, 64 wg + 64);
+  // the epilogue stages the fp32 tile in the drained ring
   const int wg = warpgroup();
   float acc[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-  for (int it = 0; it < k_steps; ++it) {
-    const int st = it % kStages;
-    wt.wait(st, (it / kStages) & 1, it);
-    __syncwarp();
-    const uint32_t tile = base + st * kStageBytes;
-    const uint32_t a_lo = desc_lo(tile + wg * 64 * 128);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      if constexpr (MODE == kNN)
-        wgmma_ss_n256<0, 1>(acc, desc_at(a_lo, 32 * j),
-                            desc_lo_mn(tile + kABytes + 16 * j * 128,
-                                       kBoxBytes));
-      else
-        wgmma_ss_n256<0, 0>(acc, desc_at(a_lo, 32 * j),
-                            desc_at(desc_lo(tile + kABytes), 32 * j));
-    }
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs(acc);
-    __syncwarp();
-    if (it > 0 && lane == 0) mbar_arrive(wt.at(kStages + (it - 1) % kStages));
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-
-  // the epilogue: both warpgroups' products are done with the ring, which
-  // now holds the fp32 tile. Accumulator d[4j + e] holds row 16w + g +
-  // 8 (e / 2), column 8j + 2q + e % 2; lanes q and q ^ 1 trade halves so
-  // that each stores four adjacent columns of one row.
+  consume<MODE>(acc, wt, base, k_steps, wg, lane);
   consumers_sync();
   float* tile = reinterpret_cast<float*>(sm);
-  {
-    const int w = warp % 4, g = lane / 4, q = lane % 4;
-    const bool odd = q & 1;
-    const int row = wg * 64 + 16 * w + g + (odd ? 8 : 0);
-    const int col = 2 * (q & ~1);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float s0 = odd ? acc[4 * j] : acc[4 * j + 2];
-      const float s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
-      const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-      const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-      const float4 v = odd ? make_float4(r0, r1, acc[4 * j + 2],
-                                         acc[4 * j + 3])
-                           : make_float4(acc[4 * j], acc[4 * j + 1], r0, r1);
-      *reinterpret_cast<float4*>(tile + row * kTileRow + 8 * j + col) = v;
-    }
-  }
+  stage_tile(acc, tile, wg, warp, lane);
   const long long M = static_cast<long long>(tiles_m) * kBM;
   uint32_t e = 0;
   float* dst;

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels written for it:
 // flash_sm90.cu (rows 4-6), quant_gemm.cu (row 3), gemm_rs.cu (row 8),
-// ag_gemm.cu (rows 7 and 9) and paged_decode.cu (rows 1-2; its mbarriers
-// and bounded waits).
+// ag_gemm.cu (rows 7 and 9), pp_gemm.cu (rows 14-15) and paged_decode.cu
+// (rows 1-2; its mbarriers and bounded waits).
 //
 // * mbarriers (init, arrive, arrive with a TMA transaction count, parity
 //   waits), every wait bounded by %globaltimer: a wait that outlasts
@@ -13,6 +13,8 @@
 // * wgmma matrix descriptors of tiles laid out by TMA's 128-byte swizzle,
 //   and the warpgroup fence / commit / wait around wgmma.mma_async;
 // * setmaxnreg, register fences, bf16 packing;
+// * tile256: the 128 x 256 GEMM tile of rows 7-9 and 14-15 (its ring,
+//   producer loop, consumer loop and fp32 staging);
 // * host side: cuTensorMapEncodeTiled through the runtime's driver entry
 //   point (and the 2-D swizzled map of a row-major operand), the
 //   host-mapped WaitRecord, the opt-in to more than 48 KB of dynamic
@@ -46,7 +48,8 @@ constexpr unsigned long long kWaitTimeoutNs = SM90_WAIT_TIMEOUT_NS;
 struct WaitRecord {
   int code;       // 0: none; 1: an mbarrier wait timed out
   int row;        // the kernel's PERF.md row (1 paged decode, 3 quant
-                  // GEMM, 4-6 flash, 7-9 the ring GEMMs)
+                  // GEMM, 4-6 flash, 7-9 the ring GEMMs, 14-15 the
+                  // pipeline-boundary GEMMs)
   int block_x;
   int block_y;
   int warp;       // the waiting warp (a producer's or a consumer's)
@@ -326,6 +329,167 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ uint32_t aligned_base(const uint8_t* smem) {
   return (smem_u32(smem) + 1023u) & ~1023u;
 }
+
+// ------------------------------------------- the 128 x 256 GEMM tile
+// The core of rows 7-9 (ag_gemm.cu, gemm_rs.cu) and 14-15 (pp_gemm.cu):
+// a 128 x 256 output tile a block, k steps of 64 through a kStages-deep
+// full/empty mbarrier ring of TMA-loaded stages, one producer thread, two
+// consumer warpgroups of 64 rows running wgmma m64n256k16 from shared
+// memory into fp32 accumulators. Operand layouts, by mode:
+//   A [M, k] K-major (NN, NT): one box of 64 k columns by 128 rows;
+//   A read MN-major (TN) from [k rows, M columns]: two 64-column boxes;
+//   B [N, k] K-major (NT): one box of 64 k columns by 256 rows;
+//   B read MN-major (NN, TN) from [k rows, N columns]: four 64-column
+//   boxes, the descriptor's leading byte offset one box apart (no
+//   transposed copy).
+// The producer waits for a stage to drain, arms its full barrier with the
+// stage's bytes and issues its loads; a consumer warpgroup waits for the
+// stage, issues its four k16 products, and releases the stage before it
+// once those are done (one product group in flight). The epilogue then
+// stages the fp32 tile in the drained ring, rows padded by 16 bytes, so
+// that each warp stores whole rows.
+namespace tile256 {
+
+constexpr int kConsumers = 256;               // two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;     // + the producer warp
+constexpr int kBM = 128;                      // output rows a block
+constexpr int kBN = 256;                      // output columns a block
+constexpr int kBK = 64;                       // k a stage
+constexpr int kStages = 4;
+constexpr int kABytes = kBM * kBK * 2;        // A's stage
+constexpr int kBoxBytes = kBK * 64 * 2;       // one 64-column box, 64 k rows
+constexpr int kBBytes = kBK * kBN * 2;        // B's stage
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kSmemBytes = kStages * kStageBytes + 1024;   // + alignment
+constexpr int kTileRow = kBN + 4;             // the staged fp32 tile's row
+static_assert(kBM * kTileRow * 4 <= kStages * kStageBytes, "tile staging");
+constexpr int kNN = 0;
+constexpr int kNT = 1;
+constexpr int kTN = 2;
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// Thread 0, before the block's __syncthreads: stage st's full barrier is
+// wt.at(st) (the producer's arrival + the TMA bytes), its empty barrier
+// wt.at(kStages + st) (one arrival a consumer warp).
+__device__ __forceinline__ void init_ring(const Waiter& wt) {
+  for (int st = 0; st < kStages; ++st) {
+    mbar_init(wt.at(st), 1);
+    mbar_init(wt.at(kStages + st), kConsumers / 32);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A's stage at dst: the tile's rows from m, k its k step's start (both
+// in the map's own coordinates: a K-major map's (k, m), an MN-major one's
+// (m + 64 h, k)).
+template <int MODE>
+__device__ __forceinline__ void load_a(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int m, int k) {
+  if constexpr (MODE == kTN) {
+#pragma unroll
+    for (int h = 0; h < kBM / 64; ++h)
+      tma_load_2d(dst + h * kBoxBytes, map, bar, m + 64 * h, k);
+  } else {
+    tma_load_2d(dst, map, bar, k, m);
+  }
+}
+
+// B's stage at dst + kABytes: the tile's columns from n, as load_a.
+template <int MODE>
+__device__ __forceinline__ void load_b(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int n, int k) {
+  if constexpr (MODE == kNT) {
+    tma_load_2d(dst + kABytes, map, bar, k, n);
+  } else {
+#pragma unroll
+    for (int b = 0; b < kBN / 64; ++b)
+      tma_load_2d(dst + kABytes + b * kBoxBytes, map, bar, n + 64 * b, k);
+  }
+}
+
+// The producer's thread: load(dst, bar, k) issues the TMA loads of the
+// stage at dst (load_a, load_b) for the k step starting at k.
+template <class Load>
+__device__ __forceinline__ void produce(const Waiter& wt, uint32_t base,
+                                        int k_steps, const Load& load) {
+  for (int it = 0; it < k_steps; ++it) {
+    const int st = it % kStages;
+    if (it >= kStages) wt.wait(kStages + st, ((it / kStages) - 1) & 1, it);
+    mbar_expect_tx(wt.at(st), kStageBytes);
+    load(base + st * kStageBytes, wt.at(st), it * kBK);
+  }
+}
+
+// A consumer warpgroup wg: its 64 rows' products over every k step into
+// acc (zeroed here), all complete on return.
+template <int MODE>
+__device__ __forceinline__ void consume(float (&acc)[128], const Waiter& wt,
+                                        uint32_t base, int k_steps, int wg,
+                                        int lane) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int it = 0; it < k_steps; ++it) {
+    const int st = it % kStages;
+    wt.wait(st, (it / kStages) & 1, it);
+    __syncwarp();
+    const uint32_t tile = base + st * kStageBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j) {
+      const uint32_t b_mn = desc_lo_mn(tile + kABytes + 16 * j * 128,
+                                       kBoxBytes);
+      if constexpr (MODE == kTN)
+        wgmma_ss_n256<1, 1>(
+            acc, desc_lo_mn(tile + wg * kBoxBytes + 16 * j * 128, kBoxBytes),
+            b_mn);
+      else if constexpr (MODE == kNN)
+        wgmma_ss_n256<0, 1>(
+            acc, desc_at(desc_lo(tile + wg * 64 * 128), 32 * j), b_mn);
+      else
+        wgmma_ss_n256<0, 0>(
+            acc, desc_at(desc_lo(tile + wg * 64 * 128), 32 * j),
+            desc_at(desc_lo(tile + kABytes), 32 * j));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc);
+    __syncwarp();
+    if (it > 0 && lane == 0) mbar_arrive(wt.at(kStages + (it - 1) % kStages));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// The accumulators into the fp32 tile [kBM][kTileRow] at `tile` (the
+// drained ring; both warpgroups' products done: consumers_sync before
+// and after). Accumulator d[4j + e] holds row 16w + g + 8 (e / 2),
+// column 8j + 2q + e % 2; lanes q and q ^ 1 trade halves so that each
+// stores four adjacent columns of one row.
+__device__ __forceinline__ void stage_tile(const float (&acc)[128],
+                                           float* tile, int wg, int warp,
+                                           int lane) {
+  const int w = warp % 4, g = lane / 4, q = lane % 4;
+  const bool odd = q & 1;
+  const int row = wg * 64 + 16 * w + g + (odd ? 8 : 0);
+  const int col = 2 * (q & ~1);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const float s0 = odd ? acc[4 * j] : acc[4 * j + 2];
+    const float s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
+    const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+    const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+    const float4 v = odd ? make_float4(r0, r1, acc[4 * j + 2],
+                                       acc[4 * j + 3])
+                         : make_float4(acc[4 * j], acc[4 * j + 1], r0, r1);
+    *reinterpret_cast<float4*>(tile + row * kTileRow + 8 * j + col) = v;
+  }
+}
+
+}  // namespace tile256
 
 // ------------------------------------------------------------- host side
 

@@ -8,15 +8,16 @@ Replaces two TPU kernels:
   the stage tail ``y = r + (x @ w + b)`` (x the last block's gelu
   activation [R, 4H], w its down projection [4H, H], r the residual
   [R, H]), y sent to the next stage. Here ``gemm_ppsend`` launches the
-  hand-written GEMM of ``csrc/ring_gemm.cu`` with its bias + residual
-  epilogue, one launch over all R rows, and ``FusedGemmPpSend`` posts y's
-  hop on NCCL's stream after it;
+  hand-written wgmma GEMM of ``csrc/pp_gemm.cu`` (TMA-fed, 128 x 256
+  tiles) with its bias + residual epilogue, one launch over all R rows,
+  and ``FusedGemmPpSend`` posts y's hop on NCCL's stream after it;
 * row 15, ``_gemm_pprecv_kernel`` (:826): the backward. ``FusedGemmPpSend``
   waits for the next stage's cotangent of y (``gwire``, the reverse hop),
   and ``gemm_pprecv`` launches the elementwise kernel ``dr = gy + gwire``
-  and the same GEMM in mode NT for ``dx = dr @ w^T`` (bf16) and in mode
-  TN for ``dw = x^T @ dr`` (fp32); ``db`` is ``dr`` summed over the
-  caller's ``rows`` split outside the kernels, as at :964-969.
+  and then one GEMM launch holding both products' tiles: mode NT for
+  ``dx = dr @ w^T`` (bf16) and mode TN for ``dw = x^T @ dr`` (fp32);
+  ``db`` is ``dr`` summed over the caller's ``rows`` split outside the
+  kernels, as at :964-969.
 
 The TPU kernel sends y in C chunks from its epilogue and consumes the
 received cotangent chunk by chunk; one receive and one add launch stand
@@ -30,7 +31,9 @@ products autograd takes for it (``dr @ w^T``, ``x^T @ dr``), so on the CPU
 the fused rung is the ring rung bit for bit. The wrappers take the plain
 version for CPU tensors only; for CUDA tensors they launch the kernels or
 raise. Each counts its calls (``.calls``) and kernel launches
-(``.launches``: one for row 14, three for row 15).
+(``.launches``: one for row 14, two for row 15). ``pprecv_gemms`` runs row
+15's GEMM launch alone, for one product or both (the products timed
+apart; not counted).
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import functools
 
 import torch
 
-from ..cuda_build import load_library
+from ..cuda_build import load_library, wait_record
 from . import ring_gemm as rg
 # the kernels against their plain versions: ring_gemm's readings and gates
 from .ring_gemm import (ELEMENT_TOL, TILE_TOL, error_vs_plain,  # noqa: F401
@@ -63,6 +66,15 @@ def gemm_ppsend_plain(x, w, b, r):
     return r + (x @ w + b)
 
 
+def _products_plain(dr, x, w, products=("dx", "dw")):
+    """(dx, dw) of ``gemm_pprecv_plain`` from dr, each None unless named
+    in ``products``."""
+    dr2 = _rows2(dr)
+    return (dr2.mm(w.t()).view(x.shape) if "dx" in products else None,
+            _rows2(x).t().float().mm(dr2.float())
+            if "dw" in products else None)
+
+
 def gemm_pprecv_plain(gy, gwire, x, w, rows=None):
     """The backward of the tail from its two cotangents: (dx, dw, db, dr)
     with ``dr = gy + gwire``, ``dx = dr @ w^T`` in the operands' dtype,
@@ -70,9 +82,7 @@ def gemm_pprecv_plain(gy, gwire, x, w, rows=None):
     and ``db`` = dr summed over the leading dims of ``rows`` (default: all
     but the last) in dr's dtype. x [..., K], w [K, F], gwire [..., F]."""
     dr = gy + gwire
-    dr2 = _rows2(dr)
-    dx = dr2.mm(w.t()).view(x.shape)
-    dw = _rows2(x).t().float().mm(dr2.float())
+    dx, dw = _products_plain(dr, x, w)
     rows = tuple(dr.shape[:-1]) if rows is None else tuple(rows)
     db = dr.reshape(rows + (dr.shape[-1],)).sum(tuple(range(len(rows))))
     return dx, dw, db, dr
@@ -81,15 +91,18 @@ def gemm_pprecv_plain(gy, gwire, x, w, rows=None):
 # ----------------------------------------------------------------- kernels
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = load_library("ring_gemm", "ring_gemm.cu")
+    lib = load_library("pp_gemm", "pp_gemm.cu")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ring_gemm_launch.argtypes = [i, p, ll, p, ll, p, ll, i, i, i, i, p]
-    lib.pp_gemm_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.pp_send_gemm_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.pp_recv_gemm_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.pp_add_launch.argtypes = [p, p, p, ll, p]
-    for name in ("ring_gemm_launch", "pp_gemm_launch", "pp_add_launch"):
+    for name in ("pp_send_gemm_launch", "pp_recv_gemm_launch",
+                 "pp_add_launch"):
         getattr(lib, name).restype = i
-    lib.ring_gemm_error_string.argtypes = [i]
-    lib.ring_gemm_error_string.restype = ctypes.c_char_p
+    lib.pp_gemm_wait_record.argtypes = [p]
+    lib.pp_gemm_wait_record.restype = None
+    lib.pp_gemm_error_string.argtypes = [i]
+    lib.pp_gemm_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -98,26 +111,35 @@ def build():
     _library()
 
 
+def wait_timeout_record():
+    """The record of rows 14-15's first mbarrier wait that timed out (a
+    dict of ``cuda_build.WAIT_RECORD_FIELDS``), or None."""
+    return wait_record(_library().pp_gemm_wait_record)
+
+
 def _raise_on(rc, what):
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed ({rc}): "
-                           f"{_library().ring_gemm_error_string(rc).decode()}")
+                           f"{_library().pp_gemm_error_string(rc).decode()}"
+                           f"; mbarrier wait record: {wait_timeout_record()}")
 
 
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _mm(mode, a, b, c, M, N, K, dev):
-    """One of row 15's GEMMs on ``dev``'s current stream: c [M, N] = A @ B
-    in c's dtype (bf16 or fp32), mode "NT" (B is b stored [N, K]) or "TN"
-    (A is a stored [K, M]); contiguous operands."""
+def _recv_gemms(dr, x, w, dx, dw, which, dev):
+    """Row 15's GEMM launch on ``dev``'s current stream: dx [R, K] = dr @
+    w^T (bf16) if ``which & 1``, dw [K, F] = x^T @ dr (fp32) if ``which &
+    2``; contiguous operands."""
+    K, F = w.shape
     with torch.cuda.device(dev):
-        rc = _library().ring_gemm_launch(
-            rg.MODES[mode], a.data_ptr(), a.shape[-1], b.data_ptr(),
-            b.shape[-1], c.data_ptr(), c.shape[-1],
-            int(c.dtype == torch.bfloat16), M, N, K, _stream(dev))
-    _raise_on(rc, f"gemm_pprecv {mode}")
+        rc = _library().pp_recv_gemm_launch(
+            dr.data_ptr(), x.data_ptr(), w.data_ptr(),
+            0 if dx is None else dx.data_ptr(),
+            0 if dw is None else dw.data_ptr(), x.numel() // K, K, F, which,
+            _stream(dev))
+    _raise_on(rc, "gemm_pprecv GEMM")
 
 
 def gemm_ppsend(x, w, b, r):
@@ -136,10 +158,10 @@ def gemm_ppsend(x, w, b, r):
     rg._check("gemm_ppsend", (x, w, b, r), R, F, K)
     y = torch.empty_like(r)
     with torch.cuda.device(x.device):
-        rc = _library().pp_gemm_launch(x.data_ptr(), w.data_ptr(),
-                                       b.data_ptr(), r.data_ptr(),
-                                       y.data_ptr(), R, F, K,
-                                       _stream(x.device))
+        rc = _library().pp_send_gemm_launch(x.data_ptr(), w.data_ptr(),
+                                            b.data_ptr(), r.data_ptr(),
+                                            y.data_ptr(), R, K, F,
+                                            _stream(x.device))
     _raise_on(rc, "gemm_ppsend")
     gemm_ppsend.launches += 1
     gemm_ppsend.calls += 1
@@ -149,7 +171,7 @@ def gemm_ppsend(x, w, b, r):
 def gemm_pprecv(gy, gwire, x, w, rows=None):
     """Row 15: (dx, dw, db, dr) as ``gemm_pprecv_plain`` gives them (dw in
     fp32). CPU tensors take the plain version; CUDA tensors launch the
-    add, NT and TN kernels, or raise."""
+    add and the GEMM of both products, or raise."""
     if gwire.device.type == "cpu":
         return gemm_pprecv_plain(gy, gwire, x, w, rows)
     K, F = w.shape
@@ -169,13 +191,38 @@ def gemm_pprecv(gy, gwire, x, w, rows=None):
     _raise_on(rc, "gemm_pprecv add")
     dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
     dw = torch.empty((K, F), dtype=torch.float32, device=dev)
-    _mm("NT", dr, w, dx, R, K, F, dev)
-    _mm("TN", x, dr, dw, K, F, R, dev)
-    gemm_pprecv.launches += 3
+    _recv_gemms(dr, x, w, dx, dw, 3, dev)
+    gemm_pprecv.launches += 2
     gemm_pprecv.calls += 1
     rows = tuple(dr.shape[:-1]) if rows is None else tuple(rows)
     db = dr.reshape(rows + (F,)).sum(tuple(range(len(rows))))
     return dx, dw, db, dr
+
+
+def pprecv_gemms(dr, x, w, products=("dx", "dw")):
+    """Row 15's GEMM launch alone on a given dr [..., F]: (dx, dw) as
+    ``gemm_pprecv`` computes them, each None unless named in
+    ``products`` (one launch runs the ones named: the products of a call
+    timed apart from the add and from each other). CPU tensors take the
+    plain products. Not counted."""
+    K, F = w.shape
+    if dr.device.type == "cpu":
+        return _products_plain(dr, x, w, products)
+    R = x.numel() // K
+    if x.shape[-1] != K or dr.numel() != R * F:
+        raise ValueError(f"pprecv_gemms: dr {tuple(dr.shape)}, x "
+                         f"{tuple(x.shape)} and w {tuple(w.shape)} disagree")
+    rg._check("pprecv_gemms", (dr, x, w), R, F, K)
+    which = ("dx" in products) + 2 * ("dw" in products)
+    if not which:
+        raise ValueError(f"pprecv_gemms: no product in {products}")
+    dev = x.device
+    dx = torch.empty(x.shape, dtype=x.dtype, device=dev) \
+        if "dx" in products else None
+    dw = torch.empty((K, F), dtype=torch.float32, device=dev) \
+        if "dw" in products else None
+    _recv_gemms(dr, x, w, dx, dw, which, dev)
+    return dx, dw
 
 
 KERNELS = (gemm_ppsend, gemm_pprecv)

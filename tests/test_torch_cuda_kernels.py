@@ -1006,9 +1006,10 @@ def test_pp_boundary_kernels_match_plain_on_card(cuda_device, tmp_path):
     """Rows 14 (y = r + (x @ w + b)) and 15 (dr = gy + gwire, dx, dw) of
     ``ops/pp_boundary.py`` against their plain versions on two ranks
     sharing the card over gloo: per element and per 128-row tile, dr and
-    db bit for bit, at a shape with ragged tiles and one of several
-    tiles; the boundary op's hop delivers y byte for byte; one launch a
-    row-14 call, three a row-15 call."""
+    db bit for bit, at ``CARD_SHAPES`` (ragged tiles of the 128 x 256
+    wgmma tiling in every dimension, and several full tiles); the
+    boundary op's hop delivers y byte for byte; one launch a row-14
+    call, two a row-15 call (the add, then both products' GEMM)."""
     import torch_pp_train_ranks as ranks
     from paddle_tpu_torch.distributed import env
     from paddle_tpu_torch.ops import pp_boundary
@@ -1023,7 +1024,7 @@ def test_pp_boundary_kernels_match_plain_on_card(cuda_device, tmp_path):
     assert outs[0]["counts"]["gemm_ppsend"] == (2 * n, 2 * n)
     assert outs[1]["counts"]["gemm_ppsend"] == (n, n)
     for o in outs:
-        assert o["counts"]["gemm_pprecv"] == (n, 3 * n)
+        assert o["counts"]["gemm_pprecv"] == (n, 2 * n)
 
 
 @pytest.mark.cuda

@@ -544,6 +544,39 @@ def test_rows_14_15_plain_match_the_reference_algebra():
     assert ppb.gemm_ppsend.launches == 0 and ppb.gemm_pprecv.launches == 0
 
 
+@pytest.mark.parametrize("products", [("dx",), ("dw",), ("dx", "dw")])
+def test_row_15_products_apart_match_the_reference(products):
+    """``pprecv_gemms`` (row 15's GEMM launch alone, for one product or
+    both) on the CPU: the products named, against jax.vjp of the
+    reference's tail with dr as the cotangent, fp32 at 1e-6; the same
+    bits as ``gemm_pprecv``'s; None for a product not named; no launch
+    counted."""
+    rng = np.random.default_rng(6)
+    Bb, Ss, K, F = 2, 16, 48, 32
+    x = rng.standard_normal((Bb, Ss, K)).astype(np.float32)
+    w = (rng.standard_normal((K, F)) * K ** -0.5).astype(np.float32)
+    dr = rng.standard_normal((Bb, Ss, F)).astype(np.float32)
+
+    def tail(x, w):
+        return x @ w
+
+    _, vjp = jax.vjp(jax.jit(tail), jnp.asarray(x), jnp.asarray(w))
+    want = dict(zip(("dx", "dw"), map(np.asarray, vjp(jnp.asarray(dr)))))
+    t = {k: torch.from_numpy(v) for k, v in (("x", x), ("w", w), ("dr", dr))}
+    got = dict(zip(("dx", "dw"), ppb.pprecv_gemms(t["dr"], t["x"], t["w"],
+                                                 products)))
+    whole = ppb.gemm_pprecv(t["dr"], torch.zeros_like(t["dr"]), t["x"],
+                            t["w"])
+    for i, name in enumerate(("dx", "dw")):
+        if name not in products:
+            assert got[name] is None
+            continue
+        np.testing.assert_allclose(got[name].numpy(), want[name], rtol=1e-6,
+                                   atol=1e-6 * np.abs(want[name]).max())
+        assert torch.equal(got[name], whole[i])
+    assert ppb.gemm_pprecv.launches == 0
+
+
 def test_boundary_kernels_name_what_they_do_not_take():
     assert ppb.unsupported_reason(2048, 8192, 2048, torch.bfloat16) is None
     why = ppb.unsupported_reason(2048, 8192, 2040, torch.float32)

@@ -148,9 +148,11 @@ def checks(group, payload):
     return out
 
 
-# rows 14-15 on the card: (R, K, F) per rank; not multiples of the
-# 128-wide tiles in the first, several tiles in the second
-CARD_SHAPES = ((48, 96, 80), (512, 1024, 256))
+# rows 14-15 on the card: (R, K, F) per rank against the 128 x 256 tiles
+# and 64-wide k steps: one partial tile and a partial k step; several
+# full tiles; ragged in every dimension of every product (R: two tiles +
+# 16 rows, K: 16 k steps + 16, F: three 256-column tiles + 16)
+CARD_SHAPES = ((48, 96, 80), (512, 1024, 256), (272, 1040, 784))
 
 
 def card_kernels(group, seed):
