@@ -6,6 +6,7 @@
     python3 chip_compare.py serve-turns PARENT_DIR
     python3 chip_compare.py tp-turns PARENT_DIR
     python3 chip_compare.py pp-turns PARENT_DIR
+    python3 chip_compare.py mp-serve-turns PARENT_DIR
 
 ``train-turns`` runs chip_smoke's one-card GPT-3 1.3B train step
 (``phase_train``, then ``phase_train_profile``); ``decode-turns`` the
@@ -23,7 +24,12 @@ there are MP cards; ``pp-turns`` rows 14-15 alone (``gemm_ppsend``,
 ``gemm_pprecv``, and row 15's two products apart where the tree has
 ``pprecv_gemms``) at the pp=4 shape by CUDA-graph replay and, where
 there are PP cards, chip_smoke's pp=4 GPT-3 1.3B step on the fused
-rung (``phase_pp_train``: 2 + 5 steps at full depth, a card a stage).
+rung (``phase_pp_train``: 2 + 5 steps at full depth, a card a stage);
+``mp-serve-turns`` chip_smoke's tensor-parallel serving of GPT-3 1.3B
+(``phase_mp_serve`` at bf16 in MP ranks, a card each where there are MP
+cards: the 16 requests, decode tokens/s and TTFT p50 / p99, then, with a
+card per rank, ``phase_profile``'s host ms of one [8, 1] decode boundary
+by function on rank 0), once both trees' serving kernels are built.
 Each runs from the tree at PARENT_DIR (a ``git archive`` of another
 commit) and from
 this one, in turns (parent, this, this, parent), each in a process of
@@ -130,6 +136,41 @@ def rank(group, seed):
     cs.phase_tp_timing(group, gen, cs.GPT_CONFIGS[cs.MODEL], say)
     return failed
 """
+# a module of its own (spawned ranks import the module of their function)
+MP_SERVE_RANK = """
+import torch
+import chip_smoke as cs
+
+
+def rank(group, seed):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    say = (lambda *a: print(*a, flush=True)) if group.rank == 0 else \\
+        (lambda *a: None)
+    cfg = cs.GPT_CONFIGS[cs.MODEL]
+    gen = torch.Generator(device=group.device).manual_seed(seed + 1)
+    params = cs.init_gpt_params(cfg, seed=seed, device=group.device,
+                                dtype=torch.bfloat16)
+    return cs.phase_mp_serve(group, cfg, params, seed, None, gen, say)[1]
+"""
+MP_SERVE_RUN = """
+import chip_smoke as cs
+import mp_serve_turns_rank
+from paddle_tpu_torch.distributed import env
+outs = env.launch(cs.MP, mp_serve_turns_rank.rank, 0, layout=cs.mp_layout(),
+                  timeout_s=900)
+print(f"[mp-serve-turns] failures: {sum(outs, [])}", flush=True)
+"""
+# the serving kernels of a tree: rows 1-3 and 11, and rows 12-13's gather
+# where the tree has it
+MP_SERVE_BUILD = """
+from paddle_tpu_torch.ops import fused_collectives as fc, quant_gemm as qg
+from paddle_tpu_torch.serving import paged_decode as pd
+qg.build()
+pd.build()
+fc.build_ag_bucket()
+getattr(fc, "build_gemm_ag", lambda: None)()
+"""
 PP_RUN = """
 import torch
 import chip_smoke as cs
@@ -222,6 +263,17 @@ def turns(parent, run, prefixes, path=()):
         raise SystemExit("a run failed")
 
 
+def build_both(parent, run):
+    """``run`` (Python source that builds kernels) in the tree at
+    ``parent`` and in this one, both at once."""
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", run], cwd=tree,
+        env=dict(os.environ, PYTHONPATH=str(tree)),
+        stdout=subprocess.DEVNULL) for tree in (parent, ROOT)]
+    if any(b.wait(timeout=900) for b in builds):
+        raise SystemExit("a build failed")
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -234,14 +286,16 @@ def main(argv):
     elif argv[:1] == ["decode-turns"] and len(argv) == 2:
         turns(argv[1], DECODE_RUN, ("[decode-turns]",))
     elif argv[:1] == ["serve-turns"] and len(argv) == 2:
-        builds = [subprocess.Popen(
-            [sys.executable, "-c", BUILD_RUN], cwd=tree,
-            env=dict(os.environ, PYTHONPATH=str(tree)),
-            stdout=subprocess.DEVNULL) for tree in (argv[1], ROOT)]
-        if any(b.wait(timeout=900) for b in builds):
-            raise SystemExit("a build failed")
+        build_both(argv[1], BUILD_RUN)
         turns(argv[1], SERVE_RUN, ("[serve] {", "[serve-int8] {",
                                    "[profile]", "[serve-wrapper]"))
+    elif argv[:1] == ["mp-serve-turns"] and len(argv) == 2:
+        build_both(argv[1], MP_SERVE_BUILD)
+        with tempfile.TemporaryDirectory() as tmp:
+            Path(tmp, "mp_serve_turns_rank.py").write_text(MP_SERVE_RANK)
+            turns(argv[1], MP_SERVE_RUN, ("[mp-serve-bf16]",
+                                          "[mp-profile-bf16]",
+                                          "[mp-serve-turns]"), path=(tmp,))
     elif argv[:1] == ["pp-turns"] and len(argv) == 2:
         with tempfile.TemporaryDirectory() as tmp:
             Path(tmp, "pp_turns_rank.py").write_text(PP_RANK)

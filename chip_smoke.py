@@ -63,9 +63,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
 9. tensor-parallel serving, in MP = 4 ranks spawned by
    ``distributed.env.launch`` (one per card over NCCL when the machine
    has four cards, else all four on cuda:0 over gloo; the kernels are
-   built above, once): the fused GEMM + all-gather (bf16, int8 and fp8
-   weight shards; the out and down shards at 8 and 256 rows, the
-   vocab-sharded head at 8 fp32 rows, also as an fp32 shard) and the data
+   built above, once): the fused GEMM + all-gather (rows 12-13,
+   ``fused_gemm_ag``: row 3's GEMM into this rank's slot of the
+   ``"gemm_ag"`` peer channel, then the gather kernel of
+   ``csrc/gemm_ag.cu``; bf16, int8 and fp8 weight shards; the out and
+   down shards at 8 and 256 rows, the vocab-sharded head at 8 fp32 rows,
+   also as an fp32 shard) against its plain version and bit for bit
+   against ``gemm_into`` + the group's all-gather, and the data
    all-gathers (row 11, ``fused_ag_bucket``: one launch of the pull
    kernel of ``csrc/ag_bucket.cu`` over the ranks' peer staging) against
    their plain versions, each rank with its own
@@ -78,9 +82,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    dispatch 24 paged-decode launches, 48 local
    quant GEMMs per quantized dispatch; one decode step's logits against
    the one-card forward within LOGIT_TOL); with four cards a profile of
-   a decode step; the GEMM kernels' times and row 11's whole calls
-   beside the plain ring and the library's all-gather (NCCL's with four
-   cards; on one card a path check, not a speed).
+   a decode step; rows 11-13's whole calls, slowest rank (rows 12-13
+   eagerly and by CUDA-graph replay, their GEMM alone by replay on rank
+   0), beside the plain versions, rows 12-13's former route (the GEMM,
+   the group's all-gather, a relayout copy) and the library's (NCCL's
+   with four cards; on one card a path check, not a speed).
 
 10. tensor-parallel training, in MP = 4 ranks laid out as in phase 9: the
    ring all-gather + GEMM and ring weight-gradient kernels and the GEMM +
@@ -327,15 +333,17 @@ def graph_ms(fn, iters, replays=5):
     return start.elapsed_time(stop) / (iters * replays)
 
 
-def slowest_rank_ms(group, calls, order, iters):
+def slowest_rank_ms(group, calls, order, iters, graph=False):
     """Each of ``calls`` (name -> a whole collective call) timed on every
-    rank of ``group`` by CUDA events over ``iters`` eager calls, the ranks
+    rank of ``group`` by CUDA events over ``iters`` eager calls (``graph``:
+    ``iters`` calls captured in one CUDA graph, ``graph_ms``), the ranks
     starting together after a barrier, in ``order`` (a name may come
     twice: its faster run counts); {name: the slowest rank's ms}."""
     mine = {}
     for what in order:
         group.barrier()
-        v = cuda_ms(calls[what], iters=iters, warmup=2)
+        v = (graph_ms(calls[what], iters=iters) if graph else
+             cuda_ms(calls[what], iters=iters, warmup=2))
         mine[what] = min(v, mine.get(what, v))
     names = sorted(mine)
     every = group.all_gather_list(torch.tensor(
@@ -455,6 +463,7 @@ def phase_build():
                "ag_gemm": "ag_gemm.cu",
                "rs_bucket": "rs_bucket.cu",
                "ag_bucket": "ag_bucket.cu",
+               "gemm_ag": "gemm_ag.cu",
                "peer_mem": "peer_mem.cu"}
     # the card tests' forced-timeout build of the flash kernels, beside
     # the others (its nvcc would otherwise run inside the card tests)
@@ -475,6 +484,7 @@ def phase_build():
     ppb.build()
     fc.build_rs_bucket()
     fc.build_ag_bucket()
+    fc.build_gemm_ag()
     print(f"[build] {len(sources)} sources in parallel: "
           f"{time.perf_counter() - t0:.2f}s")
     for name, source in sources.items():
@@ -482,7 +492,8 @@ def phase_build():
         print(f"[build] {source}: {info['seconds']:.2f}s -> {info['path']}")
         for line in info["log"].splitlines():
             entry = re.search(r"(\w+_kernel)I(\w+?)EEEv", line)
-            pull = re.search(r"_Z\d+(\w+_pull_kernel)(\w*?)N4peer", line)
+            pull = re.search(r"_Z\d+(\w+_(?:pull|gather)_kernel)(\w*?)N4peer",
+                             line)
             if entry and "Compiling entry" in line:
                 print(f"[build]   {entry.group(1)}<{entry.group(2)}>")
             elif pull and "Compiling entry" in line:
@@ -545,6 +556,15 @@ def phase_build():
     check(len(spills) == 2 and not any(any(s) for s in spills.values()),
           f"rows 14-15's GEMM spills (or ptxas reported no instance): "
           f"{spills}")
+    spills = [v for k, v in re.findall(
+        r"Compiling entry function '(\w+)'.*?(\d+ bytes spill stores, \d+ "
+        r"bytes spill loads)", cuda_build.BUILD_INFO["gemm_ag"]["log"],
+        re.S)]
+    print(f"[build] rows 12-13's gather (gemm_ag.cu) ptxas spills: {spills}")
+    check(len(spills) == 1 and spills[0].startswith("0 bytes spill stores, "
+                                                    "0 bytes spill loads"),
+          f"rows 12-13's gather kernel spills (or ptxas reported no "
+          f"instance): {spills}")
     pd = sass_counts(cuda_build.BUILD_INFO["paged_decode"]["path"],
                      r"paged_decode_kernel", ops=("UTMALDG",))
     check(pd is None or len(pd) == 24,
@@ -1712,11 +1732,11 @@ def phase_mp_gemm_vs_plain(group, gen, seed, cfg, say):
     """Rows 12-13 at every case of ``mp_gemm_cases`` (bf16, int8, fp8
     weight shards, and the head shard at fp32 as a head passed at fp32
     is stored) and row 11 at every case of ``mp_bucket_cases``: the fused
-    wrapper against its plain version on the same inputs, and the
-    gathered output bitwise the same on every rank. x is the same on every
-    rank (``gen``), each rank's weight shard and row its own, so a block
-    gathered into the wrong slot shows. Returns ({case: max abs error},
-    failures)."""
+    wrapper against its plain version on the same inputs, rows 12-13 bit
+    for bit against ``fc.gemm_ag_exact``, and the gathered output bitwise
+    the same on every rank. x is the same on every rank (``gen``), each
+    rank's weight shard and row its own, so a block gathered into the
+    wrong slot shows. Returns ({case: max abs error}, failures)."""
     dev = group.device
     wgen = torch.Generator(device=dev).manual_seed(seed + 1000 + group.rank)
     errs, failed = {}, []
@@ -1728,16 +1748,19 @@ def phase_mp_gemm_vs_plain(group, gen, seed, cfg, say):
         got = fc.fused_gemm_ag(x, w, group, s)
         torch.cuda.synchronize()
         r = fc.error_vs_plain(got, fc.gemm_ag_plain(x, w, group, s))
+        exact = torch.equal(got, fc.gemm_ag_exact(x, w, group, s))
         same = _same_on_every_rank(group, got)
         errs[(kind, label, R)] = r["max_abs"]
-        ok = bool(torch.isfinite(got).all()) and same and \
+        ok = bool(torch.isfinite(got).all()) and same and exact and \
             fc.within_tolerance(r, x_dtype)
         say(f"[mp-kernel] fused_gemm_ag {kind} {label} R={R} K={K} "
             f"F/{MP}={Fl} x={str(x_dtype)[6:]}: max abs "
             f"{r['max_abs']:.2e}, worst element {r['element']:.2e} "
             f"(gate {fc.ELEMENT_TOL[x_dtype]}), worst row "
-            f"{r['row']:.2e} (gate {fc.ROW_TOL[x_dtype]}), same bytes "
-            f"on every rank: {same}")
+            f"{r['row']:.2e} (gate {fc.ROW_TOL[x_dtype]}), worst tile "
+            f"{r['tile']:.2e} (gate {qg.TILE_TOL[x_dtype]}); bit for bit "
+            f"gemm_into + the group's all-gather: {exact}; same bytes on "
+            f"every rank: {same}")
         if not ok:
             failed.append(f"fused_gemm_ag {kind} {label} R={R}")
     for R, F in mp_bucket_cases(cfg):
@@ -1792,6 +1815,21 @@ def _scripted_decode(cfg, params, dev, ids, heads, pool_dtype, spec,
                          mp=mp, **kv)
 
 
+def gemm_ag_launches(shapes, cfg, dev):
+    """Rows 12-13's launches that their calls by shape (``fused_gemm_ag.
+    shapes``) imply: per call the GEMM's one, its k split's reduce where
+    its plan splits, and the gather's. The head's x is fp32, every other
+    x bf16."""
+    total = 0
+    for (R, K, Fl, w_dtype), calls in shapes.items():
+        x_dtype = (torch.float32 if Fl == cfg.vocab_size // MP
+                   else torch.bfloat16)
+        splits = qg.plan(R, K, Fl, getattr(torch, w_dtype), x_dtype,
+                         dev.index)[2]
+        total += calls * (2 + (splits > 1))
+    return total
+
+
 MP_KERNELS = {"fused_gemm_ag": fc.fused_gemm_ag,
               "fused_ag_bucket": fc.fused_ag_bucket,
               "paged_decode": paged_decode_attention,
@@ -1828,7 +1866,7 @@ def phase_mp_serve(group, cfg, params, seed, quant, gen, say, wave1=None):
     reset_serving_counters()
     for wrapper in MP_KERNELS.values():
         wrapper.launches = 0
-    fc.fused_gemm_ag.shapes.clear()
+    fc.reset_gemm_ag_counts()
     fc.reset_ag_bucket_counts()
     t0 = time.perf_counter()
     results = eng.run(wave1) if wave1 else {}
@@ -1836,6 +1874,7 @@ def phase_mp_serve(group, cfg, params, seed, quant, gen, say, wave1=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {n: w.launches for n, w in MP_KERNELS.items()}
+    gemm_ag_calls = fc.fused_gemm_ag.calls
     shapes = {"fused_gemm_ag": dict(fc.fused_gemm_ag.shapes),
               "fused_ag_bucket": dict(fc.fused_ag_bucket.shapes)}
     c = serving_counters()
@@ -1861,13 +1900,25 @@ def phase_mp_serve(group, cfg, params, seed, quant, gen, say, wave1=None):
         failed.append(f"{tag}: page pool does not balance: {bal}")
     L = cfg.num_layers
     steps, decode = c["paged_steps"], c["decode_dispatches"]
-    want = {"fused_gemm_ag": steps * (2 * L + 1),
+    # rows 12-13: 2L + 1 calls a dispatch, each the GEMM's one or two
+    # launches (its plan's k split) and the gather's
+    want_calls = steps * (2 * L + 1)
+    say(f"[{tag}] rows 12-13 per dispatch: "
+        f"{gemm_ag_calls / max(steps, 1):.2f} calls, "
+        f"{counts['fused_gemm_ag'] / max(steps, 1):.2f} launches (GEMM "
+        f"and gather), no NCCL or gloo collective")
+    if gemm_ag_calls != want_calls:
+        failed.append(f"{tag}: {gemm_ag_calls} row 12-13 calls, want "
+                      f"{want_calls}")
+    want = {"fused_gemm_ag": gemm_ag_launches(shapes["fused_gemm_ag"], cfg,
+                                              group.device),
             "fused_ag_bucket": steps * (2 * L + 1),
             "paged_decode": 0 if quant else decode * L,
             "paged_decode_q": decode * L if quant else 0,
             "quant_gemm": steps * 2 * L if quant else 0}
     say(f"[{tag}] launches on rank {group.rank}: {counts} (want {want}: "
-        f"{steps} dispatches x ({2 * L + 1} fused GEMM + all-gathers, "
+        f"{steps} dispatches x ({2 * L + 1} fused GEMM + all-gathers of "
+        f"2-3 launches, "
         f"{2 * L + 1} data all-gathers of one launch each"
         f"{', 2 x L local quant GEMMs' if quant else ''}), "
         f"{decode} decode dispatches x {L} paged decodes)")
@@ -1937,79 +1988,88 @@ def phase_mp_serve(group, cfg, params, seed, quant, gen, say, wave1=None):
             "counts": counts, "shapes": shapes}, failed
 
 
+def gemm_ag_former(x, w, s, group, buf):
+    """Rows 12-13's former route, before their gather kernel: the GEMM
+    into this rank's slot of a dim-0 gather buffer ``buf`` [n R, F/n],
+    the group's all-gather in place (NCCL's with a card per rank), and
+    the relayout copy to [R, F]."""
+    R, Fl = x.shape[0], w.shape[1]
+    n, r = group.n, group.rank
+    slot = buf[r * R:(r + 1) * R]
+    qg.gemm_into(x, w, s, slot)
+    group.all_gather_into(buf, slot)
+    return buf.view(n, R, Fl).transpose(0, 1).reshape(R, n * Fl)
+
+
 def phase_mp_timing(group, cfg, gen, say):
-    """Rows 11-13 at every case: the GEMM kernel into the gather buffer's
-    slot by CUDA-graph replay (rank 0, the other ranks waiting; each call
-    on the next of 24 weight shards, as the layers are), the plain GEMM,
-    cuBLAS on the shard (int8/fp8: dequantized beforehand); with a card
-    per rank also the in-place all-gather, the plain gather, and the whole
-    wrapper, by CUDA events over eager calls on every rank. Row 11's whole
-    calls (the row copied into the staging, as ``ag_last`` does) beside
-    its plain ring and the library's all-gather on every layout
-    (``slowest_rank_ms``; on one card a path check). Returns {(kind,
-    label, R) | ("bucket", R, F): timings}."""
+    """Rows 11-13 at every case. Rows 12-13: the whole call
+    (``fused_gemm_ag``; each call on the next of 24 weight shards, as the
+    layers are) by ``slowest_rank_ms`` over eager calls and, with a card
+    per rank, by CUDA-graph replay; beside it, eagerly, the plain version,
+    the former route (``gemm_ag_former``) and the library's (``torch.mm``
+    on the shard, int8/fp8 dequantized beforehand, and the group's
+    all-gather); the GEMM alone into the slot by replay on rank 0, the
+    other ranks waiting. Row 11's whole calls (the row copied into the
+    staging, as ``ag_last`` does) beside its plain ring and the library's
+    all-gather. NCCL's with a card per rank; on one card gloo's, and the
+    whole calls are a path check. Returns {(kind, label, R) | ("bucket",
+    R, F): timings}."""
     dev = group.device
     per_card = group.backend == "nccl"
     out = {}
-
-    def eager_ms(fn, iters):
-        group.barrier()
-        return cuda_ms(fn, iters=iters, warmup=5)
-
     for kind in MP_WEIGHTS:
         for label, K, Fl, R, x_dtype in mp_gemm_cases(cfg):
             nw = 1 if label == "head" else cfg.num_layers
             ws, ss = _mp_weight(gen, dev, K, Fl, kind, nw)
             x = torch.randn(R, K, generator=gen, device=dev).to(x_dtype)
             buf = torch.empty((MP * R, Fl), dtype=x_dtype, device=dev)
-            slot = buf[group.rank * R:(group.rank + 1) * R]
+            deq = [w.to(x_dtype) if sc is None else
+                   (w.float() * sc).to(x_dtype) for w, sc in zip(ws, ss)]
             layer = itertools.cycle(range(nw))
             t = {}
             if group.rank == 0:
-                def kernel():
+                def gemm():
                     i = next(layer)
-                    qg.gemm_into(x, ws[i], ss[i], slot)
+                    qg.gemm_into(x, ws[i], ss[i], buf[:R])
 
-                def plain():
-                    i = next(layer)
-                    if ss[i] is None:
-                        _proj(x, ws[i].to(x_dtype))
-                    else:
-                        qg.quant_gemm_plain(x, ws[i], ss[i])
+                t["gemm_ms"] = min(graph_ms(gemm, iters=4 * nw)
+                                   for _ in range(2))
 
-                deq = [w.to(x_dtype) if sc is None else
-                       (w.float() * sc).to(x_dtype) for w, sc in zip(ws, ss)]
+            def call():
+                i = next(layer)
+                fc.fused_gemm_ag(x, ws[i], group, ss[i])
 
-                def library():
-                    torch.matmul(x, deq[next(layer)])
+            def plain():
+                i = next(layer)
+                fc.gemm_ag_plain(x, ws[i], group, ss[i])
 
-                p1 = graph_ms(plain, iters=nw, replays=3)
-                k1 = graph_ms(kernel, iters=4 * nw)
-                k2 = graph_ms(kernel, iters=4 * nw)
-                p2 = graph_ms(plain, iters=nw, replays=3)
-                t.update(gemm_ms=min(k1, k2), gemm_ms_runs=(k1, k2),
-                         plain_gemm_ms=min(p1, p2),
-                         library_gemm_ms=graph_ms(library, iters=4 * nw))
-                del deq
+            def former():
+                i = next(layer)
+                gemm_ag_former(x, ws[i], ss[i], group, buf)
+
+            def library():
+                i = next(layer)
+                group.all_gather_into(buf, torch.mm(x, deq[i]))
+
             group.barrier()
-            if per_card:
-                w0, s0 = ws[0], ss[0]
-                t["gather_ms"] = eager_ms(
-                    lambda: group.all_gather_into(buf, slot), 100)
-                t["plain_gather_ms"] = eager_ms(
-                    lambda: group.all_gather_list(slot), 100)
-                t["wrapper_ms"] = eager_ms(
-                    lambda: fc.fused_gemm_ag(x, w0, group, s0), 100)
-                t["plain_wrapper_ms"] = eager_ms(
-                    lambda: fc.gemm_ag_plain(x, w0, group, s0), 50)
+            w = slowest_rank_ms(
+                group, {"call": call, "plain": plain, "former": former,
+                        "library": library},
+                ("call", "former", "library", "plain", "call"),
+                100 if per_card else 5)
+            t.update(call_ms=w["call"], plain_call_ms=w["plain"],
+                     former_call_ms=w["former"],
+                     library_call_ms=w["library"])
+            if per_card:        # an even number of calls a graph
+                t["call_graph_ms"] = slowest_rank_ms(
+                    group, {"call": call}, ("call", "call"), 2 * nw,
+                    graph=True)["call"]
             out[(kind, label, R)] = t
-            if group.rank == 0:
-                say(f"[mp-timing] fused_gemm_ag {kind} {label} R={R} K={K} "
-                    f"F/{MP}={Fl}: " + ", ".join(
-                        f"{k} {v:.4f}" if isinstance(v, float) else
-                        f"{k} {v[0]:.4f}/{v[1]:.4f}"
-                        for k, v in t.items()) + " ms")
-            del ws, ss, x, buf
+            say(f"[mp-timing] fused_gemm_ag {kind} {label} R={R} K={K} "
+                f"F/{MP}={Fl} ({group.backend}"
+                f"{'' if per_card else ', a path check'}): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in t.items()) + " ms")
+            del ws, ss, x, buf, deq
     for R, F in mp_bucket_cases(cfg):
         row = torch.randn(R * F, generator=gen, device=dev).to(
             torch.bfloat16)
@@ -2043,7 +2103,7 @@ def mp_serve_plan(backend):
 @contextlib.contextmanager
 def peer_record(group):
     """A spawned rank's failure prints, before it propagates, the rank's
-    peer-buffer error record (rows 8, 10 and 11; ``peer.error_record``:
+    peer-buffer error record (rows 7-13; ``peer.error_record``:
     which wait gave up on which peer, and why), or that it has none."""
     try:
         yield
@@ -2052,8 +2112,8 @@ def peer_record(group):
             rec = peer.error_record()
         except Exception as e:      # noqa: BLE001 - a lost context, say
             rec = f"not readable: {e}"
-        print(f"[rank {group.rank}] failed; peer error record (rows 8, "
-              f"10, 11): {rec}", flush=True)
+        print(f"[rank {group.rank}] failed; peer error record (rows "
+              f"7-13): {rec}", flush=True)
         raise
 
 
@@ -2137,42 +2197,58 @@ def phase_mp(seed, single):
     return r0, layout
 
 
+GEMM_AG_KERNEL = "paddle_tpu_torch/csrc/gemm_ag.cu"
+
+
 def mp_rows(r0, layout, cfg):
     """The ``kernels`` rows of rows 11-13 from rank 0's readings (row 11:
-    the data all-gathers, ``ag_row``). With one card (layout "shared")
-    rows 12-13's ms, plain and library cover the GEMM and the bound its
-    bytes and operations only, and row 11's whole call is a path
-    check."""
+    the data all-gathers, ``ag_row``). Rows 12-13's row is the whole call:
+    with a card per rank its CUDA-graph replay, slowest rank (eager beside
+    it), against the GEMM's bound plus the (n - 1) blocks it receives over
+    NVLink; on one card (layout "shared") the eager call of four ranks
+    time-slicing the card, a path check, against the GEMM's bound."""
     per_card = layout == "per_card"
     rows = []
     errs, timing = r0["errs"], r0["timing"]
+    dev = torch.device("cuda", 0)
     for kind in (k for k in MP_WEIGHTS if k in r0["serve"]):
         run = r0["serve"][kind]
         for label, K, Fl, R, x_dtype in mp_gemm_cases(cfg):
             t = timing[(kind, label, R)]
             bound, bound_by = mp_gemm_bound(R, K, Fl, x_dtype, kind)
-            ms, plain, lib = (t["gemm_ms"], t["plain_gemm_ms"],
-                              t["library_gemm_ms"])
-            if per_card:
-                recv = (MP - 1) * R * Fl * x_dtype.itemsize
-                bound += recv / NVLINK_BYTES_PER_S * 1e3
-                ms += t["gather_ms"]
-                plain += t["plain_gather_ms"]
-                lib += t["gather_ms"]
+            if per_card:        # the GEMM's bound + the blocks received
+                link = ((MP - 1) * R * Fl * x_dtype.itemsize /
+                        NVLINK_BYTES_PER_S * 1e3)
+                if link >= bound:
+                    bound_by = "bytes"
+                bound += link
+            w_dtype = "bfloat16" if kind == "bf16" else \
+                str(QUANT_TORCH[kind])[6:]
+            key = (R, K, Fl, w_dtype)
             replaces = ("paddle_tpu/ops/pallas_kernels/fused_collectives.py:"
                         + ("448" if kind == "bf16" else "498"))
             rows.append({
                 "name": f"fused_gemm_ag[{kind} {label} R={R}]",
-                "route": "cuda",
-                "source": "paddle_tpu_torch/csrc/quant_gemm.cu",
+                "route": "cuda", "source": GEMM_AG_KERNEL,
+                "gemm_source": "paddle_tpu_torch/csrc/quant_gemm.cu",
                 "replaces": replaces,
-                "launches": run["shapes"]["fused_gemm_ag"].get(
-                    (R, K, Fl, "bfloat16" if kind == "bf16" else
-                     str(QUANT_TORCH[kind])[6:]), 0),
-                "max_abs_err": errs[(kind, label, R)], "ms": ms,
-                "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-                "library_ms": lib,
-                "covers": "gemm+all_gather" if per_card else "gemm"})
+                "launches": gemm_ag_launches(
+                    {key: run["shapes"]["fused_gemm_ag"].get(key, 0)}, cfg,
+                    dev),
+                "max_abs_err": errs[(kind, label, R)],
+                "ms": t["call_graph_ms"] if per_card else t["call_ms"],
+                "eager_ms": t["call_ms"], "gemm_ms": t["gemm_ms"],
+                "former_ms": t["former_call_ms"],
+                "plain_ms": t["plain_call_ms"], "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": t["library_call_ms"],
+                "covers": (f"whole call (GEMM + gather), CUDA-graph replay, "
+                           f"slowest of {MP} ranks on their own cards; "
+                           f"eager, former, plain and library (torch.mm + "
+                           f"NCCL all-gather) eager")
+                if per_card else
+                (f"path check, not a speed: eager whole call with {MP} "
+                 f"ranks time-slicing one card; library: torch.mm + gloo's "
+                 f"all-gather")})
     bf16 = r0["serve"]["bf16"]["shapes"]["fused_ag_bucket"]
     for R, F in mp_bucket_cases(cfg):
         rows.append(ag_row(f"{R}x{F}={R * F} bf16", timing[("bucket", R, F)],

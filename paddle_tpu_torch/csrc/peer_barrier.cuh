@@ -1,6 +1,7 @@
 // The device side of the symmetric peer buffers (peer_mem.cu), shared by
-// rows 10 and 11 (rs_bucket.cu, ag_bucket.cu), row 8 (gemm_rs.cu) and
-// rows 7 and 9 (ag_gemm.cu): the layout of a channel's signal pad, the
+// rows 10 and 11 (rs_bucket.cu, ag_bucket.cu), row 8 (gemm_rs.cu), rows 7
+// and 9 (ag_gemm.cu) and rows 12-13 (gemm_ag.cu): the layout of a
+// channel's signal pad, the
 // peer pointers a kernel is given, the bounded wait for a peer's flag,
 // and the entry and exit barriers that every block of rows 10-11's
 // one-launch collectives runs.
@@ -83,6 +84,10 @@ struct Pad {
   uint32_t finished;              // GEMM blocks done this call
   uint32_t split[kMaxBlocks];     // row 9: chunk partials of output tile i
                                   // stored this call
+  // rows 12 and 13 (gemm_ag.cu) number their calls by `calls` (moved by
+  // the gather's last block, counted in `finished`) and signal with:
+  uint32_t posted[kMaxRanks];     // [src]: src's block of call e is in its
+                                  // slot (src writes e)
 };
 
 // the staging region begins this many bytes into a channel (a multiple of
@@ -101,8 +106,10 @@ static_assert(kMaxRanks * kBeatStride * 4 <= kBeatBytes, "beat segment");
 struct ErrorRecord {
   int code;         // 0: none; 1: the peer's heartbeat stood still for the
                     // timeout; 2: the peer beat but never came before the
-                    // backstop
-  int row;          // 7, 8, 9, 10 or 11
+                    // backstop; 3 (rows 12-13): the call's slot parity is
+                    // not the device's call number's (a captured graph of
+                    // an odd number of calls replayed)
+  int row;          // 7 to 13
   int rank;
   int peer;         // the rank whose flag never came
   int block;
@@ -110,7 +117,8 @@ struct ErrorRecord {
                     // 0 the GEMM's wait for a freed slot, 1 the reduce's
                     // wait for a partial; rows 7 and 9: 0 the pull's wait
                     // for a freed slot, 1 its wait for a peer's chunk, 2
-                    // the GEMM's wait for a gathered chunk
+                    // the GEMM's wait for a gathered chunk; rows 12-13: 0
+                    // the gather's wait for a peer's block
   uint32_t epoch;
   uint32_t seen;    // the flag value last read
   uint32_t beat;    // the peer's heartbeat counter last read

@@ -21,9 +21,10 @@
 // column block x @ w_shard. Weights may be bf16 (scale == nullptr: no
 // multiply), against bf16 x or against the fp32 x of the LM head, and a
 // head passed at fp32 stays fp32 (fp32 weights against fp32 x). The output
-// has a row stride `ldo`: the epilogue stores the block straight into this
-// rank's slot of the all-gather buffer (ops/fused_collectives.py), which
-// torch.distributed then gathers in place.
+// has a row stride `ldo`, and the epilogue stores the block wherever the
+// caller points it: the fused projections (ops/fused_collectives.py) point
+// it at this rank's slot of the group's "gemm_ag" peer channel, whose
+// blocks gemm_ag.cu's gather then reads over NVLink.
 //
 // What bounds it on an H100. At serving's decode shapes (R = 8 slots) it
 // reads each weight byte once and does 2 * R flops with it, far below the

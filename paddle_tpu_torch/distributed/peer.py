@@ -3,7 +3,8 @@ one-launch collectives (``ops/fused_collectives.py``: ``fused_rs_bucket``,
 ``fused_ag_bucket``) read across the ranks of a group, that row 8's
 GEMM + reduce-scatter (``ops/ring_gemm.py:ring_gemm_rs``) writes its
 partials into, and that rows 7 and 9 (``ring_ag_gemm``,
-``ring_ag_accum``) gather their chunks through.
+``ring_ag_accum``) gather their chunks through, and that rows 12-13's
+serving GEMM + all-gather (``fused_gemm_ag``) stores its blocks into.
 
 A *channel* is one ``cudaMalloc`` per rank, made by ``csrc/peer_mem.cu``
 outside PyTorch's caching allocator (so ``expandable_segments`` does not
@@ -11,11 +12,15 @@ matter, and a channel is one IPC handle with no offset bookkeeping): a
 signal pad of flags and per-block epochs (``csrc/peer_barrier.cuh``),
 zeroed, then the staging region that the caller writes its operand into.
 A group holds one channel per purpose (``"rs_bucket"``, ``"ag_bucket"``,
-``"gemm_rs"``, ``"ag_gemm"``: rows 7 and 9) in ``MPGroup.peer_channels``.
+``"gemm_rs"``, ``"ag_gemm"``: rows 7 and 9, ``"gemm_ag"``: rows 12-13) in
+``MPGroup.peer_channels``.
 Row 8's staging holds 2n fp32 slots of a chunk (by call parity and source
 rank) that the peers' GEMMs store into; rows 7 and 9's 2 + n bf16 slots
 of a chunk: this rank's chunk by call parity, which the peers read, and
 a gather slot per rank that this rank's pull copies the peers' into.
+Rows 12-13's holds this rank's GEMM block twice, by call parity (the
+serving engine sizes it at build for its largest block, so it never grows
+in mid-run).
 
 Set-up is collective and happens at a purpose's first call on a group,
 on every rank at once (the SPMD ranks make the same calls in the same
@@ -147,7 +152,8 @@ def error_pointer():
 
 def error_record():
     """This process's error record as a dict (``code`` 0: no barrier wait
-    gave up; 1: the peer's heartbeat stood still; 2: the backstop)."""
+    gave up; 1: the peer's heartbeat stood still; 2: the backstop; 3: a
+    row 12-13 call out of step with the device's call number)."""
     rec = _error_record()[0]
     return {name: getattr(rec, name) for name, _ in rec._fields_}
 
@@ -171,6 +177,13 @@ def raise_for(rc, row, rank, describe):
     rec = _error_record()[0]
     if rec.code or rc != 0:
         stop_heartbeat()
+    if rec.code == 3:
+        raise RuntimeError(
+            f"row {rec.row}: rank {rec.rank}'s gather of call {rec.epoch} "
+            f"was launched for slot parity {rec.seen}: the host's and the "
+            f"device's call numbers disagree (a captured CUDA graph must "
+            f"hold an even number of the channel's calls); the kernel "
+            f"trapped and this process's CUDA context is lost")
     if rec.code:
         if rec.row == 8:
             where = ("reduce's wait for a partial" if rec.at_end else
@@ -179,6 +192,8 @@ def raise_for(rc, row, rank, describe):
             where = ("pull's wait for a freed slot",
                      "pull's wait for a peer's chunk",
                      "GEMM's wait for a gathered chunk")[rec.at_end]
+        elif rec.row in (12, 13):
+            where = "gather's wait for a peer's block"
         else:
             where = ("exit" if rec.at_end else "entry") + " barrier"
         why = ("whose heartbeat stood still for the timeout: the process "
@@ -321,6 +336,9 @@ class Channel:
         self.staging = torch.as_tensor(
             _CudaBytes(self.own + pad, capacity), device=group.device)
         self._views = {}
+        # the calls made on this channel, as the host counts them (rows
+        # 12-13 number theirs so, beside the pad's count on the device)
+        self.calls = 0
 
     @property
     def timeout_ns(self):
@@ -338,21 +356,21 @@ class Channel:
                 f"be taken for gone")
         self._timeout_ns = int(ns)
 
-    def view(self, shape, dtype):
-        """The first bytes of this rank's staging as a contiguous tensor of
-        ``shape`` and ``dtype`` (no copy; cached)."""
-        key = (tuple(shape), dtype)
+    def view(self, shape, dtype, offset=0):
+        """The bytes of this rank's staging from ``offset`` on as a
+        contiguous tensor of ``shape`` and ``dtype`` (no copy; cached)."""
+        key = (tuple(shape), dtype, offset)
         v = self._views.get(key)
         if v is None:
             numel = 1
             for s in shape:
                 numel *= s
             nbytes = numel * torch.empty((), dtype=dtype).element_size()
-            if nbytes > self.capacity:
-                raise ValueError(f"{nbytes:,} bytes do not fit the "
-                                 f"{self.capacity:,}-byte {self.purpose} "
-                                 f"staging")
-            v = self.staging[:nbytes].view(dtype).view(key[0])
+            if offset + nbytes > self.capacity:
+                raise ValueError(f"{nbytes:,} bytes at {offset:,} do not "
+                                 f"fit the {self.capacity:,}-byte "
+                                 f"{self.purpose} staging")
+            v = self.staging[offset:offset + nbytes].view(dtype).view(key[0])
             self._views[key] = v
         return v
 

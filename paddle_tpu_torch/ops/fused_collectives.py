@@ -46,36 +46,41 @@ Replaces three TPU kernels:
 
 The TPU kernels keep a rank's GEMM output block out of device memory
 between the epilogue and the transfer, and move it around a ring with
-in-kernel remote DMAs. On Hopper the GEMM's transfer is NCCL's
-all-gather outside the kernel (``torch.distributed``); the arithmetic is
-the hand-written GEMM of ``csrc/quant_gemm.cu`` (bf16 weights without a
-scale against bf16 or fp32 x, fp32 weights against fp32 x for an LM
-head passed at fp32; int8/fp8 weights with their scale), whose epilogue
-stores the block straight into this rank's slot of the gather buffer
-``[n * R, F/n]`` (concatenated along dim 0). The gather then runs in
-place on that buffer, so no copy is made between the GEMM and the
-collective, the property the TPU kernel has. The relayout of the
-gathered ``[n, R, F/n]`` to ``[R, F]`` (``transpose(1, 0, 2)`` in the
-reference too, :722) is PyTorch. ``fused_ag_bucket`` is row 11 above:
-the row is copied into the peer staging and one launch pulls every
-rank's.
+in-kernel remote DMAs. On Hopper rows 12-13 are two launches on the
+stream (three where the GEMM splits k): the hand-written GEMM of
+``csrc/quant_gemm.cu`` (row 3's kernels, the same bits: bf16 weights
+without a scale against bf16 or fp32 x, fp32 weights against fp32 x for
+an LM head passed at fp32, int8/fp8 weights with their scale), whose
+epilogue stores the block ``[R, F/n]`` straight into this rank's slot of
+the group's ``"gemm_ag"`` peer channel (two slots, by call parity;
+``distributed/peer.py``), then ``csrc/gemm_ag.cu``'s gather: one flag per
+rank and call published into every peer's signal pad, and the ``[R, F]``
+output copied from every rank's slot over NVLink, block p at columns
+``p F/n``. No NCCL or gloo collective, no host round trip and no relayout
+copy (the reference's ``transpose(1, 0, 2)``, :722). The serving engine
+opens the channel at build for its largest block
+(``reserve_gemm_ag``), so it never grows in mid-run. ``fused_ag_bucket``
+is row 11 above: the row is copied into the peer staging and one launch
+pulls every rank's.
 
 What bounds them on an H100: at decode (R = 8 rows) the GEMM reads its
 weight shard once (bytes: 2048 x 512 bf16 is 2.1 MB, 0.6 us at 3.35
-TB/s), and the all-gather moves R x F x (n - 1) / n elements per rank,
-a few KB: latency, not NVLink's 450 GB/s. Fusing the GEMM's epilogue
-with stores into the peers' buffers (the peer channels of rows 10-11)
-is later work (ROADMAP Queue A step 4).
+TB/s), and the gather receives R x F x (n - 1) / n elements per rank, a
+few KB: latency (the launch, one NVLink round trip for the flag, one for
+the loads), not NVLink's 450 GB/s.
 
 Beside each: the plain version (``gemm_ag_plain``, ``ag_bucket_plain``):
 the plain GEMM (``generation._matmul``, or the quantized GEMM's plain
 algebra) and an out-of-place all-gather of the blocks concatenated in
 rank order, ``gemm_ag_reference``'s algebra; the ring of blocking hops
-with each step's row copied into its slot. The wrappers take the plain
-version for CPU tensors only; for CUDA tensors they launch the kernel or
-raise. ``fused_gemm_ag.launches`` and ``fused_ag_bucket.launches`` count
-kernel launches (``fused_gemm_ag.shapes`` the same by shape,
-``fused_ag_bucket.shapes`` its calls by row length).
+with each step's row copied into its slot. ``gemm_ag_peer_plain`` is rows
+12-13's peer schedule in plain form over every rank's shard at once. The
+wrappers take the plain version for CPU tensors only; for CUDA tensors
+they launch the kernels or raise. ``fused_gemm_ag`` counts its calls
+(``.calls``), its kernel launches (``.launches``: the GEMM's one or two
+and the gather's) and its calls by shape (``.shapes``);
+``fused_ag_bucket`` its calls, launches (one a call) and calls by row
+length.
 """
 from __future__ import annotations
 
@@ -127,14 +132,17 @@ def _gather_cat(group, y):
     return torch.cat(group.all_gather_list(y.contiguous()), dim=-1)
 
 
+def _gemm_block(x, w, scale):
+    """This rank's block ``x @ w_r`` (times ``scale``) in plain ops."""
+    if scale is None:
+        return _proj(x, w.to(x.dtype))
+    return _qg.quant_gemm_plain(x, w, scale)
+
+
 def gemm_ag_plain(x, w, group, scale=None):
     """``x [..., K] @ w_r [K, F/n]`` (times ``scale`` [F/n] for an int8/fp8
     shard), every rank's block gathered along the last axis: [..., F]."""
-    if scale is None:
-        y = _proj(x, w.to(x.dtype))
-    else:
-        y = _qg.quant_gemm_plain(x, w, scale)
-    return _gather_cat(group, y)
+    return _gather_cat(group, _gemm_block(x, w, scale))
 
 
 def ag_bucket_plain(row, group):
@@ -192,32 +200,154 @@ def _check_gemm(x, w, scale):
         raise ValueError(f"fused GEMM + all-gather kernel: {why}")
 
 
+# ------------------------------------- GEMM + all-gather (rows 12-13)
+# rows 12-13's peer channel: this rank's GEMM block twice, by call parity
+GEMM_AG_CHANNEL = "gemm_ag"
+GEMM_AG_ALIGN = 256             # a slot starts on a multiple of this
+
+
+def gemm_ag_staging_bytes(blocks):
+    """The ``"gemm_ag"`` staging that holds the largest of ``blocks``
+    (``(rows, cols, itemsize)`` of the blocks a caller will gather) in
+    each of its two slots."""
+    most = max(R * F * size for R, F, size in blocks)
+    return 2 * (-(-most // GEMM_AG_ALIGN) * GEMM_AG_ALIGN)
+
+
+def gemm_ag_slot(capacity, call):
+    """(parity, byte offset) of the slot that call number ``call`` (1, 2,
+    ...) of a channel writes and reads in every rank's staging of
+    ``capacity`` bytes: slot ``call & 1``, half the staging (aligned down)
+    apart."""
+    par = call & 1
+    return par, par * (capacity // 2 // GEMM_AG_ALIGN * GEMM_AG_ALIGN)
+
+
+def gemm_ag_peer_plain(x, ws, rank, scales=None, calls=0, capacity=None):
+    """Rows 12-13's peer schedule in plain form over every rank's shard at
+    once (``ws[p]`` rank p's [K, F/n], ``scales[p]`` its scale or None),
+    for rank ``rank``'s call number ``calls + 1``: each rank's block is
+    stored, as bytes, into the slot of that call's parity in a staging of
+    ``capacity`` bytes (default: ``gemm_ag_staging_bytes`` of the block),
+    and the output's 16-byte units are copied out of the slots as the
+    gather kernel copies them, sources in the order rank + 1, rank + 2,
+    ..., block p at columns p F/n. The same bits as ``gemm_ag_plain``."""
+    n = len(ws)
+    scales = [None] * n if scales is None else scales
+    blocks = [_gemm_block(x, w, s) for w, s in zip(ws, scales)]
+    lead, Fl = blocks[0].shape[:-1], blocks[0].shape[-1]
+    rows = [b.reshape(-1, Fl).contiguous().view(torch.uint8) for b in blocks]
+    R, row_bytes = rows[0].shape
+    if capacity is None:
+        capacity = gemm_ag_staging_bytes([(R, row_bytes, 1)])
+    _, off = gemm_ag_slot(capacity, calls + 1)
+    staging = [torch.zeros(capacity, dtype=torch.uint8) for _ in range(n)]
+    for st, r in zip(staging, rows):
+        st[off:off + r.numel()] = r.reshape(-1)
+    out = torch.empty((R, n, row_bytes // 16, 16), dtype=torch.uint8)
+    for k in range(n):
+        src = (rank + 1 + k) % n
+        out[:, src] = staging[src][off:off + R * row_bytes].view(
+            R, row_bytes // 16, 16)
+    return out.view(-1).view(blocks[0].dtype).view(lead + (n * Fl,))
+
+
+def gemm_ag_exact(x, w, group, scale=None):
+    """Rows 12-13's result as row 3's kernel and an exact all-gather give
+    it on CUDA: this rank's ``gemm_into`` block into a buffer of its own,
+    every rank's gathered through the group and concatenated in rank
+    order. ``fused_gemm_ag`` must give these bits."""
+    K, Fl = w.shape
+    own = torch.empty((x.numel() // K, Fl), dtype=x.dtype, device=x.device)
+    _qg.gemm_into(x.reshape(-1, K), w, scale, own)
+    return _gather_cat(group, own).view(x.shape[:-1] + (group.n * Fl,))
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_ag_library():
+    lib = load_library("gemm_ag", "gemm_ag.cu")
+    p, i, ll, ull = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_ulonglong)
+    lib.gemm_ag_launch.argtypes = [p, p, i, i, i, i, ll, ll, i, p, p, p,
+                                   ull, ull, p]
+    lib.gemm_ag_launch.restype = i
+    lib.gemm_ag_error_string.argtypes = [i]
+    lib.gemm_ag_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_gemm_ag():
+    """Build (or load the cached builds of) rows 12-13's libraries now:
+    the GEMM's, the gather's and the peer-memory library."""
+    _peer.build()
+    _qg.build()
+    _gemm_ag_library()
+
+
+def reserve_gemm_ag(group, blocks):
+    """Open ``group``'s ``"gemm_ag"`` channel with room for the largest of
+    ``blocks`` (``(rows, cols, itemsize)``): collective, every rank at the
+    same call. A call whose block does not fit grows the channel
+    (collectively), so a caller that reserves its largest block up front
+    never tears the channel down in mid-run."""
+    return _peer.channel(group, GEMM_AG_CHANNEL, gemm_ag_staging_bytes(blocks))
+
+
 def fused_gemm_ag(x, w, group, scale=None):
     """Column-parallel projection ``x [..., K] @ w`` from this rank's column
     shard ``w_r [K, F/n]`` (bf16, fp32 against fp32 x; or int8/fp8 with
-    ``scale`` [F/n] fp32):
-    the kernel writes ``x @ w_r`` into this rank's slot of the gather
-    buffer, which is gathered in place; returns [..., F] in x's dtype, the
-    blocks in rank order. CPU tensors take ``gemm_ag_plain``."""
+    ``scale`` [F/n] fp32): returns [..., F] in x's dtype, the blocks in
+    rank order. CPU tensors take ``gemm_ag_plain``. A CUDA call launches
+    the GEMM into this rank's slot of the group's ``"gemm_ag"`` channel and
+    ``csrc/gemm_ag.cu``'s gather, or raises; it makes no collective call
+    of ``group`` or ``torch.distributed`` (only the channel's set-up, at
+    the group's first call unless ``reserve_gemm_ag`` made it). Collective:
+    every rank of ``group`` makes the same calls in the same order."""
     if x.device.type == "cpu":
         return gemm_ag_plain(x, w, group, scale)
     _check_gemm(x, w, scale)
+    why = _check_group(x, group, "x")
     lead = x.shape[:-1]
     K, Fl = w.shape
     x2 = x.reshape(-1, K)
     R = x2.shape[0]
-    n, r = group.n, group.rank
-    buf = torch.empty((n * R, Fl), dtype=x.dtype, device=x.device)
-    slot = buf[r * R:(r + 1) * R]
-    _qg.gemm_into(x2, w, scale, slot)
-    fused_gemm_ag.launches += 1
+    if R == 0:
+        why.append("x has no rows")
+    if why:
+        raise ValueError("fused GEMM + all-gather kernel: " + "; ".join(why))
+    row = 12 if scale is None else 13
+    n, rank = group.n, group.rank
+    _peer.raise_for(0, row, rank, None)        # an earlier kernel trapped
+    row_bytes = Fl * x.element_size()
+    ch = reserve_gemm_ag(group, [(R, row_bytes, 1)])
+    call = ch.calls + 1
+    par, off = gemm_ag_slot(ch.capacity, call)
+    stride = gemm_ag_slot(ch.capacity, 1)[1]      # slot 0 to slot 1
+    gemm_launches = _qg.gemm_into(x2, w, scale,
+                                  ch.view((R, Fl), x.dtype, off))
+    out = torch.empty((R, n * Fl), dtype=x.dtype, device=x.device)
+    lib = _gemm_ag_library()
+    with torch.cuda.device(x.device):
+        rc = lib.gemm_ag_launch(
+            ch.data, ch.pads, n, rank, row, R, row_bytes, stride, par,
+            out.data_ptr(), _peer.error_pointer(), ch.beats, ch.timeout_ns,
+            ch.backstop_ns, torch.cuda.current_stream(x.device).cuda_stream)
+    _peer.raise_for(rc, row, rank,
+                    lambda c: lib.gemm_ag_error_string(c).decode())
+    ch.calls = call
+    fused_gemm_ag.calls += 1
+    fused_gemm_ag.launches += gemm_launches + 1
     fused_gemm_ag.shapes[(R, K, Fl, str(w.dtype)[6:])] += 1
-    group.all_gather_into(buf, slot)
-    return buf.view(n, R, Fl).transpose(0, 1).reshape(lead + (n * Fl,))
+    return out.view(lead + (n * Fl,))
 
 
-fused_gemm_ag.launches = 0
-fused_gemm_ag.shapes = collections.Counter()
+def reset_gemm_ag_counts():
+    fused_gemm_ag.launches = 0
+    fused_gemm_ag.calls = 0
+    fused_gemm_ag.shapes = collections.Counter()
+
+
+reset_gemm_ag_counts()
 
 
 # ------------------------------------------------- all-gather (row 11)

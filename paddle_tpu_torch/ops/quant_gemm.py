@@ -27,8 +27,8 @@ plain version. ``quant_gemm.launches`` counts the kernel's launches and
 ``gemm_into`` is the library's launcher for both callers: this module's
 quantized GEMM and the tensor-parallel projections of
 ``ops/fused_collectives.py``, which also run bf16 (and, for an LM head
-passed at fp32, fp32) weights without a scale and store the block into a
-slot of their all-gather buffer. bf16 x runs the tensor-core kernel
+passed at fp32, fp32) weights without a scale and store the block into
+this rank's slot of their peer channel. bf16 x runs the tensor-core kernel
 (wgmma fed by TMA) at every row count, fp32 x the CUDA-core stream
 kernel; ``plan`` says which, per shape, once.
 """
@@ -225,7 +225,8 @@ def gemm_into(x2, w, scale, out):
     ``scale=None``; ``out`` an
     [R, F] view in x2's dtype whose rows may be strided (``out.stride(0)``
     >= F, unit column stride), written in place. The caller has checked
-    the operands; raises when the library refuses the launch."""
+    the operands; raises when the library refuses the launch. Returns the
+    kernel launches made: 1, or 2 for a k split (its reduce)."""
     lib = _library()
     R, K = x2.shape
     F = w.shape[1]
@@ -245,6 +246,7 @@ def gemm_into(x2, w, scale, out):
     if rc != 0:
         raise RuntimeError(f"quant GEMM kernel launch failed ({rc}): "
                            f"{lib.quant_gemm_error_string(rc).decode()}")
+    return 2 if splits > 1 else 1
 
 
 quant_gemm.launches = 0

@@ -61,11 +61,12 @@ from ..flags import get_flags
 from ..models.generation import _mask_logits, _sample
 from ..models.gpt import compute_dtype
 from ..models.params import cast_for_compute, layer_params
+from ..ops import fused_collectives as _fc
 from ..ops import quant_gemm as _qgemm
 from . import metrics
 from . import paged_decode
 from . import quant as _squant
-from .mp_forward import shard_serving_params
+from .mp_forward import gemm_ag_blocks, shard_serving_params
 from .paged_attention import new_pool, paged_forward
 from .paged_kv import PagedKVPool, pages_for
 from .request import (EXPIRED, FINISHED, LENGTH, QUEUED, RUNNING, STOP,
@@ -240,7 +241,13 @@ class Engine:
                 "out_w": blocks["out_w"].dtype,
                 "down_w": blocks["down_w"].dtype,
                 "head_w": self.params["head_w"].dtype})
-            _qgemm.build()
+            _fc.build_gemm_ag()
+            # rows 12-13's peer channel, sized for the largest block of a
+            # dispatch ([1, chunk] prefill or [slots, 1] decode), so that
+            # no call grows it in mid-run (collective: every rank builds)
+            _fc.reserve_gemm_ag(self.group, gemm_ag_blocks(
+                config, self.mp, max(self.prefill_chunk, self.num_slots),
+                self.num_slots, self._mp_cfg.shard_vocab))
         # zero-initialized: masked keys of unwritten pages are read as
         # 0 * V, which must stay finite
         shape = (config.num_layers, self.pool.num_pages, self.page_size,

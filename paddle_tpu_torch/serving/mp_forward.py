@@ -28,11 +28,15 @@ because only the movement of bytes differs (``ServingMPConfig.backend``):
   then one all-gather collective per gather;
 * ``ring``: the same GEMM, each gather as n - 1 point-to-point hops in
   the reference's block order (``_ring_ag_last``);
-* ``fused``: ``ops/fused_collectives.py``'s kernels, the GEMM's epilogue
-  storing into the gather buffer's slot (``fused_gemm_ag``), and the data
-  gathers through ``fused_ag_bucket`` (row 11: the row copied into this
-  rank's peer staging, one kernel launch pulling every rank's over
-  NVLink).
+* ``fused``: ``ops/fused_collectives.py``'s kernels: each projection's
+  GEMM stores its block into this rank's slot of the group's
+  ``"gemm_ag"`` peer channel and one gather launch copies every rank's
+  block over NVLink into the [..., F] result (``fused_gemm_ag``, rows
+  12-13: one flag per rank and call, no NCCL collective, no relayout);
+  the data gathers run through ``fused_ag_bucket`` (row 11: the row
+  copied into this rank's peer staging, one kernel launch pulling every
+  rank's over NVLink). The engine opens the ``"gemm_ag"`` channel at
+  build, sized by ``gemm_ag_blocks``.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ import torch.nn.functional as F
 
 from ..distributed.tp_overlap import qkv_head_major_perm, to_qkv_head_major
 from ..models.generation import _final_ln, _matmul, _proj
-from ..models.gpt import ln_fp32
+from ..models.gpt import compute_dtype, ln_fp32
 from ..models.params import cast_for_compute, layer_params
 from ..ops import fused_collectives as _fc
 from ..ops.quant_gemm import quant_gemm
@@ -93,6 +97,19 @@ def shard_serving_params(params, config, n, rank, shard_vocab, device=None,
     if params["head_w"].dtype == torch.bfloat16:
         out["head_w"] = out["head_w"].to(torch.bfloat16)
     return out
+
+
+def gemm_ag_blocks(config, n, rows, head_rows, shard_vocab):
+    """(rows, cols, itemsize) of the blocks the fused rung's GEMM +
+    all-gathers store on a rank of an n-rank group: the out and down
+    projections' [rows, H/n] in the compute dtype at a dispatch of up to
+    ``rows`` rows and, when the vocab is sharded, the LM head's
+    [head_rows, V/n] in fp32 (its x is the final LayerNorm's fp32)."""
+    size = torch.empty((), dtype=compute_dtype(config)).element_size()
+    blocks = [(rows, config.hidden_size // n, size)]
+    if shard_vocab:
+        blocks.append((head_rows, config.vocab_size // n, 4))
+    return blocks
 
 
 # ---------------------------------------------------------------------------

@@ -765,25 +765,11 @@ MP_DIRECT_SHAPE = (2048, 8192)
 
 
 class _StubGroup:
-    """A rank of an n-rank group without a process group: rank r's block
-    is this rank's times (r + 1), so every block differs and a block in
-    the wrong place shows."""
+    """A rank of an n-rank group without a process group, for the
+    refusals that come before any group or channel is reached."""
 
     def __init__(self, n, rank):
         self.n, self.rank = n, rank
-
-    def _block(self, inp, r):
-        return inp * (r + 1)
-
-    def all_gather_into(self, out, inp):
-        src = inp.clone()
-        rows = src.shape[0]
-        for r in range(self.n):
-            out[r * rows:(r + 1) * rows].copy_(self._block(src, r))
-        return out
-
-    def all_gather_list(self, inp):
-        return [self._block(inp, r) for r in range(self.n)]
 
 
 def _mp_weight(rng, K, F, w_dtype, device):
@@ -832,30 +818,27 @@ def test_fused_gemm_slot_matches_plain_on_card(cuda_device, w_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w_dtype", ["bf16", "int8", "fp8"])
-def test_fused_gemm_ag_wrapper_on_card(cuda_device, w_dtype):
-    """The wrapper: the kernel's block in the rank's slot, gathered (a stub
-    group here) and laid out as [R, n * F] in rank order; launches
-    counted; refusals for what the kernel does not take."""
+def test_fused_gemm_ag_wrapper_on_card(cuda_device, w_dtype, gemm_ag_runs):
+    """The wrapper on 2 and 4 ranks sharing the card (and on 4 cards where
+    the machine has them), each rank's shard its own: at the out shard of
+    mp = 4 the [R, n * F] result within the plain version's gates, bit
+    for bit the ranks' ``gemm_into`` blocks all-gathered in rank order;
+    refusals, before any channel opens, for what the kernel does not
+    take."""
     from paddle_tpu_torch.ops import fused_collectives as fc
+    for run, outs in gemm_ag_runs.items():
+        for o in outs:
+            got = [(case, ok) for case, _, ok in o["readings"]
+                   if case[0] in ("plain", "exact") and case[1] == w_dtype
+                   and case[2] == "out"]
+            assert len(got) == 10 and all(ok for _, ok in got), (run, got)
     rng = np.random.default_rng(13)
     K, F = MP_GEMM_SHAPES[0]
     w, s = _mp_weight(rng, K, F, w_dtype, cuda_device)
     x = torch.from_numpy(rng.standard_normal((2, 4, K)).astype(
         np.float32)).to(cuda_device, torch.bfloat16)
     group = _StubGroup(4, 1)
-    before = fc.fused_gemm_ag.launches
-    got = fc.fused_gemm_ag(x, w, group, s)
-    torch.cuda.synchronize()
-    assert fc.fused_gemm_ag.launches == before + 1
-    assert got.shape == (2, 4, 4 * F)
-    want = fc.gemm_ag_plain(x, w, group, s)
-    assert fc.within_tolerance(fc.error_vs_plain(got, want), torch.bfloat16)
-    # the [R, n * F] columns in rank order: block r is (r + 1) x the
-    # rank's own (rank 1's slot is the kernel's output, times 2)
-    own = got[..., F:2 * F] / 2
-    for r in range(4):
-        assert fc.within_tolerance(fc.error_vs_plain(
-            got[..., r * F:(r + 1) * F], own * (r + 1)), torch.bfloat16), r
+    before = (fc.fused_gemm_ag.calls, fc.fused_gemm_ag.launches)
     with pytest.raises(ValueError, match="not contiguous"):
         fc.fused_gemm_ag(x.transpose(0, 1), w, group, s)
     if s is None:
@@ -864,6 +847,7 @@ def test_fused_gemm_ag_wrapper_on_card(cuda_device, w_dtype):
     else:
         with pytest.raises(ValueError, match="needs a float32 scale"):
             fc.fused_gemm_ag(x, w, group, None)
+    assert (fc.fused_gemm_ag.calls, fc.fused_gemm_ag.launches) == before
 
 
 @pytest.mark.cuda
@@ -1050,10 +1034,9 @@ def test_pp_boundary_wrappers_refuse_what_the_kernels_do_not_take(
 @pytest.fixture(scope="module")
 def shared_rows(tmp_path_factory):
     """The peer-buffer card checks (``torch_dp_train_ranks.card_rows``:
-    row 8's, rows 7 and 9's, then rows 10-11's) on 2 and 4 gloo ranks
-    sharing the card
-    (the ``shared`` layout), one spawn per degree for all the tests
-    below: {n: the ranks' results}."""
+    row 8's, rows 7 and 9's, rows 12-13's, then rows 10-11's) on 2 and 4
+    gloo ranks sharing the card (the ``shared`` layout), one spawn per
+    degree for all the tests below: {n: the ranks' results}."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (hand-written kernel, no CPU mode)")
     import torch_dp_train_ranks as ranks
@@ -1062,6 +1045,7 @@ def shared_rows(tmp_path_factory):
     from paddle_tpu_torch.ops import ring_gemm
     fc.build_rs_bucket()         # once, here: the ranks only load them
     fc.build_ag_bucket()
+    fc.build_gemm_ag()
     ring_gemm.build()
     return {n: env.launch(n, ranks.card_rows, 6, layout="shared",
                           timeout_s=300,
@@ -1414,6 +1398,119 @@ def test_row7_gone_peer_leaves_a_filled_record_on_card(cuda_device,
     where = ("pull's wait for a peer's chunk" if rec["at_end"] == 1 else
              "GEMM's wait for a gathered chunk")
     assert f"row 7: rank 0's {where} at epoch 1" in got["next_call"]
+    assert "the process is gone" in got["next_call"]
+    assert outs[1:] == [{}]
+
+
+# ------------------------------------- rows 12-13 over the peer buffers
+@pytest.fixture(scope="module")
+def gemm_ag_runs(shared_rows, tmp_path_factory):
+    """Rows 12-13's card checks (``torch_mp_ranks.card_gemm_ag``) on 2 and
+    4 gloo ranks sharing the card (from the ``shared_rows`` spawns) and,
+    where the machine has 4 cards, on 4 NCCL ranks with a card each:
+    {(layout, n): the ranks' results}."""
+    import torch_mp_ranks as ranks
+    from paddle_tpu_torch.distributed import env
+    runs = {("shared", n): [o["gemm_ag"] for o in outs]
+            for n, outs in shared_rows.items()}
+    if torch.cuda.device_count() >= 4:
+        runs[("per_card", 4)] = env.launch(
+            4, ranks.card_gemm_ag, 10, layout="per_card", timeout_s=600,
+            init_dir=tmp_path_factory.mktemp("gemm_ag_per_card"))
+    return runs
+
+
+@pytest.mark.cuda
+def test_rows_12_13_match_plain_on_card(cuda_device, gemm_ag_runs):
+    """Every kind (bf16, int8, fp8 shards; an fp32 head shard) at every
+    ``GEMM_AG_CARD_CASES`` (ragged rows 1, 5 and 130, decode's 8, a full
+    chunk, the down shard, the head shard at fp32 x) on every layout the
+    machine has: within ``gemm_ag_plain``'s gates (error_vs_plain), the
+    calls and launches counted (the GEMM's one or two and the gather's a
+    call)."""
+    import torch_mp_ranks as ranks
+    n_cases = len(ranks.GEMM_AG_KINDS) * len(ranks.GEMM_AG_CARD_CASES) + 1
+    for run, outs in gemm_ag_runs.items():
+        for o in outs:
+            plain = [(case, r, ok) for case, r, ok in o["readings"]
+                     if case[0] == "plain"]
+            assert len(plain) == n_cases, run
+            assert all(ok for _, _, ok in plain), (run, plain)
+            assert o["counts"] == o["want_counts"], run
+
+
+@pytest.mark.cuda
+def test_rows_12_13_are_gemm_into_and_an_exact_all_gather_on_card(
+        cuda_device, gemm_ag_runs):
+    """Each case's result is bit for bit this rank's ``gemm_into`` block
+    (row 3's kernel into a buffer of its own) and every rank's, gathered
+    through the group in rank order: the same bytes on every rank."""
+    for run, outs in gemm_ag_runs.items():
+        for o in outs:
+            exact = [(case, ok) for case, _, ok in o["readings"]
+                     if case[0] == "exact"]
+            assert exact and all(ok for _, ok in exact), (run, exact)
+
+
+@pytest.mark.cuda
+def test_rows_12_13_back_to_back_calls_on_card(cuda_device, gemm_ag_runs):
+    """``GEMM_AG_REUSE_CALLS`` calls back to back on changing inputs, kinds
+    and shapes (the slots reused by call parity, no host synchronisation
+    between them), every collective of the group and of
+    ``torch.distributed`` made to raise: none is called, and each result
+    is bit for bit its ``gemm_into`` blocks all-gathered."""
+    import torch_mp_ranks as ranks
+    for run, outs in gemm_ag_runs.items():
+        for o in outs:
+            assert o["refused"] is None, (run, o["refused"])
+            reuse = [ok for case, _, ok in o["readings"]
+                     if case[0] == "reuse"]
+            assert reuse == [True] * ranks.GEMM_AG_REUSE_CALLS, (run, reuse)
+
+
+@pytest.mark.cuda
+def test_rows_12_13_wait_for_a_late_peer_on_card(cuda_device, gemm_ag_runs):
+    """With the channel's timeout shortened to 1.5 s the last rank sleeps
+    three timeouts before a call; the others' gathers wait for its block
+    (longer than two timeouts) without giving up, no rank's error record
+    is set, and every result is the same bits as the case's first call."""
+    import torch_mp_ranks as ranks
+    for run, outs in gemm_ag_runs.items():
+        n = len(outs)
+        assert [o["late"] for o in outs] == [False] * (n - 1) + [True]
+        for r, o in enumerate(outs):
+            assert o["code"] == 0, (run, r)
+            late = [ok for case, _, ok in o["readings"] if case[0] == "late"]
+            assert late == [True], (run, r)
+            if not o["late"]:
+                assert o["waited"] > 2 * ranks.GEMM_AG_LATE_TIMEOUT_S, \
+                    (run, r)
+
+
+@pytest.mark.cuda
+def test_row12_gone_peer_leaves_a_filled_record_on_card(cuda_device,
+                                                        tmp_path):
+    """Row 12 on two ranks sharing the card, called by rank 0 alone while
+    its peer's process ends a second after the group barrier: rank 0's
+    gather publishes its block, then its wait for the peer's block gives
+    up once the peer's heartbeat has stood still for the 2 s timeout,
+    fills the error record (code 1, row 12, rank 0, the gather's wait,
+    call 1, peer 1) and traps; synchronising raises and the next call
+    names it."""
+    import torch_mp_ranks as ranks
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    fc.build_gemm_ag()           # once, here: the ranks only load it
+    outs = env.launch(2, ranks.card_gemm_ag_gone_peer, 2.0, layout="shared",
+                      timeout_s=300, init_dir=tmp_path)
+    got = outs[0]
+    rec = got["record"]
+    assert got["raised"], got
+    assert rec["code"] == 1 and rec["row"] == 12 and rec["rank"] == 0, rec
+    assert rec["at_end"] == 0 and rec["epoch"] == 1 and rec["peer"] == 1, rec
+    assert got["seconds"] < 30, got
+    assert ("row 12: rank 0's gather's wait for a peer's block at epoch 1"
+            in got["next_call"])
     assert "the process is gone" in got["next_call"]
     assert outs[1:] == [{}]
 

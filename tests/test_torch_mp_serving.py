@@ -222,6 +222,87 @@ def test_gemm_ag_matches_reference_ring_rung(run, ref, name):
             _same_on_every_rank(outs, f"gemm_ag/{rung}/{name}"), got)
 
 
+@pytest.mark.parametrize("name", ["fp32/w", "int8/w", "fp8/w"])
+def test_gemm_ag_peer_plain_is_gemm_ag_plain_bit_for_bit(run, ref, name):
+    """Rows 12-13's peer schedule in plain form (every rank's block stored
+    into its slot of the call's parity, the output copied out of the
+    slots as the gather kernel copies them) on every rank and at both
+    parities: bit for bit the plain GEMM + all-gather, and so within
+    summation order of the reference's ring rung."""
+    n, outs = run
+    want = ref["ring"][(n, name)]
+    for o in outs:
+        for got in o[f"gemm_ag_peer_plain/{name}"]:
+            np.testing.assert_array_equal(got, o[f"gemm_ag_plain/{name}"])
+            np.testing.assert_allclose(got, want, rtol=SUM_TOL,
+                                       atol=SUM_TOL * np.abs(want).max())
+
+
+def test_gemm_ag_staging_holds_the_largest_block_twice():
+    """The ``"gemm_ag"`` channel's size: two slots of the largest block,
+    each rounded up to the slot alignment; at GPT-3 1.3B mp=4 (8 slots,
+    chunk 256) the fp32 head's [8, 12576] block is the largest."""
+    from paddle_tpu_torch.models import GPT_CONFIGS
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    from paddle_tpu_torch.serving import mp_forward
+    a = fc.GEMM_AG_ALIGN
+    assert fc.gemm_ag_staging_bytes([(1, a, 1)]) == 2 * a
+    assert fc.gemm_ag_staging_bytes([(1, a + 1, 1)]) == 4 * a
+    assert fc.gemm_ag_staging_bytes([(8, 512, 2), (3, 100, 4)]) == 16384
+    cfg = GPT_CONFIGS["gpt3-1.3B"]
+    blocks = mp_forward.gemm_ag_blocks(cfg, 4, 256, 8, True)
+    assert blocks == [(256, 512, 2), (8, 12576, 4)]
+    assert fc.gemm_ag_staging_bytes(blocks) == 2 * 8 * 12576 * 4
+    # a vocab that does not divide keeps the head out of the channel
+    assert mp_forward.gemm_ag_blocks(cfg, 4, 256, 8, False) == [
+        (256, 512, 2)]
+    assert mp_forward.gemm_ag_blocks(TCFG, 2, 8, 4, True) == [
+        (8, 32, 4), (4, 48, 4)]
+
+
+@pytest.mark.parametrize("call", [1, 2, 3, 4])
+def test_gemm_ag_slot_follows_the_call_parity(call):
+    """Call number e reads and writes slot e & 1, half the staging
+    (aligned down) past slot 0, the same offset in every rank's
+    staging."""
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    a = fc.GEMM_AG_ALIGN
+    for capacity, half in ((4 * a, 2 * a), (5 * a + 7, 2 * a),
+                           (4 * 2 ** 20, 2 * 2 ** 20)):
+        par, off = fc.gemm_ag_slot(capacity, call)
+        assert par == call % 2
+        assert off == par * half
+        assert off % a == 0 and off + half <= capacity
+
+
+@pytest.mark.parametrize("rank", [0, 1, 2, 3])
+def test_gemm_ag_peer_plain_puts_rank_p_block_at_columns_p(rank):
+    """Block p of the peer schedule's output is rank p's own GEMM block,
+    bit for bit, on every rank, at both parities, with the slots of a
+    staging just large enough and of one with room to spare; int8 shards
+    with their scales."""
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    from paddle_tpu_torch.serving.quant import _quantize_leaf
+    n, K, Fl = 4, 32, 16
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 3, K)).astype(np.float32))
+    full = [torch.from_numpy(rng.standard_normal((K, Fl)).astype(
+        np.float32)) for _ in range(n)]
+    for ws, ss in ((full, None),
+                   tuple(map(list, zip(*(_quantize_leaf(w, "int8")
+                                         for w in full))))):
+        want = [fc._gemm_block(x, w, None if ss is None else ss[p])
+                for p, w in enumerate(ws)]
+        for calls in (0, 1):
+            for capacity in (None, 3 * 2 ** 12 + 40):
+                got = fc.gemm_ag_peer_plain(x, ws, rank, ss, calls,
+                                            capacity)
+                assert got.shape == (2, 3, n * Fl)
+                for p in range(n):
+                    assert torch.equal(got[..., p * Fl:(p + 1) * Fl],
+                                       want[p]), (p, calls, capacity)
+
+
 @pytest.mark.parametrize("pinned", [False, True])
 @pytest.mark.parametrize("dtype", ["int8", "fp8"])
 def test_quantize_params_head_major_bitwise(inputs, dtype, pinned):

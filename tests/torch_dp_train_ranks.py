@@ -369,13 +369,15 @@ def card_late(group, seed):
 def card_rows(group, seed):
     """Every peer-buffer card check in one spawn: row 8's
     (``torch_tp_train_ranks.card_row8``), rows 7 and 9's (``card_ag``),
-    then rows 10-11's above: the rings, the back-to-back reuse, a late
-    peer, then the teardown (which must find the channels open and close
-    them)."""
+    rows 12-13's (``torch_mp_ranks.card_gemm_ag``), then rows 10-11's
+    above: the rings, the back-to-back reuse, a late peer, then the
+    teardown (which must find the channels open and close them)."""
+    import torch_mp_ranks as mp_ranks
     import torch_tp_train_ranks as tp_ranks
     from paddle_tpu_torch.distributed import peer
     out = {"row8": tp_ranks.card_row8(group, seed + 4),
-           "ag": tp_ranks.card_ag(group, seed + 5)}
+           "ag": tp_ranks.card_ag(group, seed + 5),
+           "gemm_ag": mp_ranks.card_gemm_ag(group, seed + 6)}
     out.update({"ring": card_ring(group, seed),
                 "ag_ring": card_ag_ring(group, seed),
                 "reuse": card_reuse(group, seed + 1),

@@ -51,6 +51,16 @@ def collectives(group, case):
         s_r = None if s is None else _cut(torch.from_numpy(s), group)
         out[f"gemm_ag_plain/{name}"] = fc.gemm_ag_plain(
             x, w_r, group, s_r).numpy()
+        # the peer schedule over every rank's shard, at both slot parities
+        Fl = w_r.shape[-1]
+        ws = [w[..., p * Fl:(p + 1) * Fl].contiguous()
+              for p in range(group.n)]
+        ss = None if s is None else [
+            torch.from_numpy(s[p * Fl:(p + 1) * Fl].copy())
+            for p in range(group.n)]
+        out[f"gemm_ag_peer_plain/{name}"] = [
+            fc.gemm_ag_peer_plain(x, ws, group.rank, ss, calls).numpy()
+            for calls in (0, 1)]
         for rung in RUNGS:
             out[f"gemm_ag/{rung}/{name}"] = mp_forward.gemm_ag(
                 x, w_r, group, rung, s_r).numpy()
@@ -214,3 +224,197 @@ def fail_on_rank1(group):
     if group.rank == 1:
         return 1 // 0
     return group.rank
+
+
+# ------------------------------------------- rows 12-13 on the card
+# (label, K, F/n, rows, x dtype) of the card checks: the 1.3B mp=4 out and
+# down shards at decode, ragged row counts (1, 5, 130) and a full chunk,
+# and the fp32 head shard at decode
+GEMM_AG_CARD_CASES = (
+    [("out", 2048, 512, R, "bfloat16") for R in (1, 5, 8, 130, 256)] +
+    [("down", 8192, 512, 8, "bfloat16"),
+     ("head", 2048, 12576, 8, "float32")])
+GEMM_AG_KINDS = ("bf16", "int8", "fp8")
+GEMM_AG_REUSE_CALLS = 8             # back to back, on changing inputs
+GEMM_AG_LATE_TIMEOUT_S = 1.5        # the late-peer check's timeout
+GEMM_AG_LATE_BY = 3.0               # how late its late rank is: timeouts
+GEMM_AG_DEAD_AFTER_S = 1.0          # the gone peer's life after the barrier
+
+
+def _card_weight(gen, dev, K, F, kind):
+    w = torch.randn(K, F, generator=gen, device=dev) * 0.02
+    if kind == "bf16":
+        return w.to(torch.bfloat16), None
+    if kind == "fp32":
+        return w, None
+    return squant._quantize_leaf(w, kind)
+
+
+class _NoCollective(RuntimeError):
+    pass
+
+
+def _forbid_collectives(group):
+    """Make every collective of ``group`` and of ``torch.distributed`` raise
+    until the returned function restores them."""
+    import torch.distributed as dist
+
+    def refuse(*_, **__):
+        raise _NoCollective("a collective was called")
+
+    names = ("all_gather_into", "all_gather_list", "barrier", "broadcast",
+             "ring_shift", "ring_shift_async", "all_reduce_")
+    saved = {n: getattr(group, n) for n in names if hasattr(group, n)}
+    for n in saved:
+        setattr(group, n, refuse)
+    dnames = ("all_gather_into_tensor", "all_gather", "all_gather_object",
+              "barrier", "broadcast", "all_reduce", "reduce_scatter_tensor",
+              "send", "recv", "isend", "irecv", "batch_isend_irecv")
+    dsaved = {n: getattr(dist, n) for n in dnames}
+    for n in dsaved:
+        setattr(dist, n, refuse)
+
+    def restore():
+        for n in saved:
+            delattr(group, n)
+        for n, f in dsaved.items():
+            setattr(dist, n, f)
+    return restore
+
+
+def card_gemm_ag(group, seed):
+    """Rows 12-13 (``fused_gemm_ag``: the GEMM into this rank's slot of the
+    ``"gemm_ag"`` channel, then ``csrc/gemm_ag.cu``'s gather) on the card,
+    x the same on every rank and each rank's shard its own, for every
+    kind at every ``GEMM_AG_CARD_CASES`` (and an fp32 head shard): against
+    ``gemm_ag_plain`` (``error_vs_plain``'s gates) and bit for bit against
+    ``gemm_ag_exact`` (``gemm_into`` + an exact all-gather);
+    ``GEMM_AG_REUSE_CALLS`` calls back to back on changing inputs with no
+    host synchronisation, with every
+    collective of the group and of ``torch.distributed`` made to raise;
+    a late peer: the last rank sleeps ``GEMM_AG_LATE_BY`` timeouts of
+    ``GEMM_AG_LATE_TIMEOUT_S`` before a call while the others wait for its
+    block. Returns the readings, (calls, launches) against the launches
+    the GEMM's plan implies, how long the late call took here and whether
+    this rank was the late one, and the error record's code."""
+    import time
+    from paddle_tpu_torch.distributed import peer
+    from paddle_tpu_torch.ops import quant_gemm as qg
+    dev, n = group.device, group.n
+    xgen = torch.Generator(device=dev).manual_seed(seed)
+    wgen = torch.Generator(device=dev).manual_seed(seed + 100 + group.rank)
+    fc.reserve_gemm_ag(group, [(R, F, 4) for _, _, F, R, _ in
+                               GEMM_AG_CARD_CASES])
+    fc.reset_gemm_ag_counts()
+    cases = [(kind,) + c for kind in GEMM_AG_KINDS
+             for c in GEMM_AG_CARD_CASES]
+    cases.append(("fp32",) + GEMM_AG_CARD_CASES[-1])
+    readings, inputs, first, want_launches = [], [], {}, 0
+    for kind, label, K, F, R, xdt in cases:
+        key = (kind, label, R)
+        w, s = _card_weight(wgen, dev, K, F, kind)
+        x = torch.randn(R, K, generator=xgen, device=dev).to(
+            getattr(torch, xdt))
+        got = fc.fused_gemm_ag(x, w, group, s)
+        torch.cuda.synchronize(dev)
+        r = fc.error_vs_plain(got, fc.gemm_ag_plain(x, w, group, s))
+        readings.append((("plain",) + key, r,
+                         fc.within_tolerance(r, x.dtype) and
+                         bool(torch.isfinite(got).all())))
+        exact = fc.gemm_ag_exact(x, w, group, s)
+        readings.append((("exact",) + key, None, bool(torch.equal(got,
+                                                                  exact))))
+        first[key] = got
+        inputs.append((key, x, w, s))
+        splits = qg.plan(R, K, F, w.dtype, x.dtype, dev.index)[2]
+        want_launches += 2 + (splits > 1)
+    # back to back on changing inputs, no collective allowed
+    order = [inputs[(3 * i) % len(inputs)]
+             for i in range(GEMM_AG_REUSE_CALLS)]
+    xs = [torch.randn(x.shape, generator=xgen, device=dev).to(x.dtype)
+          for _, x, _, _ in order]
+    torch.cuda.synchronize(dev)
+    restore = _forbid_collectives(group)
+    try:
+        outs = [fc.fused_gemm_ag(x, w, group, s)
+                for (_, _, w, s), x in zip(order, xs)]
+        torch.cuda.synchronize(dev)
+        refused = None
+    except _NoCollective as e:
+        outs, refused = [], str(e)
+    finally:
+        restore()
+    for i, ((key, _, w, s), x, got) in enumerate(zip(order, xs, outs)):
+        K = w.shape[0]
+        splits = qg.plan(x.shape[0], K, w.shape[1], w.dtype, x.dtype,
+                         dev.index)[2]
+        want_launches += 2 + (splits > 1)
+        exact = fc.gemm_ag_exact(x, w, group, s)
+        readings.append((("reuse", i) + key, None, bool(torch.equal(got,
+                                                                    exact))))
+    # a late peer
+    key, x, w, s = inputs[2]
+    ch = group.peer_channels[fc.GEMM_AG_CHANNEL]
+    before = ch.timeout_ns
+    ch.timeout_ns = int(GEMM_AG_LATE_TIMEOUT_S * 1e9)
+    group.barrier()
+    late = group.rank == n - 1
+    if late:
+        time.sleep(GEMM_AG_LATE_BY * GEMM_AG_LATE_TIMEOUT_S)
+    t0 = time.perf_counter()
+    got = fc.fused_gemm_ag(x, w, group, s)
+    torch.cuda.synchronize(dev)
+    waited = time.perf_counter() - t0
+    ch.timeout_ns = before
+    splits = qg.plan(x.shape[0], w.shape[0], w.shape[1], w.dtype, x.dtype,
+                     dev.index)[2]
+    want_launches += 2 + (splits > 1)
+    readings.append((("late",) + key, None, bool(torch.equal(got,
+                                                             first[key]))))
+    return {"readings": readings, "refused": refused,
+            "counts": (fc.fused_gemm_ag.calls, fc.fused_gemm_ag.launches),
+            "want_counts": (len(cases) + len(outs) + 1, want_launches),
+            "waited": waited, "late": late,
+            "code": peer.error_record()["code"]}
+
+
+def card_gemm_ag_gone_peer(group, timeout_s):
+    """Row 12 where rank 0 alone calls ``fused_gemm_ag`` and its peers'
+    processes end ``GEMM_AG_DEAD_AFTER_S`` after the group barrier, as a
+    crash would: rank 0's gather publishes its block, then its wait for a
+    peer's block gives up once the peer's heartbeat has stood still for
+    ``timeout_s``. Returns, on rank 0, what synchronising raised, the
+    error record, what the next call raised and how long the call took to
+    fail. Rank 0's CUDA context is lost, so no rank tears its channel or
+    heartbeat down."""
+    import time
+    from paddle_tpu_torch.distributed import env, peer
+    dev = group.device
+    x = torch.ones((8, 256), device=dev, dtype=torch.bfloat16)
+    w = torch.ones((256, 128), device=dev, dtype=torch.bfloat16)
+    fc.reserve_gemm_ag(group, [(8, 128, 2)])
+    fc.build_gemm_ag()
+    torch.cuda.synchronize(dev)
+    group.barrier()
+    if group.rank != 0:
+        time.sleep(GEMM_AG_DEAD_AFTER_S)
+        env.exit_rank({})
+    group.peer_channels[fc.GEMM_AG_CHANNEL].timeout_ns = int(timeout_s * 1e9)
+    out = {}
+    t0 = time.perf_counter()
+    fc.fused_gemm_ag(x, w, group)
+    try:
+        torch.cuda.synchronize(dev)
+        out["raised"] = None
+    except RuntimeError as e:
+        out["raised"] = str(e)
+    out["seconds"] = time.perf_counter() - t0
+    out["record"] = peer.error_record()
+    try:
+        fc.fused_gemm_ag(x, w, group)
+        out["next_call"] = None
+    except RuntimeError as e:
+        out["next_call"] = str(e)
+    group.peer_channels.clear()
+    group.peer_beat = None
+    return out
