@@ -7,6 +7,7 @@
     python3 chip_compare.py tp-turns PARENT_DIR
     python3 chip_compare.py pp-turns PARENT_DIR
     python3 chip_compare.py mp-serve-turns PARENT_DIR
+    python3 chip_compare.py flash-turns PARENT_DIR
 
 ``train-turns`` runs chip_smoke's one-card GPT-3 1.3B train step
 (``phase_train``, then ``phase_train_profile``); ``decode-turns`` the
@@ -29,7 +30,10 @@ rung (``phase_pp_train``: 2 + 5 steps at full depth, a card a stage);
 (``phase_mp_serve`` at bf16 in MP ranks, a card each where there are MP
 cards: the 16 requests, decode tokens/s and TTFT p50 / p99, then, with a
 card per rank, ``phase_profile``'s host ms of one [8, 1] decode boundary
-by function on rank 0), once both trees' serving kernels are built.
+by function on rank 0), once both trees' serving kernels are built;
+``flash-turns`` chip_smoke's ``phase_flash_timing`` (rows 4-6 without a
+bias or dropout at every training path's GPT shape, by CUDA-graph
+replay), once both trees' flash libraries are built.
 Each runs from the tree at PARENT_DIR (a ``git archive`` of another
 commit) and from
 this one, in turns (parent, this, this, parent), each in a process of
@@ -118,6 +122,16 @@ for quant in (None, "int8"):
     torch.cuda.empty_cache()
 """
 BUILD_RUN = "import chip_smoke as cs; cs.phase_build()"
+FLASH_BUILD = ("from paddle_tpu_torch.ops import flash_attention as fa; "
+               "fa.build()")
+FLASH_RUN = """
+import collections, torch
+import chip_smoke as cs
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+zero = collections.defaultdict(int)
+cs.phase_flash_timing(gen, dev, zero, zero)
+"""
 # a module of its own (spawned ranks import the module of their function)
 TP_RANK = """
 import torch
@@ -296,6 +310,9 @@ def main(argv):
             turns(argv[1], MP_SERVE_RUN, ("[mp-serve-bf16]",
                                           "[mp-profile-bf16]",
                                           "[mp-serve-turns]"), path=(tmp,))
+    elif argv[:1] == ["flash-turns"] and len(argv) == 2:
+        build_both(argv[1], FLASH_BUILD)
+        turns(argv[1], FLASH_RUN, ("[timing]",))
     elif argv[:1] == ["pp-turns"] and len(argv) == 2:
         with tempfile.TemporaryDirectory() as tmp:
             Path(tmp, "pp_turns_rank.py").write_text(PP_RANK)

@@ -162,6 +162,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (NCCL's with a card per rank; on one card a path check, not a
    speed).
 
+13. BERT-base pretraining (``BERT_CONFIGS["bert-base"]``: 12 x 768, 12
+   heads of 64, FFN 3072, vocab 30522; random weights from the seed
+   through ``framework.random``) through ``jit.TrainStep`` over
+   ``BertForPretraining.pretraining_loss`` under ``amp.decorate(level=
+   "O2", dtype="bfloat16")`` with AdamW(1e-4, global-norm clip 1.0) and
+   fp32 masters: one [32, 128] batch, 64-128 real tokens a row and the
+   rest padded (an additive [B, 1, 1, S] bias of -1e4), 15 % MLM targets,
+   NSP labels, dropout 0.1 (in the flash kernels for attention): 2
+   warm-up and 5 timed steps, every loss finite and the last below the
+   first, the flash forward, dQ and dK/dV kernels launched 12 times a
+   step each (their bias + dropout instances) and no SDPA call falling
+   back to the composed path; step time, sequences/s, tokens/s, MFU, peak
+   memory, a traced step's device ms by kind; one step of a 2-layer copy
+   through the kernels against ``FLAGS_use_flash_attention=False`` from
+   the same weights and generator state (the same masks): loss and every
+   gradient leaf within phase 6's gates, then 3 ``jit.TrainStep`` steps
+   of each route, every step's loss within phase 6's loss gate and every
+   fp32 master moved and written back to its bf16 param; rows 4-6 with the key-padding
+   bias and dropout against their plain versions at (32, 128, 12, 64) and
+   (8, 512, 12, 64), and their times beside the bound, the plain versions
+   and SDPA with the same float mask and dropout_p (rows of their own in
+   the kernels line, ``*_bias_dropout``).
+
 The lines before the last carry a ``{"kernels": [...]}`` JSON object and
 the card's name and power limit (nvidia-smi); the last line is
 ``{"ok": true, "device": {...}}``. Exits nonzero without printing a
@@ -187,13 +210,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch import cuda_build
+from paddle_tpu_torch import amp, cuda_build
 from paddle_tpu_torch.distributed import env, peer, tp_overlap
 from paddle_tpu_torch.distributed import grad_comm as gcomm
 from paddle_tpu_torch.distributed import pipeline as pl
 from paddle_tpu_torch.flags import set_flags
+from paddle_tpu_torch.framework import random as prandom
 from paddle_tpu_torch.jit import TrainStep
-from paddle_tpu_torch.models import (GPT_CONFIGS, GPTForCausalLM,
+from paddle_tpu_torch.models import (BERT_CONFIGS, GPT_CONFIGS,
+                                     BertForPretraining, GPTForCausalLM,
                                      HybridTrainStep, cast_for_compute,
                                      generate_from_params, gpt_loss_fn,
                                      init_gpt_params, layer_params_from_numpy,
@@ -204,9 +229,11 @@ from paddle_tpu_torch.models.gpt_hybrid import (flatten_params, gpt_loss,
 from paddle_tpu_torch.models.params import (layer_params, shard_params,
                                             stage_params)
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.nn import functional as pF
 from paddle_tpu_torch.observability import flops
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_collectives as fc
+from paddle_tpu_torch.ops import philox
 from paddle_tpu_torch.ops import pp_boundary as ppb
 from paddle_tpu_torch.ops import quant_gemm as qg
 from paddle_tpu_torch.ops import ring_gemm as rg
@@ -505,8 +532,10 @@ def phase_build():
                         r"flash_\w+_kernel")
     for name in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
         n = sum(f"{name}<" in fn for fn in flash or ())
-        check(flash is None or n == 4,
-              f"{name} has {n} instances in the SASS, not 4")
+        check(flash is None or n == 8,
+              f"{name} has {n} instances in the SASS, not 8 (head dims 64 "
+              f"and 128 x causal and not x with and without the bias and "
+              f"dropout)")
     tc = sass_counts(cuda_build.BUILD_INFO["quant_gemm"]["path"],
                      r"quant_gemm_tc_kernel")
     check(tc is None or len(tc) == 15,
@@ -1457,17 +1486,18 @@ def phase_train(seed, dev):
     return step, ids, counts, losses
 
 
-def phase_train_profile(step, ids):
-    """Where a train step's time goes: torch.profiler (device kernels)
-    over one step, the device's busy share of it, kernel rows grouped by
-    kind and the largest rows by name."""
-    step(ids)
+def trace_by_kind(run, tag):
+    """torch.profiler (device kernels) over one ``run()`` (a train step,
+    which reads its loss back): prints the host wall, the device's busy
+    share of it, kernel rows grouped by kind and the largest rows by
+    name. Returns the device-busy ms."""
+    run()
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA],
             acc_events=True) as prof:
         t0 = time.perf_counter()
-        float(step(ids))
+        run()
         traced = time.perf_counter() - t0
 
     def dev_us(e):
@@ -1487,13 +1517,20 @@ def phase_train_profile(step, ids):
         kind = next((k for k, pats in kinds.items()
                      if any(p in e.key for p in pats)), "other")
         by_kind[kind] += dev_us(e) / 1e3
-    print(f"[train-profile] one step: {traced * 1e3:.1f} ms host wall "
+    print(f"[{tag}] one step: {traced * 1e3:.1f} ms host wall "
           f"traced; device busy {busy:.1f} ms = {busy / (traced * 1e3):.1%}")
-    print(f"[train-profile] device ms by kind: "
+    print(f"[{tag}] device ms by kind: "
           f"{json.dumps({k: round(v, 3) for k, v in by_kind.items()})}")
     for e in events[:14]:
-        print(f"[train-profile]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} "
+        print(f"[{tag}]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} "
               f"calls  {e.key[:90]}")
+    return busy
+
+
+def phase_train_profile(step, ids):
+    """Where a train step's time goes: ``trace_by_kind`` over one step,
+    then the device time under each range of the step."""
+    busy = trace_by_kind(lambda: float(step(ids)), "train-profile")
     # device time under each record_function range of the step: a second
     # trace that also records host ops, so kernels nest under the ranges.
     # The backward (autograd's own thread) is what the ranges leave over.
@@ -1637,6 +1674,371 @@ def phase_flash_timing(gen, dev, errs, counts):
               f"{kernels_bwd:.4f} ms ({kernels_bwd / lib_bwd:.2f}x)")
     rows[2]["library_covers"] = "flash_dq+flash_dkv"
     return rows
+
+
+# -------------------------------------------------------- BERT pretraining
+BERT_MODEL = "bert-base"
+BERT_B, BERT_S = 32, 128    # README's BERT-base row (bs32, seq128)
+BERT_MIN_LEN = 64           # real tokens a row: 64-128, the rest padded
+BERT_MLM_RATE = 0.15
+BERT_LR = 1e-4
+BERT_PARITY_STEPS = 3       # TrainStep steps of the 2-layer parity copy
+BERT_FLASH_KERNELS = tuple((f"{name}_bias_dropout", wrapper, replaces)
+                           for name, wrapper, replaces in FLASH_KERNELS)
+# rows 4-6 with a key-padding bias and dropout against their plain
+# versions: BERT-base's attention (the main path's shape, first) and a
+# long-sequence batch of the same heads; non-causal
+BERT_FLASH_CASES = ((BERT_B, BERT_S, 12, 64), (8, 512, 12, 64))
+
+
+class BertPretrainingLoss(torch.nn.Module):
+    """The pretraining-loss adapter of tools_mfu_sweep.py's BERT case, for
+    ``jit.TrainStep``: the model's output is its fused MLM + NSP loss."""
+
+    def __init__(self, bert):
+        super().__init__()
+        self.bert = bert
+
+    def forward(self, ids, labels, types, mask, nsp):
+        return self.bert.pretraining_loss(ids, labels, types, mask, nsp)
+
+
+def bert_batch(cfg, seed, dev, B=BERT_B, S=BERT_S):
+    """One pretraining batch from the seed: ids with each row's last
+    S - length positions padded (0), lengths BERT_MIN_LEN..S; 15 % of the
+    real tokens as MLM targets (-100 elsewhere); token types 0 then 1 at
+    half the length; NSP labels."""
+    g = torch.Generator().manual_seed(seed + 11)
+    lengths = torch.randint(BERT_MIN_LEN, S + 1, (B,), generator=g)
+    real = torch.arange(S)[None, :] < lengths[:, None]
+    ids = torch.randint(1, cfg.vocab_size, (B, S), generator=g) * real
+    target = (torch.rand(B, S, generator=g) < BERT_MLM_RATE) & real
+    labels = torch.where(target, ids, -100)
+    types = (torch.arange(S)[None, :] >= lengths[:, None] // 2).long()
+    nsp = torch.randint(0, 2, (B,), generator=g)
+    return tuple(t.to(dev) for t in (ids, labels, types, real.long(), nsp))
+
+
+def bert_model(cfg, seed, dev):
+    """BertForPretraining with the port's init seeded through
+    framework.random, under amp.decorate O2 (bf16 params, fp32 masters)
+    with the tentpole's AdamW."""
+    prandom.seed(seed)
+    model = BertForPretraining(cfg)
+    opt = AdamW(BERT_LR, grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    return model.to(dev), opt
+
+
+def bert_counts():
+    return {f"{name}_bias_dropout": n for name, n in flash_counts().items()}
+
+
+def phase_bert_train(seed, dev):
+    """BERT-base pretraining through jit.TrainStep (amp O2, AdamW with
+    global-norm clip and fp32 masters, dropout 0.1 in the flash kernels
+    and the hidden layers): 2 warm-up and 5 timed steps on one padded
+    batch. Returns (step, batch, launch counts, losses)."""
+    cfg = BERT_CONFIGS[BERT_MODEL]
+    t0 = time.perf_counter()
+    model, opt = bert_model(cfg, seed, dev)
+    step = TrainStep(BertPretrainingLoss(model), lambda out: out, opt,
+                     device=dev)
+    batch = bert_batch(cfg, seed, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    print(f"[bert] {BERT_MODEL}: H={cfg.hidden_size} "
+          f"L={cfg.num_hidden_layers} heads={cfg.num_attention_heads} "
+          f"FFN={cfg.intermediate_size} V={cfg.vocab_size}, {n_params:,} "
+          f"params (amp O2: bf16, fp32 masters), AdamW({BERT_LR}, clip "
+          f"1.0), dropout {cfg.hidden_dropout_prob} / "
+          f"{cfg.attention_probs_dropout_prob}, batch [{BERT_B}, "
+          f"{BERT_S}] with {int(batch[3].sum())} real tokens, "
+          f"{int((batch[1] != -100).sum())} MLM targets; set up in "
+          f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts start at 0 here and are read right after
+    reset_flash_counts()
+    pF.scaled_dot_product_attention.fallbacks = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(WARMUP_STEPS):
+        losses.append(step(batch, ()))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED_STEPS):
+        losses.append(step(batch, ()))
+    stop.record()
+    last = float(losses[-1])                   # scalar read-back
+    step_s = start.elapsed_time(stop) / 1e3 / TIMED_STEPS
+    counts = bert_counts()
+    fallbacks = pF.scaled_dot_product_attention.fallbacks
+    losses = [float(x) for x in losses]
+    steps = WARMUP_STEPS + TIMED_STEPS
+    L = cfg.num_hidden_layers
+    want = {name: L * steps for name, _, _ in BERT_FLASH_KERNELS}
+    print(f"[bert] losses {[round(x, 4) for x in losses]}")
+    print(f"[bert] flash launches over {steps} steps: {counts} (want "
+          f"{want}: {L} / {L} / {L} a step, no remat); SDPA fallbacks "
+          f"{fallbacks} (want 0)")
+    check(all(np.isfinite(losses)), f"a BERT loss is not finite: {losses}")
+    check(last < losses[0], f"BERT loss did not fall on the same batch: "
+          f"{losses[0]:.4f} -> {last:.4f}")
+    check(counts == want and fallbacks == 0, "the BERT step did not run "
+          "the flash kernels the expected number of times")
+    tokens = BERT_B * BERT_S
+    fpt = flops.dense_flops_per_token(n_params) + \
+        flops.attention_flops_per_token(L, cfg.hidden_size, BERT_S)
+    peak = flops.peak_flops_bf16(torch.cuda.get_device_name(0))
+    stats = {"step_s": step_s, "sequences_per_s": BERT_B / step_s,
+             "tokens_per_s": tokens / step_s,
+             "mfu": flops.mfu(fpt * tokens, step_s, peak),
+             "flops_per_token": fpt, "n_params": n_params,
+             "warmup_s": warm, "first_loss": losses[0], "last_loss": last,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[bert] {json.dumps(stats)} (tokens count every position, "
+          f"padding included)")
+    return step, batch, counts, losses
+
+
+def phase_bert_parity(seed, dev):
+    """A 2-layer BERT-base copy through the flash kernels and through
+    FLAGS_use_flash_attention=False (the composed path), from the same
+    weights and generator state: the same hidden dropout masks and the
+    same Philox keys, so the composed path drops the same attention
+    probabilities. bf16 everywhere, P rounded to bf16 on both routes
+    after the same dropout: phase 6's gates. One step's loss and every
+    gradient leaf; then BERT_PARITY_STEPS jit.TrainStep steps of each
+    route with the tentpole's optimizer, each step's loss within
+    PARITY_LOSS_REL of the composed route's (an update that goes wrong on
+    the kernels' route parts them), and on both routes every fp32 master
+    moved off its start and every bf16 param its master rounded."""
+    cfg = dataclasses.replace(BERT_CONFIGS[BERT_MODEL], num_hidden_layers=2)
+    batch = bert_batch(cfg, seed + 1, dev)
+    runs = {}
+    try:
+        for use_flash in (True, False):
+            set_flags({"FLAGS_use_flash_attention": use_flash})
+            model, opt = bert_model(cfg, seed + 1, dev)
+            names = [n for n, _ in model.named_parameters()]
+            prandom.seed(seed + 2)
+            loss = model.pretraining_loss(*batch)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            step = TrainStep(BertPretrainingLoss(model), lambda out: out,
+                             opt, device=dev)
+            start = {n: p.detach().float().clone()
+                     for n, p in step.params.items()}
+            prandom.seed(seed + 3)
+            losses = [float(step(batch, ()))
+                      for _ in range(BERT_PARITY_STEPS)]
+            slots = step.opt_state["slots"]
+            still = [n for n in start
+                     if torch.equal(slots[n]["master"], start[n])]
+            unwritten = [n for n, p in step.params.items()
+                         if not torch.equal(p, slots[n]["master"].to(
+                             p.dtype))]
+            check(not still and not unwritten, f"BERT masters: not moved "
+                  f"{still}, not written back to the bf16 params "
+                  f"{unwritten}")
+            runs[use_flash] = (float(loss.detach()), grads, losses)
+            del model, opt, step, start, slots
+    finally:
+        set_flags({"FLAGS_use_flash_attention": True})
+    (lk, gk, tk), (lp, gp, tp) = runs[True], runs[False]
+    rel = {n: float((a.float() - b.float()).norm() /
+                    b.float().norm().clamp(min=1e-30))
+           for n, a, b in zip(names, gk, gp)}
+    # the key biases' gradient is zero in exact arithmetic (a constant on
+    # every score of a row): summation noise only, on both routes
+    rel = {n: v for n, v in rel.items() if not n.endswith("k_proj.bias")}
+    worst = max(rel, key=rel.get)
+    apart = [abs(a - b) / abs(b) for a, b in zip(tk, tp)]
+    print(f"[bert-parity] 2-layer {BERT_MODEL} width, [{BERT_B}, {BERT_S}] "
+          f"bf16, dropout 0.1: loss kernels {lk:.6f} vs composed "
+          f"{lp:.6f} (|diff| {abs(lk - lp):.2e}); gradient leaves: max "
+          f"||dg||/||g|| {rel[worst]:.3e} ({worst}), median "
+          f"{sorted(rel.values())[len(rel) // 2]:.3e} (gates: loss "
+          f"{PARITY_LOSS_REL} rel, leaves {PARITY_GRAD_REL})")
+    print(f"[bert-parity] {BERT_PARITY_STEPS} TrainStep steps (AdamW("
+          f"{BERT_LR}, clip 1.0), fp32 masters): kernels "
+          f"{[round(x, 6) for x in tk]}, composed "
+          f"{[round(x, 6) for x in tp]}, relative apart "
+          f"{[float(f'{x:.3e}') for x in apart]} (gate {PARITY_LOSS_REL} "
+          f"each); every master moved and written back on both routes")
+    check(np.isfinite(lk) and abs(lk - lp) <= PARITY_LOSS_REL * abs(lp),
+          "BERT loss through the kernels disagrees with the composed path")
+    check(all(np.isfinite(v) and v <= PARITY_GRAD_REL
+              for v in rel.values()),
+          f"a BERT gradient leaf disagrees with the composed path: {rel}")
+    check(all(np.isfinite(tk)) and max(apart) <= PARITY_LOSS_REL,
+          f"the BERT TrainStep trajectory through the kernels parts from "
+          f"the composed path's: {tk} vs {tp}")
+
+
+def bert_flash_inputs(gen, dev, B, S, nh, d):
+    """q, k, v, dO as flash_inputs gives them, and BERT's [B, 1, 1, S]
+    key-padding bias (-1e4 past each row's length, BERT_MIN_LEN..S)."""
+    q, k, v, do = flash_inputs(gen, dev, B, S, nh, d)
+    lengths = torch.randint(min(BERT_MIN_LEN, S), S + 1, (B,),
+                            generator=gen, device=dev)
+    real = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+    bias = torch.where(real, 0.0, -1e4)[:, None, None, :]
+    return q, k, v, do, bias
+
+
+def bert_flash_bound(kernel, B, S, nh, d):
+    """flash_bound of the non-causal call, plus the bias's bytes (read
+    once, S values a batch); the Philox bits are not counted."""
+    bound, by, nflops, nbytes = flash_bound(
+        kernel.removesuffix("_bias_dropout"), B, S, nh, d, False)
+    nbytes += B * S * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nflops / BF16_FLOPS * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", nflops, nbytes)
+
+
+def library_ms(fwd, fwd_bwd):
+    """SDPA's forward and backward (forward + backward less forward) ms
+    by CUDA-graph replay, or by eager CUDA events (said so) where a graph
+    cannot capture its dropout."""
+    try:
+        lib_fwd = graph_ms(fwd, iters=10)
+        return lib_fwd, graph_ms(fwd_bwd, iters=10) - lib_fwd
+    except RuntimeError as e:
+        print(f"[bert-timing] SDPA with dropout did not capture in a CUDA "
+              f"graph ({str(e)[:200]}); timed eagerly instead")
+        torch.cuda.synchronize()
+        lib_fwd = cuda_ms(fwd, iters=20)
+        return lib_fwd, cuda_ms(fwd_bwd, iters=20) - lib_fwd
+
+
+def phase_bert_flash(gen, dev, counts):
+    """Rows 4-6 with the key-padding bias and dropout 0.1 against their
+    plain versions (error_vs_plain's gates, the same key) at each of
+    BERT_FLASH_CASES, then their device times by CUDA-graph replay in
+    turns (plain, kernel, kernel, plain) beside SDPA's with the same
+    float attn_mask and dropout_p, and the bound. Returns the kernels
+    line's rows (the first case's)."""
+    p, key = BERT_CONFIGS[BERT_MODEL].attention_probs_dropout_prob, 0xB5E7
+    rows, worst = [], {name: 0.0 for name, _, _ in BERT_FLASH_KERNELS}
+    for B, S, nh, d in BERT_FLASH_CASES:
+        q, k, v, do, bias = bert_flash_inputs(gen, dev, B, S, nh, d)
+        feats = dict(bias=bias, dropout_p=p, key=key)
+        o, lse = fa.flash_forward(q, k, v, False, **feats)
+        delta = fa.attention_delta(o, do)
+        dq = fa.flash_dq(q, k, v, do, lse, delta, False, **feats)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, False, **feats)
+        torch.cuda.synchronize()
+        o_p, lse_p = fa.flash_forward_plain(q, k, v, False, **feats)
+        dq_p = fa.flash_dq_plain(q, k, v, do, lse_p, delta, False, **feats)
+        dk_p, dv_p = fa.flash_dkv_plain(q, k, v, do, lse_p, delta, False,
+                                        **feats)
+        case = f"B={B} S={S} nh={nh} d={d} bf16 full, pad bias, p={p}"
+        failed = []
+        for key_, got, want, kernel in (
+                ("o", o, o_p, 0), ("dq", dq, dq_p, 1), ("dk", dk, dk_p, 2),
+                ("dv", dv, dv_p, 2)):
+            name = BERT_FLASH_KERNELS[kernel][0]
+            r = fa.error_vs_plain(got, want)
+            worst[name] = max(worst[name], r["max_abs"])
+            print(f"[bert-flash] {case} {key_}: max abs {r['max_abs']:.2e} "
+                  f"(max |plain| {float(want.abs().max()):.2e}), worst tile "
+                  f"rel L2 {r['tile_rel_l2']:.2e} (gate {fa.TILE_REL}), "
+                  f"worst element {r['element']:.3f} of its allowance")
+            if not (bool(torch.isfinite(got).all())
+                    and fa.within_tolerance(r)):
+                failed.append(key_)
+        lse_err = float((lse - lse_p).abs().max())
+        print(f"[bert-flash] {case} lse: max abs {lse_err:.2e}")
+        if not torch.allclose(lse, lse_p, atol=fa.LSE_TOL, rtol=fa.LSE_TOL):
+            failed.append("lse")
+        check(not failed, f"flash {', '.join(failed)} with bias and dropout "
+              f"disagree with the plain versions at {case}")
+        del o_p, dq_p, dk_p, dv_p
+        calls = {
+            "fwd": (lambda: fa.flash_forward(q, k, v, False, **feats),
+                    lambda: fa.flash_forward_plain(q, k, v, False, **feats)),
+            "dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, False,
+                                       **feats),
+                   lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, False,
+                                             **feats)),
+            "dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, False,
+                                         **feats),
+                    lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta,
+                                               False, **feats)),
+        }
+        qh, kh, vh, doh = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
+        leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+        mask = bias.to(torch.bfloat16)
+
+        def sdpa_fwd():
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                           dropout_p=p)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                 dropout_p=p)
+            torch.autograd.grad(out, leaves, doh)
+
+        lib_fwd, lib_bwd = library_ms(sdpa_fwd, sdpa_fwd_bwd)
+        library = {"fwd": lib_fwd, "dq": None, "dkv": lib_bwd}
+        ms = {}
+        for (name, _, replaces), (short, (kernel, plain)) in zip(
+                BERT_FLASH_KERNELS, calls.items()):
+            p1 = graph_ms(plain, iters=2, replays=3)
+            k1 = graph_ms(kernel, iters=10)
+            k2 = graph_ms(kernel, iters=10)
+            p2 = graph_ms(plain, iters=2, replays=3)
+            ms[short] = min(k1, k2)
+            bound, bound_by, nflops, nbytes = bert_flash_bound(name, B, S,
+                                                               nh, d)
+            lib = library[short]
+            vs_lib = f", SDPA {lib:.4f} ms" if lib is not None else ""
+            print(f"[bert-timing] {name} B={B} S={S} nh={nh} d={d} bf16 "
+                  f"full, pad bias, p={p}, device time (CUDA graph replay): "
+                  f"kernel {k1:.4f}/{k2:.4f} ms = "
+                  f"{nflops / ms[short] / 1e9:.1f} TFLOP/s, plain "
+                  f"{p1:.4f}/{p2:.4f} ms{vs_lib}, bound {bound:.4f} ms "
+                  f"({bound_by}: {nflops:.3e} flops, {nbytes / 1e6:.1f} MB)"
+                  f" -> {bound / ms[short]:.1%} of bound")
+            if (B, S, nh, d) == BERT_FLASH_CASES[0]:
+                rows.append({"name": name, "route": "cuda",
+                             "source": FLASH_SOURCES[
+                                 name.removesuffix("_bias_dropout")],
+                             "replaces": replaces, "launches": counts[name],
+                             "max_abs_err": None, "ms": ms[short],
+                             "plain_ms": min(p1, p2), "bound_ms": bound,
+                             "bound_by": bound_by, "library_ms": lib})
+        bwd = ms["dq"] + ms["dkv"]
+        print(f"[bert-timing] SDPA (B={B} S={S}; library yardstick with the "
+              f"same bf16 attn_mask and dropout_p, not used by the port): "
+              f"forward {lib_fwd:.4f} ms against the forward kernel's "
+              f"{ms['fwd']:.4f} ms ({ms['fwd'] / lib_fwd:.2f}x); backward "
+              f"{lib_bwd:.4f} ms against dQ + dK/dV {bwd:.4f} ms "
+              f"({bwd / lib_bwd:.2f}x)")
+        del q, k, v, do, bias, o, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+    for row in rows:
+        row["max_abs_err"] = worst[row["name"]]
+    rows[2]["library_covers"] = "flash_dq_bias_dropout+flash_dkv_bias_dropout"
+    return rows
+
+
+def phase_bert(seed, gen, dev):
+    """The BERT phase: training steps (and a traced step), the 2-layer
+    parity step, rows 4-6 with the bias and dropout. Returns the kernels
+    line's rows."""
+    step, batch, counts, _ = phase_bert_train(seed, dev)
+    trace_by_kind(lambda: float(step(batch, ())), "bert-profile")
+    del step, batch
+    torch.cuda.empty_cache()
+    phase_bert_parity(seed, dev)
+    torch.cuda.empty_cache()
+    return phase_bert_flash(gen, dev, counts)
 
 
 # -------------------------------------------------- tensor-parallel serving
@@ -3928,6 +4330,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
         rows = [row] + quant_rows + phase_flash_timing(gen, dev, flash_errs,
                                                        counts)
+        torch.cuda.empty_cache()
+    with phase_clock("13 bert"):
+        rows += phase_bert(args.seed, gen, dev)
         torch.cuda.empty_cache()
     with phase_clock("10 mp training"):
         tp_r0, tp_layout = phase_tp(args.seed)

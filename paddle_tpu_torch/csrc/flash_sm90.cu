@@ -5,16 +5,28 @@
 //   flash_attention.py:_fwd_kernel  (pallas_call at :280) -> flash_fwd_kernel
 //   flash_attention_bwd.py:_dq_kernel  (pallas_call at :286) -> flash_dq_kernel
 //   flash_attention_bwd.py:_dkv_kernel (pallas_call at :300) -> flash_dkv_kernel
-// in their causal and non-causal forms (no bias, segment ids or dropout).
-// For each batch b and head h, with s = q.k * scale:
+// in their causal and non-causal forms, with or without an additive bias
+// and dropout (segment ids are not ported). For each batch b and head h,
+// with s = q.k * scale (+ bias[b, h, i, j]), keep the dropout mask
+// (csrc/philox.cuh) and r = 1 / (1 - p):
 //
-//   forward  O = softmax(s) V, LSE = logsumexp(s) (natural log, masked keys
-//            excluded)
-//   dQ       P = exp(s - LSE), dP = dO V^T, dS = P (dP - delta) scale,
-//            dQ = dS K
-//   dK, dV   P and dS as for dQ, dV = P^T dO, dK = dS^T Q
+//   forward  P = softmax(s), O = (keep r P) V, LSE = logsumexp(s) (natural
+//            log, masked keys excluded; the row sum is taken before
+//            dropout)
+//   dQ       P = exp(s - LSE), dP = keep r (dO V^T), dS = P (dP - delta)
+//            scale, dQ = dS K
+//   dK, dV   P and dS as for dQ, dV = (keep r P)^T dO, dK = dS^T Q
 //            (delta = rowsum(dO o O), computed beside the kernels in
 //            PyTorch)
+//
+// The bias and dropout live in instances of their own (template flag
+// kExtra), so the instances without them compile as before. The bias is
+// fp32 and read by plain loads through its four element strides (a
+// broadcast dimension at stride 0: BERT's [B, 1, 1, S] key-padding bias
+// costs S values a batch), never at a row or key at or past S. A row
+// whose every score is at most -5e29 (a bool mask's -1e30 over the whole
+// row) gets O = 0 and LSE = +1e30, so that the backward's P underflows to
+// 0, as the reference's kernel does. The bias gets no gradient.
 //
 // q, k, v and dO are read in their [B, S, H, D] layout through a TMA tensor
 // map per operand (4-D, innermost first: D, H, S, B, with the caller's byte
@@ -122,6 +134,7 @@
 #ifdef FLASH_SM90_STUCK
 #define SM90_WAIT_TIMEOUT_NS 1000000000ull
 #endif
+#include "philox.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -143,6 +156,32 @@ constexpr int kDkvBq = 64;        // q rows per dK/dV loop step
 constexpr int kDqBq = 128;        // q rows per dQ block
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+// a row whose largest score (log2 units) is at or below this is fully
+// masked (the reference's m <= 0.5 * -1e30, flash_attention.py:148)
+constexpr float kMaskedRowLog2 = -0.5e30f * kLog2e;
+constexpr float kMaskedLse = 1e30f;
+
+// The features of the kExtra instances: an additive fp32 bias read
+// through its element strides (0 on a broadcast dimension; nullptr: no
+// bias) and dropout.
+struct Extra {
+  const float* bias;
+  long long sb, sh, si, sj;
+  int dropout;
+  philox::Dropout drop;
+};
+
+// bias[b, h] of a kExtra instance, or nullptr
+__device__ __forceinline__ const float* bias_of(const Extra& ex, int b,
+                                                int h) {
+  return ex.bias ? ex.bias + b * ex.sb + h * ex.sh : nullptr;
+}
+
+// bias[i, j] of one (b, h) in log2 units, 0 past S
+__device__ __forceinline__ float bias_log2(const Extra& ex, const float* bb,
+                                           int i, int j, int S) {
+  return i < S && j < S ? __ldg(bb + i * ex.si + j * ex.sj) * kLog2e : 0.f;
+}
 // Arrivals that complete a stage's full barrier: the loads' one. A test
 // build (-DFLASH_SM90_STUCK) expects one more, which never comes, so every
 // kernel's first wait on a stage times out after 1 s and leaves its record
@@ -271,13 +310,14 @@ struct FwdSmem {
 };
 
 // barriers: 0 Q full; 1 + s stage s full; 1 + kStages + s stage s empty
-template <int D, bool kCausal>
+template <int D, bool kCausal, bool kExtra>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int S, int H, float scale_log2, WaitRecord* rec) {
+                 int S, int H, float scale_log2, WaitRecord* rec,
+                 const Extra ex) {
   using L = FwdSmem<D>;
   constexpr int BQ = kFwdBq, BK = kFwdBk, ND = D / kBoxCols;
   extern __shared__ uint8_t smem[];
@@ -333,6 +373,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
   const uint32_t q_lo = desc_lo(base + L::kQ + wg * 64 * kRowBytes);
+  const float* bb = kExtra ? bias_of(ex, b, h) : nullptr;
 
   if (wg == 1) turn_pass(wg);            // warpgroup 0 takes the first turn
   w.wait(0, 0, -1);
@@ -360,25 +401,42 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(sc);
 
     // the row max of the raw scores (the scale is positive), then P =
-    // exp2(s scale_log2 - max scale_log2) in one FMA and one exp2
+    // exp2(s scale_log2 - max scale_log2) in one FMA and one exp2; with
+    // kExtra the scores first become s scale_log2 + bias log2e
     const int key0 = it * BK;
     const bool masked = it == n_tiles - 1 && (kCausal || S % BK != 0);
     float mx[2] = {-INFINITY, -INFINITY};
+    if constexpr (kExtra) {
 #pragma unroll
-    for (int n = 0; n < 16; ++n)
+      for (int n = 0; n < 16; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (masked) {
+        for (int e = 0; e < 4; ++e) {
           const int col = key0 + 8 * n + 2 * t + (e & 1);
-          if (col >= S || (kCausal && col > row[e >> 1]))
+          sc[4 * n + e] = bb ? fmaf(sc[4 * n + e], scale_log2,
+                                    bias_log2(ex, bb, row[e >> 1], col, S))
+                             : sc[4 * n + e] * scale_log2;
+          if (masked && (col >= S || (kCausal && col > row[e >> 1])))
             sc[4 * n + e] = -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * n + e]);
         }
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * n + e]);
-      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (masked) {
+            const int col = key0 + 8 * n + 2 * t + (e & 1);
+            if (col >= S || (kCausal && col > row[e >> 1]))
+              sc[4 * n + e] = -INFINITY;
+          }
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * n + e]);
+        }
+    }
     float mu[2], corr[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]) * scale_log2);
+      const float m_new =
+          fmaxf(m[i], kExtra ? quad_max(mx[i]) : quad_max(mx[i]) * scale_log2);
       mu[i] = m_new == -INFINITY ? 0.f : m_new;       // row without keys yet
       corr[i] = exp2f(m[i] - mu[i]);
       m[i] = m_new;
@@ -388,12 +446,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     for (int n = 0; n < 16; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(fmaf(sc[4 * n + e], scale_log2, -mu[e >> 1]));
+        const float p =
+            kExtra ? exp2f(sc[4 * n + e] - mu[e >> 1])
+                   : exp2f(fmaf(sc[4 * n + e], scale_log2, -mu[e >> 1]));
         sc[4 * n + e] = p;
         rs[e >> 1] += p;
       }
     l[0] = l[0] * corr[0] + rs[0];      // per-lane partial sums; the four
     l[1] = l[1] * corr[1] + rs[1];      // lanes of a row are summed at the end
+    if constexpr (kExtra) {             // O takes keep r P; l took P
+      if (ex.dropout) {
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+          const uint32_t kb = philox::keep4<true>(ex.drop, bh, row[0],
+                                                  key0 + 8 * n + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * n + e] = kb >> e & 1 ? sc[4 * n + e] * ex.drop.inv_keep
+                                        : 0.f;
+        }
+      }
+    }
 #pragma unroll
     for (int c = 0; c < ND; ++c)
 #pragma unroll
@@ -427,7 +500,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float lsum = quad_sum(l[i]);
-    const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+    // a fully masked row (kExtra): O = 0, LSE = +1e30
+    const bool dead = kExtra && m[i] <= kMaskedRowLog2;
+    const float inv = lsum > 0.f && !dead ? 1.f / lsum : 0.f;
     if (row[i] < S) {
 #pragma unroll
       for (int c = 0; c < ND; ++c)
@@ -439,7 +514,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                         acc[c][4 * n + 2 * i + 1] * inv);
       if (t == 0)
         lse[static_cast<long long>(bh) * S + row[i]] =
-            lsum > 0.f ? (m[i] + log2f(lsum)) * kLn2 : INFINITY;
+            dead ? kMaskedLse
+                 : lsum > 0.f ? (m[i] + log2f(lsum)) * kLn2 : INFINITY;
     }
   }
 }
@@ -465,7 +541,7 @@ struct DkvSmem {
 };
 
 // barriers: 0 K and V full; 1 + s stage s full; 1 + kDkvStages + s empty
-template <int D, bool kCausal>
+template <int D, bool kCausal, bool kExtra>
 __global__ void __launch_bounds__(kDkvThreads, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
@@ -475,7 +551,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                  const float* __restrict__ delta,
                  __nv_bfloat16* __restrict__ dk,
                  __nv_bfloat16* __restrict__ dv, int S, int H, float scale,
-                 float scale_log2, WaitRecord* rec) {
+                 float scale_log2, WaitRecord* rec, const Extra ex) {
   using L = DkvSmem<D>;
   constexpr int BK = kDkvBk, BQ = kDkvBq, ND = D / kBoxCols;
   constexpr int ST = kDkvStages;
@@ -529,6 +605,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 32; ++i) dka[c][i] = dva[c][i] = 0.f;
   const uint32_t k_lo = desc_lo(base + L::kK + wg * 64 * kRowBytes);
   const uint32_t v_lo = desc_lo(base + L::kV + wg * 64 * kRowBytes);
+  const float* bb = kExtra ? bias_of(ex, b, h) : nullptr;
 
   w.wait(0, 0, -1);
   for (int it = 0; it < n_tiles; ++it) {
@@ -583,15 +660,48 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = 2 * n + (e & 1);    // column 8n + 2t + (e & 1)
-        float p = exp2f(st[4 * n + e] * scale_log2 - lse2[i]);
+        float p;
+        if constexpr (kExtra) {
+          const int r = q0 + 8 * n + 2 * t + (e & 1);
+          const float x = bb ? fmaf(st[4 * n + e], scale_log2,
+                                    bias_log2(ex, bb, r, key[e >> 1], S))
+                             : st[4 * n + e] * scale_log2;
+          p = exp2f(x - lse2[i]);
+        } else {
+          p = exp2f(st[4 * n + e] * scale_log2 - lse2[i]);
+        }
         if (masked) {
           const int r = q0 + 8 * n + 2 * t + (e & 1);
           p = r < S && (!kCausal || key[e >> 1] <= r) ? p : 0.f;
         }
         st[4 * n + e] = p;                            // P^T
       }
+    // the dropout's keep bits of this thread's 32 elements (bit 4n + e):
+    // dV takes keep r P^T, dS the dropped dP^T
+    uint32_t keep = ~0u;
+    if constexpr (kExtra) {
+      if (ex.dropout) {
+        keep = 0;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          keep |= philox::keep4<false>(ex.drop, bh, key[0],
+                                       q0 + 8 * n + 2 * t) << (4 * n);
+      }
+    }
     uint32_t pa[4][4];
-    acc_to_a<8>(pa, st);
+    if (kExtra && ex.dropout) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int x = 8 * j + 2 * i;
+          pa[j][i] = pack_bf16(
+              keep >> x & 1 ? st[x] * ex.drop.inv_keep : 0.f,
+              keep >> (x + 1) & 1 ? st[x + 1] * ex.drop.inv_keep : 0.f);
+        }
+    } else {
+      acc_to_a<8>(pa, st);
+    }
 
     // dV += P^T dO (dO read MN-major), beside dP^T
     wgmma_fence();
@@ -605,13 +715,17 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<1>();                      // dP^T is in; dV may still run
     fence_regs(dpt);
 
-    // dS^T = P^T (dP^T - delta) scale, from the fp32 P^T
+    // dS^T = P^T (dP^T - delta) scale, from the fp32 P^T (dP^T dropped
+    // as P^T was for dV)
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dpt[4 * n + e] = st[4 * n + e] *
-                         (dpt[4 * n + e] - dlt[2 * n + (e & 1)]) * scale;
+      for (int e = 0; e < 4; ++e) {
+        float dpv = dpt[4 * n + e];
+        if (kExtra && ex.dropout)
+          dpv = keep >> (4 * n + e) & 1 ? dpv * ex.drop.inv_keep : 0.f;
+        dpt[4 * n + e] = st[4 * n + e] * (dpv - dlt[2 * n + (e & 1)]) * scale;
+      }
     uint32_t da[4][4];
     acc_to_a<8>(da, dpt);
 
@@ -674,7 +788,7 @@ struct DqSmem {
 };
 
 // barriers: 0 Q and dO full; 1 + s stage s full; 1 + kDqStages + s empty
-template <int D, bool kCausal>
+template <int D, bool kCausal, bool kExtra>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
@@ -683,7 +797,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta,
                 __nv_bfloat16* __restrict__ dq, int S, int H, float scale,
-                float scale_log2, WaitRecord* rec) {
+                float scale_log2, WaitRecord* rec, const Extra ex) {
   using L = DqSmem<D>;
   constexpr int BQ = kDqBq, BK = kDqBk, ND = D / kBoxCols;
   constexpr int ST = kDqStages;
@@ -752,6 +866,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
   const uint32_t q_lo = desc_lo(base + L::kQ + wg * 64 * kRowBytes);
   const uint32_t do_lo = desc_lo(base + L::kDo + wg * 64 * kRowBytes);
+  const float* bb = kExtra ? bias_of(ex, b, h) : nullptr;
 
   w.wait(0, 0, -1);
   for (int it = 0; it < n_tiles; ++it) {
@@ -794,7 +909,16 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
     for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float p = exp2f(fmaf(sc[4 * n + e], scale_log2, -lse2[e >> 1]));
+        float p;
+        if constexpr (kExtra) {
+          const int col = key0 + 8 * n + 2 * t + (e & 1);
+          p = exp2f((bb ? fmaf(sc[4 * n + e], scale_log2,
+                               bias_log2(ex, bb, row[e >> 1], col, S))
+                        : sc[4 * n + e] * scale_log2) -
+                    lse2[e >> 1]);
+        } else {
+          p = exp2f(fmaf(sc[4 * n + e], scale_log2, -lse2[e >> 1]));
+        }
         if (masked) {
           const int col = key0 + 8 * n + 2 * t + (e & 1);
           if (col >= S || (kCausal && col > row[e >> 1])) p = 0.f;
@@ -803,6 +927,19 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
       }
     wgmma_wait<0>();                      // dP is in
     fence_regs(dp);
+    if constexpr (kExtra) {               // dP = keep r (dO V^T)
+      if (ex.dropout) {
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+          const uint32_t kb = philox::keep4<true>(ex.drop, bh, row[0],
+                                                  key0 + 8 * n + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * n + e] = kb >> e & 1 ? dp[4 * n + e] * ex.drop.inv_keep
+                                        : 0.f;
+        }
+      }
+    }
 
     // dS = P (dP - delta) scale, rounded into A fragments
 #pragma unroll
@@ -874,13 +1011,13 @@ int encode(CUtensorMap* map, const long long* a, const void* ptr, int rows) {
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 
-template <int D, bool C>
+template <int D, bool C, bool X>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int S, int H, const long long* maps, float scale,
-        cudaStream_t stream) {
+        const Extra& ex, cudaStream_t stream) {
   static unsigned ready = 0;
   constexpr int smem = FwdSmem<D>::kBytes;
-  auto kernel = flash_fwd_kernel<D, C>;
+  auto kernel = flash_fwd_kernel<D, C, X>;
   cudaError_t err = allow_smem(kernel, smem, &ready);
   if (err != cudaSuccess) return err;
   WaitRecord* rec = nullptr;
@@ -894,18 +1031,18 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   const dim3 grid((S + kFwdBq - 1) / kFwdBq, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      S, H, scale * kLog2e, rec);
+      S, H, scale * kLog2e, rec, ex);
   return cudaGetLastError();
 }
 
-template <int D, bool C>
+template <int D, bool C, bool X>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dkp, void* dvp, int B,
-        int S, int H, const long long* maps, float scale,
+        int S, int H, const long long* maps, float scale, const Extra& ex,
         cudaStream_t stream) {
   static unsigned ready = 0;
   constexpr int smem = DkvSmem<D>::kBytes;
-  auto kernel = flash_dkv_kernel<D, C>;
+  auto kernel = flash_dkv_kernel<D, C, X>;
   cudaError_t err = allow_smem(kernel, smem, &ready);
   if (err != cudaSuccess) return err;
   WaitRecord* rec = nullptr;
@@ -921,17 +1058,19 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   kernel<<<grid, kDkvThreads, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dkp),
-      static_cast<__nv_bfloat16*>(dvp), S, H, scale, scale * kLog2e, rec);
+      static_cast<__nv_bfloat16*>(dvp), S, H, scale, scale * kLog2e, rec,
+      ex);
   return cudaGetLastError();
 }
 
-template <int D, bool C>
+template <int D, bool C, bool X>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dqp, int B, int S, int H,
-       const long long* maps, float scale, cudaStream_t stream) {
+       const long long* maps, float scale, const Extra& ex,
+       cudaStream_t stream) {
   static unsigned ready = 0;
   constexpr int smem = DqSmem<D>::kBytes;
-  auto kernel = flash_dq_kernel<D, C>;
+  auto kernel = flash_dq_kernel<D, C, X>;
   cudaError_t err = allow_smem(kernel, smem, &ready);
   if (err != cudaSuccess) return err;
   WaitRecord* rec = nullptr;
@@ -947,35 +1086,70 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
   kernel<<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dqp), S,
-      H, scale, scale * kLog2e, rec);
+      H, scale, scale * kLog2e, rec, ex);
   return cudaGetLastError();
 }
 
-// Calls FN<D, causal>(args...) for the runtime D and causal.
-#define FLASH_DISPATCH(FN, ...)                                 \
-  do {                                                          \
-    if (head_dim == 64 && causal) return FN<64, true>(__VA_ARGS__);   \
-    if (head_dim == 64 && !causal) return FN<64, false>(__VA_ARGS__); \
-    if (head_dim == 128 && causal) return FN<128, true>(__VA_ARGS__); \
-    if (head_dim == 128 && !causal)                             \
-      return FN<128, false>(__VA_ARGS__);                       \
-    return kErrHeadDim;                                         \
+// Calls FN<D, causal, extra>(args...) for the runtime D, causal and
+// whether the call has a bias or dropout.
+#define FLASH_DISPATCH_X(FN, X, ...)                                    \
+  do {                                                                  \
+    if (head_dim == 64 && causal) return FN<64, true, X>(__VA_ARGS__);   \
+    if (head_dim == 64 && !causal) return FN<64, false, X>(__VA_ARGS__); \
+    if (head_dim == 128 && causal) return FN<128, true, X>(__VA_ARGS__); \
+    if (head_dim == 128 && !causal)                                     \
+      return FN<128, false, X>(__VA_ARGS__);                            \
+    return kErrHeadDim;                                                 \
   } while (0)
+#define FLASH_DISPATCH(FN, ...)                                         \
+  do {                                                                  \
+    const Extra ex = extra(bias, bias_strides, dropout, thr, key,       \
+                           inv_keep);                                   \
+    if (ex.bias || ex.dropout) FLASH_DISPATCH_X(FN, true, __VA_ARGS__, ex, s); \
+    FLASH_DISPATCH_X(FN, false, __VA_ARGS__, ex, s);                    \
+  } while (0)
+
+// The kExtra features of a call: bias (nullptr: none) with its element
+// strides of b, h, query and key; dropout with its threshold, 64-bit key
+// and 1 / (1 - p).
+Extra extra(const void* bias, const long long* strides, int dropout,
+            unsigned thr, unsigned long long key, float inv_keep) {
+  Extra ex{};
+  ex.bias = static_cast<const float*>(bias);
+  if (bias) {
+    ex.sb = strides[0];
+    ex.sh = strides[1];
+    ex.si = strides[2];
+    ex.sj = strides[3];
+  }
+  ex.dropout = dropout;
+  ex.drop = philox::Dropout{static_cast<uint32_t>(key),
+                            static_cast<uint32_t>(key >> 32), thr, inv_keep};
+  return ex;
+}
 
 }  // namespace
 
 // Operands are bfloat16 [B, S, H, D]; lse and delta fp32 [B*H, S],
 // contiguous. maps: kMapArgs values per operand in argument order (q, k,
 // v, and for dK/dV dout), from ops/flash_attention.py:tensor_map_args.
-// Each returns 0, a cudaError_t code, or one of the negative codes above.
+// bias: nullptr or fp32, read at bias_strides' element strides of (b, h,
+// query, key); dropout (0 or 1) with thr = floor(p 2^32), the 64-bit
+// Philox key and inv_keep = 1 / (1 - p) (ops/philox.py). Each returns 0,
+// a cudaError_t code, or one of the negative codes above.
+#define FLASH_EXTRA_ARGS                                                \
+  const void *bias, const long long *bias_strides, int dropout,         \
+      unsigned thr, unsigned long long key, float inv_keep
+
 extern "C" int flash_sm90_fwd_launch(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int B, int S, int H, int head_dim,
                                      int causal, const long long* maps,
-                                     float scale, void* stream) {
+                                     float scale, FLASH_EXTRA_ARGS,
+                                     void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(fwd, q, k, v, o, lse, B, S, H, maps, scale, s);
+  FLASH_DISPATCH(fwd, q, k, v, o, lse, B, S, H, maps, scale);
 }
 
 extern "C" int flash_sm90_dkv_launch(const void* q, const void* k,
@@ -984,11 +1158,11 @@ extern "C" int flash_sm90_dkv_launch(const void* q, const void* k,
                                      void* dkp, void* dvp, int B, int S,
                                      int H, int head_dim, int causal,
                                      const long long* maps, float scale,
-                                     void* stream) {
+                                     FLASH_EXTRA_ARGS, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(dkv, q, k, v, dout, lse, delta, dkp, dvp, B, S, H, maps,
-                 scale, s);
+                 scale);
 }
 
 extern "C" int flash_sm90_dq_launch(const void* q, const void* k,
@@ -997,10 +1171,10 @@ extern "C" int flash_sm90_dq_launch(const void* q, const void* k,
                                     void* dqp, int B, int S, int H,
                                     int head_dim, int causal,
                                     const long long* maps, float scale,
-                                    void* stream) {
+                                    FLASH_EXTRA_ARGS, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dqp, B, S, H, maps, scale, s);
+  FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dqp, B, S, H, maps, scale);
 }
 
 // The timeout record's 8 ints (code, row, block x, block y, warp, barrier,

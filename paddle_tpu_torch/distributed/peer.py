@@ -65,15 +65,20 @@ ranks share a card): that peer is gone. A live peer is waited for up to
 on the device after writing who waited for whom into a pinned, mapped
 error record; ``raise_for`` turns that into a RuntimeError naming the row,
 the rank and the epoch. A rank that fails stops its heartbeat
-(``stop_heartbeat``: ``raise_for`` and ``env.launch``'s ranks call it), so
-its peers give up on it after their timeout; a rank that fails elsewhere
-and lingers alive without stopping it holds its peers up to the backstop.
+(``stop_heartbeat``: ``raise_for`` and ``env.launch``'s ranks call it, and
+so do the ``sys.excepthook`` and ``threading.excepthook`` that the first
+heartbeat of a process installs, chained to the hooks before them), so
+its peers give up on it after their timeout, also when an uncaught
+exception leaves the process lingering (a non-daemon thread keeps it
+alive) instead of at the backstop.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import os
+import sys
+import threading
 import uuid
 
 import torch
@@ -159,6 +164,30 @@ def error_record():
 
 
 _beating = False                    # a heartbeat segment was mapped here
+_hooked = False                     # the exception hooks are installed
+
+
+def _hook_uncaught_exceptions():
+    """Make an uncaught exception, in the main thread or any other, stop
+    this process's heartbeat before the hook that was there reports it:
+    the process may linger (a non-daemon thread keeps it alive), and its
+    peers must not wait for it until the backstop. Once a process."""
+    global _hooked
+    if _hooked:
+        return
+    prev_sys, prev_thread = sys.excepthook, threading.excepthook
+
+    def sys_hook(tp, value, tb):
+        stop_heartbeat()
+        prev_sys(tp, value, tb)
+
+    def thread_hook(args):
+        stop_heartbeat()
+        prev_thread(args)
+
+    sys.excepthook = sys_hook
+    threading.excepthook = thread_hook
+    _hooked = True
 
 
 def stop_heartbeat():
@@ -247,6 +276,7 @@ class _Heartbeat:
             if name is not None:
                 lib.peer_beat_unlink(name.encode())
         _beating = True
+        _hook_uncaught_exceptions()
 
     def _open(self, name, create):
         host, dev = ctypes.c_void_p(), ctypes.c_void_p()

@@ -14,6 +14,13 @@ module):
   block's qkv, out, up and down projections) and recomputes everything
   else, attention included.
 
+Under both checkpointing policies the recompute draws what the forward
+drew: ``torch.utils.checkpoint`` keeps only torch's default generators,
+so ``_replaying_rng`` takes ``framework.random``'s generators' states
+(hidden dropout's masks, attention dropout's Philox keys) before the
+forward, puts them back for the recompute and then restores where the
+run stood.
+
 The presets ``"dots"`` and ``"save_attn"`` keep other residuals in the
 reference; they are not ported yet and raise ``NotImplementedError``
 naming their ROADMAP item.
@@ -26,6 +33,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..framework import random
+
 UNPORTED = ("dots", "save_attn")
 
 # the ops whose outputs "dots_no_batch" saves: matrix products without
@@ -33,9 +42,29 @@ UNPORTED = ("dots", "save_attn")
 NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
+def _replaying_rng(fn):
+    """``fn`` whose later calls (the recomputes) draw from
+    ``framework.random`` what its first call (the forward) drew, leaving
+    the generators where they stood before each recompute."""
+    before = random.state_dict()
+    ran = []
+
+    def body(*args):
+        if not ran:
+            ran.append(True)
+            return fn(*args)
+        now = random.state_dict()
+        random.set_state_dict(before)
+        try:
+            return fn(*args)
+        finally:
+            random.set_state_dict(now)
+    return body
+
+
 def _full(fn):
     def run(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(_replaying_rng(fn), *args, use_reentrant=False)
     return run
 
 
@@ -54,7 +83,7 @@ def _dots_no_batch(fn):
                                 _no_batch_dots)
 
     def run(*args):
-        return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(_replaying_rng(fn), *args, use_reentrant=False,
                           context_fn=context)
     return run
 

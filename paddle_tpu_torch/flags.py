@@ -9,6 +9,9 @@ for an unported feature cannot be set and silently ignored.
 from __future__ import annotations
 
 _FLAGS = {
+    # Route nn.functional.scaled_dot_product_attention through the flash
+    # kernels (off: the composed path).
+    "FLAGS_use_flash_attention": True,
     # Decode slots: the fixed batch of the fused [B, 1] decode dispatch.
     "FLAGS_serving_slots": 8,
     # Sequence capacity per slot; 0 = the model's max_seq_len.

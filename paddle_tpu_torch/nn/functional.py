@@ -1,15 +1,33 @@
 """The functionals the eager layers and losses use (counterpart of
-``paddle_tpu/nn/functional/common.py``, ``norm.py`` and ``loss.py``), in
-the reference's cast order.
+``paddle_tpu/nn/functional/common.py``, ``norm.py``, ``loss.py``,
+``activation.py`` and ``attention.py``), in the reference's cast order.
 
 ``linear`` keeps the reference's weight layout ``[in, out]`` and casts the
 weight (and the bias) to the input's dtype before the product; it runs as
 one 2-D ``torch.mm`` over the input's rows, the product the ``dots_no_batch``
 remat preset saves (``distributed/recompute.py``).
+
+``scaled_dot_product_attention`` runs the flash kernels
+(``ops/flash_attention.py``, with the mask as an additive bias and
+in-kernel dropout), or the composed ``_sdpa_reference`` when
+``FLAGS_use_flash_attention`` is off: that flag is the one way to take the
+composed route. A CUDA call the kernels cannot take
+(``flash_unsupported_reason``) is counted in
+``scaled_dot_product_attention.fallbacks`` and raises with its reason, as
+every other wrapper of the port does. Both routes draw the dropout's Philox key from ``framework.random`` and drop
+the same (query, key) pairs (``ops/philox.py``), so a step through either
+from the same generator state sees the same masks. ``dropout`` (hidden
+dropout: no kernel in the reference either) draws ``bernoulli_`` from the
+tensor's device generator of ``framework.random``.
 """
 from __future__ import annotations
 
 import torch
+
+from ..flags import get_flags
+from ..framework import random
+from ..ops import flash_attention as fa
+from ..ops import philox
 
 
 def linear(x, weight, bias=None):
@@ -45,3 +63,120 @@ def cross_entropy(input, label, ignore_index=-100):
 def mse_loss(input, label):
     """Mean of ``(input - label) ** 2``."""
     return (input - label).square().mean()
+
+
+def dropout(x, p=0.5, training=True):
+    """Upscale-in-train dropout: ``x / (1 - p)`` where kept, 0 elsewhere
+    (reference nn/functional/common.py:29-44), the keep mask drawn by
+    ``bernoulli_`` from x's device generator."""
+    if not training or not p:
+        return x
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        1.0 - p, generator=random.generator(x.device)).bool()
+    return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+
+
+def gelu(x, approximate=False):
+    """GELU, exact (erf) unless ``approximate`` (reference
+    nn/functional/activation.py:31)."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+# ---------------------------------------------------------------- attention
+def _mask_to_bias(mask):
+    """A paddle-style attn_mask (bool keep-mask or additive float, any
+    broadcastable rank) as an additive fp32 bias of rank 4: a bool mask's
+    masked entries become -1e30 (reference nn/functional/attention.py:
+    41-51)."""
+    m = mask
+    if m.dtype == torch.bool:
+        m = torch.where(m, 0.0, -1e30).to(torch.float32)
+    else:
+        m = m.float()
+    while m.dim() < 4:
+        m = m.unsqueeze(0)
+    return m
+
+
+def _sdpa_probs(q, k, mask=None, causal=False, scale=None):
+    """fp32 softmax probabilities [B, H, Sq, Sk] of q, k [B, S, H, D]."""
+    s = q.shape[-1] ** -0.5 if scale is None else scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * s
+    if causal:
+        qlen, klen = logits.shape[-2:]
+        cm = torch.ones(qlen, klen, dtype=torch.bool,
+                        device=q.device).tril(klen - qlen)
+        logits = torch.where(cm, logits, -1e30)
+    if mask is not None:
+        logits = logits + _mask_to_bias(mask)
+    return torch.softmax(logits, dim=-1)
+
+
+def _sdpa_reference(q, k, v, mask=None, causal=False, scale=None,
+                    dropout_p=0.0, key=None):
+    """The composed path, q, k, v [B, S, H, D]; dropout drops what the
+    flash kernels would under the same Philox ``key``."""
+    probs = _sdpa_probs(q, k, mask=mask, causal=causal, scale=scale)
+    if dropout_p > 0.0 and key is not None:
+        B, H, Sq, Sk = probs.shape
+        keep = philox.keep_mask(B, H, Sq, Sk, dropout_p, key,
+                                device=probs.device)
+        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def flash_unsupported_reason(q, k):
+    """Why the flash path cannot take attention of q, k [B, S, H, D]
+    (the port's counterpart of the reference's ``flash_supported``), or
+    None. On CPU tensors the flash wrappers run their plain versions,
+    which take any case; on CUDA the kernels take bfloat16, head dims 64
+    and 128 and equal q and key lengths."""
+    if q.device.type != "cuda":
+        return None
+    reasons = []
+    why = fa.unsupported_reason(q.shape[-1], q.dtype)
+    if why:
+        reasons.append(why)
+    if k.dtype != q.dtype:
+        reasons.append(f"k is {k.dtype}, q {q.dtype}")
+    if k.shape[1] != q.shape[1]:
+        reasons.append(f"q length {q.shape[1]} != key length {k.shape[1]}")
+    return "; ".join(reasons) or None
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None):
+    """Attention of [batch, seq, heads, head_dim] tensors (reference
+    nn/functional/attention.py:63-96): the flash kernels with the mask as
+    an additive bias and in-kernel dropout, or the composed path when
+    ``FLAGS_use_flash_attention`` is off. A CUDA call the kernels cannot
+    take is counted in ``.fallbacks`` and raises; so does a kernel that
+    fails to build or launch."""
+    p = float(dropout_p) if training else 0.0
+    pkey = random.philox_key() if p > 0.0 else None
+    if get_flags("FLAGS_use_flash_attention")["FLAGS_use_flash_attention"]:
+        why = flash_unsupported_reason(query, key)
+        if why is not None:
+            scaled_dot_product_attention.fallbacks += 1
+            raise NotImplementedError(
+                f"the flash attention kernels cannot take this call: {why}; "
+                f"set FLAGS_use_flash_attention=False to run the composed "
+                f"path")
+        bias = None if attn_mask is None else _mask_to_bias(attn_mask)
+        return fa.flash_attention_bshd(query, key, value, is_causal,
+                                       bias, None, p, pkey)
+    return _sdpa_reference(query, key, value, mask=attn_mask,
+                           causal=is_causal, dropout_p=p, key=pkey)
+
+
+scaled_dot_product_attention.fallbacks = 0

@@ -4,10 +4,12 @@ part that ``jit.TrainStep`` and the eager GPT use, as ``torch.nn.Module``s
 with the reference's parameter names, shapes ([in, out] for a linear
 weight) and cast order.
 
-Initial values come from torch's generator with the reference's recipes
-(Xavier-uniform linear weights and zero biases, Xavier-normal embeddings,
-ones / zeros LayerNorms); the tests hand the reference's values over as
-numpy arrays (``models.params.layer_params_from_numpy``).
+Initial values come from the seeded generators of ``framework.random``
+with the reference's recipes (``nn/initializer.py``: Xavier-uniform linear
+weights and zero biases unless a ``weight_attr`` / ``bias_attr`` names
+another, Xavier-normal embeddings, ones / zeros LayerNorms); the tests
+hand the reference's values over as numpy arrays
+(``models.params.layer_params_from_numpy``).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from torch import nn
 
 from . import functional as F
+from .initializer import XavierNormal, create_parameter
 
 # torch's container and activation are the reference's (names "0", "1",
 # ..., no parameters of their own)
@@ -47,12 +50,13 @@ class Linear(nn.Module):
     """``x @ weight + bias`` with weight [in_features, out_features];
     ``bias_attr=False`` drops the bias."""
 
-    def __init__(self, in_features, out_features, bias_attr=None):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(in_features, out_features))
-        nn.init.xavier_uniform_(self.weight)
-        self.bias = None if bias_attr is False else nn.Parameter(
-            torch.zeros(out_features))
+        self.weight = create_parameter((in_features, out_features),
+                                       weight_attr)
+        self.bias = create_parameter((out_features,), bias_attr,
+                                     is_bias=True)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -74,30 +78,26 @@ class LayerNorm(nn.Module):
 class Embedding(nn.Module):
     """Rows of weight [num_embeddings, embedding_dim] at integer ids."""
 
-    def __init__(self, num_embeddings, embedding_dim):
+    def __init__(self, num_embeddings, embedding_dim, weight_attr=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(num_embeddings,
-                                               embedding_dim))
-        nn.init.xavier_normal_(self.weight)
+        self.weight = create_parameter((num_embeddings, embedding_dim),
+                                       weight_attr,
+                                       default_initializer=XavierNormal())
 
     def forward(self, ids):
         return torch.nn.functional.embedding(ids, self.weight)
 
 
 class Dropout(nn.Module):
-    """Identity at ``p=0``; a positive rate in training raises: dropout
-    with its Philox masks is ROADMAP Queue B 4 / Queue A item 14."""
+    """Upscale-in-train dropout at rate ``p`` (``functional.dropout``, the
+    mask from ``framework.random``); the identity in eval or at p=0."""
 
     def __init__(self, p=0.5):
         super().__init__()
         self.p = float(p)
 
     def forward(self, x):
-        if self.p and self.training:
-            raise NotImplementedError(
-                "Dropout(p > 0) in training is not ported yet (ROADMAP "
-                "Queue B 4, Queue A item 14); use p=0")
-        return x
+        return F.dropout(x, self.p, self.training)
 
 
 class MSELoss(nn.Module):

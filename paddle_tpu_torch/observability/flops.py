@@ -32,8 +32,20 @@ def model_flops_per_token(cfg, seq_len):
     max_seq_len. Returns (flops_per_token, n_params)."""
     H, L, V = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
     n_params = 12 * L * H * H + V * H * 2 + cfg.max_seq_len * H
-    attn = 12 * L * H * seq_len  # 2*2*S*H per layer fwd, x3 with bwd
+    attn = attention_flops_per_token(L, H, seq_len)
     return 6 * n_params + attn, n_params
+
+
+def dense_flops_per_token(n_params):
+    """Transformer training FLOPs per token from the parameter count alone
+    (the 6N rule), for models counted by their live parameters (BERT)."""
+    return 6 * int(n_params)
+
+
+def attention_flops_per_token(num_layers, hidden_size, seq_len):
+    """The attention term of a training step per token: 2 * 2 * S * H per
+    layer forward (scores and P V), x3 with the backward."""
+    return 12 * num_layers * hidden_size * seq_len
 
 
 def train_step_flops(cfg, batch, seq_len):

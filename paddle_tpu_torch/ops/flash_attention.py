@@ -16,14 +16,25 @@ its custom VJP) and ``flash_attention_bwd.py`` (``_dq_kernel``,
 in XLA outside its kernels. The softmax scale is ``D ** -0.5`` of the true
 head dim; nothing is padded.
 
+Every function takes an additive ``bias`` broadcastable as (B|1, H|1, Sq,
+Sk), added to the scaled scores before the softmax, and dropout on the
+normalised probabilities at rate ``dropout_p`` under a 64-bit Philox
+``key`` (``ops/philox.py``: the keep bit of each (b, h, query, key) is the
+same in all three kernels). As in the reference: the row sum uses P before
+dropout, O takes ``keep P / (1 - p)``, dV the dropped P and dS the dropped
+dP, ``dS = P (dP' - delta)``; the bias gets no gradient. A row whose every
+score is at most ``MASKED_ROW`` (a bool mask's -1e30 over the whole row)
+gets O = 0 and LSE = ``MASKED_LSE``, so the backward's P underflows to 0,
+as the reference's kernel does (its composed path averages such a row).
+
 Each wrapper takes its plain version only for tensors on the CPU. On CUDA
 it launches its kernel or raises: the kernels take bfloat16, head_dim 64
-or 128 and equal q and key lengths; any other case raises and names
-``use_flash=False``, the reference's own knob (``GPTConfig``) that
-routes attention through ``ops/blockwise_attention.py``. Additive bias,
-segment ids, dropout and varlen packing are not ported (ROADMAP Queue B 4,
-rest) and raise ``NotImplementedError``. Each wrapper counts its kernel's
-launches in ``<wrapper>.launches``.
+or 128 and equal q and key lengths, and an fp32 or bf16 bias; any other
+case raises and names ``use_flash=False``, the reference's own knob
+(``GPTConfig``) that routes attention through
+``ops/blockwise_attention.py``. Segment ids and varlen packing are not
+ported (ROADMAP Queue B 4, rest) and raise ``NotImplementedError``. Each
+wrapper counts its kernel's launches in ``<wrapper>.launches``.
 
 The plain versions are dense fp32 attention following
 ``blockwise_attention``'s algebra, with the LSE and delta the reference
@@ -39,9 +50,17 @@ import functools
 import torch
 
 from ..cuda_build import load_library, wait_record
+from ..framework import random
+from . import philox
 
 SUPPORTED_HEAD_DIMS = (64, 128)
-UNPORTED_FEATURES = "ROADMAP Queue B 4 (rest)"
+UNPORTED_FEATURES = ("segment ids, varlen packing, fp16 and unequal q and "
+                     "key lengths: ROADMAP Queue B 4 (rest)")
+# a row whose largest score is at or below MASKED_ROW is fully masked; its
+# LSE is MASKED_LSE (the reference's 0.5 * _NEG_INF and -_NEG_INF,
+# flash_attention.py:148-157)
+MASKED_ROW = -5e29
+MASKED_LSE = 1e30
 
 
 def _scale(q, scale):
@@ -54,10 +73,12 @@ def _heads(t):
     return t.float().permute(0, 2, 1, 3)
 
 
-def _scores(q, k, causal, scale):
-    """fp32 scores [B, H, Sq, Sk] of ``q * scale`` against k, entries above
-    the diagonal at -inf when causal."""
+def _scores(q, k, causal, scale, bias=None):
+    """fp32 scores [B, H, Sq, Sk] of ``q * scale`` against k plus the bias,
+    entries above the diagonal at -inf when causal."""
     s = (_heads(q) * scale) @ _heads(k).transpose(-1, -2)
+    if bias is not None:
+        s = s + bias.float()
     if causal:
         Sq, Sk = s.shape[-2:]
         keep = torch.ones(Sq, Sk, dtype=torch.bool, device=s.device).tril()
@@ -65,37 +86,60 @@ def _scores(q, k, causal, scale):
     return s
 
 
-def flash_forward_plain(q, k, v, causal=True, scale=None):
+def _keep(s, dropout_p, key):
+    """The kernels' keep mask [B, H, Sq, Sk] for scores s, or None."""
+    if not dropout_p:
+        return None
+    return philox.keep_mask(*s.shape, dropout_p, key, device=s.device)
+
+
+def _drop(x, keep, dropout_p):
+    """keep x / (1 - p), or x itself without dropout."""
+    return x if keep is None else torch.where(keep, x / (1 - dropout_p), 0.0)
+
+
+def flash_forward_plain(q, k, v, causal=True, scale=None, bias=None,
+                        dropout_p=0.0, key=0):
     """The forward kernel's plain version: (O in q's dtype, LSE [B*H, Sq]
     fp32)."""
     B, Sq, H, _ = q.shape
-    s = _scores(q, k, causal, _scale(q, scale))
+    s = _scores(q, k, causal, _scale(q, scale), bias)
     lse = torch.logsumexp(s, dim=-1)                    # [B, H, Sq]
-    o = torch.exp(s - lse[..., None]) @ _heads(v)
+    lse = torch.where(s.amax(-1) <= MASKED_ROW, MASKED_LSE, lse)
+    p = _drop(torch.exp(s - lse[..., None]), _keep(s, dropout_p, key),
+              dropout_p)
+    o = p @ _heads(v)
     return (o.permute(0, 2, 1, 3).to(q.dtype),
             lse.reshape(B * H, Sq))
 
 
-def _grad_terms(q, k, v, do, lse, delta, causal, scale):
-    """P and dS [B, H, Sq, Sk] fp32, recomputed from the LSE."""
+def _grad_terms(q, k, v, do, lse, delta, causal, scale, bias, dropout_p,
+                key):
+    """The dropped P and dS [B, H, Sq, Sk] fp32, recomputed from the
+    LSE."""
     B, Sq, H, _ = q.shape
-    s = _scores(q, k, causal, scale)
+    s = _scores(q, k, causal, scale, bias)
     p = torch.exp(s - lse.reshape(B, H, Sq, 1))         # masked -> 0
-    dp = _heads(do) @ _heads(v).transpose(-1, -2)
+    keep = _keep(s, dropout_p, key)
+    dp = _drop(_heads(do) @ _heads(v).transpose(-1, -2), keep, dropout_p)
     ds = p * (dp - delta.reshape(B, H, Sq, 1)) * scale
-    return p, ds
+    return _drop(p, keep, dropout_p), ds
 
 
-def flash_dq_plain(q, k, v, do, lse, delta, causal=True, scale=None):
+def flash_dq_plain(q, k, v, do, lse, delta, causal=True, scale=None,
+                   bias=None, dropout_p=0.0, key=0):
     """The dQ kernel's plain version: dS K, in q's dtype."""
-    _, ds = _grad_terms(q, k, v, do, lse, delta, causal, _scale(q, scale))
+    _, ds = _grad_terms(q, k, v, do, lse, delta, causal, _scale(q, scale),
+                        bias, dropout_p, key)
     return (ds @ _heads(k)).permute(0, 2, 1, 3).to(q.dtype)
 
 
-def flash_dkv_plain(q, k, v, do, lse, delta, causal=True, scale=None):
-    """The dK/dV kernel's plain version: (dS^T Q, P^T dO) in k's and v's
-    dtypes."""
-    p, ds = _grad_terms(q, k, v, do, lse, delta, causal, _scale(q, scale))
+def flash_dkv_plain(q, k, v, do, lse, delta, causal=True, scale=None,
+                    bias=None, dropout_p=0.0, key=0):
+    """The dK/dV kernel's plain version: (dS^T Q, P'^T dO) in k's and v's
+    dtypes, P' the dropped P."""
+    p, ds = _grad_terms(q, k, v, do, lse, delta, causal, _scale(q, scale),
+                        bias, dropout_p, key)
     dk = ds.transpose(-1, -2) @ _heads(q)
     dv = p.transpose(-1, -2) @ _heads(do)
     return (dk.permute(0, 2, 1, 3).to(k.dtype),
@@ -172,7 +216,10 @@ def unsupported_reason(head_dim, dtype):
 
 _LL = ctypes.POINTER(ctypes.c_longlong)
 _INTS = [ctypes.c_int] * 5
-_TAIL = [_LL, ctypes.c_float, ctypes.c_void_p]
+# maps, scale; bias, its strides, dropout, threshold, key, 1 / (1 - p);
+# the stream
+_TAIL = [_LL, ctypes.c_float, ctypes.c_void_p, _LL, ctypes.c_int,
+         ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_float, ctypes.c_void_p]
 
 
 def bind(lib):
@@ -253,6 +300,32 @@ def _check(q, k, v, *rest):
                              f"{t.stride()}")
 
 
+def _extra_args(q, bias, dropout_p, key):
+    """The launch arguments of the bias and dropout: (bias, its element
+    strides over (B, H, S, S) with 0 on a broadcast dimension, dropout,
+    threshold, key, 1 / (1 - p)). A bf16 bias becomes fp32 first; the
+    fp32 tensor is returned as the first value, to be kept alive by the
+    caller until the launch is queued."""
+    B, S, H, _ = q.shape
+    strides = (ctypes.c_longlong * 4)()
+    if bias is not None:
+        if bias.dim() != 4 or bias.device != q.device or \
+                bias.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"bias must be a 4-D fp32 or bf16 tensor on "
+                             f"{q.device}, got {bias.dtype} "
+                             f"{tuple(bias.shape)} on {bias.device}")
+        bias = bias.float()
+        try:
+            strides[:] = bias.expand(B, H, S, S).stride()
+        except RuntimeError as e:
+            raise ValueError(f"bias of shape {tuple(bias.shape)} does not "
+                             f"broadcast to {(B, H, S, S)}") from e
+    drop = bool(dropout_p)
+    return (bias, bias.data_ptr() if bias is not None else None, strides,
+            int(drop), philox.threshold(dropout_p), int(key) & (2 ** 64 - 1),
+            1.0 / (1.0 - float(dropout_p)))
+
+
 def _check_stats(q, *stats):
     B, S, H, _ = q.shape
     for t in stats:
@@ -316,12 +389,15 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_forward(q, k, v, causal=True, scale=None):
+def flash_forward(q, k, v, causal=True, scale=None, bias=None,
+                  dropout_p=0.0, key=0):
     """(O [B, S, H, D] in q's dtype, LSE [B*H, S] fp32). CPU tensors take
     the plain version; CUDA tensors launch the forward kernel."""
     if q.device.type == "cpu":
-        return flash_forward_plain(q, k, v, causal, scale)
+        return flash_forward_plain(q, k, v, causal, scale, bias, dropout_p,
+                                   key)
     _check(q, k, v)
+    keep_alive, *extra = _extra_args(q, bias, dropout_p, key)
     lib = _sm90_library()
     B, S, H, D = q.shape
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -331,19 +407,23 @@ def flash_forward(q, k, v, causal=True, scale=None):
         rc = lib.flash_sm90_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, S, H, D, int(causal), maps,
-            _scale(q, scale), _stream(q))
+            _scale(q, scale), *extra, _stream(q))
+    del keep_alive
     _raise_on(rc, "forward", lib.flash_sm90_error_string)
     flash_forward.launches += 1
     return o, lse
 
 
-def flash_dq(q, k, v, do, lse, delta, causal=True, scale=None):
+def flash_dq(q, k, v, do, lse, delta, causal=True, scale=None, bias=None,
+             dropout_p=0.0, key=0):
     """dQ [B, S, H, D] in q's dtype. CPU tensors take the plain version;
     CUDA tensors launch the dQ kernel."""
     if q.device.type == "cpu":
-        return flash_dq_plain(q, k, v, do, lse, delta, causal, scale)
+        return flash_dq_plain(q, k, v, do, lse, delta, causal, scale, bias,
+                              dropout_p, key)
     _check(q, k, v, do)
     _check_stats(q, lse, delta)
+    keep_alive, *extra = _extra_args(q, bias, dropout_p, key)
     lib = _sm90_library()
     B, S, H, D = q.shape
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -353,19 +433,23 @@ def flash_dq(q, k, v, do, lse, delta, causal=True, scale=None):
         rc = lib.flash_sm90_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, D,
-            int(causal), maps, _scale(q, scale), _stream(q))
+            int(causal), maps, _scale(q, scale), *extra, _stream(q))
+    del keep_alive
     _raise_on(rc, "dQ", lib.flash_sm90_error_string)
     flash_dq.launches += 1
     return dq
 
 
-def flash_dkv(q, k, v, do, lse, delta, causal=True, scale=None):
+def flash_dkv(q, k, v, do, lse, delta, causal=True, scale=None, bias=None,
+              dropout_p=0.0, key=0):
     """(dK, dV) [B, S, H, D] in the input dtype. CPU tensors take the
     plain version; CUDA tensors launch the dK/dV kernel."""
     if q.device.type == "cpu":
-        return flash_dkv_plain(q, k, v, do, lse, delta, causal, scale)
+        return flash_dkv_plain(q, k, v, do, lse, delta, causal, scale, bias,
+                               dropout_p, key)
     _check(q, k, v, do)
     _check_stats(q, lse, delta)
+    keep_alive, *extra = _extra_args(q, bias, dropout_p, key)
     lib = _sm90_library()
     B, S, H, D = q.shape
     dk = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -376,7 +460,9 @@ def flash_dkv(q, k, v, do, lse, delta, causal=True, scale=None):
         rc = lib.flash_sm90_dkv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, H, D, int(causal), maps, _scale(q, scale), _stream(q))
+            B, S, H, D, int(causal), maps, _scale(q, scale), *extra,
+            _stream(q))
+    del keep_alive
     _raise_on(rc, "dK/dV", lib.flash_sm90_error_string)
     flash_dkv.launches += 1
     return dk, dv
@@ -387,12 +473,14 @@ flash_dq.launches = 0
 flash_dkv.launches = 0
 
 
-def flash_attention_backward(q, k, v, o, lse, do, causal=True, scale=None):
+def flash_attention_backward(q, k, v, o, lse, do, causal=True, scale=None,
+                             bias=None, dropout_p=0.0, key=0):
     """(dQ, dK, dV) of flash attention from the forward's O and LSE:
     delta in PyTorch, then the dQ and the dK/dV kernels."""
     delta = attention_delta(o, do)
-    dq = flash_dq(q, k, v, do, lse, delta, causal, scale)
-    dk, dv = flash_dkv(q, k, v, do, lse, delta, causal, scale)
+    feats = (bias, dropout_p, key)
+    dq = flash_dq(q, k, v, do, lse, delta, causal, scale, *feats)
+    dk, dv = flash_dkv(q, k, v, do, lse, delta, causal, scale, *feats)
     return dq, dk, dv
 
 
@@ -404,34 +492,46 @@ def _for_kernel(t):
 
 class _FlashAttention(torch.autograd.Function):
     """Forward kernel saving O and the fp32 LSE; backward = delta + the dQ
-    and dK/dV kernels (the reference's ``_vjp_fwd`` / ``_vjp_bwd``)."""
+    and dK/dV kernels (the reference's ``_vjp_fwd`` / ``_vjp_bwd``). The
+    bias and the dropout key are constants: no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, bias, dropout_p, key):
         q, k, v = (_for_kernel(t) for t in (q, k, v))
-        o, lse = flash_forward(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
+        o, lse = flash_forward(q, k, v, causal, scale, bias, dropout_p, key)
+        ctx.save_for_backward(q, k, v, o, lse, bias)
         ctx.causal, ctx.scale = causal, scale
+        ctx.dropout_p, ctx.key = dropout_p, key
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, bias = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(
-            q, k, v, o, lse, _for_kernel(do), ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+            q, k, v, o, lse, _for_kernel(do), ctx.causal, ctx.scale, bias,
+            ctx.dropout_p, ctx.key)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_bshd(q, k, v, causal=True, bias=None, segment_ids=None,
                          dropout_p=0.0, dropout_seed=None, scale=None):
     """Differentiable flash attention, [B, S, H, D] layout, output in q's
-    dtype. ``scale`` defaults to ``D ** -0.5``. Bias, segment ids and
-    dropout are not ported and raise."""
-    unported = [name for name, off in (
-        ("bias", bias is None), ("segment_ids", segment_ids is None),
-        ("dropout", not dropout_p and dropout_seed is None)) if not off]
-    if unported:
+    dtype. ``scale`` defaults to ``D ** -0.5``. ``bias`` is additive,
+    broadcastable as (B|1, H|1, Sq, Sk), and gets no gradient;
+    ``dropout_seed`` is the 64-bit Philox key of the dropout, drawn from
+    ``framework.random.philox_key()`` when None. Segment ids are not
+    ported and raise."""
+    if segment_ids is not None:
         raise NotImplementedError(
-            f"flash attention {', '.join(unported)} is not ported yet "
+            f"flash attention segment_ids are not ported yet "
             f"({UNPORTED_FEATURES})")
-    return _FlashAttention.apply(q, k, v, bool(causal), scale)
+    dropout_p = float(dropout_p)
+    key = 0
+    if dropout_p:
+        if dropout_seed is None:
+            dropout_seed = random.philox_key()
+        key = int(dropout_seed) & (2 ** 64 - 1)
+    if bias is not None:
+        bias = bias.detach()
+    return _FlashAttention.apply(q, k, v, bool(causal), scale, bias,
+                                 dropout_p, key)

@@ -15,7 +15,10 @@ operands are upcast to fp32, whose products of bf16 values are exact. The
 backward casts ``(softmax - onehot) * g`` to the input dtype before its
 two GEMMs and accumulates in fp32, as the reference does. The last chunk
 is narrower when the chunks overrun V, which drops the reference's
-padded columns instead of masking them.
+padded columns instead of masking them. An optional head bias [V] (BERT's
+MLM head; ``_fce_bias`` in the reference) is added to each chunk's fp32
+logits and gets the column sums of the fp32 ``(softmax - onehot) * g`` as
+its gradient.
 """
 from __future__ import annotations
 
@@ -46,7 +49,13 @@ def _chunks(V, num_chunks):
     return [(i * C, min((i + 1) * C, V)) for i in range(n)]
 
 
-def _fwd_stats(hidden, head_w, labels, num_chunks):
+def _logits(hidden, head_w, head_b, lo, hi):
+    """fp32 logits of vocab columns [lo, hi), with the head bias."""
+    logits = _mm_f32(hidden, head_w[:, lo:hi])
+    return logits if head_b is None else logits + head_b[lo:hi].float()
+
+
+def _fwd_stats(hidden, head_w, labels, num_chunks, head_b=None):
     """Online logsumexp and gold logit over vocab chunks: (logz [N] fp32,
     gold [N] fp32)."""
     N = hidden.shape[0]
@@ -55,7 +64,7 @@ def _fwd_stats(hidden, head_w, labels, num_chunks):
     s = torch.zeros(N, **f32)
     gold = torch.zeros(N, **f32)
     for lo, hi in _chunks(head_w.shape[1], num_chunks):
-        logits = _mm_f32(hidden, head_w[:, lo:hi])
+        logits = _logits(hidden, head_w, head_b, lo, hi)
         m_new = torch.maximum(m, logits.amax(-1))
         s = s * torch.exp(m - m_new) + torch.exp(
             logits - m_new[:, None]).sum(-1)
@@ -66,51 +75,59 @@ def _fwd_stats(hidden, head_w, labels, num_chunks):
     return m + torch.log(s), gold
 
 
-def _bwd(hidden, head_w, labels, logz, g, num_chunks):
-    """(dh, dW) of the per-token losses for cotangent g [N]."""
+def _bwd(hidden, head_w, head_b, labels, logz, g, num_chunks):
+    """(dh, dW, dB or None) of the per-token losses for cotangent g [N]."""
     N, H = hidden.shape
     V = head_w.shape[1]
     dh = torch.zeros(N, H, dtype=torch.float32, device=hidden.device)
     dW = torch.empty(H, V, dtype=torch.float32, device=hidden.device)
+    dB = None if head_b is None else torch.empty(
+        V, dtype=torch.float32, device=hidden.device)
     g = g.float()
     for lo, hi in _chunks(V, num_chunks):
-        logits = _mm_f32(hidden, head_w[:, lo:hi])
+        logits = _logits(hidden, head_w, head_b, lo, hi)
         delta = torch.exp(logits - logz[:, None])
         in_c = (labels >= lo) & (labels < hi)
         idx = (labels - lo).clamp(0, hi - lo - 1)
         delta.scatter_add_(1, idx[:, None], -in_c.float()[:, None])
         delta = delta * g[:, None]
+        if dB is not None:
+            dB[lo:hi] = delta.sum(0)
         dc = delta.to(hidden.dtype)
         dh += _mm_f32(dc, head_w[:, lo:hi].t())
         dW[:, lo:hi] = _mm_f32(hidden.t(), dc)
-    return dh.to(hidden.dtype), dW.to(head_w.dtype)
+    return (dh.to(hidden.dtype), dW.to(head_w.dtype),
+            None if dB is None else dB.to(head_b.dtype))
 
 
 class _FusedLinearCE(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, hidden, head_w, labels, num_chunks):
+    def forward(ctx, hidden, head_w, head_b, labels, num_chunks):
         with record_function("fused_ce/forward"):
-            logz, gold = _fwd_stats(hidden, head_w, labels, num_chunks)
-        ctx.save_for_backward(hidden, head_w, labels, logz)
+            logz, gold = _fwd_stats(hidden, head_w, labels, num_chunks,
+                                    head_b)
+        ctx.save_for_backward(hidden, head_w, head_b, labels, logz)
         ctx.num_chunks = num_chunks
         return logz - gold
 
     @staticmethod
     def backward(ctx, g):
-        hidden, head_w, labels, logz = ctx.saved_tensors
+        hidden, head_w, head_b, labels, logz = ctx.saved_tensors
         with record_function("fused_ce/backward"):
-            dh, dW = _bwd(hidden, head_w, labels, logz, g, ctx.num_chunks)
-        return dh, dW, None, None
+            dh, dW, dB = _bwd(hidden, head_w, head_b, labels, logz, g,
+                              ctx.num_chunks)
+        return dh, dW, dB, None, None
 
 
-def fused_linear_cross_entropy(hidden, head_w, labels, num_chunks=8):
-    """Per-token CE of ``softmax(hidden @ head_w)`` against ``labels``
-    without materializing the logits. hidden [N, H], head_w [H, V], labels
-    [N] int. Returns losses [N] fp32; callers apply their own mask and
-    reduction. The reference's head-bias variant is not ported: GPT has no
-    head bias."""
-    return _FusedLinearCE.apply(hidden, head_w, labels.long(), num_chunks)
+def fused_linear_cross_entropy(hidden, head_w, labels, num_chunks=8,
+                               head_b=None):
+    """Per-token CE of ``softmax(hidden @ head_w [+ head_b])`` against
+    ``labels`` without materializing the logits. hidden [N, H], head_w
+    [H, V], head_b [V] or None, labels [N] int. Returns losses [N] fp32;
+    callers apply their own mask and reduction."""
+    return _FusedLinearCE.apply(hidden, head_w, head_b, labels.long(),
+                                num_chunks)
 
 
 def fused_lm_loss(hidden, head_w, ids, num_chunks=8, shift=True):

@@ -6,13 +6,17 @@ The reference's update is pure and returns new arrays; the port updates
 params and optimizer slots in place, under ``torch.no_grad()``, which
 keeps one copy of each in device memory. The arithmetic keeps the
 reference's order and types: fp32 math whatever the param dtype, slots
-stored in their own dtype. The eager ``step()`` path, LR schedulers and
-``multi_precision`` fp32 masters are not ported yet (ROADMAP Queue A
-items 4 and 14).
+stored in their own dtype. With ``multi_precision`` (set by
+``amp.decorate(level="O2")``) a bf16 or fp16 param gets an fp32
+``"master"`` slot: the rule updates the master and the param takes its
+rounded copy (reference optimizer.py:195-230). The eager ``step()`` path
+and LR schedulers are not ported yet (ROADMAP Queue A items 4 and 14).
 """
 from __future__ import annotations
 
 import torch
+
+_LOW_PRECISION = (torch.bfloat16, torch.float16)
 
 
 class Optimizer:
@@ -31,10 +35,7 @@ class Optimizer:
             raise NotImplementedError(
                 "LR schedulers are not ported yet (ROADMAP Queue A item 4); "
                 "pass a float learning rate")
-        if multi_precision:
-            raise NotImplementedError(
-                "multi_precision fp32 master weights are not ported yet "
-                "(ROADMAP Queue A item 4)")
+        self._multi_precision = bool(multi_precision)
         self._learning_rate = float(learning_rate)
         self._grad_clip = grad_clip
         self._coupled_wd = float(weight_decay or 0.0)
@@ -50,9 +51,16 @@ class Optimizer:
 
     def init_state(self, params):
         """params: {name: tensor}. Returns ``{"step": 0, "slots": {name:
-        {slot: tensor}}}``; the step count lives on the host."""
-        return {"step": 0,
-                "slots": {n: self._create_slots(p) for n, p in params.items()}}
+        {slot: tensor}}}``, with an fp32 ``"master"`` copy of each bf16 or
+        fp16 param under ``multi_precision``; the step count lives on the
+        host."""
+        state = {"step": 0, "slots": {}}
+        for n, p in params.items():
+            slots = self._create_slots(p)
+            if self._multi_precision and p.dtype in _LOW_PRECISION:
+                slots["master"] = p.detach().float().clone()
+            state["slots"][n] = slots
+        return state
 
     @torch.no_grad()
     def apply_gradients(self, params, grads, state, lr=None, wd_mask=None):
@@ -71,7 +79,13 @@ class Optimizer:
             decay_on = wd_mask.get(name, True) if wd_mask else True
             if self._coupled_wd and decay_on:
                 g = g + self._coupled_wd * p.to(g.dtype)
-            self._update(p, g, state["slots"][name], lr, step, decay_on)
+            slots = state["slots"][name]
+            master = slots.get("master")
+            if master is None:
+                self._update(p, g, slots, lr, step, decay_on)
+            else:
+                self._update(master, g.float(), slots, lr, step, decay_on)
+                p.copy_(master)
         return params, state
 
     def _update(self, p, g, slots, lr, step, decay_on):

@@ -397,6 +397,89 @@ def test_peer_barrier_timeout_leaves_a_filled_record_on_card(cuda_device,
     assert outs[1:] == [{}, {}, {}]
 
 
+# Two ranks of one group sharing the card, each a process of its own (not
+# env.launch's ranks, whose failures env.launch itself reports): both make
+# one row-11 gather, then rank 1 fails outside the peer kernels, by an
+# uncaught exception in its main thread ("main") or in a thread of its
+# own ("thread"), while a non-daemon thread keeps its process alive.
+# Rank 0 gathers again and waits for it. Prints rank 0's readings as JSON.
+LINGER_SCRIPT = """
+import json, os, sys, threading, time
+import torch
+from paddle_tpu_torch.distributed import env, peer
+from paddle_tpu_torch.ops import fused_collectives as fc
+rank, init_file, mode = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+group = env.init_mp_group(rank, 2, init_file, "shared", timeout_s=300)
+row = fc.ag_bucket_staging(group, 1 << 20, torch.float32)
+row.fill_(rank)
+fc.fused_ag_bucket(row, group)
+torch.cuda.synchronize()
+group.barrier()
+if rank == 1:
+    threading.Thread(target=time.sleep, args=(120,)).start()  # lingers
+    if mode == "thread":
+        threading.Thread(target=lambda: 1 / 0).start()
+        time.sleep(120)
+    raise RuntimeError("rank 1 fails outside the peer kernels")
+group.peer_channels[fc.AG_CHANNEL].timeout_ns = int(LINGER_TIMEOUT_S * 1e9)
+t0 = time.perf_counter()
+fc.fused_ag_bucket(row, group)
+try:
+    torch.cuda.synchronize()
+    raised = None
+except RuntimeError as e:
+    raised = str(e)
+print(json.dumps({"raised": raised, "seconds": time.perf_counter() - t0,
+                  "record": peer.error_record()}), flush=True)
+os._exit(0)
+"""
+LINGER_TIMEOUT_S = 2.0
+LINGER_SLACK_S = 20.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["main", "thread"])
+def test_a_failed_lingering_rank_stops_its_heartbeat_on_card(cuda_device,
+                                                             tmp_path,
+                                                             mode):
+    """The exception hooks that the heartbeat installs stop a failed
+    rank's heartbeat though its process lingers: rank 0's row-11 gather
+    gives up on it with record code 1 (the heartbeat stood still) within
+    the timeout plus slack, not at the 300 s backstop (code 2)."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    from paddle_tpu_torch.ops import fused_collectives as fc
+    fc.build_ag_bucket()         # once, here: the ranks only load it
+    from paddle_tpu_torch.distributed import peer
+    peer.build()
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    script = LINGER_SCRIPT.replace("LINGER_TIMEOUT_S",
+                                   repr(LINGER_TIMEOUT_S))
+    init = str(tmp_path / "rendezvous")
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r), init,
+                               mode], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in (0, 1)]
+    try:
+        out, err = procs[0].communicate(timeout=240)
+    finally:
+        for p in procs:
+            p.kill()
+            p.communicate()
+    lines = out.strip().splitlines()
+    assert lines, err[-3000:]
+    got = json.loads(lines[-1])
+    rec = got["record"]
+    assert got["raised"], got
+    assert rec["code"] == 1 and rec["row"] == 11 and rec["rank"] == 0, rec
+    assert rec["peer"] == 1, rec
+    assert got["seconds"] < LINGER_TIMEOUT_S + LINGER_SLACK_S, got
+
+
 @pytest.mark.cuda
 def test_peer_barrier_backstop_ends_a_wait_for_a_live_peer_on_card(
         cuda_device, tmp_path):
@@ -481,6 +564,164 @@ def test_flash_autograd_copies_layouts_the_kernels_cannot_read(cuda_device):
             *fa.flash_dkv_plain(qc, kc, vc, ones, lse, delta, True))
     for name, leaf, ref in zip(("dq", "dk", "dv"), leaves, want):
         _assert_close_to_plain(name, leaf.grad.transpose(1, 3), ref)
+
+
+# ---------------------------------------- flash with a bias and dropout
+# The kExtra instances of csrc/flash_sm90.cu (an additive fp32 bias read
+# through its strides, in-kernel Philox dropout) against their plain
+# versions on the same inputs, key and bias, with the gates above: lengths
+# off every tile (65, 129, 200, 333) and BERT's (32, 128, 12, 64);
+# key-padding (-1e4), per-head and full biases, fp32 and bf16; a row masked
+# whole by a bool mask (-1e30: O = 0, LSE = +1e30).
+FLASH_FEATURE_CASES = [  # (B, S, H, D, causal, bias, dropout_p)
+    (32, 128, 12, 64, False, "pad", 0.1),
+    (2, 200, 4, 64, False, "pad", 0.1),
+    (2, 129, 3, 128, False, "head", 0.1),
+    (2, 333, 2, 64, True, "full-bf16", 0.1),
+    (1, 65, 2, 128, True, "pad", 0.0),
+    (2, 200, 2, 64, False, None, 0.3),
+    (1, 200, 2, 64, False, "dead-row", 0.1),
+    (1, 128, 1, 128, True, "dead-row", 0.0),
+]
+FEATURE_KEY = 0x5DEECE66D1234567
+
+
+def _feature_bias(rng, device, kind, B, S, H):
+    if kind is None:
+        return None
+    if kind == "pad":                     # BERT's [B, 1, 1, S]
+        lengths = rng.integers(S // 2, S + 1, B)
+        keep = np.arange(S)[None, :] < lengths[:, None]
+        return torch.from_numpy(np.where(keep, 0.0, -1e4).astype(
+            np.float32)).to(device)[:, None, None, :]
+    if kind == "head":
+        return torch.from_numpy(rng.standard_normal((1, H, S, S)).astype(
+            np.float32)).to(device)
+    if kind == "full-bf16":
+        return torch.from_numpy(rng.standard_normal((B, H, S, S)).astype(
+            np.float32)).to(device, torch.bfloat16)
+    keep = np.ones((B, 1, S, S), bool)      # "dead-row": row 37 masked
+    keep[:, :, 37] = False
+    return torch.from_numpy(np.where(keep, 0.0, -1e30).astype(
+        np.float32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_FEATURE_CASES,
+                         ids=lambda c: "B{}-S{}-H{}-D{}-{}-{}-p{}".format(
+                             *c[:4], "causal" if c[4] else "full", c[5],
+                             c[6]))
+def test_flash_features_match_plain_on_card(cuda_device, case):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    B, S, H, D, causal, kind, p = case
+    rng = np.random.default_rng(S + H)
+    q, k, v, do = _flash_inputs(cuda_device, B, S, H, D, seed=S)
+    bias = _feature_bias(rng, cuda_device, kind, B, S, H)
+    feats = dict(bias=bias, dropout_p=p, key=FEATURE_KEY)
+    o, lse = fa.flash_forward(q, k, v, causal, **feats)
+    delta = fa.attention_delta(o, do)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, causal, **feats)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, **feats)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_forward_plain(q, k, v, causal, **feats)
+    dq_ref = fa.flash_dq_plain(q, k, v, do, lse_ref, delta, causal, **feats)
+    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, do, lse_ref, delta, causal,
+                                        **feats)
+    for t in (o, lse, dq, dk, dv):
+        assert bool(torch.isfinite(t).all())
+    torch.testing.assert_close(lse, lse_ref, atol=fa.LSE_TOL,
+                               rtol=fa.LSE_TOL)
+    if kind == "dead-row":
+        assert bool((o[:, 37] == 0).all()) and bool((dq[:, 37] == 0).all())
+        assert bool((lse.view(B, H, S)[:, :, 37] == fa.MASKED_LSE).all())
+    for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref),
+                            ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        _assert_close_to_plain(name, got, want)
+
+
+@pytest.mark.cuda
+def test_sdpa_counts_and_logs_what_the_kernels_cannot_take(cuda_device):
+    """fp32 CUDA tensors: the call is counted in ``.fallbacks`` and raises
+    with its reason and the flag that takes the composed path, no kernel
+    launched; with the flag off the composed path runs; bf16: the forward
+    kernel, no fallback."""
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q = torch.randn(2, 64, 2, 64, device=cuda_device)
+    before = F.scaled_dot_product_attention.fallbacks
+    launches = fa.flash_forward.launches
+    with pytest.raises(NotImplementedError,
+                       match="is not bfloat16.*FLAGS_use_flash_attention"):
+        F.scaled_dot_product_attention(q, q, q, training=False)
+    assert F.scaled_dot_product_attention.fallbacks == before + 1
+    assert fa.flash_forward.launches == launches
+    set_flags({"FLAGS_use_flash_attention": False})
+    try:
+        out = F.scaled_dot_product_attention(q, q, q, training=False)
+    finally:
+        set_flags({"FLAGS_use_flash_attention": True})
+    torch.testing.assert_close(out, F._sdpa_reference(q, q, q))
+    assert fa.flash_forward.launches == launches
+    qb = q.bfloat16()
+    F.scaled_dot_product_attention(qb, qb, qb, training=False)
+    torch.cuda.synchronize()
+    assert fa.flash_forward.launches == launches + 1
+    assert F.scaled_dot_product_attention.fallbacks == before + 1
+
+
+# Mask read-outs, exact for each kernel: D = S = 128, q = 0 and no bias,
+# so every score is 0, every P is 1 / S and the LSE is log S; then
+#   forward  V = I:                      O[i, j]  = keep(i, j) / ((1-p) S)
+#   dK/dV    dO = I:                     dV[j, i] = keep(i, j) / ((1-p) S)
+#   dQ       K = I, delta = 0, every row of dO and of V e_0 (dO V^T = 1):
+#                                        dQ[i, j] = keep(i, j) scale / ((1-p) S)
+# so an output is nonzero exactly where the kernel kept the pair, which
+# must be the plain Philox mask bit for bit.
+READOUT_P = 0.25
+
+
+def _readout(device, kernel, B=2, H=3, S=128):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    bf = torch.bfloat16
+    eye = torch.eye(S, device=device)[None, :, None, :].expand(
+        B, S, H, S).contiguous()
+    e0 = torch.zeros(B, S, H, S, device=device)
+    e0[..., 0] = 1
+    zero = torch.zeros(B, S, H, S, device=device)
+    lse = torch.full((B * H, S), float(np.log(S)), device=device)
+    feats = dict(dropout_p=READOUT_P, key=FEATURE_KEY)
+    if kernel == "forward":
+        out, _ = fa.flash_forward(zero.to(bf), zero.to(bf), eye.to(bf),
+                                  False, **feats)
+        got = out.permute(0, 2, 1, 3)                  # [B, H, i, j]
+    elif kernel == "dkv":
+        _, dv = fa.flash_dkv(zero.to(bf), zero.to(bf), zero.to(bf),
+                             eye.to(bf), lse, torch.zeros_like(lse), False,
+                             **feats)
+        got = dv.permute(0, 2, 3, 1)                   # [B, H, i, j]
+    else:
+        got = fa.flash_dq(zero.to(bf), eye.to(bf), e0.to(bf), e0.to(bf),
+                          lse, torch.zeros_like(lse), False,
+                          **feats).permute(0, 2, 1, 3)
+    torch.cuda.synchronize()
+    return got.float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["forward", "dq", "dkv"])
+def test_each_kernels_dropout_mask_is_the_plain_philox_mask(cuda_device,
+                                                            kernel):
+    from paddle_tpu_torch.ops import philox
+    got = _readout(cuda_device, kernel)
+    B, H, S, _ = got.shape
+    want = philox.keep_mask(B, H, S, S, READOUT_P, FEATURE_KEY,
+                            device=cuda_device)
+    assert torch.equal(got != 0, want)
+    scale = 128 ** -0.5 if kernel == "dq" else 1.0
+    value = scale / ((1 - READOUT_P) * S)
+    torch.testing.assert_close(got[want], torch.full_like(got[want], value),
+                               rtol=1e-2, atol=0)
 
 
 # ------------------------------------------------------- quantized serving

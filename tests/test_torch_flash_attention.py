@@ -125,10 +125,8 @@ def test_flash_and_blockwise_agree_with_a_ragged_length():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"bias": torch.zeros(1, 1, S, S)},
     {"segment_ids": (torch.zeros(B, S, dtype=torch.int32),) * 2},
-    {"dropout_p": 0.1, "dropout_seed": 0},
-], ids=["bias", "segment_ids", "dropout"])
+], ids=["segment_ids"])
 def test_unported_features_raise(kwargs):
     q = torch.zeros(B, S, H, 64)
     with pytest.raises(NotImplementedError, match="Queue B 4"):

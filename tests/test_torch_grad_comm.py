@@ -63,6 +63,7 @@ from paddle_tpu_torch.distributed import env
 from paddle_tpu_torch.distributed import grad_comm as gc
 from paddle_tpu_torch.distributed import recompute
 from paddle_tpu_torch.flags import set_flags
+from paddle_tpu_torch.framework import random as prandom
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, gpt_forward,
                                      layer_params_from_numpy,
                                      layer_params_from_tree,
@@ -482,6 +483,36 @@ def test_dots_no_batch_saves_the_projections_and_keeps_the_gradients(
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("policy", ["config", "full"])
+def test_dropout_under_remat_gives_the_gradients_without_remat(policy):
+    """The eager GPT with dropout 0.1: its blocks under remat (the
+    config's dots_no_batch, or "full") give the loss and gradients of the
+    same blocks without remat from the same generator state, because the
+    recompute draws the forward's masks again; afterwards the generators
+    stand where the run without remat left them."""
+    cfg = dict(PLAN_GPT, num_layers=2, dropout=0.1)
+    ref, _ = _models("gpt", num_layers=2)
+    init = {n: np.asarray(p.numpy()) for n, p in ref.named_parameters()}
+    ids = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg["vocab_size"], (2, 16)))
+    out = {}
+    for remat in (False, True):
+        model = GPTForCausalLM(GPTConfig(
+            **dict(cfg, remat=remat and policy == "config")))
+        layer_params_from_numpy(model, init)
+        if remat and policy != "config":
+            model.gpt.h = torch.nn.ModuleList(
+                _Remat(b, policy) for b in model.gpt.h)
+        prandom.seed(11)
+        loss = gpt_loss_fn(model(ids), ids)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[remat] = (float(loss.detach()), grads, prandom.philox_key())
+    assert out[True][0] == out[False][0]
+    assert out[True][2] == out[False][2]
+    for a, b in zip(out[True][1], out[False][1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
 def _count_saved(monkeypatch):
     """A count of the outputs dots_no_batch's selective-checkpoint policy
     saves in forward passes (not in the backward's recompute): the policy
@@ -553,7 +584,8 @@ def test_layer_name_map_round_trips():
 
 def test_eager_layers_follow_the_reference_cast_order():
     """Linear casts its [in, out] weight (and bias) to the input's dtype;
-    Dropout is the identity at p=0 and raises above it in training; the
+    Dropout is the identity at p=0 and in eval, and above it in training
+    zeroes elements and scales the rest by 1 / (1 - p) in x's dtype; the
     cross-entropy skips ignore_index labels."""
     lin = nn.Linear(8, 4)
     x = torch.randn(3, 8, dtype=torch.bfloat16)
@@ -563,8 +595,13 @@ def test_eager_layers_follow_the_reference_cast_order():
                        lin.bias.to(torch.bfloat16))
     assert nn.Linear(8, 4, bias_attr=False).bias is None
     assert nn.Dropout(0.0)(x) is x
-    with pytest.raises(NotImplementedError, match="Queue B 4"):
-        nn.Dropout(0.1)(x)
+    drop = nn.Dropout(0.5)
+    y = drop(x)
+    kept = y != 0
+    assert y.dtype == torch.bfloat16 and 0 < int(kept.sum()) < x.numel()
+    assert torch.equal(y[kept], (x / 0.5)[kept])
+    drop.eval()
+    assert drop(x) is x
     logits = torch.randn(4, 5)
     labels = torch.tensor([1, -100, 3, 0])
     keep = labels != -100
@@ -591,3 +628,35 @@ def test_optimizer_takes_parameters_in_the_reference_position():
     opt.apply_gradients(p, {"w": torch.zeros(3)}, state)
     # apply_decay_param_fun=None decays every param (the reference's rule)
     torch.testing.assert_close(p["w"], torch.full((3,), 1 - 1e-3 * 0.02))
+
+
+def test_uncaught_exceptions_stop_the_heartbeat(monkeypatch):
+    """Once a heartbeat is up, an uncaught exception in the main thread
+    (sys.excepthook) or in another thread (threading.excepthook) halts it
+    and then reaches the hook that was there before."""
+    import sys
+    import threading
+    from paddle_tpu_torch.distributed import peer
+
+    halts, seen = [], []
+
+    class _Lib:
+        def peer_beat_halt(self):
+            halts.append(1)
+
+    monkeypatch.setattr(peer, "_library", lambda: _Lib())
+    monkeypatch.setattr(peer, "_beating", True)
+    monkeypatch.setattr(peer, "_hooked", False)
+    monkeypatch.setattr(sys, "excepthook",
+                        lambda tp, value, tb: seen.append(("main", tp)))
+    monkeypatch.setattr(threading, "excepthook",
+                        lambda args: seen.append(("thread", args.exc_type)))
+    peer._hook_uncaught_exceptions()
+    peer._hook_uncaught_exceptions()            # once a process
+    sys.excepthook(ValueError, ValueError("x"), None)
+    worker = threading.Thread(target=lambda: 1 / 0)
+    worker.start()
+    worker.join(timeout=10)
+    assert not worker.is_alive()
+    assert halts == [1, 1]
+    assert seen == [("main", ValueError), ("thread", ZeroDivisionError)]
