@@ -33,7 +33,8 @@ card per rank, ``phase_profile``'s host ms of one [8, 1] decode boundary
 by function on rank 0), once both trees' serving kernels are built;
 ``flash-turns`` chip_smoke's ``phase_flash_timing`` (rows 4-6 without a
 bias or dropout at every training path's GPT shape, by CUDA-graph
-replay), once both trees' flash libraries are built.
+replay) and ``phase_bert_flash`` (BERT's bias + dropout instances at 32 x
+128 and 8 x 512), once both trees' flash libraries are built.
 Each runs from the tree at PARENT_DIR (a ``git archive`` of another
 commit) and from
 this one, in turns (parent, this, this, parent), each in a process of
@@ -131,6 +132,7 @@ dev = torch.device("cuda")
 gen = torch.Generator(device=dev).manual_seed(0)
 zero = collections.defaultdict(int)
 cs.phase_flash_timing(gen, dev, zero, zero)
+cs.phase_bert_flash(gen, dev, zero)
 """
 # a module of its own (spawned ranks import the module of their function)
 TP_RANK = """
@@ -312,7 +314,7 @@ def main(argv):
                                           "[mp-serve-turns]"), path=(tmp,))
     elif argv[:1] == ["flash-turns"] and len(argv) == 2:
         build_both(argv[1], FLASH_BUILD)
-        turns(argv[1], FLASH_RUN, ("[timing]",))
+        turns(argv[1], FLASH_RUN, ("[timing]", "[bert-timing]"))
     elif argv[:1] == ["pp-turns"] and len(argv) == 2:
         with tempfile.TemporaryDirectory() as tmp:
             Path(tmp, "pp_turns_rank.py").write_text(PP_RANK)

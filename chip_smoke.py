@@ -185,6 +185,41 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and SDPA with the same float mask and dropout_p (rows of their own in
    the kernels line, ``*_bias_dropout``).
 
+   Flash features (rows 4-6's segment ids, varlen packing, fp16 operands
+   and q and key lengths apart): the three kernels against their plain
+   versions (``FEATURE_CASES``: the Transformer's cross-attention and its
+   decoder's -inf square mask, causal with Sq < Sk and Sq > Sk, fp16 at
+   the GPT step's and BERT's shapes); ``F.flash_attn_unpadded`` at GPT-3
+   1.3B's attention width (16 heads of 128) over a 16,384-token pack of
+   documents of 128-2048 tokens, causal in bf16 and fp16, then
+   non-causal with other key documents, forward and backward, one launch
+   of each kernel a call, its outputs and gradients per document within
+   the gates against the plain versions of that document alone; rows 4-6
+   on the pack timed against the bound over the pairs inside documents,
+   the plain versions per document and SDPA over nested jagged tensors;
+   ``F.flash_attention`` and SDPA on fp16 at BERT's shape with dropout
+   (and SDPA's padding bias), launches counted, the fp16 instances timed
+   (the kernels line's ``*_varlen`` and ``*_fp16`` rows).
+
+14. Transformer-base (Paddle's ``nn.Transformer`` defaults: d_model 512,
+   8 heads of 64, 6 + 6 post-LN layers, FFN 2048, relu, dropout 0.1; a
+   37,000-token shared embedding scaled by sqrt(512), sinusoidal
+   positions, the vocabulary projection fused into the cross-entropy;
+   random weights from the seed) through ``jit.TrainStep`` under
+   ``amp.decorate(level="O2", dtype="bfloat16")`` with AdamW(1e-4,
+   global-norm clip 1.0): 32 pairs of 256 source and 128 target slots,
+   64-256 and 32-128 real tokens a row, the source padding as a [B, 1, 1,
+   256] bias in the encoder and the cross-attention (queries of 128
+   against keys of 256) and the decoder's -inf square mask: 2 warm-up
+   and 5 timed steps, every loss finite and the last below the first,
+   rows 4-6 launched 18 times a step each and no fallback; step time,
+   tokens/s, MFU, peak memory, a traced step's device ms by kind; a 2 +
+   2-layer copy through the kernels against the composed path
+   (``parity_routes``, the gradient gate set from its CPU copy,
+   ``tests/torch_transformer_gate.py``); rows 4-6 at the encoder,
+   decoder and cross-attention shapes against their plain versions and
+   timed beside SDPA (the kernels line's ``*_cross`` rows).
+
 The lines before the last carry a ``{"kernels": [...]}`` JSON object and
 the card's name and power limit (nvidia-smi); the last line is
 ``{"ok": true, "device": {...}}``. Exits nonzero without printing a
@@ -217,12 +252,17 @@ from paddle_tpu_torch.distributed import pipeline as pl
 from paddle_tpu_torch.flags import set_flags
 from paddle_tpu_torch.framework import random as prandom
 from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch.models import (BERT_CONFIGS, GPT_CONFIGS,
-                                     BertForPretraining, GPTForCausalLM,
-                                     HybridTrainStep, cast_for_compute,
-                                     generate_from_params, gpt_loss_fn,
-                                     init_gpt_params, layer_params_from_numpy,
-                                     layer_params_from_tree)
+                                     TRANSFORMER_CONFIGS, BertForPretraining,
+                                     GPTForCausalLM, HybridTrainStep,
+                                     TransformerForTranslation,
+                                     cast_for_compute, generate_from_params,
+                                     gpt_loss_fn, init_gpt_params,
+                                     layer_params_from_numpy,
+                                     layer_params_from_tree,
+                                     translation_batch)
+from paddle_tpu_torch.models.transformer import PAD_BIAS
 from paddle_tpu_torch.models.generation import _proj
 from paddle_tpu_torch.models.gpt_hybrid import (flatten_params, gpt_loss,
                                                 unflatten_params)
@@ -532,10 +572,11 @@ def phase_build():
                         r"flash_\w+_kernel")
     for name in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
         n = sum(f"{name}<" in fn for fn in flash or ())
-        check(flash is None or n == 8,
-              f"{name} has {n} instances in the SASS, not 8 (head dims 64 "
-              f"and 128 x causal and not x with and without the bias and "
-              f"dropout)")
+        check(flash is None or n == 24,
+              f"{name} has {n} instances in the SASS, not 24 (bf16 and "
+              f"fp16 x head dims 64 and 128 x causal and not x three "
+              f"feature levels: none; bias + dropout; and segment ids, "
+              f"Sq != Sk)")
     tc = sass_counts(cuda_build.BUILD_INFO["quant_gemm"]["path"],
                      r"quant_gemm_tc_kernel")
     check(tc is None or len(tc) == 15,
@@ -1338,42 +1379,17 @@ def phase_flash_vs_plain(gen, dev):
     for B, S, nh, d, causal in FLASH_CASES:
         q, k, v, do = flash_inputs(gen, dev, B, S, nh, d)
         try:
-            o, lse = fa.flash_forward(q, k, v, causal)
-            delta = fa.attention_delta(o, do)
-            dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
-            dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal)
-            torch.cuda.synchronize()
+            o, lse, delta, dq, dk, dv = run_three(q, k, v, do, causal)
         except RuntimeError:
             print(f"[flash] a kernel failed at B={B} S={S} nh={nh} d={d}; "
                   f"mbarrier wait record: {fa.wait_timeout_record()}")
             raise
-        o_p, lse_p = fa.flash_forward_plain(q, k, v, causal)
-        dq_p = fa.flash_dq_plain(q, k, v, do, lse_p, delta, causal)
-        dk_p, dv_p = fa.flash_dkv_plain(q, k, v, do, lse_p, delta, causal)
-        outs = {"o": (o, o_p, "flash_fwd"), "dq": (dq, dq_p, "flash_dq"),
-                "dk": (dk, dk_p, "flash_dkv"), "dv": (dv, dv_p, "flash_dkv")}
-        case = (f"B={B} S={S} nh={nh} d={d} bf16 "
-                f"{'causal' if causal else 'full'}")
-        failed = []
-        for key, (got, want, kernel) in outs.items():
-            r = fa.error_vs_plain(got, want)
-            worst[kernel] = max(worst[kernel], r["max_abs"])
-            print(f"[flash] {case} {key}: max abs {r['max_abs']:.2e} "
-                  f"(max |plain| {float(want.abs().max()):.2e}), rel L2 "
-                  f"{r['rel_l2']:.2e}, worst tile rel L2 "
-                  f"{r['tile_rel_l2']:.2e} (gate {fa.TILE_REL}), worst "
-                  f"element {r['element']:.3f} of its allowance")
-            if not (bool(torch.isfinite(got).all())
-                    and fa.within_tolerance(r)):
-                failed.append(key)
-        lse_err = float((lse - lse_p).abs().max())
-        worst["flash_fwd"] = max(worst["flash_fwd"], lse_err)
-        print(f"[flash] {case} lse: max abs {lse_err:.2e} (atol = rtol = "
-              f"{fa.LSE_TOL})")
-        if not torch.allclose(lse, lse_p, atol=fa.LSE_TOL, rtol=fa.LSE_TOL):
-            failed.append("lse")
-        check(not failed, f"flash {', '.join(failed)} disagree with the "
-              f"plain versions at {case}")
+        check_vs_plain("flash", f"B={B} S={S} nh={nh} d={d} bf16 "
+                       f"{'causal' if causal else 'full'}", (
+                           ("o", o, "flash_fwd"), ("lse", lse, "flash_fwd"),
+                           ("dq", dq, "flash_dq"), ("dk", dk, "flash_dkv"),
+                           ("dv", dv, "flash_dkv")),
+                       plain_three(q, k, v, do, delta, causal), worst)
     return worst
 
 
@@ -1683,8 +1699,6 @@ BERT_MIN_LEN = 64           # real tokens a row: 64-128, the rest padded
 BERT_MLM_RATE = 0.15
 BERT_LR = 1e-4
 BERT_PARITY_STEPS = 3       # TrainStep steps of the 2-layer parity copy
-BERT_FLASH_KERNELS = tuple((f"{name}_bias_dropout", wrapper, replaces)
-                           for name, wrapper, replaces in FLASH_KERNELS)
 # rows 4-6 with a key-padding bias and dropout against their plain
 # versions: BERT-base's attention (the main path's shape, first) and a
 # long-sequence batch of the same heads; non-causal
@@ -1730,10 +1744,6 @@ def bert_model(cfg, seed, dev):
     return model.to(dev), opt
 
 
-def bert_counts():
-    return {f"{name}_bias_dropout": n for name, n in flash_counts().items()}
-
-
 def phase_bert_train(seed, dev):
     """BERT-base pretraining through jit.TrainStep (amp O2, AdamW with
     global-norm clip and fp32 masters, dropout 0.1 in the flash kernels
@@ -1774,12 +1784,12 @@ def phase_bert_train(seed, dev):
     stop.record()
     last = float(losses[-1])                   # scalar read-back
     step_s = start.elapsed_time(stop) / 1e3 / TIMED_STEPS
-    counts = bert_counts()
+    counts = flash_counts()
     fallbacks = pF.scaled_dot_product_attention.fallbacks
     losses = [float(x) for x in losses]
     steps = WARMUP_STEPS + TIMED_STEPS
     L = cfg.num_hidden_layers
-    want = {name: L * steps for name, _, _ in BERT_FLASH_KERNELS}
+    want = {name: L * steps for name, _, _ in FLASH_KERNELS}
     print(f"[bert] losses {[round(x, 4) for x in losses]}")
     print(f"[bert] flash launches over {steps} steps: {counts} (want "
           f"{want}: {L} / {L} / {L} a step, no remat); SDPA fallbacks "
@@ -1806,76 +1816,15 @@ def phase_bert_train(seed, dev):
 
 def phase_bert_parity(seed, dev):
     """A 2-layer BERT-base copy through the flash kernels and through
-    FLAGS_use_flash_attention=False (the composed path), from the same
-    weights and generator state: the same hidden dropout masks and the
-    same Philox keys, so the composed path drops the same attention
-    probabilities. bf16 everywhere, P rounded to bf16 on both routes
-    after the same dropout: phase 6's gates. One step's loss and every
-    gradient leaf; then BERT_PARITY_STEPS jit.TrainStep steps of each
-    route with the tentpole's optimizer, each step's loss within
-    PARITY_LOSS_REL of the composed route's (an update that goes wrong on
-    the kernels' route parts them), and on both routes every fp32 master
-    moved off its start and every bf16 param its master rounded."""
+    FLAGS_use_flash_attention=False (``parity_routes``): bf16 everywhere,
+    P rounded to bf16 on both routes after the same dropout, phase 6's
+    gates."""
     cfg = dataclasses.replace(BERT_CONFIGS[BERT_MODEL], num_hidden_layers=2)
-    batch = bert_batch(cfg, seed + 1, dev)
-    runs = {}
-    try:
-        for use_flash in (True, False):
-            set_flags({"FLAGS_use_flash_attention": use_flash})
-            model, opt = bert_model(cfg, seed + 1, dev)
-            names = [n for n, _ in model.named_parameters()]
-            prandom.seed(seed + 2)
-            loss = model.pretraining_loss(*batch)
-            grads = torch.autograd.grad(loss, list(model.parameters()))
-            step = TrainStep(BertPretrainingLoss(model), lambda out: out,
-                             opt, device=dev)
-            start = {n: p.detach().float().clone()
-                     for n, p in step.params.items()}
-            prandom.seed(seed + 3)
-            losses = [float(step(batch, ()))
-                      for _ in range(BERT_PARITY_STEPS)]
-            slots = step.opt_state["slots"]
-            still = [n for n in start
-                     if torch.equal(slots[n]["master"], start[n])]
-            unwritten = [n for n, p in step.params.items()
-                         if not torch.equal(p, slots[n]["master"].to(
-                             p.dtype))]
-            check(not still and not unwritten, f"BERT masters: not moved "
-                  f"{still}, not written back to the bf16 params "
-                  f"{unwritten}")
-            runs[use_flash] = (float(loss.detach()), grads, losses)
-            del model, opt, step, start, slots
-    finally:
-        set_flags({"FLAGS_use_flash_attention": True})
-    (lk, gk, tk), (lp, gp, tp) = runs[True], runs[False]
-    rel = {n: float((a.float() - b.float()).norm() /
-                    b.float().norm().clamp(min=1e-30))
-           for n, a, b in zip(names, gk, gp)}
-    # the key biases' gradient is zero in exact arithmetic (a constant on
-    # every score of a row): summation noise only, on both routes
-    rel = {n: v for n, v in rel.items() if not n.endswith("k_proj.bias")}
-    worst = max(rel, key=rel.get)
-    apart = [abs(a - b) / abs(b) for a, b in zip(tk, tp)]
     print(f"[bert-parity] 2-layer {BERT_MODEL} width, [{BERT_B}, {BERT_S}] "
-          f"bf16, dropout 0.1: loss kernels {lk:.6f} vs composed "
-          f"{lp:.6f} (|diff| {abs(lk - lp):.2e}); gradient leaves: max "
-          f"||dg||/||g|| {rel[worst]:.3e} ({worst}), median "
-          f"{sorted(rel.values())[len(rel) // 2]:.3e} (gates: loss "
-          f"{PARITY_LOSS_REL} rel, leaves {PARITY_GRAD_REL})")
-    print(f"[bert-parity] {BERT_PARITY_STEPS} TrainStep steps (AdamW("
-          f"{BERT_LR}, clip 1.0), fp32 masters): kernels "
-          f"{[round(x, 6) for x in tk]}, composed "
-          f"{[round(x, 6) for x in tp]}, relative apart "
-          f"{[float(f'{x:.3e}') for x in apart]} (gate {PARITY_LOSS_REL} "
-          f"each); every master moved and written back on both routes")
-    check(np.isfinite(lk) and abs(lk - lp) <= PARITY_LOSS_REL * abs(lp),
-          "BERT loss through the kernels disagrees with the composed path")
-    check(all(np.isfinite(v) and v <= PARITY_GRAD_REL
-              for v in rel.values()),
-          f"a BERT gradient leaf disagrees with the composed path: {rel}")
-    check(all(np.isfinite(tk)) and max(apart) <= PARITY_LOSS_REL,
-          f"the BERT TrainStep trajectory through the kernels parts from "
-          f"the composed path's: {tk} vs {tp}")
+          f"bf16, dropout 0.1, AdamW({BERT_LR}, clip 1.0)")
+    parity_routes("bert-parity", lambda: bert_model(cfg, seed + 1, dev),
+                  BertPretrainingLoss, bert_batch(cfg, seed + 1, dev), seed,
+                  BERT_PARITY_STEPS)
 
 
 def bert_flash_inputs(gen, dev, B, S, nh, d):
@@ -1887,18 +1836,6 @@ def bert_flash_inputs(gen, dev, B, S, nh, d):
     real = torch.arange(S, device=dev)[None, :] < lengths[:, None]
     bias = torch.where(real, 0.0, -1e4)[:, None, None, :]
     return q, k, v, do, bias
-
-
-def bert_flash_bound(kernel, B, S, nh, d):
-    """flash_bound of the non-causal call, plus the bias's bytes (read
-    once, S values a batch); the Philox bits are not counted."""
-    bound, by, nflops, nbytes = flash_bound(
-        kernel.removesuffix("_bias_dropout"), B, S, nh, d, False)
-    nbytes += B * S * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nflops / BF16_FLOPS * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", nflops, nbytes)
 
 
 def library_ms(fwd, fwd_bwd):
@@ -1916,115 +1853,62 @@ def library_ms(fwd, fwd_bwd):
         return lib_fwd, cuda_ms(fwd_bwd, iters=20) - lib_fwd
 
 
+def three_calls(q, k, v, do, lse, delta, causal, **feats):
+    """{short name: (kernel call, plain call)} of rows 4-6 on one input,
+    for ``time_three``."""
+    return {
+        "fwd": (lambda: fa.flash_forward(q, k, v, causal, **feats),
+                lambda: fa.flash_forward_plain(q, k, v, causal, **feats)),
+        "dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal,
+                                   **feats),
+               lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, causal,
+                                         **feats)),
+        "dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal,
+                                     **feats),
+                lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, causal,
+                                           **feats)),
+    }
+
+
 def phase_bert_flash(gen, dev, counts):
     """Rows 4-6 with the key-padding bias and dropout 0.1 against their
     plain versions (error_vs_plain's gates, the same key) at each of
     BERT_FLASH_CASES, then their device times by CUDA-graph replay in
     turns (plain, kernel, kernel, plain) beside SDPA's with the same
-    float attn_mask and dropout_p, and the bound. Returns the kernels
-    line's rows (the first case's)."""
+    float mask and dropout_p, and the bound. Returns the kernels line's
+    rows (the first case's)."""
     p, key = BERT_CONFIGS[BERT_MODEL].attention_probs_dropout_prob, 0xB5E7
-    rows, worst = [], {name: 0.0 for name, _, _ in BERT_FLASH_KERNELS}
+    rows, worst = [], {}
     for B, S, nh, d in BERT_FLASH_CASES:
         q, k, v, do, bias = bert_flash_inputs(gen, dev, B, S, nh, d)
         feats = dict(bias=bias, dropout_p=p, key=key)
-        o, lse = fa.flash_forward(q, k, v, False, **feats)
-        delta = fa.attention_delta(o, do)
-        dq = fa.flash_dq(q, k, v, do, lse, delta, False, **feats)
-        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, False, **feats)
-        torch.cuda.synchronize()
-        o_p, lse_p = fa.flash_forward_plain(q, k, v, False, **feats)
-        dq_p = fa.flash_dq_plain(q, k, v, do, lse_p, delta, False, **feats)
-        dk_p, dv_p = fa.flash_dkv_plain(q, k, v, do, lse_p, delta, False,
-                                        **feats)
+        o, lse, delta, dq, dk, dv = run_three(q, k, v, do, False, **feats)
         case = f"B={B} S={S} nh={nh} d={d} bf16 full, pad bias, p={p}"
-        failed = []
-        for key_, got, want, kernel in (
-                ("o", o, o_p, 0), ("dq", dq, dq_p, 1), ("dk", dk, dk_p, 2),
-                ("dv", dv, dv_p, 2)):
-            name = BERT_FLASH_KERNELS[kernel][0]
-            r = fa.error_vs_plain(got, want)
-            worst[name] = max(worst[name], r["max_abs"])
-            print(f"[bert-flash] {case} {key_}: max abs {r['max_abs']:.2e} "
-                  f"(max |plain| {float(want.abs().max()):.2e}), worst tile "
-                  f"rel L2 {r['tile_rel_l2']:.2e} (gate {fa.TILE_REL}), "
-                  f"worst element {r['element']:.3f} of its allowance")
-            if not (bool(torch.isfinite(got).all())
-                    and fa.within_tolerance(r)):
-                failed.append(key_)
-        lse_err = float((lse - lse_p).abs().max())
-        print(f"[bert-flash] {case} lse: max abs {lse_err:.2e}")
-        if not torch.allclose(lse, lse_p, atol=fa.LSE_TOL, rtol=fa.LSE_TOL):
-            failed.append("lse")
-        check(not failed, f"flash {', '.join(failed)} with bias and dropout "
-              f"disagree with the plain versions at {case}")
-        del o_p, dq_p, dk_p, dv_p
-        calls = {
-            "fwd": (lambda: fa.flash_forward(q, k, v, False, **feats),
-                    lambda: fa.flash_forward_plain(q, k, v, False, **feats)),
-            "dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, False,
-                                       **feats),
-                   lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, False,
-                                             **feats)),
-            "dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, False,
-                                         **feats),
-                    lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta,
-                                               False, **feats)),
-        }
-        qh, kh, vh, doh = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
-        leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
-        mask = bias.to(torch.bfloat16)
-
-        def sdpa_fwd():
-            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                           dropout_p=p)
-
-        def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
-                                                 dropout_p=p)
-            torch.autograd.grad(out, leaves, doh)
-
-        lib_fwd, lib_bwd = library_ms(sdpa_fwd, sdpa_fwd_bwd)
-        library = {"fwd": lib_fwd, "dq": None, "dkv": lib_bwd}
-        ms = {}
-        for (name, _, replaces), (short, (kernel, plain)) in zip(
-                BERT_FLASH_KERNELS, calls.items()):
-            p1 = graph_ms(plain, iters=2, replays=3)
-            k1 = graph_ms(kernel, iters=10)
-            k2 = graph_ms(kernel, iters=10)
-            p2 = graph_ms(plain, iters=2, replays=3)
-            ms[short] = min(k1, k2)
-            bound, bound_by, nflops, nbytes = bert_flash_bound(name, B, S,
-                                                               nh, d)
-            lib = library[short]
-            vs_lib = f", SDPA {lib:.4f} ms" if lib is not None else ""
-            print(f"[bert-timing] {name} B={B} S={S} nh={nh} d={d} bf16 "
-                  f"full, pad bias, p={p}, device time (CUDA graph replay): "
-                  f"kernel {k1:.4f}/{k2:.4f} ms = "
-                  f"{nflops / ms[short] / 1e9:.1f} TFLOP/s, plain "
-                  f"{p1:.4f}/{p2:.4f} ms{vs_lib}, bound {bound:.4f} ms "
-                  f"({bound_by}: {nflops:.3e} flops, {nbytes / 1e6:.1f} MB)"
-                  f" -> {bound / ms[short]:.1%} of bound")
-            if (B, S, nh, d) == BERT_FLASH_CASES[0]:
-                rows.append({"name": name, "route": "cuda",
-                             "source": FLASH_SOURCES[
-                                 name.removesuffix("_bias_dropout")],
-                             "replaces": replaces, "launches": counts[name],
-                             "max_abs_err": None, "ms": ms[short],
-                             "plain_ms": min(p1, p2), "bound_ms": bound,
-                             "bound_by": bound_by, "library_ms": lib})
-        bwd = ms["dq"] + ms["dkv"]
+        check_vs_plain("bert-flash", case, (
+            ("o", o, "flash_fwd"), ("lse", lse, "flash_fwd"),
+            ("dq", dq, "flash_dq"), ("dk", dk, "flash_dkv"),
+            ("dv", dv, "flash_dkv")),
+            plain_three(q, k, v, do, delta, False, **feats), worst)
+        bounds = feature_bound(B, S, S, nh, d, S * S, 2,
+                               extra_bytes=B * S * 4)
+        library = sdpa_library(q, k, v, do, bias, p)
+        times = time_three("bert-timing", case, three_calls(
+            q, k, v, do, lse, delta, False, **feats), bounds, library)
+        if (B, S, nh, d) == BERT_FLASH_CASES[0]:
+            rows = kernel_rows("bias_dropout", times, bounds, library,
+                               counts, worst)
+        bwd = times["dq"][0] + times["dkv"][0]
         print(f"[bert-timing] SDPA (B={B} S={S}; library yardstick with the "
               f"same bf16 attn_mask and dropout_p, not used by the port): "
-              f"forward {lib_fwd:.4f} ms against the forward kernel's "
-              f"{ms['fwd']:.4f} ms ({ms['fwd'] / lib_fwd:.2f}x); backward "
-              f"{lib_bwd:.4f} ms against dQ + dK/dV {bwd:.4f} ms "
-              f"({bwd / lib_bwd:.2f}x)")
+              f"forward {library['fwd']:.4f} ms against the forward "
+              f"kernel's {times['fwd'][0]:.4f} ms "
+              f"({times['fwd'][0] / library['fwd']:.2f}x); backward "
+              f"{library['dkv']:.4f} ms against dQ + dK/dV {bwd:.4f} ms "
+              f"({bwd / library['dkv']:.2f}x)")
         del q, k, v, do, bias, o, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
-    for row in rows:
-        row["max_abs_err"] = worst[row["name"]]
-    rows[2]["library_covers"] = "flash_dq_bias_dropout+flash_dkv_bias_dropout"
+    for row in rows:                       # the worst over both cases
+        row["max_abs_err"] = worst[row["name"].removesuffix("_bias_dropout")]
     return rows
 
 
@@ -2039,6 +1923,707 @@ def phase_bert(seed, gen, dev):
     phase_bert_parity(seed, dev)
     torch.cuda.empty_cache()
     return phase_bert_flash(gen, dev, counts)
+
+
+# ------------------------- flash features: segment ids, varlen, fp16, Sq != Sk
+VARLEN_TOKENS = 16384       # the pack of flash_attn_unpadded's run
+VARLEN_DOCS = (128, 2048)   # document lengths drawn uniformly
+VARLEN_HEADS, VARLEN_D = 16, 128                 # GPT-3 1.3B's attention
+FP16_CASE = (BERT_B, BERT_S, 12, 64)             # BERT's shape, fp16
+# rows 4-6 against their plain versions at the features this slice adds:
+# (label, B, Sq, Sk, heads, d, causal, dtype, bias kind, dropout p)
+FEATURE_CASES = (
+    ("transformer cross", 32, 128, 256, 8, 64, False, torch.bfloat16,
+     "pad", 0.1),
+    ("transformer decoder self, -inf mask", 32, 128, 128, 8, 64, False,
+     torch.bfloat16, "square-inf", 0.1),
+    ("causal Sq < Sk", 2, 1024, 2048, 16, 128, True, torch.bfloat16, None,
+     0.0),
+    ("causal Sq > Sk", 2, 2048, 1024, 16, 128, True, torch.float16, None,
+     0.0),
+    ("fp16 GPT step", 8, 2048, 2048, 16, 128, True, torch.float16, None,
+     0.0),
+    ("fp16 BERT", *FP16_CASE[:2], FP16_CASE[1], *FP16_CASE[2:], False,
+     torch.float16, "pad", 0.1),
+)
+
+
+def feature_inputs(gen, dev, B, Sq, Sk, nh, d, dtype, kind):
+    """q, dO [B, Sq, nh, d], k and v strided views of one [B, Sk, 2, nh, d]
+    tensor (the cross-attention's separate projections read in place),
+    and the bias of ``kind``: "pad", a [B, 1, 1, Sk] key-padding bias of
+    PAD_BIAS past each row's length (half to all of Sk); "square-inf",
+    the decoder's [1, 1, Sq, Sk] generate_square_subsequent_mask; None."""
+    q = torch.randn(B, Sq, nh, d, generator=gen, device=dev).to(dtype)
+    do = torch.randn(B, Sq, nh, d, generator=gen, device=dev).to(dtype)
+    k, v = torch.randn(B, Sk, 2, nh, d, generator=gen,
+                       device=dev).to(dtype).unbind(2)
+    bias = None
+    if kind == "pad":
+        lengths = torch.randint(Sk // 2, Sk + 1, (B,), generator=gen,
+                                device=dev)
+        real = torch.arange(Sk, device=dev)[None, :] < lengths[:, None]
+        bias = torch.where(real, 0.0, PAD_BIAS)[:, None, None, :]
+    elif kind == "square-inf":
+        bias = pnn.Transformer.generate_square_subsequent_mask(Sq).to(dev)[
+            None, None]
+    return q, k, v, do, bias
+
+
+def check_vs_plain(tag, case, outs, plains, worst):
+    """error_vs_plain of each (name, got) against its plain version, the
+    LSE at fa.LSE_TOL; prints the readings and fails on a miss. ``worst``
+    keeps the largest max abs error per kernel."""
+    failed = []
+    for (key, got, kernel), want in zip(outs, plains):
+        if key == "lse":
+            err = float((got - want).abs().max())
+            print(f"[{tag}] {case} lse: max abs {err:.2e}")
+            worst[kernel] = max(worst.get(kernel, 0.0), err)
+            if not torch.allclose(got, want, atol=fa.LSE_TOL,
+                                  rtol=fa.LSE_TOL):
+                failed.append(key)
+            continue
+        r = fa.error_vs_plain(got, want)
+        worst[kernel] = max(worst.get(kernel, 0.0), r["max_abs"])
+        print(f"[{tag}] {case} {key}: max abs {r['max_abs']:.2e} (max "
+              f"|plain| {float(want.abs().max()):.2e}), worst tile rel L2 "
+              f"{r['tile_rel_l2']:.2e} (gate {fa.TILE_REL}), worst element "
+              f"{r['element']:.3f} of its allowance")
+        if not (bool(torch.isfinite(got).all()) and fa.within_tolerance(r)):
+            failed.append(key)
+    check(not failed, f"flash {', '.join(failed)} disagree with the plain "
+          f"versions at {case}")
+
+
+def run_three(q, k, v, do, causal, **feats):
+    """The three kernels on one input: (o, lse, delta, dq, dk, dv)."""
+    o, lse = fa.flash_forward(q, k, v, causal, **feats)
+    delta = fa.attention_delta(o, do)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, causal, **feats)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, **feats)
+    torch.cuda.synchronize()
+    return o, lse, delta, dq, dk, dv
+
+
+def plain_three(q, k, v, do, delta, causal, **feats):
+    o, lse = fa.flash_forward_plain(q, k, v, causal, **feats)
+    return (o, lse, fa.flash_dq_plain(q, k, v, do, lse, delta, causal,
+                                      **feats),
+            *fa.flash_dkv_plain(q, k, v, do, lse, delta, causal, **feats))
+
+
+def feature_bound(B, Sq, Sk, nh, d, pairs, itemsize, extra_bytes=0):
+    """(ms, by, flops, bytes) of each of the three kernels over ``pairs``
+    (query, key) pairs a (b, head): q and dO [B, Sq], k and v [B, Sk]
+    read once, outputs written once, LSE and delta fp32; plus
+    ``extra_bytes`` (a bias, segment ids)."""
+    tq, tk = B * Sq * nh * d * itemsize, B * Sk * nh * d * itemsize
+    stat = B * nh * Sq * 4
+    out = {}
+    for kernel, gemms, nbytes in (("fwd", 2, tq + 2 * tk + tq + stat),
+                                  ("dq", 3, 2 * tq + 2 * tk + 2 * stat + tq),
+                                  ("dkv", 4, 2 * tq + 2 * tk + 2 * stat +
+                                   2 * tk)):
+        nflops = gemms * 2 * d * pairs * B * nh
+        nbytes += extra_bytes
+        t_ops = nflops / BF16_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[kernel] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+                       else "bytes", nflops, nbytes)
+    return out
+
+
+def time_three(tag, label, calls, bounds, library, iters=10):
+    """Kernel and plain device ms of the three kernels by CUDA-graph replay
+    in turns (plain, kernel, kernel, plain; ``calls``: short name ->
+    (kernel call, plain call)), printed beside the bound and the library
+    time. Returns {short: (ms, plain ms)}."""
+    out = {}
+    for short, (kernel, plain) in calls.items():
+        p1 = graph_ms(plain, iters=1, replays=2)
+        k1 = graph_ms(kernel, iters=iters)
+        k2 = graph_ms(kernel, iters=iters)
+        p2 = graph_ms(plain, iters=1, replays=2)
+        ms = min(k1, k2)
+        bound, by, nflops, nbytes = bounds[short]
+        lib = library.get(short)
+        vs_lib = f", library {lib:.4f} ms" if lib is not None else ""
+        print(f"[{tag}] {short} {label}: kernel {k1:.4f}/{k2:.4f} ms = "
+              f"{nflops / ms / 1e9:.1f} TFLOP/s, plain {p1:.4f}/{p2:.4f} "
+              f"ms{vs_lib}, bound {bound:.4f} ms ({by}: {nflops:.3e} flops, "
+              f"{nbytes / 1e6:.1f} MB) -> {bound / ms:.1%} of bound")
+        out[short] = (ms, min(p1, p2))
+    return out
+
+
+def kernel_rows(suffix, times, bounds, library, counts, errs):
+    """The kernels line's three rows of one shape (``_<suffix>``)."""
+    rows = []
+    for (name, _, replaces), short in zip(FLASH_KERNELS,
+                                          ("fwd", "dq", "dkv")):
+        ms, plain_ms = times[short]
+        rows.append({"name": f"{name}_{suffix}", "route": "cuda",
+                     "source": FLASH_SOURCES[name], "replaces": replaces,
+                     "launches": counts[name], "max_abs_err": errs[name],
+                     "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bounds[short][0],
+                     "bound_by": bounds[short][1],
+                     "library_ms": library.get(short)})
+    rows[2]["library_covers"] = f"flash_dq_{suffix}+flash_dkv_{suffix}"
+    return rows
+
+
+def sdpa_library(q, k, v, do, bias, p, causal=False):
+    """SDPA's forward and backward ms on the same [B, S, H, D] inputs
+    (the library yardstick, not used by the port)."""
+    qh, kh, vh, doh = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
+    leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+    mask = None if bias is None else bias.to(q.dtype)
+
+    def fwd():
+        F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                       dropout_p=p, is_causal=causal)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             dropout_p=p, is_causal=causal)
+        torch.autograd.grad(out, leaves, doh)
+
+    lib_fwd, lib_bwd = library_ms(fwd, fwd_bwd)
+    return {"fwd": lib_fwd, "dkv": lib_bwd}
+
+
+def phase_feature_cases(gen, dev):
+    """Rows 4-6 at FEATURE_CASES against their plain versions (the same
+    key): Sq != Sk, fp16, the -inf square mask. Returns {case label:
+    the worst max abs error per kernel}."""
+    errs = {}
+    for label, B, Sq, Sk, nh, d, causal, dtype, kind, p in FEATURE_CASES:
+        worst = errs[label] = {}
+        q, k, v, do, bias = feature_inputs(gen, dev, B, Sq, Sk, nh, d,
+                                           dtype, kind)
+        feats = dict(bias=bias, dropout_p=p, key=0xF17)
+        o, lse, delta, dq, dk, dv = run_three(q, k, v, do, causal, **feats)
+        case = (f"{label}: B={B} Sq={Sq} Sk={Sk} nh={nh} d={d} "
+                f"{str(dtype)[6:]} {'causal' if causal else 'full'}, bias "
+                f"{kind}, p={p}")
+        check_vs_plain("features", case, (
+            ("o", o, "flash_fwd"), ("lse", lse, "flash_fwd"),
+            ("dq", dq, "flash_dq"), ("dk", dk, "flash_dkv"),
+            ("dv", dv, "flash_dkv")),
+            plain_three(q, k, v, do, delta, causal, **feats), worst)
+        del q, k, v, do, bias, o, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+    return errs
+
+
+def varlen_lengths(rng, total, lo, hi):
+    """Document lengths drawn uniformly from [lo, hi] until they fill
+    ``total`` tokens, the last cut to fit."""
+    out = []
+    while sum(out) < total:
+        out.append(int(rng.integers(lo, hi + 1)))
+    out[-1] -= sum(out) - total
+    return out
+
+
+def varlen_pairs(lq, lk, causal):
+    """(query, key) pairs a head that the documents keep."""
+    return sum(a * (a + 1) // 2 if causal else a * b
+               for a, b in zip(lq, lk))
+
+
+def phase_varlen(rng, gen, dev, dtype, causal, lq, lk):
+    """flash_attn_unpadded at GPT-3 1.3B's attention width over a pack of
+    documents (lengths lq against lk), forward and backward, with launches
+    counted over that call: its output and gradients per document against
+    the plain versions of that document alone; then rows 4-6 on the padded
+    pack (segment ids) timed against their bound over the pairs inside
+    documents, the plain versions per document, and SDPA over nested
+    jagged tensors. Returns (times, bounds, library, counts, errs)."""
+    H, d = VARLEN_HEADS, VARLEN_D
+    cu_q = torch.tensor(np.cumsum([0] + lq), dtype=torch.int32, device=dev)
+    cu_k = torch.tensor(np.cumsum([0] + lk), dtype=torch.int32, device=dev)
+    Tq, Tk = sum(lq), sum(lk)
+    q = torch.randn(Tq, H, d, generator=gen, device=dev).to(dtype)
+    do = torch.randn(Tq, H, d, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(Tk, H, d, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    label = (f"{len(lq)} documents, {Tq} x {Tk} tokens, {H} x {d}, "
+             f"{str(dtype)[6:]}, {'causal' if causal else 'full'}")
+    # the entry point's path: counts from 0 before, read after
+    reset_flash_counts()
+    pF.scaled_dot_product_attention.fallbacks = 0
+    out, _ = pF.flash_attn_unpadded(*leaves, cu_q, cu_k, causal=causal)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    counts = flash_counts()
+    print(f"[varlen] {label}: launches {counts}, fallbacks "
+          f"{pF.scaled_dot_product_attention.fallbacks}")
+    check(counts == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1} and
+          pF.scaled_dot_product_attention.fallbacks == 0,
+          f"flash_attn_unpadded did not run rows 4-6 once each: {counts}")
+    worst, bad = {}, []
+    for i, (a, b) in enumerate(zip(lq, lk)):
+        sq, sk = slice(int(cu_q[i]), int(cu_q[i + 1])), slice(
+            int(cu_k[i]), int(cu_k[i + 1]))
+        qd, kd, vd, dod = (t[None] for t in (q[sq], k[sk], v[sk], do[sq]))
+        od = out[sq].detach()[None]
+        delta = fa.attention_delta(od, dod)
+        want = plain_three(qd, kd, vd, dod, delta, causal)
+        got = (od, None, grads[0][sq][None], grads[1][sk][None],
+               grads[2][sk][None])
+        for key, kernel, g, w in zip(("o", "lse", "dq", "dk", "dv"),
+                                     ("flash_fwd", "flash_fwd", "flash_dq",
+                                      "flash_dkv", "flash_dkv"), got, want):
+            if g is None:
+                continue
+            r = fa.error_vs_plain(g, w)
+            worst[kernel] = max(worst.get(kernel, 0.0), r["max_abs"])
+            if not (bool(torch.isfinite(g).all()) and fa.within_tolerance(r)):
+                bad.append((i, key, r))
+    print(f"[varlen] {label}: per-document max abs errors {worst}; "
+          f"misses {bad[:3]}")
+    check(not bad, f"flash_attn_unpadded disagrees with the plain versions "
+          f"per document ({label}): {bad[:3]}")
+    del out, grads, leaves
+    # rows 4-6 alone on the pack, padded to the tile with segment ids
+    pad = fa.FWD_ROWS
+    Tq_p, Tk_p = -(-Tq // pad) * pad, -(-Tk // pad) * pad
+    qs = fa.varlen_segment_ids(cu_q, Tq, Tq_p)[None]
+    ks = fa.varlen_segment_ids(cu_k, Tk, Tk_p)[None]
+    ks = torch.where(ks < 0, fa.PAD_K_ID, ks)
+    seg = (qs, ks)
+    qp, dop = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, Tq_p - Tq))[None]
+               for t in (q, do))
+    kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, Tk_p - Tk))[None]
+              for t in (k, v))
+    o, lse = fa.flash_forward(qp, kp, vp, causal, segment_ids=seg)
+    delta = fa.attention_delta(o, dop)
+    docs = list(zip(lq, lk, cu_q.tolist(), cu_k.tolist()))
+
+    def per_doc(fn):
+        def run():
+            for a, b, s0, t0 in docs:
+                fn(qp[:, s0:s0 + a], kp[:, t0:t0 + b], vp[:, t0:t0 + b],
+                   dop[:, s0:s0 + a], lse.view(H, -1)[:, s0:s0 + a],
+                   delta.view(H, -1)[:, s0:s0 + a])
+        return run
+
+    calls = {
+        "fwd": (lambda: fa.flash_forward(qp, kp, vp, causal,
+                                         segment_ids=seg),
+                per_doc(lambda q_, k_, v_, do_, l_, d_:
+                        fa.flash_forward_plain(q_, k_, v_, causal))),
+        "dq": (lambda: fa.flash_dq(qp, kp, vp, dop, lse, delta, causal,
+                                   segment_ids=seg),
+               per_doc(lambda q_, k_, v_, do_, l_, d_: fa.flash_dq_plain(
+                   q_, k_, v_, do_, l_.contiguous(), d_.contiguous(),
+                   causal))),
+        "dkv": (lambda: fa.flash_dkv(qp, kp, vp, dop, lse, delta, causal,
+                                     segment_ids=seg),
+                per_doc(lambda q_, k_, v_, do_, l_, d_: fa.flash_dkv_plain(
+                    q_, k_, v_, do_, l_.contiguous(), d_.contiguous(),
+                    causal))),
+    }
+    pairs = varlen_pairs(lq, lk, causal)
+    bounds = feature_bound(1, Tq, Tk, H, d, pairs, 2,
+                           extra_bytes=4 * (Tq_p + Tk_p))
+    library = varlen_library(q, k, v, do, cu_q, cu_k, causal)
+    times = time_three("varlen-timing", label + " (plain: per document)",
+                       calls, bounds, library, iters=5)
+    dense = feature_bound(1, Tq, Tk, H, d, varlen_pairs([Tq], [Tk], causal),
+                          2)["fwd"][2]
+    print(f"[varlen-timing] {label}: {pairs * 2 * 2 * d * H:.3e} forward "
+          f"flops inside documents against {dense:.3e} over the whole pack "
+          f"({dense / (pairs * 4 * d * H):.1f}x)")
+    del q, k, v, do, qp, kp, vp, dop, o, lse, delta
+    torch.cuda.empty_cache()
+    return times, bounds, library, counts, worst
+
+
+def varlen_library(q, k, v, do, cu_q, cu_k, causal):
+    """SDPA over nested jagged tensors ([docs, jagged, H, D], transposed
+    to heads first) on the pack, forward and backward (eager CUDA events:
+    the nested layout is not captured in a graph); where torch refuses
+    that call, the padded SDPA with a block-diagonal mask (said so)."""
+    def nest(t, offsets):
+        return torch.nested.nested_tensor_from_jagged(
+            t, offsets=offsets).transpose(1, 2)
+
+    # one offsets tensor per ragged length: the jagged dimension of two
+    # nested tensors is the same only when their offsets are one tensor
+    oq = cu_q.long()
+    ok = oq if torch.equal(cu_q, cu_k) else cu_k.long()
+    try:
+        qn, kn, vn, don = nest(q, oq), nest(k, ok), nest(v, ok), nest(do, oq)
+        leaves = [t.detach().requires_grad_(True) for t in (qn, kn, vn)]
+
+        def fwd():
+            F.scaled_dot_product_attention(qn, kn, vn, is_causal=causal)
+
+        def fwd_bwd():
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            torch.autograd.grad(out, leaves, don)
+
+        lib_fwd = cuda_ms(fwd, iters=10, warmup=3)
+        lib_bwd = cuda_ms(fwd_bwd, iters=10, warmup=3) - lib_fwd
+        print("[varlen-timing] library: SDPA over nested jagged tensors")
+    except Exception as e:      # noqa: BLE001 - the yardstick's fallback
+        print(f"[varlen-timing] SDPA over nested jagged tensors refused "
+              f"({type(e).__name__}: {str(e)[:200]}); library: the padded "
+              f"SDPA with a block-diagonal mask")
+        qs = fa.varlen_segment_ids(cu_q, q.shape[0], q.shape[0])
+        ks = fa.varlen_segment_ids(cu_k, k.shape[0], k.shape[0])
+        keep = qs[:, None] == ks[None, :]
+        if causal:
+            keep &= torch.ones_like(keep).tril()
+        mask = torch.where(keep, 0.0, float("-inf")).to(q.dtype)[None, None]
+        lib = sdpa_library(q[None], k[None], v[None], do[None], mask, 0.0)
+        lib_fwd, lib_bwd = lib["fwd"], lib["dkv"]
+    return {"fwd": lib_fwd, "dkv": lib_bwd}
+
+
+def phase_fp16_entry_points(gen, dev):
+    """F.flash_attention (dropout 0.1) and SDPA (key-padding bias and
+    dropout 0.1) on fp16 at BERT's shape, forward and backward, launches
+    counted over those calls; then rows 4-6's fp16 bias + dropout
+    instances timed there against the plain versions and SDPA. Returns
+    (times, bounds, library, counts)."""
+    B, S, nh, d = FP16_CASE
+    p = 0.1
+    q, k, v, do, bias = feature_inputs(gen, dev, B, S, S, nh, d,
+                                       torch.float16, "pad")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    reset_flash_counts()
+    pF.scaled_dot_product_attention.fallbacks = 0
+    out, none = pF.flash_attention(*leaves, dropout=p)
+    torch.autograd.grad(out, leaves, do)
+    out = pF.scaled_dot_product_attention(*leaves, attn_mask=bias,
+                                          dropout_p=p)
+    torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    counts = flash_counts()
+    print(f"[fp16] F.flash_attention and SDPA, B={B} S={S} nh={nh} d={d} "
+          f"fp16, p={p}: launches {counts}, fallbacks "
+          f"{pF.scaled_dot_product_attention.fallbacks}, outputs "
+          f"{out.dtype}")
+    check(none is None and counts == {"flash_fwd": 2, "flash_dq": 2,
+                                      "flash_dkv": 2}
+          and pF.scaled_dot_product_attention.fallbacks == 0
+          and out.dtype == torch.float16,
+          f"the fp16 entry points did not run rows 4-6: {counts}")
+    feats = dict(bias=bias, dropout_p=p, key=0xF16)
+    o, lse = fa.flash_forward(q, k, v, False, **feats)
+    delta = fa.attention_delta(o, do)
+    calls = {
+        "fwd": (lambda: fa.flash_forward(q, k, v, False, **feats),
+                lambda: fa.flash_forward_plain(q, k, v, False, **feats)),
+        "dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, False, **feats),
+               lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, False,
+                                         **feats)),
+        "dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, False,
+                                     **feats),
+                lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, False,
+                                           **feats)),
+    }
+    bounds = feature_bound(B, S, S, nh, d, S * S, 2, extra_bytes=B * S * 4)
+    library = sdpa_library(q, k, v, do, bias, p)
+    times = time_three("fp16-timing", f"B={B} S={S} nh={nh} d={d} fp16 "
+                       f"full, pad bias, p={p}", calls, bounds, library)
+    return times, bounds, library, counts
+
+
+def phase_flash_features(seed, gen, dev):
+    """The features this slice adds to rows 4-6: each against its plain
+    version (FEATURE_CASES), flash_attn_unpadded over a 16,384-token pack
+    (causal, bf16 and fp16; then non-causal with cu_seqlens_q !=
+    cu_seqlens_k), and the fp16 entry points. Returns the kernels line's
+    rows (the causal bf16 pack's and fp16 BERT's)."""
+    errs = phase_feature_cases(gen, dev)
+    rng = np.random.default_rng(seed + 17)
+    lq = varlen_lengths(rng, VARLEN_TOKENS, *VARLEN_DOCS)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float16):
+        got = phase_varlen(rng, gen, dev, dtype, True, lq, lq)
+        if dtype == torch.bfloat16:
+            rows += kernel_rows("varlen", *got[:4], got[4])
+    lk = [int(rng.integers(*VARLEN_DOCS)) for _ in lq]
+    phase_varlen(rng, gen, dev, torch.bfloat16, False, lq, lk)
+    times, bounds, library, counts = phase_fp16_entry_points(gen, dev)
+    return rows + kernel_rows("fp16", times, bounds, library, counts,
+                              errs["fp16 BERT"])
+
+
+# ------------------------------------------------- Transformer-base training
+TRANSFORMER_MODEL = "transformer-base"
+TF_B, TF_SRC, TF_TGT = 32, 256, 128   # pairs, source and target slots
+TF_SRC_LEN, TF_TGT_LEN = (64, 256), (32, 128)   # real tokens a row
+TF_LR = 1e-4
+TF_PARITY_STEPS = 3
+# the 2 + 2-layer copy's gradient-leaf gate, set from its CPU copy
+# (tests/torch_transformer_gate.py: worst leaf 6.06e-2, median 3.13e-2,
+# the kernels' plain versions keeping P in fp32 where the composed path
+# rounds it to bf16) before any reading on the card; its loss and steps
+# keep PARITY_LOSS_REL (the CPU copy: at most 7.8e-6)
+TF_PARITY_GRAD_REL = 1e-1
+
+
+class TranslationLoss(torch.nn.Module):
+    """The loss adapter for ``jit.TrainStep``: the model's output is its
+    fused cross-entropy."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, src, tgt, labels):
+        return self.model.loss(src, tgt, labels)
+
+
+def transformer_model(cfg, seed, dev):
+    """TransformerForTranslation with the port's init seeded through
+    framework.random, under amp.decorate O2 with AdamW(TF_LR, global-norm
+    clip 1.0) and fp32 masters."""
+    prandom.seed(seed)
+    model = TransformerForTranslation(cfg)
+    opt = AdamW(TF_LR, grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    return model.to(dev), opt
+
+
+def transformer_batch(cfg, seed, dev):
+    return tuple(torch.from_numpy(a).to(dev) for a in translation_batch(
+        cfg, TF_B, TF_SRC, TF_TGT, seed, TF_SRC_LEN, TF_TGT_LEN))
+
+
+def transformer_step_flops(cfg):
+    """Model FLOPs of one training step (forward x 3), every position of
+    the batch counted: the encoder's and decoder's projections, FFNs and
+    attention products, the cross-attention's keys and values over the
+    source, the vocabulary projection."""
+    d, ff, V = cfg.d_model, cfg.dim_feedforward, cfg.vocab_size
+    ns, nt = TF_B * TF_SRC, TF_B * TF_TGT
+    enc = ns * (2 * (4 * d * d + 2 * d * ff) + 4 * TF_SRC * d)
+    dec = nt * (2 * (6 * d * d + 2 * d * ff) + 4 * (TF_TGT + TF_SRC) * d) + \
+        ns * 2 * 2 * d * d
+    fwd = cfg.num_encoder_layers * enc + cfg.num_decoder_layers * dec + \
+        nt * 2 * d * V
+    return 3 * fwd
+
+
+def phase_transformer_train(seed, dev):
+    """Transformer-base through jit.TrainStep: 2 warm-up and 5 timed steps
+    on one batch; every loss finite, the last below the first, rows 4-6
+    launched 18 times a step each (6 encoder, 6 decoder self, 6 cross,
+    their level-1 and level-2 bias + dropout instances), no fallback.
+    Returns (step, batch, counts)."""
+    cfg = TRANSFORMER_CONFIGS[TRANSFORMER_MODEL]
+    t0 = time.perf_counter()
+    model, opt = transformer_model(cfg, seed, dev)
+    step = TrainStep(TranslationLoss(model), lambda out: out, opt,
+                     device=dev)
+    batch = transformer_batch(cfg, seed, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    real_src = int((batch[0] != cfg.pad_id).sum())
+    real_tgt = int((batch[2] != -100).sum())
+    torch.cuda.synchronize()
+    print(f"[transformer] {TRANSFORMER_MODEL}: d={cfg.d_model} "
+          f"heads={cfg.nhead} L={cfg.num_encoder_layers}+"
+          f"{cfg.num_decoder_layers} FFN={cfg.dim_feedforward} "
+          f"V={cfg.vocab_size}, {n_params:,} params (amp O2: bf16, fp32 "
+          f"masters), AdamW({TF_LR}, clip 1.0), dropout {cfg.dropout}, "
+          f"batch {TF_B} pairs of [{TF_SRC}] -> [{TF_TGT}] slots with "
+          f"{real_src} source and {real_tgt} target tokens; set up in "
+          f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts start at 0 here and are read right after
+    reset_flash_counts()
+    pF.scaled_dot_product_attention.fallbacks = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(WARMUP_STEPS):
+        losses.append(step(batch, ()))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED_STEPS):
+        losses.append(step(batch, ()))
+    stop.record()
+    last = float(losses[-1])                   # scalar read-back
+    step_s = start.elapsed_time(stop) / 1e3 / TIMED_STEPS
+    counts = flash_counts()
+    fallbacks = pF.scaled_dot_product_attention.fallbacks
+    losses = [float(x) for x in losses]
+    steps = WARMUP_STEPS + TIMED_STEPS
+    per_step = cfg.num_encoder_layers + 2 * cfg.num_decoder_layers
+    want = {name: per_step * steps for name, _, _ in FLASH_KERNELS}
+    print(f"[transformer] losses {[round(x, 4) for x in losses]}")
+    print(f"[transformer] flash launches over {steps} steps: {counts} "
+          f"(want {want}: {per_step} a step each); SDPA fallbacks "
+          f"{fallbacks} (want 0)")
+    check(all(np.isfinite(losses)), f"a Transformer loss is not finite: "
+          f"{losses}")
+    check(last < losses[0], f"the Transformer loss did not fall on the "
+          f"same batch: {losses[0]:.4f} -> {last:.4f}")
+    check(counts == want and fallbacks == 0, "the Transformer step did not "
+          "run the flash kernels the expected number of times")
+    nflops = transformer_step_flops(cfg)
+    peak = flops.peak_flops_bf16(torch.cuda.get_device_name(0))
+    stats = {"step_s": step_s,
+             "target_tokens_per_s": real_tgt / step_s,
+             "tokens_per_s": (real_src + real_tgt) / step_s,
+             "positions_per_s": TF_B * (TF_SRC + TF_TGT) / step_s,
+             "mfu": flops.mfu(nflops, step_s, peak),
+             "step_flops": nflops, "n_params": n_params, "warmup_s": warm,
+             "first_loss": losses[0], "last_loss": last,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[transformer] {json.dumps(stats)} (tokens: real source + "
+          f"target; MFU over every position)")
+    return step, batch, counts
+
+
+def parity_routes(tag, make, wrap, batch, seed, steps,
+                  grad_gate=PARITY_GRAD_REL):
+    """A model from ``make()`` (model, opt) through the flash kernels and
+    through FLAGS_use_flash_attention=False (the composed path), from the
+    same weights and generator state (the same Philox keys, so the
+    composed path drops the same attention probabilities): one step's loss
+    and every gradient leaf within phase 6's gates, then ``steps``
+    jit.TrainStep steps of each route (``wrap(model)`` the loss module),
+    each step's loss within PARITY_LOSS_REL of the composed route's, and
+    on both routes every fp32 master moved off its start and every bf16
+    param its master rounded."""
+    runs = {}
+    try:
+        for use_flash in (True, False):
+            set_flags({"FLAGS_use_flash_attention": use_flash})
+            model, opt = make()
+            names = [n for n, _ in model.named_parameters()]
+            prandom.seed(seed + 2)
+            loss = wrap(model)(*batch)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            step = TrainStep(wrap(model), lambda out: out, opt,
+                             device=batch[0].device)
+            start = {n: p.detach().float().clone()
+                     for n, p in step.params.items()}
+            prandom.seed(seed + 3)
+            losses = [float(step(batch, ())) for _ in range(steps)]
+            slots = step.opt_state["slots"]
+            still = [n for n in start
+                     if torch.equal(slots[n]["master"], start[n])]
+            unwritten = [n for n, p in step.params.items()
+                         if not torch.equal(p, slots[n]["master"].to(
+                             p.dtype))]
+            check(not still and not unwritten, f"{tag} masters: not moved "
+                  f"{still}, not written back to the bf16 params "
+                  f"{unwritten}")
+            runs[use_flash] = (float(loss.detach()), grads, losses)
+            del model, opt, step, start, slots
+    finally:
+        set_flags({"FLAGS_use_flash_attention": True})
+    (lk, gk, tk), (lp, gp, tp) = runs[True], runs[False]
+    rel = {n: float((a.float() - b.float()).norm() /
+                    b.float().norm().clamp(min=1e-30))
+           for n, a, b in zip(names, gk, gp)}
+    # the key biases' gradient is zero in exact arithmetic (a constant on
+    # every score of a row): summation noise only, on both routes
+    rel = {n: v for n, v in rel.items() if not n.endswith("k_proj.bias")}
+    worst = max(rel, key=rel.get)
+    apart = [abs(a - b) / abs(b) for a, b in zip(tk, tp)]
+    print(f"[{tag}] loss kernels {lk:.6f} vs composed {lp:.6f} (|diff| "
+          f"{abs(lk - lp):.2e}); gradient leaves: max ||dg||/||g|| "
+          f"{rel[worst]:.3e} ({worst}), median "
+          f"{sorted(rel.values())[len(rel) // 2]:.3e} (gates: loss "
+          f"{PARITY_LOSS_REL} rel, leaves {grad_gate})")
+    print(f"[{tag}] {steps} TrainStep steps (fp32 masters): kernels "
+          f"{[round(x, 6) for x in tk]}, composed "
+          f"{[round(x, 6) for x in tp]}, relative apart "
+          f"{[float(f'{x:.3e}') for x in apart]} (gate {PARITY_LOSS_REL} "
+          f"each); every master moved and written back on both routes")
+    check(np.isfinite(lk) and abs(lk - lp) <= PARITY_LOSS_REL * abs(lp),
+          f"{tag}: the loss through the kernels disagrees with the "
+          f"composed path")
+    check(all(np.isfinite(v) and v <= grad_gate for v in rel.values()),
+          f"{tag}: a gradient leaf disagrees with the composed path: {rel}")
+    check(all(np.isfinite(tk)) and max(apart) <= PARITY_LOSS_REL,
+          f"{tag}: the TrainStep trajectory through the kernels parts from "
+          f"the composed path's: {tk} vs {tp}")
+
+
+def phase_transformer_flash(gen, dev, counts):
+    """Rows 4-6 at the Transformer's three attention shapes (encoder self
+    [32, 256] with the padding bias, decoder self [32, 128] with the -inf
+    square mask, cross [32, 128 x 256] with the padding bias; 8 heads of
+    64, dropout 0.1), timed against the bound, the plain versions and
+    SDPA with the same float mask and dropout_p. Returns the kernels
+    line's rows (the cross-attention's)."""
+    p = TRANSFORMER_CONFIGS[TRANSFORMER_MODEL].dropout
+    rows = []
+    for label, Sq, Sk, kind in (("cross", TF_TGT, TF_SRC, "pad"),
+                                ("encoder self", TF_SRC, TF_SRC, "pad"),
+                                ("decoder self", TF_TGT, TF_TGT,
+                                 "square-inf")):
+        q, k, v, do, bias = feature_inputs(gen, dev, TF_B, Sq, Sk, 8, 64,
+                                           torch.bfloat16, kind)
+        feats = dict(bias=bias, dropout_p=p, key=0x7F)
+        o, lse, delta, dq, dk, dv = run_three(q, k, v, do, False, **feats)
+        worst = {}
+        check_vs_plain("transformer-flash", f"{label} B={TF_B} Sq={Sq} "
+                       f"Sk={Sk}, bias {kind}, p={p}", (
+                           ("o", o, "flash_fwd"), ("lse", lse, "flash_fwd"),
+                           ("dq", dq, "flash_dq"), ("dk", dk, "flash_dkv"),
+                           ("dv", dv, "flash_dkv")),
+                       plain_three(q, k, v, do, delta, False, **feats),
+                       worst)
+        calls = {
+            "fwd": (lambda: fa.flash_forward(q, k, v, False, **feats),
+                    lambda: fa.flash_forward_plain(q, k, v, False, **feats)),
+            "dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, False,
+                                       **feats),
+                   lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, False,
+                                             **feats)),
+            "dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, False,
+                                         **feats),
+                    lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta,
+                                               False, **feats)),
+        }
+        bias_bytes = bias[0, 0].numel() * 4 if kind != "pad" else \
+            TF_B * Sk * 4
+        bounds = feature_bound(TF_B, Sq, Sk, 8, 64, Sq * Sk, 2,
+                               extra_bytes=bias_bytes)
+        library = sdpa_library(q, k, v, do, bias, p)
+        times = time_three("transformer-timing", f"{label} B={TF_B} Sq={Sq} "
+                           f"Sk={Sk} 8 x 64 bf16, bias {kind}, p={p}",
+                           calls, bounds, library)
+        if label == "cross":
+            rows = kernel_rows("cross", times, bounds, library, counts,
+                               worst)
+        del q, k, v, do, bias, o, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_transformer(seed, gen, dev):
+    """Phase 14: Transformer-base training steps (and a traced step), the
+    2 + 2-layer kernels-vs-composed check at full width, rows 4-6 at its
+    shapes. Returns the kernels line's rows."""
+    step, batch, counts = phase_transformer_train(seed, dev)
+    trace_by_kind(lambda: float(step(batch, ())), "transformer-profile")
+    del step, batch
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(TRANSFORMER_CONFIGS[TRANSFORMER_MODEL],
+                              num_encoder_layers=2, num_decoder_layers=2)
+    parity_routes("transformer-parity",
+                  lambda: transformer_model(cfg, seed + 1, dev),
+                  TranslationLoss, transformer_batch(cfg, seed + 1, dev),
+                  seed, TF_PARITY_STEPS, TF_PARITY_GRAD_REL)
+    torch.cuda.empty_cache()
+    return phase_transformer_flash(gen, dev, counts)
 
 
 # -------------------------------------------------- tensor-parallel serving
@@ -4333,6 +4918,12 @@ def main(argv=None):
         torch.cuda.empty_cache()
     with phase_clock("13 bert"):
         rows += phase_bert(args.seed, gen, dev)
+        torch.cuda.empty_cache()
+    with phase_clock("flash features"):
+        rows += phase_flash_features(args.seed, gen, dev)
+        torch.cuda.empty_cache()
+    with phase_clock("14 transformer"):
+        rows += phase_transformer(args.seed, gen, dev)
         torch.cuda.empty_cache()
     with phase_clock("10 mp training"):
         tp_r0, tp_layout = phase_tp(args.seed)

@@ -8,6 +8,8 @@ from .params import (cast_for_compute, init_gpt_params,
 from .generation import generate_from_params
 from .gpt_hybrid import (HybridTrainStep, gpt_forward, gpt_hidden,
                          gpt_loss)
+from .transformer import (TRANSFORMER_CONFIGS, TransformerConfig,
+                          TransformerForTranslation, translation_batch)
 
 __all__ = ["BERT_CONFIGS", "BertConfig", "BertForPretraining",
            "BertForSequenceClassification", "BertModel", "GPT_CONFIGS", "GPTConfig", "GPTForCausalLM", "compute_dtype",
@@ -15,4 +17,6 @@ __all__ = ["BERT_CONFIGS", "BertConfig", "BertForPretraining",
            "layer_params_from_numpy", "layer_params_from_tree",
            "param_shapes", "params_from_numpy", "tree_from_layer_params",
            "generate_from_params", "HybridTrainStep", "gpt_forward",
-           "gpt_hidden", "gpt_loss"]
+           "gpt_hidden", "gpt_loss", "TRANSFORMER_CONFIGS",
+           "TransformerConfig", "TransformerForTranslation",
+           "translation_batch"]

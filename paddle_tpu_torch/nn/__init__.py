@@ -1,4 +1,4 @@
-"""Gradient clipping, the eager layers, the transformer encoder, the
+"""Gradient clipping, the eager layers, the transformer layers, the
 initializers and the functionals they use (counterpart of
 ``paddle_tpu/nn``)."""
 from . import functional, initializer
@@ -6,11 +6,13 @@ from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .initializer import ParamAttr
 from .layer import (Dropout, Embedding, LayerNorm, Linear, MSELoss, ReLU,
                     Sequential)
-from .transformer import (MultiHeadAttention, TransformerEncoder,
-                          TransformerEncoderLayer)
+from .transformer import (MultiHeadAttention, Transformer,
+                          TransformerDecoder, TransformerDecoderLayer,
+                          TransformerEncoder, TransformerEncoderLayer)
 
 __all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
            "Dropout", "Embedding", "LayerNorm", "Linear", "MSELoss",
            "MultiHeadAttention", "ParamAttr", "ReLU", "Sequential",
+           "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
            "TransformerEncoder", "TransformerEncoderLayer", "functional",
            "initializer"]

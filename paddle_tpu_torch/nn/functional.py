@@ -7,14 +7,19 @@ weight (and the bias) to the input's dtype before the product; it runs as
 one 2-D ``torch.mm`` over the input's rows, the product the ``dots_no_batch``
 remat preset saves (``distributed/recompute.py``).
 
-``scaled_dot_product_attention`` runs the flash kernels
-(``ops/flash_attention.py``, with the mask as an additive bias and
-in-kernel dropout), or the composed ``_sdpa_reference`` when
-``FLAGS_use_flash_attention`` is off: that flag is the one way to take the
-composed route. A CUDA call the kernels cannot take
+``scaled_dot_product_attention``, Paddle's ``flash_attention`` and
+``flash_attn_unpadded`` run the flash kernels (``ops/flash_attention.py``,
+with the mask as an additive bias, in-kernel dropout, and for the varlen
+form segment ids over a packed row), or the composed ``_sdpa_reference``
+when ``FLAGS_use_flash_attention`` is off: that flag is the one way to
+take the composed route. A call the kernels cannot take
 (``flash_unsupported_reason``) is counted in
 ``scaled_dot_product_attention.fallbacks`` and raises with its reason, as
-every other wrapper of the port does. Both routes draw the dropout's Philox key from ``framework.random`` and drop
+every other wrapper of the port does. One such call is refused on every
+device: ``is_causal`` with q and key lengths apart, which the reference
+aligns two ways (its kernel top-left, ``key <= query``; its composed path
+bottom-right, ``tril(k=klen - qlen)``); the port does not pick one. Both
+routes draw the dropout's Philox key from ``framework.random`` and drop
 the same (query, key) pairs (``ops/philox.py``), so a step through either
 from the same generator state sees the same masks. ``dropout`` (hidden
 dropout: no kernel in the reference either) draws ``bernoulli_`` from the
@@ -134,23 +139,40 @@ def _sdpa_reference(q, k, v, mask=None, causal=False, scale=None,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
-def flash_unsupported_reason(q, k):
-    """Why the flash path cannot take attention of q, k [B, S, H, D]
-    (the port's counterpart of the reference's ``flash_supported``), or
-    None. On CPU tensors the flash wrappers run their plain versions,
-    which take any case; on CUDA the kernels take bfloat16, head dims 64
-    and 128 and equal q and key lengths."""
-    if q.device.type != "cuda":
-        return None
+def flash_unsupported_reason(q, k, is_causal=False):
+    """Why the flash path cannot take attention of q [B, Sq, H, D] against
+    k [B, Sk, H, D] (the port's counterpart of the reference's
+    ``flash_supported``), or None. On every device: ``is_causal`` with Sq
+    != Sk, whose alignment the reference leaves two ways. On CPU tensors
+    the flash wrappers run their plain versions, which take any other
+    case; on CUDA the kernels take bfloat16 and float16 and head dims 64
+    and 128."""
     reasons = []
-    why = fa.unsupported_reason(q.shape[-1], q.dtype)
-    if why:
-        reasons.append(why)
-    if k.dtype != q.dtype:
-        reasons.append(f"k is {k.dtype}, q {q.dtype}")
-    if k.shape[1] != q.shape[1]:
-        reasons.append(f"q length {q.shape[1]} != key length {k.shape[1]}")
+    if is_causal and q.shape[1] != k.shape[1]:
+        reasons.append(
+            f"is_causal with q length {q.shape[1]} != key length "
+            f"{k.shape[1]}: the reference's flash kernel aligns the causal "
+            f"mask top-left (key <= query) and its composed path "
+            f"bottom-right (tril(k=klen - qlen)); pass the mask you mean as "
+            f"attn_mask")
+    if q.device.type == "cuda":
+        why = fa.unsupported_reason(q.shape[-1], q.dtype)
+        if why:
+            reasons.append(why)
+        if k.dtype != q.dtype:
+            reasons.append(f"k is {k.dtype}, q {q.dtype}")
     return "; ".join(reasons) or None
+
+
+def _refuse(why):
+    scaled_dot_product_attention.fallbacks += 1
+    raise NotImplementedError(
+        f"the flash attention kernels cannot take this call: {why}; set "
+        f"FLAGS_use_flash_attention=False to run the composed path")
+
+
+def _flash_on():
+    return get_flags("FLAGS_use_flash_attention")["FLAGS_use_flash_attention"]
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -159,19 +181,15 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """Attention of [batch, seq, heads, head_dim] tensors (reference
     nn/functional/attention.py:63-96): the flash kernels with the mask as
     an additive bias and in-kernel dropout, or the composed path when
-    ``FLAGS_use_flash_attention`` is off. A CUDA call the kernels cannot
-    take is counted in ``.fallbacks`` and raises; so does a kernel that
-    fails to build or launch."""
+    ``FLAGS_use_flash_attention`` is off. A call the kernels cannot take
+    is counted in ``.fallbacks`` and raises; so does a kernel that fails
+    to build or launch."""
     p = float(dropout_p) if training else 0.0
     pkey = random.philox_key() if p > 0.0 else None
-    if get_flags("FLAGS_use_flash_attention")["FLAGS_use_flash_attention"]:
-        why = flash_unsupported_reason(query, key)
+    if _flash_on():
+        why = flash_unsupported_reason(query, key, is_causal)
         if why is not None:
-            scaled_dot_product_attention.fallbacks += 1
-            raise NotImplementedError(
-                f"the flash attention kernels cannot take this call: {why}; "
-                f"set FLAGS_use_flash_attention=False to run the composed "
-                f"path")
+            _refuse(why)
         bias = None if attn_mask is None else _mask_to_bias(attn_mask)
         return fa.flash_attention_bshd(query, key, value, is_causal,
                                        bias, None, p, pkey)
@@ -180,3 +198,61 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 
 scaled_dot_product_attention.fallbacks = 0
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    rng_name="", training=True, name=None):
+    """Paddle's ``flash_attention`` (reference nn/functional/
+    attention.py:117-144): (out, None) through
+    ``scaled_dot_product_attention``; with ``return_softmax`` the composed
+    path, returning (out, the fp32 softmax [B, H, Sq, Sk] before
+    dropout), as the reference's debug mode does."""
+    if not return_softmax:
+        return scaled_dot_product_attention(query, key, value, None, dropout,
+                                            causal, training), None
+    p = float(dropout) if training else 0.0
+    probs = _sdpa_probs(query, key, causal=causal)
+    dropped = probs
+    if p > 0.0:
+        B, H, Sq, Sk = probs.shape
+        keep = philox.keep_mask(B, H, Sq, Sk, p, random.philox_key(),
+                                device=probs.device)
+        dropped = torch.where(keep, probs / (1.0 - p), 0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd", dropped.to(value.dtype), value)
+    return out, probs
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q=None, max_seqlen_k=None, scale=None,
+                        dropout=0.0, causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Varlen attention over packed [total, heads, head_dim] tensors and
+    ``cu_seqlens`` boundaries (reference nn/functional/attention.py:
+    147-194): ``ops.flash_attention.flash_attention_varlen`` (the kernels
+    with segment ids), or with ``FLAGS_use_flash_attention`` off the
+    composed path with a dense segment mask. Returns (out, None);
+    ``return_softmax`` raises, as the reference's does."""
+    if return_softmax:
+        raise NotImplementedError(
+            "flash_attn_unpadded(return_softmax=True) is a debug mode the "
+            "reference does not provide either; unpack and use "
+            "flash_attention")
+    p = float(dropout) if training else 0.0
+    pkey = random.philox_key() if p > 0.0 else None
+    sm_scale = query.shape[-1] ** -0.5 if scale is None else float(scale)
+    if _flash_on():
+        why = flash_unsupported_reason(query[None], key[None])
+        if why is not None:
+            _refuse(why)
+        return fa.flash_attention_varlen(query, key, value, cu_seqlens_q,
+                                         cu_seqlens_k, causal, sm_scale, p,
+                                         pkey), None
+    qseg = fa.varlen_segment_ids(cu_seqlens_q, query.shape[0],
+                                 query.shape[0])
+    kseg = fa.varlen_segment_ids(cu_seqlens_k, key.shape[0], key.shape[0])
+    mask = qseg[:, None] == kseg[None, :]
+    return _sdpa_reference(query[None], key[None], value[None],
+                           mask=mask[None, None], causal=causal,
+                           scale=sm_scale, dropout_p=p, key=pkey)[0], None

@@ -8,9 +8,13 @@ Counterpart of ``paddle_tpu/ops/pallas_kernels/flash_attention.py``
 its custom VJP) and ``flash_attention_bwd.py`` (``_dq_kernel``,
 ``_dkv_kernel`` through ``flash_attention_backward``). Three kernels:
 
-* ``flash_forward``  -> (O [B, S, H, D], LSE [B*H, S] fp32);
+* ``flash_forward``  -> (O [B, Sq, H, D], LSE [B*H, Sq] fp32);
 * ``flash_dq``       -> dQ, from P recomputed with the LSE;
-* ``flash_dkv``      -> (dK, dV).
+* ``flash_dkv``      -> (dK, dV) [B, Sk, H, D].
+
+q is [B, Sq, H, D] and k, v [B, Sk, H, D]: the query and key lengths may
+differ, and causal masking is top-left, ``key <= query`` by position, as
+in the reference's kernel (``flash_attention.py:122-125``).
 
 ``delta = rowsum(dO * O)`` is plain PyTorch, as the reference computes it
 in XLA outside its kernels. The softmax scale is ``D ** -0.5`` of the true
@@ -26,15 +30,20 @@ dP, ``dS = P (dP' - delta)``; the bias gets no gradient. A row whose every
 score is at most ``MASKED_ROW`` (a bool mask's -1e30 over the whole row)
 gets O = 0 and LSE = ``MASKED_LSE``, so the backward's P underflows to 0,
 as the reference's kernel does (its composed path averages such a row).
+Segment ids ``(q_ids [B, Sq], k_ids [B, Sk])`` keep a score only where
+the two ids are equal (``flash_attention_bwd.py:57``); a query whose id
+no key shares is such a row. ``flash_attention_varlen`` packs
+``[total, H, D]`` sequences into one row with such ids, padding to the
+tile with id -1 for queries and -2 for keys (the reference's :360-399).
 
 Each wrapper takes its plain version only for tensors on the CPU. On CUDA
-it launches its kernel or raises: the kernels take bfloat16, head_dim 64
-or 128 and equal q and key lengths, and an fp32 or bf16 bias; any other
-case raises and names ``use_flash=False``, the reference's own knob
-(``GPTConfig``) that routes attention through
-``ops/blockwise_attention.py``. Segment ids and varlen packing are not
-ported (ROADMAP Queue B 4, rest) and raise ``NotImplementedError``. Each
-wrapper counts its kernel's launches in ``<wrapper>.launches``.
+it launches its kernel or raises: the kernels take bfloat16 or float16,
+head_dim 64 or 128, any lengths, and an fp32 or bf16 bias; any other case
+raises and names the switches that route attention elsewhere:
+``GPTConfig.use_flash=False`` (``ops/blockwise_attention.py``) and
+``FLAGS_use_flash_attention=False`` (the composed SDPA of the BERT and
+Transformer layers). fp32 operands are not ported (ROADMAP Queue B 4).
+Each wrapper counts its kernel's launches in ``<wrapper>.launches``.
 
 The plain versions are dense fp32 attention following
 ``blockwise_attention``'s algebra, with the LSE and delta the reference
@@ -54,8 +63,10 @@ from ..framework import random
 from . import philox
 
 SUPPORTED_HEAD_DIMS = (64, 128)
-UNPORTED_FEATURES = ("segment ids, varlen packing, fp16 and unequal q and "
-                     "key lengths: ROADMAP Queue B 4 (rest)")
+KERNEL_DTYPES = (torch.bfloat16, torch.float16)
+UNPORTED_FEATURES = "fp32 operands: ROADMAP Queue B 4"
+# q and key ids of the varlen pack's padding (the reference's -1 / -2)
+PAD_Q_ID, PAD_K_ID = -1, -2
 # a row whose largest score is at or below MASKED_ROW is fully masked; its
 # LSE is MASKED_LSE (the reference's 0.5 * _NEG_INF and -_NEG_INF,
 # flash_attention.py:148-157)
@@ -73,17 +84,37 @@ def _heads(t):
     return t.float().permute(0, 2, 1, 3)
 
 
-def _scores(q, k, causal, scale, bias=None):
-    """fp32 scores [B, H, Sq, Sk] of ``q * scale`` against k plus the bias,
-    entries above the diagonal at -inf when causal."""
+def _scores(q, k, causal, scale, bias=None, segment_ids=None):
+    """fp32 scores [B, H, Sq, Sk] of ``q * scale`` against k plus the bias;
+    -inf where the segment ids differ and, when causal, where the key
+    comes after the query (top-left: key <= query by position)."""
     s = (_heads(q) * scale) @ _heads(k).transpose(-1, -2)
     if bias is not None:
         s = s + bias.float()
+    if segment_ids is not None:
+        qs, ks = _check_segments(q, k, segment_ids)
+        same = qs[:, None, :, None] == ks[:, None, None, :]
+        s = s.masked_fill(~same, float("-inf"))
     if causal:
         Sq, Sk = s.shape[-2:]
         keep = torch.ones(Sq, Sk, dtype=torch.bool, device=s.device).tril()
         s = s.masked_fill(~keep, float("-inf"))
     return s
+
+
+def _check_segments(q, k, segment_ids):
+    """The (q ids, k ids) of ``segment_ids``, checked to be integer [B,
+    Sq] and [B, Sk] on q's device."""
+    qs, ks = segment_ids
+    B, Sq, Sk = q.shape[0], q.shape[1], k.shape[1]
+    if tuple(qs.shape) != (B, Sq) or tuple(ks.shape) != (B, Sk) or \
+            qs.device != q.device or ks.device != q.device or \
+            qs.is_floating_point() or ks.is_floating_point():
+        raise ValueError(f"segment ids must be integer [{B}, {Sq}] and "
+                         f"[{B}, {Sk}] on {q.device}, got {qs.dtype} "
+                         f"{tuple(qs.shape)} and {ks.dtype} "
+                         f"{tuple(ks.shape)}")
+    return qs, ks
 
 
 def _keep(s, dropout_p, key):
@@ -99,26 +130,32 @@ def _drop(x, keep, dropout_p):
 
 
 def flash_forward_plain(q, k, v, causal=True, scale=None, bias=None,
-                        dropout_p=0.0, key=0):
+                        dropout_p=0.0, key=0, segment_ids=None):
     """The forward kernel's plain version: (O in q's dtype, LSE [B*H, Sq]
     fp32)."""
     B, Sq, H, _ = q.shape
-    s = _scores(q, k, causal, _scale(q, scale), bias)
-    lse = torch.logsumexp(s, dim=-1)                    # [B, H, Sq]
-    lse = torch.where(s.amax(-1) <= MASKED_ROW, MASKED_LSE, lse)
-    p = _drop(torch.exp(s - lse[..., None]), _keep(s, dropout_p, key),
-              dropout_p)
+    s = _scores(q, k, causal, _scale(q, scale), bias, segment_ids)
+    # P = exp(s - max) / its row sum, as the kernels normalise: exp(s -
+    # LSE) would not sum to 1 where a bias of -1e9 leaves the scores and
+    # their LSE one fp32 value apart (ulp 64)
+    m = s.amax(-1, keepdim=True)
+    dead = m <= MASKED_ROW
+    e = torch.exp(s - torch.where(dead, 0.0, m))
+    l = e.sum(-1, keepdim=True)
+    lse = torch.where(dead, MASKED_LSE, m + torch.log(l)).squeeze(-1)
+    p = _drop(torch.where(dead, 0.0, e / torch.where(dead, 1.0, l)),
+              _keep(s, dropout_p, key), dropout_p)
     o = p @ _heads(v)
     return (o.permute(0, 2, 1, 3).to(q.dtype),
             lse.reshape(B * H, Sq))
 
 
 def _grad_terms(q, k, v, do, lse, delta, causal, scale, bias, dropout_p,
-                key):
+                key, segment_ids):
     """The dropped P and dS [B, H, Sq, Sk] fp32, recomputed from the
     LSE."""
     B, Sq, H, _ = q.shape
-    s = _scores(q, k, causal, scale, bias)
+    s = _scores(q, k, causal, scale, bias, segment_ids)
     p = torch.exp(s - lse.reshape(B, H, Sq, 1))         # masked -> 0
     keep = _keep(s, dropout_p, key)
     dp = _drop(_heads(do) @ _heads(v).transpose(-1, -2), keep, dropout_p)
@@ -127,19 +164,19 @@ def _grad_terms(q, k, v, do, lse, delta, causal, scale, bias, dropout_p,
 
 
 def flash_dq_plain(q, k, v, do, lse, delta, causal=True, scale=None,
-                   bias=None, dropout_p=0.0, key=0):
+                   bias=None, dropout_p=0.0, key=0, segment_ids=None):
     """The dQ kernel's plain version: dS K, in q's dtype."""
     _, ds = _grad_terms(q, k, v, do, lse, delta, causal, _scale(q, scale),
-                        bias, dropout_p, key)
+                        bias, dropout_p, key, segment_ids)
     return (ds @ _heads(k)).permute(0, 2, 1, 3).to(q.dtype)
 
 
 def flash_dkv_plain(q, k, v, do, lse, delta, causal=True, scale=None,
-                    bias=None, dropout_p=0.0, key=0):
+                    bias=None, dropout_p=0.0, key=0, segment_ids=None):
     """The dK/dV kernel's plain version: (dS^T Q, P'^T dO) in k's and v's
     dtypes, P' the dropped P."""
     p, ds = _grad_terms(q, k, v, do, lse, delta, causal, _scale(q, scale),
-                        bias, dropout_p, key)
+                        bias, dropout_p, key, segment_ids)
     dk = ds.transpose(-1, -2) @ _heads(q)
     dv = p.transpose(-1, -2) @ _heads(do)
     return (dk.permute(0, 2, 1, 3).to(k.dtype),
@@ -147,7 +184,7 @@ def flash_dkv_plain(q, k, v, do, lse, delta, causal=True, scale=None,
 
 
 def attention_delta(o, do):
-    """delta = rowsum(dO * O) in fp32, [B*H, S] (the reference's
+    """delta = rowsum(dO * O) in fp32, [B*H, Sq] (the reference's
     ``flash_attention_bwd.py:222``)."""
     B, S, H, _ = o.shape
     d = (do.float() * o.float()).sum(-1)                # [B, S, H]
@@ -155,9 +192,10 @@ def attention_delta(o, do):
 
 
 # A kernel output against its plain version. Both round their output to
-# bf16; the kernels also round P and dS to bf16 for the tensor cores and
-# sum in another order. So a right kernel's error in an element is a few
-# bf16 ulps (2**-8 relative) of the element, plus a rounding residue of
+# bf16 (or fp16); the kernels also round P and dS to it for the tensor
+# cores and sum in another order. So a right kernel's error in an element
+# is a few bf16 ulps (2**-8 relative; fp16's are 8x finer) of the
+# element, plus a rounding residue of
 # the terms summed into its row, which scale with the row, not with the
 # element: an element near 0 in a row of large values (the first rows of
 # causal attention) errs by a small share of the row's rms. It stays far
@@ -209,17 +247,19 @@ def unsupported_reason(head_dim, dtype):
     reasons = []
     if head_dim not in SUPPORTED_HEAD_DIMS:
         reasons.append(f"head_dim {head_dim} not in {SUPPORTED_HEAD_DIMS}")
-    if dtype != torch.bfloat16:
-        reasons.append(f"dtype {dtype} is not bfloat16")
+    if dtype not in KERNEL_DTYPES:
+        reasons.append(f"dtype {dtype} is not bfloat16 or float16 "
+                       f"({UNPORTED_FEATURES})")
     return "; ".join(reasons) or None
 
 
 _LL = ctypes.POINTER(ctypes.c_longlong)
-_INTS = [ctypes.c_int] * 5
+_INTS = [ctypes.c_int] * 7             # B, Sq, Sk, H, D, causal, fp16
 # maps, scale; bias, its strides, dropout, threshold, key, 1 / (1 - p);
-# the stream
+# q ids, key ids and their SEG_TILE-row ranges; the stream
 _TAIL = [_LL, ctypes.c_float, ctypes.c_void_p, _LL, ctypes.c_int,
-         ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_float, ctypes.c_void_p]
+         ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_float] + \
+    [ctypes.c_void_p] * 5
 
 
 def bind(lib):
@@ -271,42 +311,76 @@ def _readable(t):
 
 
 def _check(q, k, v, *rest):
-    """Validate the [B, S, H, D] operands of a kernel launch."""
+    """Validate the operands of a kernel launch: q (and dO, ``rest``)
+    [B, Sq, H, D], k and v [B, Sk, H, D]."""
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
-    if q.dim() != 4:
-        raise ValueError(f"q must be [B, S, H, D], got {tuple(q.shape)}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q and k must be [B, S, H, D], got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
     why = unsupported_reason(q.shape[-1], q.dtype)
     if why:
         raise ValueError(
             f"flash attention kernel: {why}; set GPTConfig.use_flash=False "
-            f"to run attention through ops/blockwise_attention.py")
-    for name, t in (("k", k), ("v", v)) + tuple(
-            (f"operand {i}", t) for i, t in enumerate(rest)):
+            f"(GPT: ops/blockwise_attention.py) or "
+            f"FLAGS_use_flash_attention=False (SDPA, BERT, Transformer: the "
+            f"composed path)")
+    named = (("k", k), ("v", v)) + tuple(
+        (f"operand {i}", t) for i, t in enumerate(rest))
+    for name, t in named:
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, q is "
                              f"{q.dtype} on {q.device}")
-        if t.shape != q.shape:
-            raise NotImplementedError(
-                f"{name} has shape {tuple(t.shape)}, q {tuple(q.shape)}: "
-                f"the kernels take equal q and key lengths "
-                f"({UNPORTED_FEATURES})")
-    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(
-            (f"operand {i}", t) for i, t in enumerate(rest)):
+        want = k.shape if name in ("k", "v") else q.shape
+        if t.shape != want or (t.shape[0], *t.shape[2:]) != (
+                q.shape[0], *q.shape[2:]):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}; q is "
+                             f"{tuple(q.shape)}, k {tuple(k.shape)}: k and "
+                             f"v share [B, Sk, H, D], dO is q's shape")
+    for name, t in (("q", q),) + named:
         if not _readable(t):
             raise ValueError(f"{name} needs a contiguous last dim and "
                              f"16-byte aligned rows, got strides "
                              f"{t.stride()}")
 
 
-def _extra_args(q, bias, dropout_p, key):
-    """The launch arguments of the bias and dropout: (bias, its element
-    strides over (B, H, S, S) with 0 on a broadcast dimension, dropout,
-    threshold, key, 1 / (1 - p)). A bf16 bias becomes fp32 first; the
-    fp32 tensor is returned as the first value, to be kept alive by the
-    caller until the launch is queued."""
-    B, S, H, _ = q.shape
+# The kernels skip a tile of keys against a tile of queries when the
+# ranges of their segment ids do not meet; the ranges come per SEG_TILE
+# rows (the least tile of any kernel's loop) from ``segment_ranges``.
+SEG_TILE = 64
+
+
+def segment_ranges(ids):
+    """[B, ceil(S / SEG_TILE), 2] int32: the least and the greatest id of
+    each SEG_TILE-row tile of ids [B, S] (a ragged last tile over its own
+    rows)."""
+    B, S = ids.shape
+    n = -(-S // SEG_TILE)
+    t = torch.cat([ids, ids[:, -1:].expand(B, n * SEG_TILE - S)], 1)
+    t = t.view(B, n, SEG_TILE)
+    return torch.stack([t.amin(-1), t.amax(-1)], -1).to(
+        torch.int32).contiguous()
+
+
+def _segment_args(q, k, segment_ids):
+    """(q ids, k ids, their ranges) as contiguous int32 tensors on q's
+    device, or four Nones."""
+    if segment_ids is None:
+        return (None,) * 4
+    qs, ks = (t.to(torch.int32).contiguous()
+              for t in _check_segments(q, k, segment_ids))
+    return qs, ks, segment_ranges(qs), segment_ranges(ks)
+
+
+def _extra_args(q, k, bias, dropout_p, key, segment_ids):
+    """The launch arguments of the features: (tensors to keep alive until
+    the launch is queued, then bias, its element strides over (B, H, Sq,
+    Sk) with 0 on a broadcast dimension, dropout, threshold, key,
+    1 / (1 - p), q ids, k ids and their ranges). A bf16 bias becomes fp32
+    first."""
+    B, Sq, H, _ = q.shape
+    Sk = k.shape[1]
     strides = (ctypes.c_longlong * 4)()
     if bias is not None:
         if bias.dim() != 4 or bias.device != q.device or \
@@ -316,23 +390,25 @@ def _extra_args(q, bias, dropout_p, key):
                              f"{tuple(bias.shape)} on {bias.device}")
         bias = bias.float()
         try:
-            strides[:] = bias.expand(B, H, S, S).stride()
+            strides[:] = bias.expand(B, H, Sq, Sk).stride()
         except RuntimeError as e:
             raise ValueError(f"bias of shape {tuple(bias.shape)} does not "
-                             f"broadcast to {(B, H, S, S)}") from e
+                             f"broadcast to {(B, H, Sq, Sk)}") from e
+    seg = _segment_args(q, k, segment_ids)
     drop = bool(dropout_p)
-    return (bias, bias.data_ptr() if bias is not None else None, strides,
-            int(drop), philox.threshold(dropout_p), int(key) & (2 ** 64 - 1),
-            1.0 / (1.0 - float(dropout_p)))
+    return ((bias, *seg), bias.data_ptr() if bias is not None else None,
+            strides, int(drop), philox.threshold(dropout_p),
+            int(key) & (2 ** 64 - 1), 1.0 / (1.0 - float(dropout_p)),
+            *(t.data_ptr() if t is not None else None for t in seg))
 
 
 def _check_stats(q, *stats):
-    B, S, H, _ = q.shape
+    B, Sq, H, _ = q.shape
     for t in stats:
-        if t.dtype != torch.float32 or tuple(t.shape) != (B * H, S) or \
+        if t.dtype != torch.float32 or tuple(t.shape) != (B * H, Sq) or \
                 not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"lse/delta must be contiguous float32 "
-                             f"[{B * H}, {S}] on {q.device}, got {t.dtype} "
+                             f"[{B * H}, {Sq}] on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)}")
 
 
@@ -389,24 +465,32 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _sizes(q, k):
+    """The launch's ints: B, Sq, Sk, H, D, and the element type (1:
+    float16, 0: bfloat16); causal goes between them."""
+    B, Sq, H, D = q.shape
+    return (B, Sq, k.shape[1], H, D), int(q.dtype == torch.float16)
+
+
 def flash_forward(q, k, v, causal=True, scale=None, bias=None,
-                  dropout_p=0.0, key=0):
-    """(O [B, S, H, D] in q's dtype, LSE [B*H, S] fp32). CPU tensors take
+                  dropout_p=0.0, key=0, segment_ids=None):
+    """(O [B, Sq, H, D] in q's dtype, LSE [B*H, Sq] fp32). CPU tensors take
     the plain version; CUDA tensors launch the forward kernel."""
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, causal, scale, bias, dropout_p,
-                                   key)
+                                   key, segment_ids)
     _check(q, k, v)
-    keep_alive, *extra = _extra_args(q, bias, dropout_p, key)
+    keep_alive, *extra = _extra_args(q, k, bias, dropout_p, key, segment_ids)
     lib = _sm90_library()
-    B, S, H, D = q.shape
-    o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    dims, half = _sizes(q, k)
+    B, Sq, _, H, _ = dims
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
     maps = _map_records((q, FWD_ROWS), (k, FWD_ROWS), (v, FWD_ROWS))
     with torch.cuda.device(q.device):
         rc = lib.flash_sm90_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, S, H, D, int(causal), maps,
+            lse.data_ptr(), *dims, int(causal), half, maps,
             _scale(q, scale), *extra, _stream(q))
     del keep_alive
     _raise_on(rc, "forward", lib.flash_sm90_error_string)
@@ -415,25 +499,25 @@ def flash_forward(q, k, v, causal=True, scale=None, bias=None,
 
 
 def flash_dq(q, k, v, do, lse, delta, causal=True, scale=None, bias=None,
-             dropout_p=0.0, key=0):
-    """dQ [B, S, H, D] in q's dtype. CPU tensors take the plain version;
+             dropout_p=0.0, key=0, segment_ids=None):
+    """dQ [B, Sq, H, D] in q's dtype. CPU tensors take the plain version;
     CUDA tensors launch the dQ kernel."""
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, do, lse, delta, causal, scale, bias,
-                              dropout_p, key)
+                              dropout_p, key, segment_ids)
     _check(q, k, v, do)
     _check_stats(q, lse, delta)
-    keep_alive, *extra = _extra_args(q, bias, dropout_p, key)
+    keep_alive, *extra = _extra_args(q, k, bias, dropout_p, key, segment_ids)
     lib = _sm90_library()
-    B, S, H, D = q.shape
-    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dims, half = _sizes(q, k)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     maps = _map_records((q, DQ_Q_ROWS), (k, DQ_KEYS), (v, DQ_KEYS),
                         (do, DQ_Q_ROWS))
     with torch.cuda.device(q.device):
         rc = lib.flash_sm90_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, D,
-            int(causal), maps, _scale(q, scale), *extra, _stream(q))
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
+            int(causal), half, maps, _scale(q, scale), *extra, _stream(q))
     del keep_alive
     _raise_on(rc, "dQ", lib.flash_sm90_error_string)
     flash_dq.launches += 1
@@ -441,18 +525,18 @@ def flash_dq(q, k, v, do, lse, delta, causal=True, scale=None, bias=None,
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal=True, scale=None, bias=None,
-              dropout_p=0.0, key=0):
-    """(dK, dV) [B, S, H, D] in the input dtype. CPU tensors take the
+              dropout_p=0.0, key=0, segment_ids=None):
+    """(dK, dV) [B, Sk, H, D] in the input dtype. CPU tensors take the
     plain version; CUDA tensors launch the dK/dV kernel."""
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, do, lse, delta, causal, scale, bias,
-                               dropout_p, key)
+                               dropout_p, key, segment_ids)
     _check(q, k, v, do)
     _check_stats(q, lse, delta)
-    keep_alive, *extra = _extra_args(q, bias, dropout_p, key)
+    keep_alive, *extra = _extra_args(q, k, bias, dropout_p, key, segment_ids)
     lib = _sm90_library()
-    B, S, H, D = q.shape
-    dk = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dims, half = _sizes(q, k)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     maps = _map_records((q, DKV_Q_ROWS), (k, DKV_KEYS), (v, DKV_KEYS),
                         (do, DKV_Q_ROWS))
@@ -460,7 +544,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal=True, scale=None, bias=None,
         rc = lib.flash_sm90_dkv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, H, D, int(causal), maps, _scale(q, scale), *extra,
+            *dims, int(causal), half, maps, _scale(q, scale), *extra,
             _stream(q))
     del keep_alive
     _raise_on(rc, "dK/dV", lib.flash_sm90_error_string)
@@ -474,11 +558,12 @@ flash_dkv.launches = 0
 
 
 def flash_attention_backward(q, k, v, o, lse, do, causal=True, scale=None,
-                             bias=None, dropout_p=0.0, key=0):
+                             bias=None, dropout_p=0.0, key=0,
+                             segment_ids=None):
     """(dQ, dK, dV) of flash attention from the forward's O and LSE:
     delta in PyTorch, then the dQ and the dK/dV kernels."""
     delta = attention_delta(o, do)
-    feats = (bias, dropout_p, key)
+    feats = (bias, dropout_p, key, segment_ids)
     dq = flash_dq(q, k, v, do, lse, delta, causal, scale, *feats)
     dk, dv = flash_dkv(q, k, v, do, lse, delta, causal, scale, *feats)
     return dq, dk, dv
@@ -493,38 +578,39 @@ def _for_kernel(t):
 class _FlashAttention(torch.autograd.Function):
     """Forward kernel saving O and the fp32 LSE; backward = delta + the dQ
     and dK/dV kernels (the reference's ``_vjp_fwd`` / ``_vjp_bwd``). The
-    bias and the dropout key are constants: no gradient."""
+    bias, the segment ids and the dropout key are constants: no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, bias, dropout_p, key):
+    def forward(ctx, q, k, v, causal, scale, bias, dropout_p, key, q_ids,
+                k_ids):
         q, k, v = (_for_kernel(t) for t in (q, k, v))
-        o, lse = flash_forward(q, k, v, causal, scale, bias, dropout_p, key)
-        ctx.save_for_backward(q, k, v, o, lse, bias)
+        seg = None if q_ids is None else (q_ids, k_ids)
+        o, lse = flash_forward(q, k, v, causal, scale, bias, dropout_p, key,
+                               seg)
+        ctx.save_for_backward(q, k, v, o, lse, bias, q_ids, k_ids)
         ctx.causal, ctx.scale = causal, scale
         ctx.dropout_p, ctx.key = dropout_p, key
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, bias = ctx.saved_tensors
+        q, k, v, o, lse, bias, q_ids, k_ids = ctx.saved_tensors
+        seg = None if q_ids is None else (q_ids, k_ids)
         dq, dk, dv = flash_attention_backward(
             q, k, v, o, lse, _for_kernel(do), ctx.causal, ctx.scale, bias,
-            ctx.dropout_p, ctx.key)
-        return dq, dk, dv, None, None, None, None, None
+            ctx.dropout_p, ctx.key, seg)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention_bshd(q, k, v, causal=True, bias=None, segment_ids=None,
                          dropout_p=0.0, dropout_seed=None, scale=None):
-    """Differentiable flash attention, [B, S, H, D] layout, output in q's
-    dtype. ``scale`` defaults to ``D ** -0.5``. ``bias`` is additive,
-    broadcastable as (B|1, H|1, Sq, Sk), and gets no gradient;
+    """Differentiable flash attention, q [B, Sq, H, D] and k, v [B, Sk, H,
+    D], output in q's dtype. ``scale`` defaults to ``D ** -0.5``. ``bias``
+    is additive, broadcastable as (B|1, H|1, Sq, Sk); ``segment_ids`` is
+    (q ids [B, Sq], k ids [B, Sk]); neither gets a gradient.
     ``dropout_seed`` is the 64-bit Philox key of the dropout, drawn from
-    ``framework.random.philox_key()`` when None. Segment ids are not
-    ported and raise."""
-    if segment_ids is not None:
-        raise NotImplementedError(
-            f"flash attention segment_ids are not ported yet "
-            f"({UNPORTED_FEATURES})")
+    ``framework.random.philox_key()`` when None."""
     dropout_p = float(dropout_p)
     key = 0
     if dropout_p:
@@ -533,5 +619,43 @@ def flash_attention_bshd(q, k, v, causal=True, bias=None, segment_ids=None,
         key = int(dropout_seed) & (2 ** 64 - 1)
     if bias is not None:
         bias = bias.detach()
+    q_ids, k_ids = (None, None) if segment_ids is None else (
+        t.detach() for t in segment_ids)
     return _FlashAttention.apply(q, k, v, bool(causal), scale, bias,
-                                 dropout_p, key)
+                                 dropout_p, key, q_ids, k_ids)
+
+
+def varlen_segment_ids(cu_seqlens, total, padded):
+    """int32 [padded]: the segment of each of ``padded`` packed tokens
+    (token t lies in segment ``searchsorted(cu_seqlens, t, right)``), the
+    padding from ``total`` on at -1."""
+    t = torch.arange(padded, dtype=torch.int64, device=cu_seqlens.device)
+    seg = torch.searchsorted(cu_seqlens.to(torch.int64), t, right=True)
+    return torch.where(t < total, seg, -1).to(torch.int32)
+
+
+def flash_attention_varlen(q, k, v, cu_seqlens_q, cu_seqlens_k, causal=True,
+                           scale=None, dropout_p=0.0, dropout_seed=None,
+                           block=FWD_ROWS):
+    """Packed varlen flash attention (the reference's
+    ``flash_attention_varlen``, flash_attention.py:360-399): q [Tq, H, D],
+    k, v [Tk, H, D], ``cu_seqlens_*`` [n + 1] cumulative offsets; returns
+    [Tq, H, D]. The tokens are padded to a multiple of ``block`` and
+    attend within their segment; q padding has id -1 and key padding -2,
+    so padded rows match nothing. Causal masking is by position in the
+    pack, per sequence when ``cu_seqlens_q == cu_seqlens_k`` (the
+    reference's contract for ``causal=True``)."""
+    Tq, Tk = q.shape[0], k.shape[0]
+
+    def pad(x, T):
+        rem = (-T) % block
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, rem)), T + rem
+
+    (qp, Tq_p), (kp, Tk_p), (vp, _) = pad(q, Tq), pad(k, Tk), pad(v, Tk)
+    qseg = varlen_segment_ids(cu_seqlens_q, Tq, Tq_p)
+    kseg = varlen_segment_ids(cu_seqlens_k, Tk, Tk_p)
+    kseg = torch.where(kseg < 0, PAD_K_ID, kseg)
+    out = flash_attention_bshd(qp[None], kp[None], vp[None], causal, None,
+                               (qseg[None], kseg[None]), dropout_p,
+                               dropout_seed, scale)
+    return out[0, :Tq]

@@ -530,15 +530,19 @@ def test_flash_autograd_runs_the_kernels_on_card(cuda_device):
 def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda_device):
     from paddle_tpu_torch.ops import flash_attention as fa
     q = torch.zeros(1, 64, 2, 128, device=cuda_device)
-    for t in (q, q.half()):
-        with pytest.raises(ValueError, match="use_flash=False"):
-            fa.flash_forward(t, t, t)
+    with pytest.raises(ValueError,
+                       match="Queue B 4.*FLAGS_use_flash_attention=False"):
+        fa.flash_forward(q, q, q)
     q96 = torch.zeros(1, 64, 2, 96, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="use_flash=False"):
         fa.flash_forward(q96, q96, q96)
     qb = q.to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue B 4"):
-        fa.flash_forward(qb, qb[:, :32], qb[:, :32])
+    with pytest.raises(ValueError, match="k and v share"):
+        fa.flash_forward(qb, qb[:, :32], qb[:, :16])
+    with pytest.raises(ValueError, match="segment ids must be"):
+        fa.flash_forward(qb, qb, qb, segment_ids=(
+            torch.zeros(1, 64, device=cuda_device, dtype=torch.int32),
+            torch.zeros(1, 32, device=cuda_device, dtype=torch.int32)))
     with pytest.raises(ValueError, match="contiguous last dim"):
         fa.flash_forward(qb.transpose(1, 3), qb.transpose(1, 3),
                          qb.transpose(1, 3))
@@ -637,6 +641,157 @@ def test_flash_features_match_plain_on_card(cuda_device, case):
     for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref),
                             ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
         _assert_close_to_plain(name, got, want)
+
+
+# ------------------- flash with segment ids, Sq != Sk, fp16, a -inf mask
+# Every instance the Transformer, varlen and fp16 paths reach, against the
+# plain versions on the same inputs, with the gates above: q and key
+# lengths apart (both ways, causal top-left, ragged against every tile),
+# fp16 operands, the decoder's -inf square mask, segment ids (a varlen
+# pack whose padding rows match no key: O = 0, LSE = +1e30; ids in no
+# order, which no tile skip can use), each with and without the bias and
+# dropout. k and v are strided views of one [B, Sk, 2, H, D] tensor.
+FLASH_NEW_CASES = [  # (B, Sq, Sk, H, D, causal, dtype, bias, p, segments)
+    (32, 128, 256, 8, 64, False, "bf16", "pad", 0.1, None),   # cross
+    (32, 128, 128, 8, 64, False, "bf16", "square-inf", 0.1, None),
+    (2, 200, 333, 2, 128, True, "bf16", None, 0.0, None),
+    (2, 333, 200, 2, 64, True, "bf16", None, 0.0, None),
+    (1, 129, 65, 2, 128, False, "fp16", None, 0.0, None),
+    (2, 512, 512, 4, 128, True, "fp16", None, 0.0, None),
+    (2, 256, 256, 12, 64, False, "fp16", "pad", 0.1, None),
+    (2, 65, 300, 3, 128, True, "fp16", "head", 0.2, None),
+    (1, 1024, 1024, 4, 128, True, "bf16", None, 0.0, "varlen"),
+    (1, 1024, 1024, 4, 64, True, "fp16", None, 0.1, "varlen"),
+    (1, 896, 1152, 2, 128, False, "bf16", None, 0.0, "varlen"),
+    (2, 300, 500, 2, 64, False, "fp16", "pad", 0.1, "shuffled"),
+    (2, 200, 200, 2, 128, True, "bf16", "pad", 0.0, "shuffled"),
+]
+TORCH_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
+
+
+def _new_case_inputs(device, case, seed):
+    """q, k, v, dO and the features (bias, segment ids) of a
+    FLASH_NEW_CASES case, from numpy with a seed."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    B, Sq, Sk, H, D, causal, dt, kind, p, segs = case
+    rng = np.random.default_rng(seed)
+    dtype = TORCH_DTYPES[dt]
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device, dtype)
+
+    q, do = arr(B, Sq, H, D), arr(B, Sq, H, D)
+    k, v = arr(B, Sk, 2, H, D).unbind(2)
+    bias = None
+    if kind == "pad":                     # key padding, [B, 1, 1, Sk]
+        lengths = rng.integers(Sk // 2, Sk + 1, B)
+        keep = np.arange(Sk)[None, :] < lengths[:, None]
+        bias = torch.from_numpy(np.where(keep, 0.0, -1e9).astype(
+            np.float32)).to(device)[:, None, None, :]
+    elif kind == "square-inf":            # the decoder's [Sq, Sk] mask
+        m = np.where(np.tril(np.ones((Sq, Sk))) == 1, 0.0, -np.inf)
+        bias = torch.from_numpy(m.astype(np.float32)).to(device)[None, None]
+    elif kind == "head":
+        bias = torch.from_numpy(rng.standard_normal((1, H, Sq, Sk)).astype(
+            np.float32)).to(device)
+    seg = None
+    if segs == "varlen":                  # five documents, then padding
+        real = min(Sq, Sk) - 100
+        cu = np.concatenate([[0], np.sort(rng.choice(
+            np.arange(1, real), 4, False)), [real]])
+
+        def ids(S, pad_id):
+            t = np.arange(S)
+            return np.where(t < real, np.searchsorted(cu, t, "right"),
+                            pad_id)
+        seg = (ids(Sq, fa.PAD_Q_ID), ids(Sk, fa.PAD_K_ID))
+    elif segs == "shuffled":
+        seg = (rng.integers(0, 3, (B, Sq)), rng.integers(0, 3, (B, Sk)))
+    if seg is not None:
+        seg = tuple(torch.from_numpy(np.broadcast_to(
+            np.asarray(s, np.int32), (B, len(s) if np.ndim(s) == 1
+                                      else s.shape[1])).copy()).to(device)
+                    for s in seg)
+    feats = dict(bias=bias, dropout_p=p, key=FEATURE_KEY, segment_ids=seg)
+    return q, k, v, do, feats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_NEW_CASES,
+                         ids=lambda c: "B{}-Sq{}-Sk{}-H{}-D{}-{}-{}-{}-p{}-{}"
+                         .format(*c[:5], "causal" if c[5] else "full",
+                                 *c[6:]))
+def test_flash_new_features_match_plain_on_card(cuda_device, case):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    B, Sq, Sk, H, D, causal, dt, kind, p, segs = case
+    q, k, v, do, feats = _new_case_inputs(cuda_device, case, Sq + Sk)
+    before = (fa.flash_forward.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    o, lse = fa.flash_forward(q, k, v, causal, **feats)
+    delta = fa.attention_delta(o, do)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, causal, **feats)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, **feats)
+    torch.cuda.synchronize()
+    assert (fa.flash_forward.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(n + 1 for n in before)
+    assert o.dtype == dq.dtype == dk.dtype == TORCH_DTYPES[dt]
+    assert o.shape == q.shape and dk.shape == dv.shape == k.shape
+    o_ref, lse_ref = fa.flash_forward_plain(q, k, v, causal, **feats)
+    dq_ref = fa.flash_dq_plain(q, k, v, do, lse_ref, delta, causal, **feats)
+    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, do, lse_ref, delta, causal,
+                                        **feats)
+    for t in (o, lse, dq, dk, dv):
+        assert bool(torch.isfinite(t).all())
+    torch.testing.assert_close(lse, lse_ref, atol=fa.LSE_TOL,
+                               rtol=fa.LSE_TOL)
+    if segs == "varlen":                   # the padding rows: dead
+        dead = feats["segment_ids"][0][0] == fa.PAD_Q_ID
+        assert bool(dead.any())
+        assert bool((o[:, dead] == 0).all()) and bool((dq[:, dead] == 0).all())
+        assert bool((lse.view(B, H, Sq)[:, :, dead] == fa.MASKED_LSE).all())
+    for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref),
+                            ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        _assert_close_to_plain(name, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bf16", "fp16"])
+def test_flash_varlen_and_unpadded_run_the_kernels_on_card(cuda_device, dt):
+    """flash_attention_varlen and F.flash_attn_unpadded over a pack of
+    five documents (cu_seqlens), causal, forward and backward through the
+    kernels, against the same pack's plain versions on the CPU."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(7)
+    lengths = rng.integers(100, 400, 5)
+    cu = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths)]).astype(
+        np.int32))
+    T = int(cu[-1])
+    x = [torch.from_numpy(rng.standard_normal((T, 4, 128)).astype(
+        np.float32)).to(TORCH_DTYPES[dt]) for _ in range(4)]
+    before = (fa.flash_forward.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    leaves = [t.to(cuda_device).requires_grad_(True) for t in x[:3]]
+    out = fa.flash_attention_varlen(*leaves, cu.to(cuda_device),
+                                    cu.to(cuda_device), causal=True)
+    grads = torch.autograd.grad(out, leaves, x[3].to(cuda_device))
+    out2, none = F.flash_attn_unpadded(*leaves, cu.to(cuda_device),
+                                       cu.to(cuda_device), causal=True)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(out, out2)
+    assert (fa.flash_forward.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == (before[0] + 2, before[1] + 1,
+                                       before[2] + 1)
+    # the plain versions on the same operands in their own dtype, so the
+    # backward's delta comes from the rounded O, as the kernels' does
+    cpu = [t.clone().requires_grad_(True) for t in x[:3]]
+    want = fa.flash_attention_varlen(*cpu, cu, cu, causal=True)
+    want_g = torch.autograd.grad(want, cpu, x[3])
+    for name, got, ref in (("o", out, want), ("dq", grads[0], want_g[0]),
+                           ("dk", grads[1], want_g[1]),
+                           ("dv", grads[2], want_g[2])):
+        _assert_close_to_plain(name, got.cpu()[None], ref[None])
 
 
 @pytest.mark.cuda

@@ -128,15 +128,27 @@ def test_flash_and_blockwise_agree_with_a_ragged_length():
     {"segment_ids": (torch.zeros(B, S, dtype=torch.int32),) * 2},
 ], ids=["segment_ids"])
 def test_unported_features_raise(kwargs):
-    q = torch.zeros(B, S, H, 64)
-    with pytest.raises(NotImplementedError, match="Queue B 4"):
-        fa.flash_attention_bshd(q, q, q, **kwargs)
+    """Segment ids are ported: one segment over every token is plain
+    attention, and ids of the wrong shape raise. What is still unported,
+    fp32 operands on the kernels, is named with its queue."""
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.standard_normal((B, S, H, 64)).astype(
+        np.float32))
+    torch.testing.assert_close(fa.flash_attention_bshd(q, q, q, **kwargs),
+                               fa.flash_attention_bshd(q, q, q),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="segment ids must be"):
+        fa.flash_forward(q, q, q, segment_ids=tuple(
+            t[:, :8] for t in kwargs["segment_ids"]))
+    assert "Queue B 4" in fa.UNPORTED_FEATURES
+    assert "Queue B 4" in fa.unsupported_reason(64, torch.float32)
 
 
 def test_unsupported_reason_names_the_kernel_limits():
     assert fa.unsupported_reason(128, torch.bfloat16) is None
     assert fa.unsupported_reason(64, torch.bfloat16) is None
-    assert "float16" in fa.unsupported_reason(64, torch.float16)
+    assert fa.unsupported_reason(64, torch.float16) is None
+    assert "float32" in fa.unsupported_reason(64, torch.float32)
     assert "head_dim 96" in fa.unsupported_reason(96, torch.bfloat16)
     assert "float32" in fa.unsupported_reason(128, torch.float32)
 
