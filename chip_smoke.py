@@ -220,6 +220,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
    decoder and cross-attention shapes against their plain versions and
    timed beside SDPA (the kernels line's ``*_cross`` rows).
 
+15. hybrid training: the parallelisms composed on the sub-groups of a
+   world of HYBRID = 4 ranks (``env.launch(..., axes=)``, one rank per
+   card over NCCL where the machine has four, else gloo ranks sharing
+   cuda:0), one world per layout: dp2 x mp2 (``mp=fused,dp=fused``, ZeRO-1
+   over dp: rows 7-9 on each mp pair, rows 10-11 on each dp pair, each
+   replica 4 of the 8 rows), dp2 x pp2 (``pp=fused,dp=fused``, GPipe,
+   M=4, ZeRO-1: rows 14-15 on each pp pair) and pp2 x mp2
+   (``mp=fused,pp=ring``, 1F1B and GPipe, M=4: the sequence-parallel
+   block inside each stage, activations crossing seq-sharded). Each path:
+   one step of a 2-layer (2 a stage) copy at full width (B=4, M=2)
+   against the one-card step on the same weights within phase 6's
+   tolerances; GPT-3 1.3B with phase 5's recipe, weights and ids, at
+   full depth (2 warm-up and 5 timed steps) with a card per rank, at one
+   layer a stage (1 + 2 steps) on one card: finite losses, the last
+   below the first, the same on every rank; every row's calls and
+   launches on every rank as ``hybrid_step_calls`` counts them (rows 4-6
+   everywhere, 7-9 on the mp paths, 10-11 under ZeRO-1, 14-15 on dp2 x
+   pp2's sending stage), no SDPA fallback; the slowest rank's step time,
+   tokens/s, MFU over the four cards and peak memory per rank.
+
 The lines before the last carry a ``{"kernels": [...]}`` JSON object and
 the card's name and power limit (nvidia-smi); the last line is
 ``{"ok": true, "device": {...}}``. Exits nonzero without printing a
@@ -248,6 +268,7 @@ import torch.nn.functional as F
 from paddle_tpu_torch import amp, cuda_build
 from paddle_tpu_torch.distributed import env, peer, tp_overlap
 from paddle_tpu_torch.distributed import grad_comm as gcomm
+from paddle_tpu_torch.distributed.comm_backend import parse as parse_rungs
 from paddle_tpu_torch.distributed import pipeline as pl
 from paddle_tpu_torch.flags import set_flags
 from paddle_tpu_torch.framework import random as prandom
@@ -4807,13 +4828,346 @@ def dp_rows(r0, layout):
     return rows
 
 
-def phase_trajectories(one_card, tp_r0, pp_r0, dp_r0, layout):
+# ------------------------------------------- hybrid training (15)
+HYBRID = 4                  # ranks of phase 15's worlds
+HYBRID_M = 4                # microbatches of its pipelined paths
+HYBRID_PARITY_B, HYBRID_PARITY_M = 4, 2
+# (name, axes, comm_backend, pp_schedule, ZeRO-1 over dp); the paths run
+# in one world per layout, pp2xmp2's two schedules in one
+HYBRID_PATHS = (
+    ("dp2xmp2", {"dp": 2, "mp": 2, "pp": 1}, "mp=fused,dp=fused", None,
+     True),
+    ("dp2xpp2", {"dp": 2, "mp": 1, "pp": 2}, "pp=fused,dp=fused", "gpipe",
+     True),
+    ("pp2xmp2-1f1b", {"dp": 1, "mp": 2, "pp": 2}, "mp=fused,pp=ring",
+     "1f1b", False),
+    ("pp2xmp2-gpipe", {"dp": 1, "mp": 2, "pp": 2}, "mp=fused,pp=ring",
+     "gpipe", False),
+)
+# the rows a composed step may run: (row, wrapper, launches a call)
+HYBRID_ROWS = tuple((name, w, None) for name, w, _ in FLASH_KERNELS) + (
+               ("ring_ag_gemm", rg.ring_ag_gemm, 2),
+               ("ring_gemm_rs", rg.ring_gemm_rs, 2),
+               ("ring_ag_accum", rg.ring_ag_accum, 2),
+               ("fused_rs_bucket", fc.fused_rs_bucket, 1),
+               ("fused_ag_bucket", fc.fused_ag_bucket, 1),
+               ("gemm_ppsend", ppb.gemm_ppsend, 1),
+               ("gemm_pprecv", ppb.gemm_pprecv, 2))
+
+
+def hybrid_layout():
+    """One rank per card over NCCL with HYBRID cards, else every rank on
+    cuda:0 over gloo."""
+    return "per_card" if torch.cuda.device_count() >= HYBRID else "shared"
+
+
+def hybrid_step_calls(path, step, stage, layers):
+    """{row: calls} of one step of ``path`` on a rank of pipeline stage
+    ``stage`` holding ``layers`` layers (rows 10-11 from the step's own
+    bucket plan): with remat "full" the flash forward runs twice a layer
+    per unit of work (the whole replica's rows, or a microbatch under
+    pp), dQ and dK/dV once; 1F1B's stages that send run it a third time
+    (the forward sub-tick's recompute of the activation stream), and rows
+    7-8 likewise 8 calls a layer and unit there, 6 elsewhere
+    (``tp_step_calls``); rows 10-11 one call a float bucket and a bucket
+    (ZeRO-1's reduce-scatter and param gather); rows 14-15 as
+    ``pp_step_calls``."""
+    _, axes, comm_backend, schedule, _ = path
+    rungs = parse_rungs(comm_backend)
+    pp = axes["pp"]
+    units = HYBRID_M if pp > 1 else 1
+    extra = schedule == "1f1b" and stage < pp - 1
+    calls = {"flash_fwd": (3 if extra else 2) * layers * units,
+             "flash_dq": layers * units, "flash_dkv": layers * units}
+    mp = tp_step_calls(layers) if axes["mp"] > 1 and \
+        rungs.get("mp") == "fused" else {}
+    for k, v in mp.items():
+        calls[k] = (v + (2 * layers if extra and k != "ring_ag_accum"
+                         else 0)) * units
+    dpc = step._dpc
+    if dpc is not None and dpc.backend == "fused":
+        plan = dpc.plan
+        calls["fused_rs_bucket"] = sum(b.dtype.is_floating_point
+                                       for b in plan.buckets)
+        calls["fused_ag_bucket"] = len(plan.buckets)
+    if pp > 1:
+        for k, (c, _) in pp_step_calls(rungs.get("pp"), stage, pp,
+                                       HYBRID_M).items():
+            calls[k] = c
+    return {row: calls.get(row, 0) for row, _, _ in HYBRID_ROWS}
+
+
+def hybrid_counts():
+    return {row: (getattr(w, "calls", None), w.launches)
+            for row, w, _ in HYBRID_ROWS}
+
+
+def reset_hybrid_counts():
+    reset_flash_counts()
+    rg.reset_counts()
+    fc.reset_rs_bucket_counts()
+    fc.reset_ag_bucket_counts()
+    ppb.reset_counts()
+    pF.scaled_dot_product_attention.fallbacks = 0
+
+
+def world_gather(groups, t):
+    """Every rank's ``t`` in world-rank order (mp fastest), gathered axis
+    by axis."""
+    x = torch.stack(groups.mp.all_gather_list(t))
+    x = torch.stack(groups.dp.all_gather_list(x))
+    x = torch.stack(groups.pp.all_gather_list(x))
+    return list(x.reshape((-1,) + tuple(t.shape)))
+
+
+def hybrid_step(cfg, groups, path, params=None, seed=0, microbatches=None):
+    _, axes, comm_backend, schedule, zero = path
+    opt = AdamW(2e-4, grad_clip=ClipGradByGlobalNorm(1.0),
+                moment_dtype="bfloat16")
+    if zero:
+        opt._shard_opt_states_axis = "dp"
+    if schedule is not None:
+        cfg = dataclasses.replace(cfg, pp_schedule=schedule)
+    return HybridTrainStep(cfg, opt, param_dtype=torch.bfloat16, seed=seed,
+                           params=params, group=groups.mp,
+                           pp_group=groups.pp, dp_group=groups.dp,
+                           num_microbatches=microbatches or HYBRID_M,
+                           comm_backend=comm_backend)
+
+
+def phase_hybrid_train(groups, seed, say, path, num_layers=None,
+                       warmup=WARMUP_STEPS, timed=TIMED_STEPS):
+    """GPT-3 1.3B at full width (and depth, unless ``num_layers``) through
+    HybridTrainStep(group=mp, pp_group=pp, dp_group=dp) on one composed
+    path: ``warmup`` and ``timed`` steps on phase 5's batch (each dp
+    replica its rows). Gates: finite losses, the last below the first,
+    the same on every rank; every row's calls and launches as
+    ``hybrid_step_calls`` says, each row of the path launched; no SDPA
+    fallback. Returns (readings, failures)."""
+    name = path[0]
+    cfg = train_config(num_layers)
+    dev = groups.mp.device
+    t0 = time.perf_counter()
+    step = hybrid_step(cfg, groups, path, seed=seed)
+    ids = train_ids(cfg, seed, dev)
+    torch.cuda.synchronize()
+    stage, pp = groups.pp.rank, groups.pp.n
+    layers = cfg.num_layers // pp
+    say(f"[hybrid {name}] {MODEL}, {cfg.num_layers} layers: "
+        f"{step.num_params():,} params bf16 over {groups.axes} "
+        f"({groups.mp.backend}), {path[2]}, schedule {path[3]}, ZeRO-1 "
+        f"over dp: {path[4]}, M={HYBRID_M if pp > 1 else 1}, AdamW(2e-4, "
+        f"clip 1.0, bf16 moments), remat full, ids [{TRAIN_B}, "
+        f"{TRAIN_S}] ({TRAIN_B // groups.dp.n} rows a replica); set up in "
+        f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the main path: counts start at 0 here and are read right after
+    reset_hybrid_counts()
+    losses = []
+    for g in (groups.mp, groups.dp, groups.pp):
+        g.barrier()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        losses.append(step(ids))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        losses.append(step(ids))
+    stop.record()
+    losses = [float(x) for x in losses]
+    step_s = start.elapsed_time(stop) / 1e3 / timed
+    counts = hybrid_counts()
+    fallbacks = pF.scaled_dot_product_attention.fallbacks
+    steps = warmup + timed
+    per_step = hybrid_step_calls(path, step, stage, layers)
+    want = {row: (None if per_call is None else c * steps,
+                  c * steps * (per_call or 1))
+            for (row, _, per_call), c in zip(HYBRID_ROWS,
+                                             per_step.values())}
+    failed = []
+    if not all(np.isfinite(losses)):
+        failed.append(f"{name}: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        failed.append(f"{name}: loss did not fall: {losses[0]} -> "
+                      f"{losses[-1]}")
+    every = world_gather(groups, torch.tensor(losses, device=dev))
+    same = all(torch.equal(every[0], o) for o in every)
+    if not same:
+        failed.append(f"{name}: the ranks' losses differ")
+    if counts != want:
+        failed.append(f"rank {groups.rank} {name}: (calls, launches) "
+                      f"{counts} != {want}")
+    if fallbacks:
+        failed.append(f"{name}: {fallbacks} SDPA fallbacks")
+    per_rank = world_gather(groups, torch.tensor(
+        [step_s, torch.cuda.max_memory_allocated(dev) / 1e9], device=dev,
+        dtype=torch.float64))
+    step_max = max(float(t[0]) for t in per_rank)
+    launched = {row: sum(1 for o in world_gather(groups, torch.tensor(
+        [counts[row][1]], device=dev)) if int(o) > 0)
+        for row, _, _ in HYBRID_ROWS}
+    fpt, _ = flops.model_flops_per_token(cfg, TRAIN_S)
+    tokens = TRAIN_B * TRAIN_S
+    peak = flops.peak_flops_bf16(torch.cuda.get_device_name(dev))
+    stats = {"path": name, "axes": groups.axes, "comm_backend": path[2],
+             "schedule": path[3], "zero1": path[4], "step_s": step_max,
+             "step_s_by_rank": [float(t[0]) for t in per_rank],
+             "tokens_per_s": tokens / step_max,
+             "mfu_over_cards": flops.mfu(fpt * tokens, step_max, peak,
+                                         cards=groups.world),
+             "cards": groups.world, "layers": cfg.num_layers,
+             "layout": groups.mp.backend, "warmup_s": warm,
+             "losses": losses,
+             "peak_mem_gb_by_rank": [float(t[1]) for t in per_rank],
+             "ranks_launching": launched}
+    say(f"[hybrid {name}] losses {[round(x, 4) for x in losses]} (the same "
+        f"on every rank: {same}); SDPA fallbacks {fallbacks}")
+    say(f"[hybrid {name}] rank 0 (calls, launches) over {steps} steps: "
+        f"{counts} (want {want}); ranks launching each row: {launched}")
+    say(f"[hybrid {name}] {json.dumps(stats)}")
+    del step
+    torch.cuda.empty_cache()
+    return {"stats": stats, "counts": counts, "per_step": per_step}, failed
+
+
+def phase_hybrid_parity(groups, seed, say, path):
+    """One step of a 2-layer (2 a stage under pp) copy of ``path`` at full
+    width (B=HYBRID_PARITY_B, S=2048, M=HYBRID_PARITY_M) against the
+    one-card step on the same weights and ids, every rank computing it:
+    the loss (averaged over dp) and every gradient leaf of this rank's
+    stage, mp shards compared over the mp group, within phase 6's
+    tolerances. Returns failures."""
+    name = path[0]
+    pp = groups.pp.n
+    cfg = train_config(num_layers=2 * pp)
+    if path[3] is not None:
+        cfg = dataclasses.replace(cfg, pp_schedule=path[3])
+    dev = groups.mp.device
+    params = init_gpt_params(cfg, seed=seed + 1, device=dev,
+                             dtype=torch.bfloat16)
+    ids = torch.randint(0, cfg.vocab_size, (HYBRID_PARITY_B, TRAIN_S),
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed + 4), device=dev)
+    step = hybrid_step(cfg, groups, path, params=params,
+                       microbatches=HYBRID_PARITY_M)
+    loss, grads = step.loss_and_grads(ids)
+    loss = float(loss)
+    flat = {n: t.detach().clone().requires_grad_(True)
+            for n, t in flatten_params(params).items()}
+    ref_loss = gpt_loss(unflatten_params(flat), ids, cfg)
+    ref = unflatten_params(dict(zip(flat, torch.autograd.grad(
+        ref_loss, list(flat.values())))))
+    ref_loss = float(ref_loss.detach())
+    mp = groups.mp
+    if mp.n > 1:
+        ref["blocks"] = tp_overlap.to_qkv_head_major(
+            ref["blocks"], cfg.hidden_size, cfg.num_heads)
+        ref = shard_params(ref, mp.rank, mp.n)
+    ref = flatten_params(stage_params(ref, groups.pp.rank, pp)
+                         if pp > 1 else ref)
+    names = sorted(grads)
+    sq = torch.stack([torch.stack([(grads[n].float() - ref[n].float())
+                                   .square().sum(),
+                                   ref[n].float().square().sum()])
+                      for n in names])
+    sharded = torch.tensor([n not in step._replicated for n in names],
+                           device=dev)
+    sq = torch.where(sharded[:, None],
+                     mp.all_reduce_(torch.where(sharded[:, None], sq, 0.0)),
+                     sq)
+    rel = {n: float(sq[i, 0].sqrt() / sq[i, 1].sqrt().clamp(min=1e-30))
+           for i, n in enumerate(names)}
+    worst = max(rel, key=rel.get)
+    every = world_gather(groups, torch.tensor([rel[worst]], device=dev,
+                                              dtype=torch.float64))
+    say(f"[hybrid-parity {name}] {cfg.num_layers}-layer {MODEL} width, "
+        f"B={HYBRID_PARITY_B} S={TRAIN_S} bf16, M={HYBRID_PARITY_M}: loss "
+        f"{loss:.6f} vs the one-card step {ref_loss:.6f} (|diff| "
+        f"{abs(loss - ref_loss):.2e}); gradient leaves: worst "
+        f"||dg||/||g|| by rank {[round(float(t[0]), 5) for t in every]} "
+        f"(rank 0: {worst}) (gates: loss {PARITY_LOSS_REL} rel, leaves "
+        f"{PARITY_GRAD_REL})")
+    failed = []
+    if not (np.isfinite(loss) and
+            abs(loss - ref_loss) <= PARITY_LOSS_REL * abs(ref_loss)):
+        failed.append(f"{name} loss {loss} vs one-card {ref_loss}")
+    bad = {n: v for n, v in rel.items()
+           if not (np.isfinite(v) and v <= PARITY_GRAD_REL)}
+    if bad:
+        failed.append(f"{name} gradient leaves off the one-card step: {bad}")
+    del step
+    torch.cuda.empty_cache()
+    return failed
+
+
+def hybrid_rank_main(groups, seed, paths):
+    """One rank of phase 15's world (spawned by ``env.launch(...,
+    axes=)``): the 2- or 4-layer parity copy and the main path of each of
+    ``paths`` (GPT-3 1.3B at full depth with a card per rank; on one card,
+    where every hop goes through host memory, one layer a stage and 1 + 2
+    steps). Rank 0 prints; every rank returns its readings and
+    failures."""
+    with peer_record(groups):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_num_threads(1)
+        say = (lambda *a: print(*a, flush=True)) if groups.rank == 0 else \
+            (lambda *a: None)
+        per_card = groups.mp.backend == "nccl"
+        out = {"rank": groups.rank, "train": {}}
+        failed = []
+        for path in paths:
+            failed += phase_hybrid_parity(groups, seed, say, path)
+            depth = () if per_card else (groups.pp.n, 1, 2)
+            out["train"][path[0]], f = phase_hybrid_train(
+                groups, seed, say, path, *depth)
+            failed += f
+        out["failed"] = failed
+        return out
+
+
+def phase_hybrid(seed):
+    """Phase 15: one world of HYBRID spawned ranks per layout of
+    ``HYBRID_PATHS`` (the layout from the card count), after the parent
+    has built every kernel. Fails on any rank's failure; returns {path:
+    rank 0's readings} and the layout."""
+    layout = hybrid_layout()
+    print(f"[hybrid] {HYBRID} ranks a world, layout {layout}: "
+          + ("one rank per card, NCCL sub-groups" if layout == "per_card"
+             else f"all on cuda:0 of {torch.cuda.device_count()} card(s), "
+                  f"gloo sub-groups")
+          + "; GPT-3 1.3B trained at dp2 x mp2, dp2 x pp2 and pp2 x mp2",
+          flush=True)
+    worlds = {}
+    for path in HYBRID_PATHS:
+        key = tuple(sorted(path[1].items()))
+        worlds.setdefault(key, []).append(path)
+    r0, failed = {}, []
+    for key, paths in worlds.items():
+        t0 = time.perf_counter()
+        outs = env.launch(HYBRID, hybrid_rank_main, seed, paths,
+                          layout=layout, timeout_s=900, axes=dict(key))
+        print(f"[hybrid] {[p[0] for p in paths]}: the ranks ran in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        failed += [f"rank {o['rank']}: {f}" for o in outs
+                   for f in o["failed"]]
+        r0.update(outs[0]["train"])
+    check(not failed, "hybrid-parallel training failed:\n" +
+          "\n".join(failed))
+    return r0, layout
+
+
+def phase_trajectories(one_card, tp_r0, pp_r0, dp_r0, hybrid_r0, layout):
     """The training phases' loss trajectories from the same weights and
     ids, side by side (printed, not gated): one card (phase 5), mp=4 on
-    the fused and rsag rungs (phase 10), pp=4 on each rung (phase 11) and
+    the fused and rsag rungs (phase 10), pp=4 on each rung (phase 11),
     dp=4 on each rung (phase 12: the eager model, whose loss is the
-    unfused CE over fp32 logits and whose AdamW decays every param). Only
-    full-depth runs (a card per rank) compare with phase 5."""
+    unfused CE over fp32 logits and whose AdamW decays every param) and
+    the composed paths (phase 15). Only full-depth runs (a card per rank)
+    compare with phase 5."""
     if layout != "per_card":
         print("[trajectories] one card: the mp, pp and dp phases ran cut "
               "depths; nothing to compare with phase 5")
@@ -4825,6 +5179,7 @@ def phase_trajectories(one_card, tp_r0, pp_r0, dp_r0, layout):
                  for k, v in pp_r0["train"].items()})
     runs.update({f"dp=4 {k}": v["stats"]["losses"]
                  for k, v in dp_r0["train"].items()})
+    runs.update({k: v["stats"]["losses"] for k, v in hybrid_r0.items()})
     for name, losses in runs.items():
         print(f"[trajectories] {name:>16}: "
               f"{[round(x, 4) for x in losses]}, last - one card's "
@@ -4931,7 +5286,10 @@ def main(argv=None):
         pp_outs, pp_layout = phase_pp(args.seed)
     with phase_clock("12 dp training"):
         dp_r0, dp_layout = phase_dp(args.seed)
-    phase_trajectories(one_card_losses, tp_r0, pp_outs[0], dp_r0, tp_layout)
+    with phase_clock("15 hybrid training"):
+        hybrid_r0, _ = phase_hybrid(args.seed)
+    phase_trajectories(one_card_losses, tp_r0, pp_outs[0], dp_r0, hybrid_r0,
+                       tp_layout)
     mp_kernels = mp_rows(mp_r0, layout, cfg)
     return finish(rows + mp_kernels + tp_rows(tp_r0, tp_layout, cfg) +
                   pp_rows(pp_outs, pp_layout, cfg) +

@@ -7,10 +7,16 @@
 (``"mp=fused,dp=ring"``); a bare backend name applies to every axis. The
 backends are the rungs of one schedule: ``gspmd`` (whole collectives),
 ``ring`` (n - 1 point-to-point hops) and ``fused`` (the hand-written
-kernels of ``ops/fused_collectives.py``). Unknown backends warn once and
-are dropped, as in the reference. The pp axis resolves through
+kernels of ``ops/fused_collectives.py``); the training mp axis also has
+``rsag`` (whole reduce-scatters and all-gathers in the sequence-parallel
+layout), which a bare name gives the mp axis alone. Unknown backends warn
+once and are dropped, as in the reference. ``HybridTrainStep``'s
+``comm_backend`` takes the same list for its three axes
+(``"mp=fused,pp=ring,dp=fused"``). The pp axis resolves through
 ``resolve_pp`` (reference :141-285); the dp axis's rung through
-``distributed/grad_comm.py:resolve``, which reads the ``dp`` entry here.
+``distributed/grad_comm.py:resolve`` (the eager ``TrainStep``) or
+``resolve_hybrid`` (``HybridTrainStep``), which read the ``dp`` entry
+here.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from ..flags import get_flags
 logger = logging.getLogger(__name__)
 
 BACKENDS = ("gspmd", "ring", "fused")
+MP_TRAIN_ONLY = ("rsag",)          # a training mp rung no other axis has
 
 _warned = set()
 
@@ -54,14 +61,15 @@ def parse(spec):
                 items.append((None, part))        # bare backend: every axis
     out = {}
     for axis, backend in items:
-        if backend not in BACKENDS:
+        mp_only = backend in MP_TRAIN_ONLY and axis in (None, "mp")
+        if backend not in BACKENDS and not mp_only:
             _warn_once(("backend", axis, backend),
                        f"FLAGS_comm_backend names unknown backend "
                        f"{backend!r} for axis {axis or '*'}; valid backends "
                        f"are {'/'.join(BACKENDS)}; entry ignored")
             continue
         if axis is None:
-            for a in ("dp", "mp", "pp"):
+            for a in (("mp",) if mp_only else ("dp", "mp", "pp")):
                 out[a] = backend
         else:
             out[axis] = backend
@@ -136,7 +144,7 @@ def _no_gspmd(msg):
 
 def resolve_pp(config, n, comm_backend=None, batch=None,
                num_microbatches=1, mp=1, zero3=False, extra_axes=(),
-               device=None):
+               device=None, dp=1):
     """The pp schedule of a step over ``n`` stages: a ``PpConfig``, or None
     when ``n <= 1``.
 
@@ -146,11 +154,14 @@ def resolve_pp(config, n, comm_backend=None, batch=None,
     ``"ring"`` with ``config.pp_schedule``. The reference's bail matrix
     (comm_backend.py:167-285) holds, but where the reference falls back to
     its GSPMD schedule the port raises with the reference's fix-naming
-    text: virtual stages (``pp_interleave > 1``), ZeRO stage 3, an active
-    mp axis (``mp > 1``: pp x mp is ROADMAP Queue A step 3), other mesh
-    axes, a batch that ``num_microbatches`` does not divide, and
-    ``pp=gspmd``. ``pp=fused`` with ``pp_schedule="1f1b"`` runs GPipe
-    with the reference's warning. ``FLAGS_pp_wire_dtype`` (``auto`` /
+    text: virtual stages (``pp_interleave > 1``), ZeRO stage 3, other mesh
+    axes, a batch that ``num_microbatches`` does not divide, a microbatch
+    that ``dp`` does not divide (the schedule shards each microbatch over
+    dp), and ``pp=gspmd``. An active mp axis (``mp > 1``) runs inside each
+    stage on the ring rung; ``pp=fused`` with ``mp > 1`` raises, naming
+    ``pp=ring`` (the reference steps down to ring there with a warning,
+    the port never steps down). ``pp=fused`` with ``pp_schedule="1f1b"``
+    runs GPipe with the reference's warning. ``FLAGS_pp_wire_dtype`` (``auto`` /
     ``float32`` / ``bfloat16``) sets the ring rung's wire; the fused rung
     ignores it with the reference's warning. On CUDA (``device``) the
     fused rung needs a bfloat16 compute dtype: its kernels take nothing
@@ -171,12 +182,11 @@ def resolve_pp(config, n, comm_backend=None, batch=None,
                   "all-gather inside the stage scan, which a full-manual "
                   "region cannot emit; set zero_stage=1 (host offload of "
                   "optimizer moments composes either way)")
-    if mp > 1:
-        raise NotImplementedError(
-            f"the explicit pp schedule with an active mp axis (mp={mp}) "
-            f"needs an explicit mp schedule inside each stage, which the "
-            f"port composes with pp in ROADMAP Queue A step 3; run pp with "
-            f"mp=1 (reference: FLAGS_comm_backend='mp=ring,pp={backend}')")
+    if mp > 1 and backend == "fused":
+        raise ValueError(
+            f"pp=fused boundary kernels take the plain (mp=1) block tail; "
+            f"with an active mp axis (mp={mp}) set comm_backend='pp=ring' "
+            f"(the mp schedule then runs inside each stage)")
     if extra_axes:
         _no_gspmd(f"the explicit pp schedule binds the whole mesh "
                   f"manually; axes {list(extra_axes)} must be size 1 (set "
@@ -185,6 +195,10 @@ def resolve_pp(config, n, comm_backend=None, batch=None,
     if batch is not None and batch % M:
         _no_gspmd(f"batch {batch} not divisible by num_microbatches={M} "
                   f"(choose a microbatch count dividing the global batch)")
+    if batch is not None and dp > 1 and (batch // M) % dp:
+        _no_gspmd(f"microbatch size {batch // M} not divisible by dp={dp}; "
+                  f"the explicit schedule shards each microbatch over dp — "
+                  f"lower num_microbatches (or the dp degree)")
     schedule = getattr(config, "pp_schedule", "1f1b") or "1f1b"
     if schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown pp_schedule {schedule!r}; choose "

@@ -14,7 +14,7 @@ the flags ask for the explicit schedule (``resolve``):
   member parameter;
 * the optimizer's elementwise update on each replica's 1/n shard, its
   slots stored packed (``shard_of``, ``pack_opt_state``), after clipping
-  computed from the shards (``clip_shards``);
+  computed from the shards (``nn.clip``'s ``apply_arrays(dp_group=)``);
 * the bucketed all-gather of the updated params (``all_gather_shards``).
 
 Rungs of ``FLAGS_comm_backend``'s dp entry: ``ring`` reduces with the
@@ -29,11 +29,16 @@ rung) exchanges the rows with one all-to-all at the compressed dtype and
 sums them in fp32 (``_quantized_reduce_row``; int8
 with a scale per 2,048-element chunk).
 
-The reference's branches for its dp x mp composed step (auto axes, the
-int16 fixed-point wire, the emulated gather) raise here: that composition
-is ROADMAP Queue A step 3. The per-step byte and collective counts are
-computed from the plan, as the reference's are, and read through
-``comm_counters()``.
+``HybridTrainStep(dp_group=)`` uses the same pieces over its flat leaves
+(mp shards and pp stages included) on the dp sub-group of a hybrid world
+(``resolve_hybrid``): under ZeRO-1 the bucketed reduce-scatter, the
+sharded update (``sharded_update``) and the param all-gather; without it
+one library all-reduce a bucket (``all_reduce_grads``, the reference's
+GSPMD dp). The reference's branches for the eager step's dp x mp
+composition (auto axes, the int16 fixed-point wire, the emulated gather)
+raise here: they wait for the eager mp layers (ROADMAP Queue A item 14).
+The per-step byte and collective counts are computed from the plan, as
+the reference's are, and read through ``comm_counters()``.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from dataclasses import dataclass, field
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..flags import get_flags
 from . import comm_backend, peer
@@ -58,9 +64,10 @@ WIRE_DTYPES = {"float32": None, "fp32": None, None: None,
                "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
                "int8": torch.int8}
 
-_COMPOSED = ("the dp x mp composed schedule (auto axes, the int16 "
-             "fixed-point wire, the emulated gather) is ROADMAP Queue A "
-             "step 3")
+_COMPOSED = ("the eager TrainStep's dp x mp composed schedule (auto axes, "
+             "the int16 fixed-point wire, the emulated gather) waits for the "
+             "eager mp layers of fleet/mp_layers.py, ROADMAP Queue A item "
+             "14; HybridTrainStep composes dp with mp (dp_group=, group=)")
 
 
 def _int8_chunking(cols):
@@ -353,6 +360,23 @@ def all_gather_shards(plan, shards, group, fused=False, idx=None, out=None):
     return res
 
 
+def all_reduce_grads(plan, grads, group, denom=1):
+    """Local gradients -> full tensors of their sum over the replicas
+    divided by ``denom``: one library all-reduce per (n, cols) bucket of
+    ``plan`` (the reference's GSPMD dp all-reduce; the padding columns sum
+    zeros)."""
+    out = {}
+    for b in plan.buckets:
+        x = group.all_reduce_(_pack_bucket(plan, b, grads))
+        if denom != 1:
+            x = x / denom
+        for name in b.names:
+            e = plan.entries[name]
+            flat = x[:, e.offset:e.offset + e.cols].reshape(-1)[:e.size]
+            out[name] = flat.view(e.shape).to(e.dtype)
+    return out
+
+
 def shard_of(plan, name, arr, idx):
     """Replica ``idx``'s flat shard (cols,) of a full tensor: a view of
     ``arr`` where the shard holds no padding, else a copy zero-padded as
@@ -369,33 +393,27 @@ def shard_of(plan, name, arr, idx):
     return row
 
 
-def clip_shards(grad_clip, shards, group):
-    """Gradient clipping computed from flat shards: a norm the clip needs
-    is an all-reduce of shard-local partial sums, so no full gradient
-    materializes (one all-reduce of a scalar for the global norm, of a
-    vector for per-parameter norms)."""
-    if grad_clip is None:
-        return shards
-    from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
-                           ClipGradByValue)
-    if isinstance(grad_clip, ClipGradByValue):
-        return {n: g.clamp(grad_clip.min, grad_clip.max)
-                for n, g in shards.items()}
-    if isinstance(grad_clip, ClipGradByGlobalNorm):
-        local = sum(g.float().square().sum() for g in shards.values())
-        norm = torch.sqrt(group.all_reduce_(local))
-        scale = torch.clamp(grad_clip.clip_norm / torch.clamp(norm,
-                                                              min=1e-12),
-                            max=1.0)
-        return {n: (g.float() * scale).to(g.dtype) for n, g in shards.items()}
-    if isinstance(grad_clip, ClipGradByNorm):
-        sq = group.all_reduce_(torch.stack([g.float().square().sum()
-                                            for g in shards.values()]))
-        scale = torch.clamp(grad_clip.clip_norm / torch.clamp(
-            torch.sqrt(sq), min=1e-12), max=1.0)
-        return {n: (g.float() * s).to(g.dtype)
-                for (n, g), s in zip(shards.items(), scale)}
-    raise TypeError(f"unsupported grad clip for grad_comm: {type(grad_clip)}")
+def sharded_update(optimizer, plan, params, gshards, state, group,
+                   fused=False, wd_mask=None):
+    """ZeRO-1's update: the optimizer's elementwise rule on this replica's
+    flat shards of ``params`` (views where a shard holds no padding),
+    against the reduced gradient shards ``gshards`` and the slots in
+    ``state`` packed (1, cols) (``pack_opt_state`` with the rank), then
+    the params' bucketed all-gather into place (row 11 on ``fused``).
+    In place; under ``torch.no_grad``."""
+    rank = group.rank
+    with torch.no_grad():
+        pshards = {nm: shard_of(plan, nm, p, rank)
+                   for nm, p in params.items()}
+        flat = {"step": state["step"],
+                "slots": {nm: {k: v.view(-1) for k, v in sl.items()}
+                          for nm, sl in state["slots"].items()}}
+        with record_function("train_step/optimizer"):
+            optimizer.apply_gradients(pshards, gshards, flat,
+                                      optimizer.get_lr(), wd_mask=wd_mask)
+        state["step"] = flat["step"]
+        with record_function("grad_comm/all_gather"):
+            all_gather_shards(plan, pshards, group, fused=fused, out=params)
 
 
 # ---------------------------------------------------------------------------
@@ -558,6 +576,44 @@ def resolve(group, optimizer, mp=1):
                           wire_dtype=wire,
                           bucket_bytes=int(flags["FLAGS_grad_bucket_bytes"]),
                           backend=backend)
+
+
+def resolve_hybrid(group, optimizer, rung=None):
+    """The dp schedule of ``HybridTrainStep`` over the dp sub-group
+    ``group``: a ``GradCommConfig``, or None without one of n > 1.
+    ``rung`` is the dp entry of its ``comm_backend`` (None reads
+    ``FLAGS_comm_backend``). ZeRO-1 (``weight_update_sharding``) is on
+    when the optimizer shards its states over dp
+    (``optimizer._shard_opt_states_axis == "dp"``, as the reference sets
+    it) and needs an elementwise rule: its bucketed reduce-scatter and
+    param all-gather are the library's on ``gspmd`` (or none named) and
+    ``ring``, rows 10 and 11 on ``fused``. Without ZeRO-1 the gradients
+    take one library all-reduce a bucket, the reference's GSPMD dp: only
+    ``gspmd`` names it, and ``ring`` or ``fused`` raise. The wire is the
+    gradients' dtype; buckets hold about ``FLAGS_grad_bucket_bytes``."""
+    if group is None or group.n <= 1:
+        return None
+    rung = rung or comm_backend.requested("dp") or "gspmd"
+    if rung not in comm_backend.BACKENDS:
+        raise ValueError(f"dp comm_backend must be one of "
+                         f"{comm_backend.BACKENDS}, got {rung!r}")
+    zero = getattr(optimizer, "_shard_opt_states_axis", None) == "dp"
+    if zero and not optimizer.supports_sharded_update():
+        raise ValueError(f"{type(optimizer).__name__} has no shard-local "
+                         f"update (a non-elementwise rule), so its states "
+                         f"cannot be sharded over dp (ZeRO-1); unset "
+                         f"_shard_opt_states_axis")
+    if not zero and rung != "gspmd":
+        raise ValueError(f"dp={rung} names ZeRO-1's reduce-scatter and "
+                         f"param all-gather; without ZeRO-1 the gradients "
+                         f"take one all-reduce a bucket (dp=gspmd, or no dp "
+                         f"rung named): set optimizer._shard_opt_states_axis"
+                         f" = 'dp', or name the mp and pp rungs alone")
+    return GradCommConfig(
+        n=int(group.n), weight_update_sharding=zero, wire_dtype=None,
+        bucket_bytes=int(get_flags("FLAGS_grad_bucket_bytes")[
+            "FLAGS_grad_bucket_bytes"]),
+        backend=rung)
 
 
 # ---------------------------------------------------------------------------

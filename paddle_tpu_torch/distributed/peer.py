@@ -13,7 +13,12 @@ signal pad of flags and per-block epochs (``csrc/peer_barrier.cuh``),
 zeroed, then the staging region that the caller writes its operand into.
 A group holds one channel per purpose (``"rs_bucket"``, ``"ag_bucket"``,
 ``"gemm_rs"``, ``"ag_gemm"``: rows 7 and 9, ``"gemm_ag"``: rows 12-13) in
-``MPGroup.peer_channels``.
+``MPGroup.peer_channels``. In a hybrid world (``env.init_hybrid_groups``)
+each axis's sub-group holds its own channels and heartbeat, set up over
+that sub-group alone, and a kernel addresses its peers by their rank in
+the sub-group (the pointer arrays are in group-rank order); a process in
+two groups beats in both segments (the native thread bumps every segment
+it has mapped).
 Row 8's staging holds 2n fp32 slots of a chunk (by call parity and source
 rank) that the peers' GEMMs store into; rows 7 and 9's 2 + n bf16 slots
 of a chunk: this rank's chunk by call parity, which the peers read, and
@@ -265,7 +270,7 @@ class _Heartbeat:
             if name is not None:
                 self._open(name, create=True)
             names = [None] * group.n
-            dist.all_gather_object(names, name)
+            dist.all_gather_object(names, name, group=group.pg)
             if name is None:
                 self._open(names[0], create=False)
             group.barrier()                # every rank has mapped it
@@ -325,7 +330,8 @@ class Channel:
             _ok(lib.peer_handle(self.device, own, handle),
                 "cudaIpcGetMemHandle")
             infos = [None] * n
-            dist.all_gather_object(infos, (handle.raw, self.device))
+            dist.all_gather_object(infos, (handle.raw, self.device),
+                                   group=group.pg)
             devices = [d for _, d in infos]
             for r, d in enumerate(devices):
                 ok = ctypes.c_int(1)

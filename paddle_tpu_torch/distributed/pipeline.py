@@ -43,6 +43,11 @@ The fused rung (``backend="fused"``, GPipe) hands each sending stage's
 last block to ``boundary`` (``models/gpt.py:gpt_fused_boundary``), whose
 kernel wrapper posts the forward hop and whose backward receives the
 reverse one; the tick loop then posts neither.
+
+The block may itself be tensor parallel (``tp_overlap.sp_block_fn`` over
+the stage's mp sub-group of a hybrid world): the activations then cross
+the boundary as seq shards [B/M, S/mp, H], and the stage's mp ranks run
+the same ticks, so their mp collectives pair up inside each sub-tick.
 """
 from __future__ import annotations
 

@@ -26,7 +26,9 @@ the reference steps down (the port never falls back from a rung);
 ``mp_counters()`` by ``record_step``.
 
 The reference is single-controller under ``shard_map``; the port is SPMD
-over ``distributed.env.MPGroup`` (one process per rank).
+over ``distributed.env.MPGroup`` (one process per rank), which may be the
+mp sub-group of a hybrid world (``env.init_hybrid_groups``): every
+collective here runs on that group alone.
 
 Serving:
 

@@ -137,18 +137,22 @@ class TrainStep:
                                     allow_unused=True, materialize_grads=True)
         return loss.detach(), dict(zip(names, grads))
 
-    def _clip_full(self, grads):
+    def _clip(self, grads, dp_group=None):
+        """The clip of ``grads`` ({name: full gradient}, or with
+        ``dp_group`` this replica's flat shards, each leaf's norm summed
+        over the replicas)."""
         clip = self.optimizer._grad_clip
         if clip is None:
             return grads
         names = list(grads)
-        return dict(zip(names, clip.apply_arrays([grads[n] for n in names])))
+        return dict(zip(names, clip.apply_arrays([grads[n] for n in names],
+                                                 dp_group=dp_group)))
 
     def _update_full(self, grads, clip=True):
         """The replicated update of the full params."""
         if clip:
             with record_function("train_step/clip"):
-                grads = self._clip_full(grads)
+                grads = self._clip(grads)
         with record_function("train_step/optimizer"):
             self.optimizer.apply_gradients(self._params, grads,
                                            self._opt_state,
@@ -192,7 +196,6 @@ class TrainStep:
     def _explicit(self, grads):
         cfg, group = self._gc_cfg, self.group
         plan, k = cfg.plan, self.accumulate_steps
-        clip = self.optimizer._grad_clip
         with record_function("grad_comm/reduce_scatter"):
             gshards = gc.reduce_scatter_grads(plan, grads, group,
                                               cfg.wire_dtype, denom=cfg.n,
@@ -208,12 +211,14 @@ class TrainStep:
                     return
                 gshards = {nm: g.view(-1) for nm, g in gshards.items()}
             with record_function("train_step/clip"):
-                gshards = gc.clip_shards(clip, gshards, group)
-            self._sharded_update(gshards)
+                gshards = self._clip(gshards, dp_group=group)
+            gc.sharded_update(self.optimizer, plan, self._params, gshards,
+                              self._opt_state, group,
+                              fused=cfg.backend == "fused")
             return
         if k == 1:
             with record_function("train_step/clip"):
-                gshards = gc.clip_shards(clip, gshards, group)
+                gshards = self._clip(gshards, dp_group=group)
         with record_function("grad_comm/all_gather"):
             full = gc.all_gather_shards(plan, gshards, group,
                                         fused=cfg.backend == "fused")
@@ -225,27 +230,6 @@ class TrainStep:
                                  for nm, g in full.items()})
         if full is not None:
             self._update_full(full)
-
-    def _sharded_update(self, gshards):
-        """The update on this replica's flat shards (views of the params
-        where a shard holds no padding), slots packed (1, cols), then the
-        params' bucketed all-gather into place."""
-        cfg = self._gc_cfg
-        plan, rank = cfg.plan, self.group.rank
-        pshards = {nm: gc.shard_of(plan, nm, p, rank)
-                   for nm, p in self._params.items()}
-        state = self._opt_state
-        flat = {"step": state["step"],
-                "slots": {nm: {kk: v.view(-1) for kk, v in sl.items()}
-                          for nm, sl in state["slots"].items()}}
-        with record_function("train_step/optimizer"):
-            self.optimizer.apply_gradients(pshards, gshards, flat,
-                                           self.optimizer.get_lr())
-        state["step"] = flat["step"]
-        with record_function("grad_comm/all_gather"):
-            gc.all_gather_shards(plan, pshards, self.group,
-                                 fused=cfg.backend == "fused",
-                                 out=self._params)
 
     def _to_device(self, xs):
         return tuple(torch.as_tensor(x).to(self.device)

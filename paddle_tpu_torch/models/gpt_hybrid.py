@@ -49,10 +49,31 @@ reference's mp=1 loss, gpt_hybrid.py:445-450). The loss is broadcast from
 the last stage, so every rank returns it; the clip's global norm sums
 each stage's leaves once; AdamW updates each stage's own leaves.
 
-Meshes raise and point to ``group=`` / ``pp_group=``; pp x mp, dp, ZeRO
-stage 3 and the reference's non-sequence-parallel GSPMD all-reduce
-schedule are ROADMAP Queue A steps 2-3; host offload is item 13. The
-reference's live step telemetry (``StepSampler``) waits for item 10.
+Data parallel (``dp_group=``, the SPMD counterpart of the reference's
+``create_hybrid_mesh(dp=n)`` with its ``P('dp')`` batch sharding): every
+rank is called with the global ids and runs its B/dp rows (replica r rows
+[r B/dp, (r+1) B/dp)); the loss is averaged over the replicas and the
+gradients meet over the dp sub-group (``grad_comm.resolve_hybrid``): one
+all-reduce a bucket, or under ZeRO-1 (``optimizer._shard_opt_states_axis
+= "dp"``) the bucketed reduce-scatter, the clip from the shards, the
+update of each replica's 1/dp of every leaf and slot, and the params'
+all-gather (rows 10-11 on ``dp=fused``).
+
+The three compose, one sub-group per axis of a hybrid world
+(``distributed.env.init_hybrid_groups``): dp x mp, dp x pp, pp x mp and
+pp x dp x mp. A step shards its tree over mp, then stages it over pp;
+under pp x mp stage 0's embedding and the blocks run the
+sequence-parallel schedule inside each stage (activations cross the
+boundary seq-sharded, [B/M, S/mp, H]) and the last stage's mp group
+computes the vocab-sharded loss. The gradients of the mp-replicated
+leaves meet over mp first, then every leaf over dp; the clip counts each
+element once over the three axes; the loss reaches every rank (broadcast
+from the last stage, then averaged over dp).
+
+Meshes raise and point to the groups; ZeRO stage 3 and the reference's
+non-sequence-parallel GSPMD all-reduce schedule are the rest of ROADMAP
+Queue A step 3; host offload is item 13. The reference's live step
+telemetry (``StepSampler``) waits for item 10.
 """
 from __future__ import annotations
 
@@ -64,9 +85,10 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..device import resolve_device
+from ..distributed import grad_comm as gc
 from ..distributed import pipeline as pl
 from ..distributed import tp_overlap as tp
-from ..distributed.comm_backend import resolve_pp
+from ..distributed.comm_backend import parse, resolve_pp
 from ..distributed.recompute import remat
 from ..ops.fused_ce import fused_lm_loss
 from .gpt import compute_dtype, gpt_block_fn, gpt_fused_boundary
@@ -113,10 +135,12 @@ def _lm_loss_sharded(logits, ids, group):
 def _no_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
-            "the port is SPMD: pass group= (tensor parallel) or pp_group= "
-            "(pipeline parallel), a distributed.env.MPGroup from "
-            "distributed.env.launch or init_mp_group, one process per rank, "
-            "instead of a mesh; dp is ROADMAP Queue A item 11, steps 2-3")
+            "the port is SPMD: pass group= (tensor parallel), pp_group= "
+            "(pipeline parallel) and dp_group= (data parallel), "
+            "distributed.env.MPGroups from distributed.env.launch, "
+            "init_mp_group or init_hybrid_groups (one sub-group per axis of "
+            "a hybrid world), one process per rank, instead of a mesh "
+            "(ROADMAP Queue A item 11)")
 
 
 def _schedule(config, group, comm_backend, device, seq):
@@ -216,6 +240,10 @@ def decays(name):
     return not (leaf.endswith("_b") or "ln" in leaf or leaf == "wpe")
 
 
+def _multi(group):
+    return group if group is not None and group.n > 1 else None
+
+
 class HybridTrainStep:
     """GPT train step: ``step(ids)`` runs forward, backward, clip and the
     optimizer update, updating ``params`` and ``opt_state`` in place, and
@@ -224,69 +252,77 @@ class HybridTrainStep:
     ``params``: a full tree in the logical qkv layout from
     ``params_from_numpy`` (or the port's ``init_gpt_params``), copied to
     ``device`` in ``param_dtype``; without it, ``init_gpt_params(config,
-    seed)`` draws the weights.
+    seed)`` draws the weights. With groups every rank builds the step with
+    the same params or seed and calls it with the same (global) ids;
+    ``device=None`` means the groups' device. ``num_params`` counts the
+    whole model.
+
+    ``comm_backend``: the rungs, ``"mp=fused,pp=ring,dp=fused"`` (a bare
+    name applies to every axis, ``"rsag"`` to mp alone; an axis it does
+    not name reads ``FLAGS_comm_backend``).
 
     Tensor parallel: ``group`` (a ``distributed.env.MPGroup`` of n > 1
-    ranks; every rank builds the step with the same params or seed and
-    calls it with the same ids) and ``comm_backend`` (``"rsag"``,
-    ``"ring"``, ``"fused"``; None reads the flags,
-    ``comm_backend.train_requested``). The step stores its qkv head-major
-    (on a private copy of the config) and keeps this rank's shards in
-    ``params``; ``device=None`` means the group's device. ``num_params``
-    counts the whole model.
+    ranks) on the mp rung ``"rsag"``, ``"ring"`` or ``"fused"``
+    (``comm_backend.train_requested`` from the flags). The step stores its
+    qkv head-major (on a private copy of the config) and keeps this rank's
+    shards in ``params``.
 
-    Pipeline parallel: ``pp_group`` (an ``MPGroup`` of n > 1 ranks, rank =
-    stage; every rank builds the step with the same params or seed and
-    calls it with the same ids), ``num_microbatches`` M (it must divide
-    the batch) and ``comm_backend`` ``"pp=ring"`` or ``"pp=fused"``
-    (``comm_backend.resolve_pp``: None reads the flags, and with no pp
+    Pipeline parallel: ``pp_group`` (rank = stage), ``num_microbatches`` M
+    (it must divide the batch each replica runs) and the pp rung
+    ``"ring"`` or ``"fused"`` (``comm_backend.resolve_pp``: with no pp
     rung named anywhere the step runs ``"ring"`` with
     ``config.pp_schedule``). ``params`` then keeps this stage's leaves
-    only (``params.stage_params``); ``device=None`` means the group's
-    device. ``pp_group`` with ``group`` raises: pp x mp is ROADMAP Queue
-    A step 3."""
+    only (``params.stage_params``). With ``group`` too the rung must be
+    ring.
+
+    Data parallel: ``dp_group`` (the replicas), the rung
+    ``grad_comm.resolve_hybrid`` picks, ZeRO-1 when
+    ``optimizer._shard_opt_states_axis == "dp"`` (``opt_state`` then
+    holds this replica's (1, cols) rows of every slot)."""
 
     def __init__(self, config, optimizer, mesh=None, num_microbatches=1,
                  param_dtype=torch.float32, seed=0, zero_stage=1,
                  offload=False, device=None, params=None, group=None,
-                 comm_backend=None, pp_group=None):
+                 comm_backend=None, pp_group=None, dp_group=None):
         _no_mesh(mesh)
-        if pp_group is not None and group is not None:
-            raise NotImplementedError(
-                "pp_group= with group= (pipeline x tensor parallel) is "
-                "ROADMAP Queue A step 3; pass one of them")
         if zero_stage >= 3:
             raise NotImplementedError(
                 "zero_stage >= 3 shards params over dp (ROADMAP Queue A "
-                "items 11 and 13); the step keeps stage 1")
+                "items 11 and 13: the rest of item 11's step 3); the step "
+                "runs stage 1, optimizer states sharded over dp_group when "
+                "optimizer._shard_opt_states_axis == 'dp'")
         if offload:
             raise NotImplementedError(
                 "host offload of optimizer moments is not ported yet "
                 "(ROADMAP Queue A item 13)")
         self.optimizer = optimizer
-        self.group = group if group is not None and group.n > 1 else None
-        self.pp_group = pp_group if pp_group is not None and \
-            pp_group.n > 1 else None
+        self.group = _multi(group)
+        self.pp_group = _multi(pp_group)
+        self.dp_group = _multi(dp_group)
         self.num_microbatches = int(num_microbatches)
-        group = group if group is not None else pp_group
+        given = [g for g in (group, pp_group, dp_group) if g is not None]
         self.device = resolve_device(
-            group.device if device is None and group is not None
-            else device)
-        if group is not None and (
-                self.device.type != group.device.type or
-                self.device.index not in (None, group.device.index)):
-            raise ValueError(f"the step's device {self.device} is not the "
-                             f"group's {group.device}")
+            given[0].device if device is None and given else device)
+        for g in given:
+            if self.device.type != g.device.type or \
+                    self.device.index not in (None, g.device.index):
+                raise ValueError(f"the step's device {self.device} is not "
+                                 f"the group's {g.device}")
+        rungs = parse(comm_backend)
+        mp_n = self.group.n if self.group is not None else 1
+        dp_n = self.dp_group.n if self.dp_group is not None else 1
         head_major = config.qkv_head_major
         self._sp = self._ppc = None
         if self.pp_group is not None:
             self._ppc = resolve_pp(config, self.pp_group.n, comm_backend,
                                    num_microbatches=self.num_microbatches,
-                                   device=self.device)
+                                   mp=mp_n, dp=dp_n, device=self.device)
         if self.group is not None:
             config = dataclasses.replace(config, qkv_head_major=True)
-            self._sp = tp.resolve_gpt(config, self.group.n, comm_backend,
+            self._sp = tp.resolve_gpt(config, self.group.n, rungs.get("mp"),
                                       self.device)
+        self._dpc = gc.resolve_hybrid(self.dp_group, optimizer,
+                                      rungs.get("dp"))
         self.config = config
         copy = params is not None     # never update the caller's tree
         if params is None:
@@ -312,14 +348,15 @@ class HybridTrainStep:
                     params["blocks"], config.hidden_size, config.num_heads)
             flat = flatten_params(shard_params(params, self.group.rank,
                                                self.group.n))
-            specs = flatten_params(gpt_param_specs())
-            self._replicated = {n for n in flat if specs[n] is None}
             copy = True               # the shards may be views of params
         if self.pp_group is not None:
             flat = flatten_params(stage_params(
                 unflatten_params(flat), self.pp_group.rank,
                 self.pp_group.n))
             copy = True               # the stage's blocks are views
+        if self.group is not None:
+            specs = flatten_params(gpt_param_specs())
+            self._replicated = {n for n in flat if specs[n] is None}
         self._flat = {name: t.detach().to(self.device, param_dtype,
                                           copy=copy).requires_grad_(True)
                       for name, t in flat.items()}
@@ -327,79 +364,138 @@ class HybridTrainStep:
         self.opt_state = optimizer.init_state(self._flat)
         self._wd_mask = {n: decays(n) for n in self._flat}
         self._records = {}
-        if self.pp_group is not None:
-            # the group's first collective involves every rank (NCCL's
-            # batched point-to-point ops need that of a group's first call)
-            self.pp_group.barrier()
+        self._dp_rec = None
+        if self._dpc is not None:
+            dpc = self._dpc
+            dpc.plan = gc.BucketPlan.build(self._flat, dpc.n,
+                                           dpc.bucket_bytes)
+            self._dp_rec = gc.make_step_record(
+                dpc.plan, None, dpc.weight_update_sharding,
+                backend=dpc.backend)
+            if dpc.weight_update_sharding:
+                self.opt_state = gc.pack_opt_state(
+                    self.opt_state, self._flat, dpc.n, self.dp_group.rank)
+        # each sub-group's first collective involves every rank of it
+        # (NCCL's batched point-to-point ops need that of a group's first
+        # call), in one order on every rank
+        for g in (self.group, self.dp_group, self.pp_group):
+            if g is not None:
+                g.barrier()
 
     def _ids(self, ids):
         return torch.as_tensor(ids).to(self.device, torch.long)
 
+    def _rows(self, ids):
+        """This replica's rows of the global ids (all of them without
+        dp)."""
+        g = self.dp_group
+        if g is None:
+            return ids
+        b = ids.shape[0] // g.n
+        return ids[g.rank * b:(g.rank + 1) * b]
+
     def _backend(self):
         return None if self._sp is None else self._sp.backend
 
-    def _record(self, shape):
-        """The step's mp wire record (``group``) or pp ledger
-        (``pp_group``) for ids of ``shape`` (None on one device); raises
-        where the schedule cannot take the sequence or the batch."""
-        if self.pp_group is not None:
-            if shape not in self._records:
-                B, S = shape
-                g = self.pp_group
-                resolve_pp(self.config, g.n, self._ppc.backend, batch=B,
-                           num_microbatches=self.num_microbatches)
-                self._records[shape] = pl.gpt_pp_step_record(
-                    self.config, self._ppc, B, S, self.num_microbatches,
-                    g.rank)
-            return self._records[shape]
-        if self.group is None:
-            return None
+    def step_records(self, shape):
+        """The step's ledgers for global ids of ``shape``: ``{"mp": the mp
+        wire record of this rank's rows (none under pp, whose stages run
+        other parts of the model and 1F1B a third forward), "pp": the pp
+        ledger, "dp": the gradient communication record}`` (None where the
+        axis is absent); raises where the schedules cannot take the
+        sequence or the batch."""
         if shape not in self._records:
             B, S = shape
-            sp = tp.resolve_gpt(self.config, self.group.n, self._backend(),
-                                self.device, S)
-            self._records[shape] = tp.gpt_step_record(self.config, sp, B, S)
+            dp = self.dp_group.n if self.dp_group is not None else 1
+            if B % dp:
+                raise ValueError(f"batch {B} not divisible by dp={dp} (the "
+                                 f"replicas take equal rows)")
+            b = B // dp
+            mp_n = self.group.n if self.group is not None else 1
+            rec = {"mp": None, "pp": None, "dp": self._dp_rec}
+            if self.group is not None:
+                sp = tp.resolve_gpt(self.config, mp_n, self._backend(),
+                                    self.device, S)
+                if self.pp_group is None:
+                    rec["mp"] = tp.gpt_step_record(self.config, sp, b, S)
+            if self.pp_group is not None:
+                g = self.pp_group
+                resolve_pp(self.config, g.n, self._ppc.backend, batch=B,
+                           num_microbatches=self.num_microbatches, mp=mp_n,
+                           dp=dp)
+                rec["pp"] = pl.gpt_pp_step_record(
+                    self.config, self._ppc, b, S // mp_n,
+                    self.num_microbatches, g.rank)
+            self._records[shape] = rec
         return self._records[shape]
 
-    def loss_and_grads(self, ids):
-        """Forward and backward on the current params: (loss, {name:
-        gradient}), the replicated leaves' gradients summed over the group
-        (no clip, no update)."""
-        ids = self._ids(ids)
-        self._record(tuple(ids.shape))
-        if self.pp_group is not None:
-            return self._pp_loss_and_grads(ids)
+    def _local(self, ids):
+        """Forward and backward on this replica's rows ``ids``: (the loss
+        on every rank of the replica, {name: gradient}) with the
+        mp-replicated leaves' gradients summed over mp (no dp sync)."""
         names = list(self._flat)
         # the record_function ranges name the step's parts in a
         # torch.profiler trace (chip_smoke.py's train profiles read them);
         # the backward gets none: autograd runs it on its own thread
         with torch.enable_grad():
             with record_function("train_step/forward"):
-                loss = gpt_loss(self.params, ids, self.config, self.group,
-                                self._backend())
+                loss, root = self._forward(ids)
             grads = dict(zip(names, torch.autograd.grad(
-                loss, [self._flat[n] for n in names])))
+                root, [self._flat[n] for n in names])))
         if self._replicated:
             with record_function("train_step/grad_sync"):
                 self._sync_replicated(grads)
+        if self.pp_group is not None:
+            loss = self._pp_broadcast_loss(loss)
         return loss.detach(), grads
+
+    def loss_and_grads(self, ids):
+        """Forward and backward on the current params: (loss, {name:
+        gradient}), the mp-replicated leaves' gradients summed over mp and
+        every gradient averaged over dp (no clip, no update)."""
+        ids = self._ids(ids)
+        self.step_records(tuple(ids.shape))
+        loss, grads = self._local(self._rows(ids))
+        dpc = self._dpc
+        if dpc is not None and dpc.weight_update_sharding:
+            with torch.no_grad(), record_function("grad_comm/all_gather"):
+                grads = gc.all_gather_shards(
+                    dpc.plan, self._reduce_scatter(grads), self.dp_group,
+                    fused=dpc.backend == "fused")
+        elif dpc is not None:
+            grads = self._all_reduce(grads)
+        return self._dp_mean(loss), grads
+
+    def _forward(self, ids):
+        """(loss, the root this rank differentiates): the loss is None on a
+        stage other than the last."""
+        if self.pp_group is not None:
+            return self._pp_loss(ids)
+        loss = gpt_loss(self.params, ids, self.config, self.group,
+                        self._backend())
+        return loss, loss
 
     def _pp_loss(self, ids):
         """This stage's part of the pipelined forward: (loss on the last
-        stage, else None; the root every stage differentiates)."""
-        g, cfg, ppc = self.pp_group, self.config, self._ppc
+        stage, else None; the root every stage differentiates). With an
+        mp group the blocks run the sequence-parallel schedule on seq
+        shards [B/M, S/mp, H] and the last stage's loss is vocab-sharded."""
+        g, cfg, ppc, mp, sp = (self.pp_group, self.config, self._ppc,
+                               self.group, self._sp)
         first, last = g.rank == 0, g.rank == g.n - 1
         dt = compute_dtype(cfg)
         B, S = ids.shape
         if first:
-            x = _embed(self.params, ids, cfg, None, None)
+            x = _embed(self.params, ids, cfg, mp, sp)
         else:                         # only stage 0's values are read
             x = torch.zeros((), dtype=dt, device=self.device).expand(
-                B, S, cfg.hidden_size)
+                B, S // (mp.n if mp is not None else 1), cfg.hidden_size)
+        block_fn = gpt_block_fn(cfg) if sp is None else \
+            tp.sp_block_fn(cfg, mp, sp.backend)
         if ppc.schedule == "gpipe":   # blocks checkpointed, hops outside
-            block, pol = remat(gpt_block_fn(cfg), cfg.remat_policy), None
+            block, pol = remat(block_fn, cfg.remat_policy), None
         else:                         # the stage-input recompute is "full"
-            block = gpt_block_fn(cfg)
+            block = block_fn
             pol = None if cfg.remat_policy in (None, "full") else \
                 cfg.remat_policy
         boundary = gpt_fused_boundary(cfg, g, cfg.remat_policy) \
@@ -414,7 +510,12 @@ class HybridTrainStep:
         hidden = final_ln_fp32(out, self.params["lnf_g"],
                                self.params["lnf_b"],
                                cfg.layer_norm_epsilon).to(dt)
-        loss = fused_lm_loss(hidden, self.params["head_w"].to(dt), ids)
+        head = self.params["head_w"].to(dt)
+        if mp is None:
+            loss = fused_lm_loss(hidden, head, ids)
+        else:
+            loss = _lm_loss_sharded(tp.seq_all_gather(hidden, mp) @ head,
+                                    ids, mp)
         return loss, loss
 
     def _pp_broadcast_loss(self, loss):
@@ -424,14 +525,12 @@ class HybridTrainStep:
             torch.empty((), dtype=torch.float32, device=self.device)
         return g.broadcast(buf, src=g.n - 1)
 
-    def _pp_loss_and_grads(self, ids):
-        names = list(self._flat)
-        with torch.enable_grad():
-            with record_function("train_step/forward"):
-                loss, root = self._pp_loss(ids)
-            grads = dict(zip(names, torch.autograd.grad(
-                root, [self._flat[n] for n in names])))
-        return self._pp_broadcast_loss(loss), grads
+    def _dp_mean(self, loss):
+        """The replicas' mean of the loss (fp32, 0-dim)."""
+        if self.dp_group is None:
+            return loss
+        return self.dp_group.all_reduce_(loss.float().clone()) / \
+            self.dp_group.n
 
     def _sync_replicated(self, grads):
         """All-reduce the replicated leaves' gradients (per-rank partial sums
@@ -443,43 +542,77 @@ class HybridTrainStep:
                                               for n in names])):
             grads[n] = part.view_as(grads[n])
 
-    def __call__(self, ids):
-        loss, grads = self.loss_and_grads(ids)
-        names = list(grads)
+    @torch.no_grad()
+    def _all_reduce(self, grads):
+        """Every gradient's mean over the replicas, full leaves, without
+        ZeRO: one library all-reduce a bucket (the reference's GSPMD
+        dp)."""
+        dpc = self._dpc
+        with record_function("train_step/grad_sync"):
+            return gc.all_reduce_grads(dpc.plan, grads, self.dp_group,
+                                       denom=dpc.n)
+
+    @torch.no_grad()
+    def _reduce_scatter(self, grads):
+        """ZeRO-1's bucketed reduce-scatter: this replica's flat shards of
+        the gradients' mean over the replicas (row 10 on ``fused``)."""
+        dpc = self._dpc
+        with record_function("grad_comm/reduce_scatter"):
+            return gc.reduce_scatter_grads(dpc.plan, grads, self.dp_group,
+                                           None, denom=dpc.n,
+                                           fused=dpc.backend == "fused")
+
+    def _clip(self, grads, shards=False):
+        """The clip of ``grads`` ({name: gradient}, or this replica's flat
+        shards under ZeRO-1), every element counted once over the axes."""
         clip = getattr(self.optimizer, "_grad_clip", None)
-        if clip is not None:
-            with record_function("train_step/clip"):
-                if self.pp_group is not None:
-                    clipped = clip.apply_arrays([grads[n] for n in names],
-                                                group=self.pp_group)
-                elif self.group is None:
-                    clipped = clip.apply_arrays([grads[n] for n in names])
-                else:
-                    clipped = clip.apply_arrays(
-                        [grads[n] for n in names], group=self.group,
-                        sharded=[n not in self._replicated for n in names])
-                grads = dict(zip(names, clipped))
-        with record_function("train_step/optimizer"):
-            self.optimizer.apply_gradients(
-                self._flat, grads, self.opt_state, self.optimizer.get_lr(),
-                wd_mask=self._wd_mask)
-        rec = self._record(tuple(self._ids(ids).shape))
-        if self.pp_group is not None:
-            pl.record_pp_step(rec)
+        if clip is None:
+            return grads
+        names = list(grads)
+        sharded = None if self.group is None else \
+            [n not in self._replicated for n in names]
+        with record_function("train_step/clip"):
+            return dict(zip(names, clip.apply_arrays(
+                [grads[n] for n in names], group=self.group,
+                sharded=sharded, stage_group=self.pp_group,
+                dp_group=self.dp_group if shards else None)))
+
+    def __call__(self, ids):
+        ids = self._ids(ids)
+        recs = self.step_records(tuple(ids.shape))
+        loss, grads = self._local(self._rows(ids))
+        dpc = self._dpc
+        if dpc is not None and dpc.weight_update_sharding:
+            shards = self._reduce_scatter(grads)
+            del grads
+            gc.sharded_update(self.optimizer, dpc.plan, self._flat,
+                              self._clip(shards, shards=True),
+                              self.opt_state, self.dp_group,
+                              fused=dpc.backend == "fused",
+                              wd_mask=self._wd_mask)
         else:
-            tp.record_step(rec)
-        return loss
+            if dpc is not None:
+                grads = self._all_reduce(grads)
+            grads = self._clip(grads)
+            with record_function("train_step/optimizer"):
+                self.optimizer.apply_gradients(
+                    self._flat, grads, self.opt_state,
+                    self.optimizer.get_lr(), wd_mask=self._wd_mask)
+        tp.record_step(recs["mp"])
+        pl.record_pp_step(recs["pp"])
+        gc.record_step(recs["dp"])
+        return self._dp_mean(loss)
 
     @torch.no_grad()
     def loss_only(self, ids):
         """Forward-only loss on the current params (no grads, no
         update)."""
         ids = self._ids(ids)
+        self.step_records(tuple(ids.shape))
+        loss, _ = self._forward(self._rows(ids))
         if self.pp_group is not None:
-            self._record(tuple(ids.shape))
-            return self._pp_broadcast_loss(self._pp_loss(ids)[0])
-        return gpt_loss(self.params, ids, self.config, self.group,
-                        self._backend())
+            loss = self._pp_broadcast_loss(loss)
+        return self._dp_mean(loss)
 
     def num_params(self):
         """The whole model's parameter count (every rank's shards or

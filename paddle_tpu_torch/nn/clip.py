@@ -12,10 +12,16 @@ shard of a leaf (else a replicated leaf whose gradient every rank holds
 alike, already summed over the group). A norm then counts every shard
 once, summing their squares over the group, and every replicated leaf
 once, as the reference's GSPMD norm over the global leaves does.
-Pipeline parallel: ``apply_arrays(grads, group=)`` with ``sharded=None``
-takes one stage's gradients, each rank holding whole leaves no other rank
-holds; the global norm sums every rank's squares once (one all-reduce of
-a scalar), a per-leaf norm needs none.
+Pipeline parallel: ``apply_arrays(grads, stage_group=)`` takes one
+stage's gradients, each rank holding whole leaves no other stage holds;
+the global norm sums every stage's squares once (one all-reduce of a
+scalar), a per-leaf norm needs none. Data parallel under ZeRO-1:
+``apply_arrays(grads, dp_group=)`` takes this replica's flat shards of
+the reduced gradients (``distributed/grad_comm.py``), each leaf's shards
+disjoint over the replicas: its squares sum over them. Without ZeRO the
+dp replicas hold the same reduced gradients, counted once (no dp group).
+The three compose: every element of the model is counted once, over
+leaves split by mp and by pp stage and replicated or sharded over dp.
 """
 from __future__ import annotations
 
@@ -30,14 +36,17 @@ def _scaled(g, scale):
     return (g.float() * scale).to(g.dtype)
 
 
-def _sq_norms(grads, group, sharded):
-    """fp32 [len(grads)] squared norms; with a group, each sharded leaf's
-    summed over the ranks (one all-reduce)."""
+def _sq_norms(grads, group, sharded, dp_group=None):
+    """fp32 [len(grads)] squared norms of whole leaves: each sharded leaf's
+    summed over ``group`` (one all-reduce), then, for dp shards, every
+    leaf's over ``dp_group`` (one more)."""
     sq = torch.stack([_sq_norm(g) for g in grads])
     if group is not None and sharded is not None:
         mask = torch.tensor(sharded, device=sq.device)
         part = group.all_reduce_(torch.where(mask, sq, 0.0))
         sq = torch.where(mask, part, sq)
+    if dp_group is not None:
+        sq = dp_group.all_reduce_(sq)
     return sq
 
 
@@ -46,7 +55,8 @@ class ClipGradByValue:
         self.max = float(max)
         self.min = float(min) if min is not None else -self.max
 
-    def apply_arrays(self, grads, group=None, sharded=None):
+    def apply_arrays(self, grads, group=None, sharded=None,
+                     stage_group=None, dp_group=None):
         return [g.clamp(self.min, self.max) for g in grads]
 
 
@@ -56,10 +66,11 @@ class ClipGradByNorm:
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
-    def apply_arrays(self, grads, group=None, sharded=None):
-        norms = torch.sqrt(_sq_norms(grads, group, sharded)) \
-            if group is not None else [torch.sqrt(_sq_norm(g))
-                                       for g in grads]
+    def apply_arrays(self, grads, group=None, sharded=None,
+                     stage_group=None, dp_group=None):
+        split = sharded is not None or dp_group is not None
+        norms = torch.sqrt(_sq_norms(grads, group, sharded, dp_group)) \
+            if split else [torch.sqrt(_sq_norm(g)) for g in grads]
         out = []
         for g, norm in zip(grads, norms):
             scale = torch.clamp(self.clip_norm / torch.clamp(norm, min=1e-12),
@@ -75,14 +86,15 @@ class ClipGradByGlobalNorm:
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
-    def apply_arrays(self, grads, group=None, sharded=None):
-        if group is None:
-            norm = torch.sqrt(sum(_sq_norm(g) for g in grads))
-        elif sharded is None:        # whole leaves, each on one rank
-            norm = torch.sqrt(group.all_reduce_(
-                sum(_sq_norm(g) for g in grads)))
+    def apply_arrays(self, grads, group=None, sharded=None,
+                     stage_group=None, dp_group=None):
+        if sharded is None and dp_group is None:      # whole leaves
+            total = sum(_sq_norm(g) for g in grads)
         else:
-            norm = torch.sqrt(_sq_norms(grads, group, sharded).sum())
+            total = _sq_norms(grads, group, sharded, dp_group).sum()
+        if stage_group is not None:
+            total = stage_group.all_reduce_(total)
+        norm = torch.sqrt(total)
         scale = torch.clamp(self.clip_norm / torch.clamp(norm, min=1e-12),
                             max=1.0)
         return [_scaled(g, scale) for g in grads]

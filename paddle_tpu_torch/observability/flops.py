@@ -55,9 +55,10 @@ def train_step_flops(cfg, batch, seq_len):
 
 
 def mfu(flops, wall_s, peak_flops, cards=1):
-    """Achieved / peak over ``cards`` cards (a tensor-parallel step's whole
-    model FLOPs over its step time on n cards: ``flops / (wall_s * n *
-    peak)``); None when any input is missing or degenerate."""
+    """Achieved / peak over ``cards`` cards (a parallel step's whole model
+    FLOPs over its step time on n cards, n = dp x mp x pp for a hybrid
+    world: ``flops / (wall_s * n * peak)``); None when any input is
+    missing or degenerate."""
     if not flops or not wall_s or not peak_flops or not cards:
         return None
     return (flops / wall_s) / (peak_flops * cards)

@@ -28,6 +28,10 @@ class Optimizer:
     # distributed/grad_comm.py): shard-then-update is then update-then-shard
     # bit for bit
     _elementwise_update = True
+    # the mesh axis the states shard over (ZeRO-1; the reference's
+    # attribute, set on an instance): "dp" makes HybridTrainStep(dp_group=)
+    # keep and update 1/dp of each slot (distributed/grad_comm.py)
+    _shard_opt_states_axis = None
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False):

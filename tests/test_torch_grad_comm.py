@@ -166,7 +166,7 @@ def test_composed_mode_raises():
                                     mp=2)):
         set_flags({"FLAGS_grad_comm": "on"})
         try:
-            with pytest.raises(NotImplementedError, match="step 3"):
+            with pytest.raises(NotImplementedError, match="item 14"):
                 call()
         finally:
             set_flags(dict(ranks.DEFAULT_FLAGS))

@@ -456,8 +456,11 @@ def test_resolve_pp_rungs_and_gates():
     assert (ok.n, ok.backend, ok.schedule, ok.wire_dtype) == \
         (4, "ring", "gpipe", None)
     assert cb.resolve_pp(TCFG, 4, "fused").backend == "fused"
-    with pytest.raises(NotImplementedError, match="Queue A step 3"):
-        cb.resolve_pp(TCFG, 4, "pp=ring", mp=2)
+    # pp x mp: the mp schedule inside each stage on the ring rung; the
+    # fused rung raises naming ring (tests/test_torch_hybrid_train.py)
+    assert cb.resolve_pp(TCFG, 4, "pp=ring", mp=2).backend == "ring"
+    with pytest.raises(ValueError, match="pp=ring"):
+        cb.resolve_pp(TCFG, 4, "pp=fused", mp=2)
     cfg = dataclasses.replace(TCFG, pp_schedule="1f1b")
     assert cb.resolve_pp(cfg, 4, "pp=ring").schedule == "1f1b"
     cb._warned.clear()
@@ -601,9 +604,10 @@ def test_run_pipeline_and_the_step_refuse_what_they_do_not_run():
         pl.run_pipeline(None, blocks, x, 3, group)
     with pytest.raises(ValueError, match="do not wrap around"):
         group.stage_hops_async(send_prev=x)
-    with pytest.raises(NotImplementedError, match="Queue A step 3"):
+    with pytest.raises(ValueError, match="pp=ring"):
         HybridTrainStep(TCFG, ranks.optimizer(), device="cpu",
-                        pp_group=group, group=group)
+                        pp_group=group, group=group, num_microbatches=2,
+                        comm_backend="mp=ring,pp=fused")
     with pytest.raises(NotImplementedError, match="pp_group="):
         HybridTrainStep(TCFG, ranks.optimizer(), mesh=object(),
                         device="cpu")

@@ -91,7 +91,7 @@ def steps(group, params, ids, comm_backend, schedule, n_steps=STEPS):
                            num_microbatches=M, comm_backend=comm_backend)
     before = float(step.loss_only(ids))
     losses = [float(step(ids)) for _ in range(n_steps)]
-    rec = step._record(tuple(ids.shape))
+    rec = step.step_records(tuple(ids.shape))["pp"]
     return {"losses": losses, "loss_only": before,
             "params": {k: _np(v) for k, v in
                        flatten_params(step.params).items()},

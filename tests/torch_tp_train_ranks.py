@@ -96,7 +96,7 @@ def steps(group, params, ids, rung):
                            params=params, group=group, comm_backend=rung)
     before = float(step.loss_only(ids))
     losses = [float(step(ids)) for _ in range(STEPS)]
-    rec = step._record(tuple(ids.shape))
+    rec = step.step_records(tuple(ids.shape))["mp"]
     return {"losses": losses, "loss_only": before,
             "shards": {k: _np(v) for k, v in
                        flatten_params(step.params).items()},
