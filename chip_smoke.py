@@ -240,6 +240,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
    pp2's sending stage), no SDPA fallback; the slowest rank's step time,
    tokens/s, MFU over the four cards and peak memory per rank.
 
+16. speculative serving (run after phase 8, on the same weights): the 16
+   requests of phase 3 through ``Engine(speculate_k=4)`` at bf16 with the
+   int8 self-draft (``draft_source="quant"``) and with the 12-block
+   shallow draft, and at ``quant="int8"`` with the degenerate self-draft
+   (the served tree). Every request must finish, the pool must balance,
+   every decode dispatch must be a verify dispatch (no plain [8, 1]
+   step), each verify dispatch must launch rows 1-2 once per layer per
+   lane (24 x 5) and, on the int8 engine, row 3 at its 40 rows 97 times;
+   each draft dispatch of a quantized draft row 3 at 8 rows 4 x 97
+   times. Each engine's greedy tokens are held to the served model's
+   argmax after the same prefix (teacher forced): no more disagreements
+   past a bf16 near-tie (LOGIT_TOL) than the plain engine of its dtype in
+   this call; one verify dispatch at full width: lane 0 within LOGIT_TOL
+   of the plain [8, 1] step, and after a rewind to 1-5 accepted lanes
+   every pool byte but the accepted positions' its pre-dispatch byte.
+   Printed: accept rate, tokens per dispatch, decode and wall tokens/s,
+   TTFT p50 / p99 beside the plain engines'; row 3 at 40 rows (int8, the
+   four block GEMMs and the fp32 head) timed beside its plain version,
+   ``torch.mm`` on the dequantized weight and its bound (the kernels
+   line's ``quant_gemm[int8 * R=40]`` rows).
+
 The lines before the last carry a ``{"kernels": [...]}`` JSON object and
 the card's name and power limit (nvidia-smi); the last line is
 ``{"ok": true, "device": {...}}``. Exits nonzero without printing a
@@ -304,7 +325,14 @@ from paddle_tpu_torch.serving import (Engine, Request, reset_serving_counters,
 from paddle_tpu_torch.serving import metrics as serving_metrics
 from paddle_tpu_torch.serving import paged_decode
 from paddle_tpu_torch.serving import quant as squant
-from paddle_tpu_torch.serving.paged_attention import new_pool, paged_forward
+from paddle_tpu_torch.serving.paged_attention import (_head_logits,
+                                                      _paged_blocks,
+                                                      new_pool,
+                                                      paged_draft_forward,
+                                                      paged_forward,
+                                                      paged_kv_rewind,
+                                                      paged_verify_forward)
+from paddle_tpu_torch.serving.paged_kv import pages_for
 from paddle_tpu_torch.serving.paged_decode import (gather_window,
                                                    paged_decode_attention,
                                                    paged_decode_attention_q,
@@ -526,18 +554,19 @@ def mp_gemm_bound(R, K, F, x_dtype, kind):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def quant_gemm_cases(cfg):
+def quant_gemm_cases(cfg, rows=(SLOTS, CHUNK), head_rows=SLOTS):
     """(label, weight leaf, K, N, rows, x dtype) of the quant GEMMs on the
     serving path: the four block GEMMs at a decode dispatch (SLOTS rows)
     and a full prefill chunk (CHUNK rows), bf16 x; the LM head at a decode
-    dispatch, fp32 x (the final LayerNorm's output)."""
+    dispatch, fp32 x (the final LayerNorm's output). ``rows`` and
+    ``head_rows`` give other dispatches' rows (the speculative verify's)."""
     H, V = cfg.hidden_size, cfg.vocab_size
     inner = cfg.ffn_mult * H
     blocks = (("qkv", "qkv_w", H, 3 * H), ("out", "out_w", H, H),
               ("up", "up_w", H, inner), ("down", "down_w", inner, H))
     cases = [(label, leaf, K, N, R, torch.bfloat16)
-             for R in (SLOTS, CHUNK) for label, leaf, K, N in blocks]
-    cases.append(("head", "head_w", H, V, SLOTS, torch.float32))
+             for R in rows for label, leaf, K, N in blocks]
+    cases.append(("head", "head_w", H, V, head_rows, torch.float32))
     return cases
 
 
@@ -967,9 +996,12 @@ def phase_profile(cfg, eng, rng, steps=10, group=None, tag="profile"):
     give up only on a rank whose heartbeat has stopped
     (``distributed/peer.py``)."""
     chunks = serving_counters()["prefill_chunks"] + SLOTS
+    # enough tokens that no slot finishes inside the three windows, a
+    # speculative boundary emitting up to k + 1 a slot
     for _ in range(SLOTS):   # one 64-token chunk each, then decode only
         eng.submit(Request(rng.integers(0, cfg.vocab_size, 64),
-                           max_new_tokens=8 + 3 * steps))
+                           max_new_tokens=8 + 3 * steps *
+                           (eng.speculate_k + 1)))
     while serving_counters()["prefill_chunks"] < chunks:
         eng.step()
     check(eng.active_slots == SLOTS, "profile window lost a slot")
@@ -978,6 +1010,7 @@ def phase_profile(cfg, eng, rng, steps=10, group=None, tag="profile"):
             eng.step()
         eng.run()
         return
+    before = serving_counters()
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.step()
@@ -996,6 +1029,7 @@ def phase_profile(cfg, eng, rng, steps=10, group=None, tag="profile"):
         eng.step()
     torch.cuda.synchronize()
     host.disable()
+    after = serving_counters()
     eng.run()
 
     def dev_us(e):
@@ -1006,7 +1040,15 @@ def phase_profile(cfg, eng, rng, steps=10, group=None, tag="profile"):
     busy = sum(dev_us(e) for e in events) / 1e3 / steps        # ms/step
     config = ("bf16" if eng._quant is None else
               f"w={eng._quant.weight_dtype} kv={eng._quant.kv_dtype}")
-    print(f"[{tag}] {config} [8, 1] decode boundary: {wall * 1e3:.2f} ms "
+    kind = "[8, 1] decode"
+    if eng.speculate_k:
+        d = {k: after[k] - before[k] for k in
+             ("spec_accepted", "spec_proposed", "spec_tokens_out")}
+        kind = (f"speculative (k={eng.speculate_k}, greedy slots: accept "
+                f"{d['spec_accepted']}/{d['spec_proposed']}, "
+                f"{d['spec_tokens_out'] / (3 * steps):.2f} tokens a "
+                f"boundary)")
+    print(f"[{tag}] {config} {kind} boundary: {wall * 1e3:.2f} ms "
           f"host wall untraced, {traced * 1e3:.2f} ms traced; device busy "
           f"{busy:.3f} ms/step = {busy / (traced * 1e3):.1%} of the traced "
           f"wall", flush=True)
@@ -1096,9 +1138,80 @@ def phase_quant_timing(cfg, qs, dtype, gen, dev, errs):
     the latter). Returns the ``kernels`` rows."""
     eng = qs["eng"]
     L = cfg.num_layers
+    rows = quant_gemm_timing(eng, dtype, quant_gemm_cases(cfg), gen, dev,
+                             qs["shapes"], errs)
+    pos = [511] * SLOTS
+    q, kq, vq, ksc, vsc, table, pos_t = decode_inputs_q(gen, dev, pos, dtype,
+                                                        layers=L)
+    layer = itertools.cycle(range(L))
+
+    def kernel():
+        i = next(layer)
+        paged_decode_attention_q(q, kq[i], vq[i], table, pos_t, ksc[i],
+                                 vsc[i], PAGE)
+
+    def plain():
+        i = next(layer)
+        paged_decode_q_plain(q, kq[i], vq[i], table, pos_t, ksc[i], vsc[i],
+                             PAGE)
+
+    live = pos[0] + 1
+    kg, vg = [], []
+    for i in range(L):
+        k_sc = ksc[i][table].repeat_interleave(PAGE, 1)[:, :live]
+        v_sc = vsc[i][table].repeat_interleave(PAGE, 1)[:, :live]
+        kg.append((gather_window(kq[i], table)[:, :live].float() *
+                   k_sc[:, :, None, None]).to(torch.bfloat16)
+                  .permute(0, 2, 1, 3).contiguous())
+        vg.append((gather_window(vq[i], table)[:, :live].float() *
+                   v_sc[:, :, None, None]).to(torch.bfloat16)
+                  .permute(0, 2, 1, 3).contiguous())
+    qb = q.to(torch.bfloat16)[:, :, None]
+
+    def library():
+        i = next(layer)
+        F.scaled_dot_product_attention(qb, kg[i], vg[i])
+
+    p1 = graph_ms(plain, iters=L)
+    k1 = graph_ms(kernel, iters=10 * L)
+    k2 = graph_ms(kernel, iters=10 * L)
+    p2 = graph_ms(plain, iters=L)
+    lib = graph_ms(library, iters=10 * L)
+    bound, bound_by, nbytes = decode_bound(pos, pool_bytes=1,
+                                           page_scales=True)
+    ms, plain_ms = min(k1, k2), min(p1, p2)
+    print(f"[timing] paged_decode_q {dtype} B=8 x 512 live tokens, nh=16 "
+          f"d=128, device time (CUDA graph replay): kernel {k1:.4f}/"
+          f"{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA on K/V gathered "
+          f"and dequantized to bf16 beforehand {lib:.4f} ms, bound "
+          f"{bound:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB) -> "
+          f"{bound / ms:.1%} of bound")
+    del q, kq, vq, kg, vg
+    torch.cuda.empty_cache()
+    rows.append({
+        "name": f"paged_decode_q[{dtype}]", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "paddle_tpu/serving/paged_attention.py:140",
+        "launches": qs["counts"]["paged_decode_q"],
+        "max_abs_err": errs[("paged_decode_q", dtype)], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": lib,
+        "other_shapes": decode_shape_times(gen, dev, dtype)})
+    return rows
+
+
+def quant_gemm_timing(eng, dtype, cases, gen, dev, shapes, errs):
+    """The quant GEMM at each of ``cases`` (``quant_gemm_cases``) on the
+    engine's own ``dtype`` weights, each call on the next layer's: kernel
+    and plain version by CUDA-graph replay in turns, the kernel by eager
+    back-to-back calls, ``torch.mm`` on the weight dequantized beforehand
+    and, for int8 bf16 x, ``torch._weight_int8pack_mm`` where this torch
+    has it on CUDA; the bound. ``shapes`` are the launches by (R, K, N) of
+    the run the rows report, ``errs`` the kernel's max abs errors by
+    ("quant_gemm", dtype, label, R). Returns the ``kernels`` rows."""
     rows = []
     int8pack = None
-    for label, leaf, K, N, R, x_dtype in quant_gemm_cases(cfg):
+    for label, leaf, K, N, R, x_dtype in cases:
         if leaf == "head_w":
             ws, ss = [eng.params["head_w"]], [eng.params["head_w_s"]]
         else:
@@ -1163,7 +1276,7 @@ def phase_quant_timing(cfg, qs, dtype, gen, dev, errs):
             "name": f"quant_gemm[{dtype} {label} R={R}]", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/quant_gemm.cu",
             "replaces": "paddle_tpu/ops/pallas_kernels/quant_gemm.py:76",
-            "launches": qs["shapes"].get((R, K, N), 0),
+            "launches": shapes.get((R, K, N), 0),
             "max_abs_err": errs[("quant_gemm", dtype, label, R)], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": lib,
@@ -1172,64 +1285,6 @@ def phase_quant_timing(cfg, qs, dtype, gen, dev, errs):
         del ws, ss, x
     if int8pack is not None:
         print(f"[timing] torch._weight_int8pack_mm: {int8pack}")
-
-    pos = [511] * SLOTS
-    q, kq, vq, ksc, vsc, table, pos_t = decode_inputs_q(gen, dev, pos, dtype,
-                                                        layers=L)
-    layer = itertools.cycle(range(L))
-
-    def kernel():
-        i = next(layer)
-        paged_decode_attention_q(q, kq[i], vq[i], table, pos_t, ksc[i],
-                                 vsc[i], PAGE)
-
-    def plain():
-        i = next(layer)
-        paged_decode_q_plain(q, kq[i], vq[i], table, pos_t, ksc[i], vsc[i],
-                             PAGE)
-
-    live = pos[0] + 1
-    kg, vg = [], []
-    for i in range(L):
-        k_sc = ksc[i][table].repeat_interleave(PAGE, 1)[:, :live]
-        v_sc = vsc[i][table].repeat_interleave(PAGE, 1)[:, :live]
-        kg.append((gather_window(kq[i], table)[:, :live].float() *
-                   k_sc[:, :, None, None]).to(torch.bfloat16)
-                  .permute(0, 2, 1, 3).contiguous())
-        vg.append((gather_window(vq[i], table)[:, :live].float() *
-                   v_sc[:, :, None, None]).to(torch.bfloat16)
-                  .permute(0, 2, 1, 3).contiguous())
-    qb = q.to(torch.bfloat16)[:, :, None]
-
-    def library():
-        i = next(layer)
-        F.scaled_dot_product_attention(qb, kg[i], vg[i])
-
-    p1 = graph_ms(plain, iters=L)
-    k1 = graph_ms(kernel, iters=10 * L)
-    k2 = graph_ms(kernel, iters=10 * L)
-    p2 = graph_ms(plain, iters=L)
-    lib = graph_ms(library, iters=10 * L)
-    bound, bound_by, nbytes = decode_bound(pos, pool_bytes=1,
-                                           page_scales=True)
-    ms, plain_ms = min(k1, k2), min(p1, p2)
-    print(f"[timing] paged_decode_q {dtype} B=8 x 512 live tokens, nh=16 "
-          f"d=128, device time (CUDA graph replay): kernel {k1:.4f}/"
-          f"{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA on K/V gathered "
-          f"and dequantized to bf16 beforehand {lib:.4f} ms, bound "
-          f"{bound:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB) -> "
-          f"{bound / ms:.1%} of bound")
-    del q, kq, vq, kg, vg
-    torch.cuda.empty_cache()
-    rows.append({
-        "name": f"paged_decode_q[{dtype}]", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/paged_decode.cu",
-        "replaces": "paddle_tpu/serving/paged_attention.py:140",
-        "launches": qs["counts"]["paged_decode_q"],
-        "max_abs_err": errs[("paged_decode_q", dtype)], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-        "library_ms": lib,
-        "other_shapes": decode_shape_times(gen, dev, dtype)})
     return rows
 
 
@@ -1363,6 +1418,329 @@ def phase_timing(gen, dev, max_abs, launches, layers):
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": lib, "eager_ms": k_eager,
             "other_shapes": decode_shape_times(gen, dev)}
+
+
+# ---------------------------------------------------- speculative serving
+SPEC_K = 4
+SHALLOW_LAYERS = 12
+# phase 16's speculative engines: (tag, quant, draft source)
+SPEC_ENGINES = (("bf16-quant", None, "quant"),
+                ("bf16-shallow", None, "shallow"),
+                ("int8-self", "int8", "quant"))
+# the verify's rows: SLOTS windows of SPEC_K + 1 lanes
+VERIFY_ROWS = SLOTS * (SPEC_K + 1)
+
+
+def phase_spec_serve(cfg, params, seed, tag, quant, source):
+    """The 16 requests of phase_serve through a speculative Engine
+    (k = SPEC_K; ``source`` "quant" or "shallow" of SHALLOW_LAYERS blocks;
+    ``quant`` None or "int8"). Gates completion, the pool's balance, that
+    every decode dispatch was a verify dispatch (never the plain [8, 1]
+    step), rows 1-2 launched once per layer per lane of every verify
+    dispatch and row 3 at the verify's 40 rows (4 per layer + the head a
+    verify dispatch, a quantized engine) and the draft's 8 (k times that a
+    draft dispatch, a quantized draft)."""
+    t0 = time.perf_counter()
+    eng = Engine(params=params, config=cfg, num_slots=SLOTS,
+                 prefill_chunk=CHUNK, page_size=PAGE, quant=quant,
+                 speculate_k=SPEC_K, draft_source=source,
+                 draft_layers=SHALLOW_LAYERS if source == "shallow" else None)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(eng.use_kernel, "FLAGS_serving_paged_kernel is off")
+    wave1, wave2 = make_requests(cfg, np.random.default_rng(seed))
+    reset_serving_counters()
+    for wrapper in SERVE_KERNELS.values():
+        wrapper.launches = 0
+    qg.quant_gemm.shapes.clear()
+    t0 = time.perf_counter()
+    results = eng.run(wave1)
+    results.update(eng.run(wave2))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in SERVE_KERNELS.items()}
+    rows = {}                              # quant GEMM launches by rows
+    for (R, _, _), n in qg.quant_gemm.shapes.items():
+        rows[R] = rows.get(R, 0) + n
+    c = serving_counters()
+    print(f"[{tag}] engine built in {build_s:.1f}s; draft "
+          f"{len(eng._draft_layers)} blocks, "
+          f"{'quantized' if eng._draft_kernel else 'bf16'}")
+    print(f"[{tag}] {serving_summary()}")
+    reqs = wave1 + wave2
+    check(len(results) == len(reqs) and all(
+        results[r.request_id].finish_reason in ("length", "stop")
+        for r in reqs), f"{tag}: not every request finished")
+    for r in reqs:
+        toks = results[r.request_id].tokens
+        check(0 < len(toks) <= r.max_new_tokens and
+              all(0 <= t < cfg.vocab_size for t in toks),
+              f"{tag}: request {r.request_id} returned invalid tokens")
+    bal = eng.pool.balance()
+    check(bal["conserved"] and bal["refcounts_accounted"],
+          f"{tag}: page pool does not balance: {bal}")
+    L, T = cfg.num_layers, SPEC_K + 1
+    nv, nd = c["verify_dispatches"], c["draft_dispatches"]
+    check(c["decode_dispatches"] == nv > 0 and 0 < nd <= nv,
+          f"{tag}: decode dispatches {c['decode_dispatches']}, verify "
+          f"{nv}, draft {nd}: a plain [8, 1] decode ran or no draft did")
+    reads = nv * L * T
+    want = {"paged_decode": 0 if quant else reads,
+            "paged_decode_q": reads if quant else 0}
+    want_rows = {VERIFY_ROWS: nv * (4 * L + 1) if quant else 0,
+                 SLOTS: nd * SPEC_K * (4 * L + 1) if eng._draft_kernel
+                 else 0}
+    got_rows = {R: rows.get(R, 0) for R in want_rows}
+    per_verify = {k: v / nv for k, v in counts.items()}
+    print(f"[{tag}] launches {counts}, quant GEMMs by rows {rows}; per "
+          f"verify dispatch: rows 1-2 {per_verify} (want {L} x {T} = "
+          f"{L * T}), row 3 at {VERIFY_ROWS} rows "
+          f"{got_rows[VERIFY_ROWS] / nv:.1f} (want "
+          f"{4 * L + 1 if quant else 0}); row 3 at {SLOTS} rows "
+          f"{got_rows[SLOTS] / nd:.1f} a draft dispatch (want "
+          f"{SPEC_K * (4 * L + 1) if eng._draft_kernel else 0})")
+    check({k: counts[k] for k in want} == want and got_rows == want_rows,
+          f"{tag}: the speculative path did not launch its kernels as "
+          f"expected (rows 1-2 {counts}, want {want}; row 3 {got_rows}, "
+          f"want {want_rows})")
+    decode_tokens = c["tokens_out"] - len(reqs)
+    stats = {
+        "engine": tag, "k": SPEC_K, "accept_rate": c["accept_rate"],
+        "tokens_per_dispatch": c["tokens_per_dispatch"],
+        "spec_proposed": c["spec_proposed"],
+        "spec_accepted": c["spec_accepted"],
+        "verify_dispatches": nv, "draft_dispatches": nd,
+        "tokens_out": c["tokens_out"], "wall_s": wall,
+        "tokens_per_s_wall": c["tokens_out"] / wall,
+        "decode_tokens_per_s": decode_tokens / c["decode_time_s"],
+        "ttft_p50_ms": c["ttft_p50"] * 1e3, "ttft_p99_ms": c["ttft_p99"] * 1e3,
+        "rows_1_2_per_verify": reads / nv,
+        "row_3_per_verify": got_rows[VERIFY_ROWS] / nv,
+    }
+    print(f"[{tag}] {json.dumps(stats)}")
+    return {"eng": eng, "reqs": reqs, "results": results, "stats": stats,
+            "shapes": dict(qg.quant_gemm.shapes)}
+
+
+@torch.no_grad()
+def served_logits(eng, cfg, seq):
+    """The served model's logits after each position of ``seq`` [S]
+    (one [1, S] window through the plain paths: gather reads, the plain
+    quantized GEMM), fp32 [S, V]."""
+    dev = eng.device
+    S = len(seq)
+    MP = pages_for(S, PAGE)
+    P = MP + 1
+    nh = cfg.num_heads
+    shape = (cfg.num_layers, P, PAGE, nh, cfg.hidden_size // nh)
+    kc = new_pool(shape, eng._kc.dtype, dev)
+    vc = new_pool(shape, eng._kc.dtype, dev)
+    kv = None
+    if eng._kv_quant:
+        kv = tuple(torch.from_numpy(sc).to(dev) for sc in
+                   squant.kv_scales_for(eng._quant, cfg.num_layers, P))
+    i32 = dict(dtype=torch.int32, device=dev)
+    ids = torch.as_tensor(np.asarray(seq), dtype=torch.int64,
+                          device=dev)[None]
+    pos = torch.arange(S, **i32)[None]
+    x = _paged_blocks(eng.params, cfg, ids, pos, kc, vc,
+                      torch.tensor([S], **i32),
+                      torch.arange(1, P, **i32)[None], PAGE, False,
+                      eng._layers, kv, False)
+    return _head_logits(eng.params, cfg, x[0])
+
+
+def greedy_agreement(eng, cfg, reqs, token_lists):
+    """Each greedy request's tokens held to the served model's argmax
+    after the same prefix (teacher forced): tokens, tokens equal to the
+    argmax, and real disagreements (a token more than LOGIT_TOL x max
+    |logit| below the argmax: past a bf16 near-tie)."""
+    n = same = real = 0
+    for r, toks in zip(reqs, token_lists):
+        if r.do_sample or not toks:
+            continue
+        seq = np.concatenate([r.prompt, np.asarray(toks[:-1], np.int64)])
+        lg = served_logits(eng, cfg, seq)[r.prompt_len - 1:]
+        t = torch.as_tensor(toks, device=lg.device)
+        top = lg.argmax(-1)
+        gap = lg.gather(1, top[:, None])[:, 0] - lg.gather(1, t[:, None])[:, 0]
+        n += len(toks)
+        same += int((top == t).sum())
+        real += int((gap > LOGIT_TOL * lg.abs().amax(-1)).sum())
+    return {"tokens": n, "argmax_share": same / max(n, 1),
+            "real_disagreements": real}
+
+
+def phase_spec_oracle(cfg, spec, plain_tokens, tag):
+    """Printed: each engine's greedy agreement with the served model's
+    argmax and how many greedy streams equal the plain engine's. Gated:
+    the speculative engine's real disagreements are no more than the
+    plain engine's (``greedy_agreement``)."""
+    eng, reqs = spec["eng"], spec["reqs"]
+    toks = [spec["results"][r.request_id].tokens for r in reqs]
+    mine = greedy_agreement(eng, cfg, reqs, toks)
+    base = greedy_agreement(eng, cfg, reqs, plain_tokens)
+    greedy = [i for i, r in enumerate(reqs) if not r.do_sample]
+    equal = sum(toks[i] == plain_tokens[i] for i in greedy)
+    print(f"[{tag}] greedy streams equal to the plain engine's: {equal}/"
+          f"{len(greedy)} (not gated: the verify's GEMMs take 40 rows, the "
+          f"plain step's 8); against the served model's argmax, teacher "
+          f"forced: speculative {json.dumps(mine)}, plain "
+          f"{json.dumps(base)}")
+    check(mine["real_disagreements"] <= base["real_disagreements"],
+          f"{tag}: greedy streams disagree with the served model more than "
+          f"the plain engine's")
+    spec["stats"]["greedy_vs_served_argmax"] = mine
+    spec["stats"]["plain_greedy_vs_served_argmax"] = base
+    spec["stats"]["greedy_streams_equal_plain"] = [equal, len(greedy)]
+
+
+@torch.no_grad()
+def phase_spec_verify(cfg, eng, gen, dev, tag):
+    """One verify dispatch at full width on a fresh pool (8 slots, 100
+    prompt tokens each, prefilled through the plain path): its lane-0
+    logits against the plain [8, 1] step's within phase_logits' gate, then
+    a rewind to 1..5 accepted lanes, after which every pool byte (page 0
+    aside) must be its pre-dispatch byte but for the accepted positions,
+    which must have been written."""
+    params, layers = eng.params, eng._layers
+    mp = 8
+    L, nh = cfg.num_layers, cfg.num_heads
+    P = SLOTS * mp + 1
+    shape = (L, P, PAGE, nh, cfg.hidden_size // nh)
+    kc = new_pool(shape, eng._kc.dtype, dev)
+    vc = new_pool(shape, eng._kc.dtype, dev)
+    kv = None
+    if eng._kv_quant:
+        kv = tuple(torch.from_numpy(sc).to(dev) for sc in
+                   squant.kv_scales_for(eng._quant, L, P))
+    i32 = dict(dtype=torch.int32, device=dev)
+    table = torch.arange(SLOTS * mp, **i32).view(SLOTS, mp) + 1
+    plen = 100
+    ids = torch.randint(0, cfg.vocab_size, (SLOTS, plen + 1), generator=gen,
+                        device=dev)
+    for b in range(SLOTS):
+        window = torch.zeros(1, 128, dtype=torch.int64, device=dev)
+        window[0, :plen] = ids[b, :plen]
+        paged_forward(params, cfg, window, kc, vc, torch.zeros(1, **i32),
+                      torch.full((1,), plen, **i32), table[b:b + 1], PAGE,
+                      layers=layers, kv_scales=kv)
+    start = torch.full((SLOTS,), plen, **i32)
+    tok = ids[:, plen]
+    kcp, vcp = kc.clone(), vc.clone()
+    plain = paged_forward(params, cfg, tok[:, None], kcp, vcp, start,
+                          torch.ones(SLOTS, **i32), table, PAGE,
+                          layers=layers, kv_scales=kv)
+    del kcp, vcp
+    props = paged_draft_forward(eng._draft_params, cfg, tok, kc, vc, start,
+                                table, PAGE, SPEC_K,
+                                layers=eng._draft_layers, kv_scales=kv,
+                                wq_kernel=eng._draft_kernel)
+    window = torch.cat([tok[:, None], props], dim=1)
+    before = [p.view(torch.uint8).clone() for p in (kc, vc)]
+    T = SPEC_K + 1
+    valid = torch.full((SLOTS,), T, **i32)
+    logits, sk, sv = paged_verify_forward(
+        params, cfg, window, kc, vc, start, valid, table, PAGE,
+        use_kernel=True, layers=layers, kv_scales=kv,
+        wq_kernel=eng.quant_kernel)
+    n_emit = torch.arange(SLOTS, **i32) % T + 1
+    paged_kv_rewind(kc, vc, sk, sv, table, start, valid, n_emit, PAGE)
+    torch.cuda.synchronize()
+    diff = float((logits[:, 0] - plain).abs().max())
+    scale = float(plain.abs().max())
+    print(f"[{tag}] verify lane 0 vs the plain [8, 1] step: max abs diff "
+          f"{diff:.4e} of max |logit| {scale:.4e} (tolerance {LOGIT_TOL} x "
+          f"max); proposals {props[:2].tolist()}")
+    check(bool(torch.isfinite(logits).all()), f"{tag}: verify logits not "
+          f"finite")
+    check(diff <= LOGIT_TOL * scale, f"{tag}: verify lane-0 logits disagree "
+          f"with the plain step")
+    accepted = torch.zeros((P, PAGE), dtype=torch.bool, device=dev)
+    for b in range(SLOTS):
+        for t in range(int(n_emit[b])):
+            p = plen + t
+            accepted[int(table[b, p // PAGE]), p % PAGE] = True
+    bad = written = 0
+    for pool, old in zip((kc, vc), before):
+        same = (pool.view(torch.uint8) == old).flatten(3).all(dim=(0, 3))
+        bad += int((~same[1:] & ~accepted[1:]).sum())
+        written += int((~same & accepted).sum())
+    print(f"[{tag}] rewind to {n_emit.tolist()} accepted lanes: positions "
+          f"changed outside the accepted ones {bad} (want 0), accepted "
+          f"positions written {written} of {2 * int(accepted.sum())}")
+    check(bad == 0 and written == 2 * int(accepted.sum()),
+          f"{tag}: the rewind left bytes other than the accepted lanes' "
+          f"changed")
+    return diff / scale
+
+
+def phase_spec_gemm_timing(cfg, eng, shapes, gen, dev):
+    """Row 3 at the verify's 40 rows on the int8 engine's own weights: the
+    four block GEMMs (bf16 x) and the head (fp32 x) held to the plain
+    version, then timed by ``quant_gemm_timing``. Returns the ``kernels``
+    rows."""
+    cases = quant_gemm_cases(cfg, rows=(VERIFY_ROWS,), head_rows=VERIFY_ROWS)
+    errs = {}
+    for label, leaf, K, N, R, x_dtype in cases:
+        p = eng.params if leaf == "head_w" else \
+            {k: v[0] for k, v in eng.params["blocks"].items()}
+        x = torch.randn(R, K, generator=gen, device=dev).to(x_dtype)
+        got = qg.quant_gemm(x, p[leaf], p[leaf + "_s"])
+        r = qg.error_vs_plain(got, qg.quant_gemm_plain(x, p[leaf],
+                                                       p[leaf + "_s"]))
+        print(f"[spec] quant_gemm int8 {label} R={R} vs plain: max abs "
+              f"{r['max_abs']:.2e}, element {r['element']:.2e}, row "
+              f"{r['row']:.2e}, tile {r['tile']:.2e}")
+        check(bool(torch.isfinite(got).all()) and
+              qg.within_tolerance(r, x_dtype),
+              f"quant_gemm int8 {label} R={R} disagrees with its plain "
+              f"version: {r}")
+        errs[("quant_gemm", "int8", label, R)] = r["max_abs"]
+    return quant_gemm_timing(eng, "int8", cases, gen, dev, shapes, errs)
+
+
+def phase_spec(cfg, params, seed, single, gen, dev, rng):
+    """Phase 16: the speculative engines of SPEC_ENGINES on the 16
+    requests, each beside the plain engine of its dtype that phases 3 and 8
+    ran in this call (``single``): the serving gates and rates of
+    phase_spec_serve, the greedy gate of phase_spec_oracle, the verify and
+    rewind checks of phase_spec_verify; a profile of the first engine's
+    boundary (8 greedy slots); row 3 at 40 rows timed on the int8 engine.
+    Returns the kernels rows."""
+    rows = []
+    report = {}
+    for i, (tag, quant, source) in enumerate(SPEC_ENGINES):
+        spec = phase_spec_serve(cfg, params, seed, f"spec-{tag}", quant,
+                                source)
+        plain = single[quant or "bf16"]
+        phase_spec_oracle(cfg, spec, plain["tokens"], f"spec-{tag}")
+        spec["stats"]["lane0_rel_diff"] = phase_spec_verify(
+            cfg, spec["eng"], gen, dev, f"spec-{tag}")
+        if i == 0:
+            phase_profile(cfg, spec["eng"], rng, steps=5,
+                          tag=f"spec-{tag}-profile")
+        if quant == "int8":
+            rows += phase_spec_gemm_timing(cfg, spec["eng"], spec["shapes"],
+                                           gen, dev)
+        report[tag] = spec["stats"]
+        del spec
+        torch.cuda.empty_cache()
+    plain = {k: single[k]["stats"] for k in ("bf16", "int8")}
+    keys = ("decode_tokens_per_s", "tokens_per_s_wall", "ttft_p50_ms",
+            "ttft_p99_ms")
+    print("[spec] engines (accept rate, tokens per dispatch, decode and "
+          "wall tokens/s, TTFT p50 / p99 ms), plain engines of this call "
+          "beside them:")
+    for tag, st in report.items():
+        print(f"[spec]   {tag}: accept {st['accept_rate']:.3f}, "
+              f"{st['tokens_per_dispatch']:.3f} tokens/dispatch, " +
+              ", ".join(f"{k} {st[k]:.1f}" for k in keys))
+    for k, st in plain.items():
+        print(f"[spec]   plain {k}: " +
+              ", ".join(f"{kk} {st[kk]:.1f}" for kk in keys))
+    print(f"[spec] {json.dumps({'spec': report, 'plain': plain})}")
+    return rows
 
 
 # ------------------------------------------------------------ flash / train
@@ -5253,6 +5631,10 @@ def main(argv=None):
                                              quant_errs)
             del qs
             torch.cuda.empty_cache()
+    with phase_clock("16 speculative serving"):
+        quant_rows += phase_spec(cfg, params, args.seed, single, gen, dev,
+                                 rng)
+        torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     with phase_clock("9 mp serving"):

@@ -40,6 +40,16 @@ _FLAGS = {
     # Route quantized weight GEMMs through the hand-written CUDA kernel
     # (ops/quant_gemm.py) on CUDA tensors.
     "FLAGS_serving_quant_kernel": True,
+    # Speculative decoding (serving/engine.py): tokens the draft proposes
+    # per decode boundary, verified by one [slots, k+1] dispatch of the
+    # served weights; 0 = off (the engine runs none of that code).
+    "FLAGS_serving_speculate_k": 0,
+    # The draft: "quant" (the served weights quantized to int8; the served
+    # tree itself on an engine that already quantizes its weights) or
+    # "shallow" (the first FLAGS_serving_draft_layers blocks).
+    "FLAGS_serving_draft_source": "quant",
+    # Blocks of the "shallow" draft; 0 = num_layers // 2, at least 1.
+    "FLAGS_serving_draft_layers": 0,
     # Collective schedule per mesh axis, "axis=backend,..." or a bare
     # backend for every axis (distributed/comm_backend.py). Serving reads
     # the mp axis: "gspmd" (default), "ring" or "fused"; the training step

@@ -198,6 +198,39 @@ def _select_token(logits, u, do_sample, temperature, top_k, top_p):
     return _sample(_mask_logits(logits, temperature, top_k, top_p), u)
 
 
+def _verify_accept(logits, ids_next, nprop, emit, sample, temperature,
+                   top_p, u, top_k):
+    """The speculative accept scan over the verify window's logits
+    [B, T, V] (T = k+1), on their device. Lane t's logits choose the
+    token after window position t (argmax, or for the rows of ``sample``
+    [B] bool an inverse-CDF draw with the uniform u[b, t]); a slot keeps
+    emitting while its chosen token equals the draft's proposal for the
+    next lane, ids_next [B, T] (the last lane's entry is never compared),
+    and t < nprop[b]. ``sample=None`` means every row is greedy;
+    temperature/top_p are per-row [B] (top_p None: no nucleus cut) and
+    top_k the engine's.
+
+    The uniforms are the draws a plain engine would make for the tokens
+    a slot emits, in order: the caller draws u[b, :] from the request's
+    generator and then advances it by n_emit[b] draws, so a sampled stream
+    replays ``generate_from_params`` wherever the scan stops.
+
+    Returns (toks [B, T]: lanes >= n_emit[b] are not emitted, n_emit [B]
+    int64: 0 for rows with emit False, else 1 + the accepted run)."""
+    B, T, V = logits.shape
+    toks = torch.argmax(logits, dim=-1)
+    if sample is not None:
+        nucleus = None if top_p is None else top_p.repeat_interleave(T)
+        drawn = _sample(_mask_logits(logits.reshape(B * T, V),
+                                     temperature.repeat_interleave(T),
+                                     top_k, nucleus), u.reshape(B * T))
+        toks = torch.where(sample[:, None], drawn.view(B, T), toks)
+    lane = torch.arange(T, device=logits.device)
+    agree = (lane[None, :] < nprop[:, None]) & (toks == ids_next)
+    run = torch.cumprod(agree.long(), dim=1).sum(dim=1)
+    return toks, torch.where(emit, 1 + run, 0)
+
+
 def _is_stop(tok, stop_token_ids):
     """Elementwise membership of tok in the stop-id tuple."""
     hit = tok == stop_token_ids[0]

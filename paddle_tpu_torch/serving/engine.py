@@ -35,6 +35,24 @@ build. A quantized engine keeps the promises above at its dtype config
 (against itself, not against the fp oracle); the bf16/bf16 config
 resolves to None and runs none of that code.
 
+Speculative decoding (``speculate_k=k``, ``draft_source`` "quant" |
+"shallow", ``draft_layers``; or ``FLAGS_serving_speculate_k`` and
+``FLAGS_serving_draft_*``) changes the decode boundary: a draft derived
+from the served weights (``serving.quant.DraftSpec``) rolls every
+decode-ready slot k tokens ahead, greedily, reading the pool read-only;
+one verify dispatch scores every slot's [k+1]-token window under the
+served weights, each lane reading the pool as the plain decode does (the
+paged-decode kernels on CUDA); an accept scan on the device picks each
+slot's run; every KV byte written past it is put back
+(serving/paged_attention.py). A slot proposes min(k, remaining - 1)
+tokens, so LENGTH fires at max_new_tokens exactly; a ``speculate="off"``
+request proposes none. Greedy streams are the plain engine's tokens (bit
+for bit on the CPU) and sampled streams replay ``generate_from_params``:
+a window draws its k+1 uniforms from the request's generator, which is
+then left advanced by the tokens emitted. A speculative engine never
+dispatches the plain [B, 1] decode. It is single-device and refuses
+adapters, as the reference does.
+
 Tensor-parallel serving (serving/mp_forward.py) is SPMD: each rank of a
 ``distributed.env.MPGroup`` builds ``Engine(..., mp=n, comm_backend=...,
 group=group)`` with the same full params and submits the same requests,
@@ -58,7 +76,7 @@ import torch
 from ..device import resolve_device
 from ..distributed import tp_overlap as _tpov
 from ..flags import get_flags
-from ..models.generation import _mask_logits, _sample
+from ..models.generation import _mask_logits, _sample, _verify_accept
 from ..models.gpt import compute_dtype
 from ..models.params import cast_for_compute, layer_params
 from ..ops import fused_collectives as _fc
@@ -67,7 +85,8 @@ from . import metrics
 from . import paged_decode
 from . import quant as _squant
 from .mp_forward import gemm_ag_blocks, shard_serving_params
-from .paged_attention import new_pool, paged_forward
+from .paged_attention import (new_pool, paged_draft_forward, paged_forward,
+                              paged_kv_rewind, paged_verify_forward)
 from .paged_kv import PagedKVPool, pages_for
 from .request import (EXPIRED, FINISHED, LENGTH, QUEUED, RUNNING, STOP,
                       Request)
@@ -79,9 +98,6 @@ from .scheduler import QueueFullError, Scheduler
 _LATER_SLICES = {
     "model": "Queue A item 14 (the GPTForCausalLM Layer of the eager API)",
     "prefill_buckets": "Queue A item 7 (the pooled-layout baseline)",
-    "speculate_k": "Queue A item 9 (speculative decoding)",
-    "draft_source": "Queue A item 9 (speculative decoding)",
-    "draft_layers": "Queue A item 9 (speculative decoding)",
     "adapter_slots": "Queue A item 9 (adapters)",
     "adapter_rank": "Queue A item 9 (adapters)",
     "tenant_adapters": "Queue A item 9 (adapters)",
@@ -111,14 +127,27 @@ class Engine:
 
     Tensor-parallel: ``group`` (``distributed.env.MPGroup``; the degree is
     its size, and ``mp``, when given, must equal it) and ``comm_backend``
-    ("gspmd" | "ring" | "fused"; default from FLAGS_comm_backend)."""
+    ("gspmd" | "ring" | "fused"; default from FLAGS_comm_backend).
+
+    Speculative decoding: ``speculate_k`` (0 = off), ``draft_source``
+    ("quant" | "shallow") and ``draft_layers`` (the shallow draft's
+    blocks, 0 = half); defaults from FLAGS_serving_speculate_k,
+    FLAGS_serving_draft_source and FLAGS_serving_draft_layers."""
 
     def __init__(self, params=None, *, config=None, num_slots=None,
                  max_seq_len=None, max_queue=None, top_k=None,
                  kv_layout=None, page_size=None, num_pages=None,
                  prefill_chunk=None, prefix_cache=None, device=None,
                  quant=None, mp=None, comm_backend=None, group=None,
+                 speculate_k=None, draft_source=None, draft_layers=None,
                  mesh=None, **later):
+        flags = get_flags()
+        self._spec = _squant.resolve_draft(speculate_k, draft_source,
+                                           draft_layers, flags)
+        self.speculate_k = 0 if self._spec is None else self._spec.k
+        if self._spec is not None:
+            self._refuse_spec(kv_layout or flags["FLAGS_serving_kv_layout"],
+                              mp, group, later)
         if mesh is not None:
             raise NotImplementedError(
                 "Engine(mesh=...) is the reference's single-controller "
@@ -137,7 +166,6 @@ class Engine:
         if params is None or config is None:
             raise ValueError("Engine needs params= (init_gpt_params layout) "
                              "and config=")
-        flags = get_flags()
         self.kv_layout = kv_layout or flags["FLAGS_serving_kv_layout"]
         if self.kv_layout == "pooled":
             raise NotImplementedError(
@@ -232,8 +260,15 @@ class Engine:
                              and self._quant.quantizes_weights
                              and bool(flags["FLAGS_serving_quant_kernel"]))
         if self.quant_kernel and self.device.type == "cuda":
-            self._check_quant_gemm_shapes(dtype)
+            self._check_quant_gemm_shapes(self.params, dtype)
             _qgemm.build()
+        if self._spec is not None:
+            self._build_draft_params()
+            self._draft_kernel = ("head_w_s" in self._draft_params and bool(
+                flags["FLAGS_serving_quant_kernel"]))
+            if self._draft_kernel and self.device.type == "cuda":
+                self._check_quant_gemm_shapes(self._draft_params, dtype)
+                _qgemm.build()
         if self.mp > 1 and self._mp_cfg.backend == "fused" and \
                 self.device.type == "cuda":
             blocks = self.params["blocks"]
@@ -330,13 +365,37 @@ class Engine:
         if self._mp_cfg is not None:
             metrics.set_mp_info(mp, self._mp_cfg.backend)
 
-    def _check_quant_gemm_shapes(self, dtype):
-        """Refuse, at build, a config whose quantized GEMMs the kernel
+    @staticmethod
+    def _refuse_spec(kv_layout, mp, group, later):
+        """The compositions the reference refuses with speculation, with
+        its reasons."""
+        if kv_layout == "pooled":
+            raise ValueError(
+                "speculative decoding rides the paged layout (the draft "
+                "shares the paged pool and rejected writes rewind "
+                "per-page; the pooled layout is the parity baseline); use "
+                "kv_layout='paged' with speculate_k > 0")
+        n = int(mp) if mp is not None else \
+            (group.n if group is not None else 1)
+        if n > 1:
+            raise ValueError(
+                "speculative decoding is single-chip for now (the draft/"
+                "verify pair would double the mp collective schedule); use "
+                "mp=1 with speculate_k > 0")
+        if later.get("adapter_slots"):
+            raise ValueError(
+                "adapter serving is mutually exclusive with speculative "
+                "decoding for now (the draft would need its own per-slot "
+                "delta routing to keep accept rates honest); use "
+                "speculate_k=0 with adapter_slots > 0")
+
+    def _check_quant_gemm_shapes(self, params, dtype):
+        """Refuse, at build, a quantized tree whose GEMMs the kernel
         cannot take (the blocks' x is the compute dtype, the head's fp32)."""
-        blocks = self.params["blocks"]
+        blocks = params["blocks"]
         gemms = [(name, blocks[name].shape[1:], dtype)
                  for name in _squant.BLOCK_WEIGHTS]
-        gemms.append(("head_w", self.params["head_w"].shape, torch.float32))
+        gemms.append(("head_w", params["head_w"].shape, torch.float32))
         for name, (K, F), x_dtype in gemms:
             why = _qgemm.unsupported_reason(K, F, blocks["qkv_w"].dtype,
                                             x_dtype)
@@ -555,6 +614,9 @@ class Engine:
                     and self._chunk_off[b] >= self._slots[b].prompt_len]
         if not decoding:
             return
+        if self._spec is not None:
+            self._iterate_spec(decoding, t_boundary)
+            return
         valid = np.zeros(B, np.int32)
         emit = np.zeros(B, bool)
         valid[decoding] = 1
@@ -573,6 +635,127 @@ class Engine:
         for b in decoding:
             self._pos[b] += 1
             self._emit_token(self._slots[b], b, int(nxt[b]), first=False)
+
+    def _build_draft_params(self):
+        """The draft tree, derived from the served one. "quant": the int8
+        self-draft, the served tree quantized per channel, or the served
+        tree itself when the engine already serves quantized weights (the
+        degenerate self-draft). "shallow": the served tree's first
+        ``draft_layers`` blocks (embeddings, final LayerNorm and head
+        shared)."""
+        if self._spec.source == "quant":
+            if self._quant is not None and self._quant.quantizes_weights:
+                self._draft_params = self.params
+            else:
+                self._draft_params = _squant.quantize_params(
+                    self.params, self.config,
+                    _squant.QuantSpec(weight_dtype="int8"))
+        else:
+            self._draft_params = _squant.shallow_draft_params(
+                self.params, self._spec.num_layers(self.config.num_layers))
+        self._draft_layers = layer_params(self._draft_params)
+
+    @torch.no_grad()
+    def _iterate_spec(self, decoding, t_boundary):
+        """A speculative decode boundary: the draft rolls every
+        decode-ready slot up to k tokens ahead (its K/V in a sidecar, the
+        pool untouched), then ONE verify dispatch scores all slots at
+        [B, k+1] under the served weights, the accept scan picks each
+        slot's run on the device and every KV byte written past it is put
+        back. Only the tokens [B, k+1] and the run lengths [B] come back to
+        the host. A slot proposing nothing (``speculate="off"``, or one
+        token left) is plain decode inside the same dispatch."""
+        B = self.num_slots
+        k = self._spec.k
+        T = k + 1
+        nprop = np.zeros(B, np.int32)
+        valid = np.zeros(B, np.int32)
+        emit = np.zeros(B, bool)
+        for b in decoding:
+            req = self._slots[b]
+            remaining = req.max_new_tokens - len(req.tokens)
+            if req.speculate != "off":
+                # the last lane stays a real emission, so LENGTH fires at
+                # max_new_tokens exactly
+                nprop[b] = min(k, max(0, remaining - 1))
+            valid[b] = nprop[b] + 1
+            emit[b] = True
+        for b in decoding:
+            self._cow(b, int(self._pos[b]), int(self._pos[b]) + int(valid[b]))
+        # a window's uniforms: the next T draws of each sampled request's
+        # generator, which is rewound and advanced by the tokens emitted
+        sample = self._do_sample & emit
+        u = np.zeros((B, T), np.float32)
+        states = {}
+        for b in np.flatnonzero(sample):
+            states[b] = self._gens[b].get_state()
+            u[b] = torch.rand(T, generator=self._gens[b]).numpy()
+        t0 = time.perf_counter()
+        ints = self._upload(np.concatenate(
+            [self._tok, self._pos, valid, nprop, emit, sample,
+             self.pool.table.ravel()]).astype(np.int32))
+        floats = self._upload(np.concatenate(
+            [self._temp, self._top_p, u.ravel()]).astype(np.float32))
+        tok_t, pos_t, valid_t, nprop_t, emit_t, sample_t = \
+            ints[:6 * B].view(6, B)
+        table_t = ints[6 * B:].view(B, -1)
+        temp_t, top_p_t = floats[:2 * B].view(2, B)
+        u_t = floats[2 * B:].view(B, T)
+
+        ids = torch.zeros((B, T), dtype=torch.int64, device=self.device)
+        ids[:, 0] = tok_t
+        if nprop.max() > 0:
+            # the draft reads keys below each slot's position: the table's
+            # columns of those pages are enough
+            live = max(1, -(-int(self._pos.max()) // self.page_size))
+            ids[:, 1:] = paged_draft_forward(
+                self._draft_params, self.config, tok_t.long(), self._kc,
+                self._vc, pos_t, table_t[:, :live], self.page_size, k,
+                layers=self._draft_layers, kv_scales=self._kv_scales,
+                wq_kernel=self._draft_kernel)
+            metrics.bump("draft_dispatches")
+        logits, saved_k, saved_v = paged_verify_forward(
+            self.params, self.config, ids, self._kc, self._vc, pos_t,
+            valid_t, table_t, self.page_size, self.use_kernel,
+            layers=self._layers, kv_scales=self._kv_scales,
+            wq_kernel=self.quant_kernel)
+        # lane t's logits score the token after position t: the proposal
+        # they are held to is ids[:, t + 1] (the last lane has none)
+        ids_next = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])],
+                             dim=1)
+        nucleus = top_p_t if (self._top_p[sample] < 1.0).any() else None
+        toks, n_emit = _verify_accept(
+            logits, ids_next, nprop_t, emit_t.bool(),
+            sample_t.bool() if sample.any() else None, temp_t, nucleus, u_t,
+            self.top_k)
+        paged_kv_rewind(self._kc, self._vc, saved_k, saved_v, table_t, pos_t,
+                        valid_t, n_emit, self.page_size)
+        out = torch.cat([toks, n_emit[:, None]], dim=1).cpu().numpy()
+        now = time.perf_counter()
+        toks, n_emit = out[:, :T], out[:, T]
+        for b, state in states.items():
+            self._gens[b].set_state(state)
+            torch.rand(int(n_emit[b]), generator=self._gens[b])
+        metrics.bump("paged_steps")
+        metrics.bump("verify_dispatches")
+        metrics.add_time("decode_time_s", now - t0)
+        total = 0
+        for b in decoding:
+            req = self._slots[b]
+            # a stop token cuts the run: the tokens after it are dropped
+            n = int(n_emit[b])
+            stops = req.stop_token_ids or ()
+            plan = next((j + 1 for j in range(n) if int(toks[b, j]) in stops),
+                        n)
+            metrics.bump("spec_proposed", int(nprop[b]))
+            metrics.bump("spec_accepted", max(0, plan - 1))
+            metrics.bump("spec_tokens_out", plan)
+            for j in range(plan):
+                self._pos[b] += 1
+                self._emit_token(req, b, int(toks[b, j]), first=False)
+            total += plan
+        # the boundary's gap bought ``total`` tokens
+        metrics.observe_token_latency(now - t_boundary, max(1, total))
 
     def _prefill_chunk(self, b):
         """Advance slot b's prefill by one chunk ([1, rung] dispatch); the

@@ -51,6 +51,13 @@ def _zero():
         # (distributed/tp_overlap.py:serving_step_record)
         "mp_steps": 0, "mp_collectives": 0, "mp_wire_bytes": 0,
         "mp_fused_dispatches": 0,
+        # speculative decoding (serving/engine.py): draft and verify
+        # dispatches, draft tokens proposed and accepted, and the tokens
+        # the verify dispatches emitted; all 0 on a plain engine, whose
+        # decode dispatches are plain [B, 1] steps, while a speculative
+        # engine's decode dispatches are all verify dispatches
+        "draft_dispatches": 0, "verify_dispatches": 0,
+        "spec_proposed": 0, "spec_accepted": 0, "spec_tokens_out": 0,
     }
 
 
@@ -145,7 +152,8 @@ def _pct(samples, q):
 def serving_counters():
     """Snapshot of the ledger plus derived rates: TTFT p50/p99, per-token
     latency p50, tokens/s over executable time, slot and page
-    occupancy, mean queue depth, prefix hit rate."""
+    occupancy, mean queue depth, prefix hit rate, and the speculative
+    accept rate and tokens per dispatch."""
     with _lock:
         out = dict(_C)
         out["quant_scale_bytes"] = _quant_info.get("scale_bytes", 0)
@@ -172,6 +180,14 @@ def serving_counters():
     out["prefill_waste_mean"] = (
         out["prefill_padded_tokens"] / out["prefill_padded_reqs"]
         if out["prefill_padded_reqs"] else 0.0)
+    # speculative decoding: the share of proposed tokens the verify
+    # accepted, and the tokens one dispatch buys (draft and verify
+    # dispatches both count; a plain engine's equivalent is 1.0)
+    out["accept_rate"] = (out["spec_accepted"] / out["spec_proposed"]
+                          if out["spec_proposed"] else 0.0)
+    spec_disp = out["draft_dispatches"] + out["verify_dispatches"]
+    out["tokens_per_dispatch"] = (out["spec_tokens_out"] / spec_disp
+                                  if spec_disp else 0.0)
     return out
 
 
@@ -215,6 +231,13 @@ def serving_summary():
               f"{c['mp_collectives']} collectives in {c['mp_steps']} "
               f"dispatches ({c['mp_bytes_per_dispatch'] / 1e6:.2f}MB "
               f"each)  fused-dispatches: {c['mp_fused_dispatches']}")
+    spec = ""
+    if c["verify_dispatches"]:
+        spec = (f"  spec: accept: {c['accept_rate'] * 100:.1f}% "
+                f"({c['spec_accepted']}/{c['spec_proposed']})  "
+                f"tokens/dispatch: {c['tokens_per_dispatch']:.2f} "
+                f"({c['draft_dispatches']} draft + "
+                f"{c['verify_dispatches']} verify)")
     waste = ""
     if c["prefill_padded_reqs"]:
         waste = (f"  prefill-waste: {c['prefill_waste_mean']:.1f} "
@@ -224,4 +247,4 @@ def serving_summary():
             f"tokens: {c['tokens_out']}  tokens/s: {c['tokens_per_s']:.1f}  "
             f"ttft p50/p99: {ttft}  occupancy: {c['occupancy'] * 100:.1f}%  "
             f"queue: {c['queue_depth_mean']:.1f} avg/"
-            f"{c['queue_depth_max']} max{paged}{quant}{mp}{waste}")
+            f"{c['queue_depth_max']} max{paged}{quant}{spec}{mp}{waste}")

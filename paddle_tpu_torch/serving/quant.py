@@ -23,8 +23,10 @@ A quantized engine is exact at its dtype config (deterministic and
 admission-order invariant); the bf16/bf16 config resolves to None and the
 engine is byte for byte the unquantized one.
 
-Snapshots of a quantized pool (``QuantDtypeMismatchError``) and the
-speculative-draft plumbing (``DraftSpec``) come with later slices.
+The speculative draft is derived from the served tree, never loaded
+(``DraftSpec``, ``resolve_draft``, ``shallow_draft_params``). Snapshots
+of a quantized pool (``QuantDtypeMismatchError``) come with a later
+slice.
 """
 from __future__ import annotations
 
@@ -375,3 +377,69 @@ def max_logit_drift(params, config, spec, prompt, page_size=8):
                           for s in kv_scales_for(spec, L, P))
     got = run(qparams, kv_dtype, kv_scales)
     return (float((ref - got).abs().max()), float(ref.abs().max()))
+
+
+# -- speculative-draft plumbing (the draft model is derived, never loaded) --
+DRAFT_SOURCES = ("quant", "shallow")
+
+
+@dataclass
+class DraftSpec:
+    """Speculative-decoding config: how many tokens the draft proposes per
+    boundary (``k``) and where the draft model comes from: ``"quant"``
+    (int8 self-draft: the engine's own weights quantized per channel; the
+    engine's weights themselves when it already serves quantized ones) or
+    ``"shallow"`` (the first ``layers`` transformer blocks of the same
+    tree, sharing embeddings, final LayerNorm and head). ``layers=0``
+    means auto (num_layers // 2, at least 1)."""
+
+    k: int
+    source: str = "quant"
+    layers: int = 0
+
+    def __post_init__(self):
+        self.k = int(self.k)
+        if self.k < 1:
+            raise QuantSpecError(f"DraftSpec.k must be >= 1, got {self.k}")
+        if self.source not in DRAFT_SOURCES:
+            raise QuantSpecError(
+                f"DraftSpec.source must be one of {DRAFT_SOURCES}, got "
+                f"{self.source!r}")
+        self.layers = int(self.layers)
+        if self.layers < 0:
+            raise QuantSpecError(
+                f"DraftSpec.layers must be >= 0 (0 = auto), got "
+                f"{self.layers}")
+
+    def num_layers(self, total_layers):
+        if self.source != "shallow":
+            return int(total_layers)
+        n = self.layers or max(1, int(total_layers) // 2)
+        return min(n, int(total_layers))
+
+
+def resolve_draft(speculate_k, source, layers, flags):
+    """The Engine's speculation arguments: explicit ones win, None falls
+    back to ``FLAGS_serving_speculate_k`` / ``_draft_source`` /
+    ``_draft_layers``. Returns None when the resolved k is 0 (the engine
+    then runs none of the speculative code)."""
+    k = (int(flags.get("FLAGS_serving_speculate_k", 0))
+         if speculate_k is None else int(speculate_k))
+    if k <= 0:
+        return None
+    src = (str(flags.get("FLAGS_serving_draft_source", "quant"))
+           if source is None else str(source))
+    n = (int(flags.get("FLAGS_serving_draft_layers", 0))
+         if layers is None else int(layers))
+    return DraftSpec(k=k, source=src, layers=n)
+
+
+def shallow_draft_params(params, n_layers):
+    """A (possibly quantized) tree cut to its first ``n_layers`` blocks.
+    Embeddings, final LayerNorm and head are the full tree's tensors (no
+    copy); the stacked block leaves and their ``_s`` scales are sliced
+    (views)."""
+    out = dict(params)
+    out["blocks"] = {name: leaf[:n_layers]
+                     for name, leaf in params["blocks"].items()}
+    return out

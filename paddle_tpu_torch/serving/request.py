@@ -37,7 +37,10 @@ class Request:
     ``eos_token_id`` is the scalar alias of ``stop_token_ids`` (merged).
     ``top_k`` must match the engine's static top_k. ``deadline_s`` is a
     deadline relative to submission: an expired request is failed at the
-    next step boundary. ``priority``, ``tenant`` and ``adapter`` are
+    next step boundary. ``speculate`` ("auto" | "off") opts a request out
+    of speculative decoding: on a speculative engine an "off" request
+    decodes one token a boundary inside the same verify dispatch; a plain
+    engine ignores it. ``priority``, ``tenant`` and ``adapter`` are
     carried for the scheduling and adapter slices and not read yet."""
     prompt: object
     max_new_tokens: int = 32
@@ -52,6 +55,7 @@ class Request:
     on_token: object = None          # callback(request, token_id)
     priority: str = "batch"
     tenant: str = "default"
+    speculate: str = "auto"
     adapter: int | None = None
 
     # -- engine-managed state ------------------------------------------------
@@ -80,6 +84,9 @@ class Request:
             self.eos_token_id, self.stop_token_ids) or ()
         if self.top_k == 0:            # generate's "disabled" spelling
             self.top_k = None
+        if self.speculate not in ("auto", "off"):
+            raise ValueError(f"speculate must be 'auto' or 'off', got "
+                             f"{self.speculate!r}")
 
     @property
     def prompt_len(self):

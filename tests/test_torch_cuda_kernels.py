@@ -1149,6 +1149,178 @@ def test_quantized_engine_launches_both_kernels_on_card(cuda_device, dtype):
         assert len(a) == len(b) == 6 and a[0] == b[0]
 
 
+# ---------------------------------------------------- speculative decoding
+# The verify dispatch runs [B, k+1] windows: at 8 slots and k = 4 the
+# quantized GEMMs take 40 rows (bf16 x for the blocks, fp32 for the head),
+# and each of the k+1 lanes reads the pool at the plain decode's shape.
+VERIFY_ROWS = 40
+VERIFY_LANES = 5
+VERIFY_POS = [0, 11, 12, 27, 507, 1019, 1500, 2043]   # lane 0; +4 fits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_quant_gemm_at_the_verify_rows_matches_plain_on_card(cuda_device,
+                                                             dtype):
+    """Every 1.3B block shape at 40 bf16 rows (the tensor-core kernel) and
+    the LM head at 40 fp32 rows (the stream kernel), per element, row and
+    tile against the plain version, one launch a call."""
+    from paddle_tpu_torch.ops.quant_gemm import (error_vs_plain, quant_gemm,
+                                                 quant_gemm_plain,
+                                                 within_tolerance)
+    rng = np.random.default_rng(14)
+    for K, F in QUANT_GEMM_SHAPES:
+        xdt = torch.float32 if F == 50304 else torch.bfloat16
+        wq, s = _quantized_weight(rng, K, F, dtype, cuda_device)
+        x = torch.from_numpy(rng.standard_normal((VERIFY_ROWS, K)).astype(
+            np.float32)).to(cuda_device, xdt)
+        before = quant_gemm.launches
+        got = quant_gemm(x, wq, s)
+        torch.cuda.synchronize()
+        assert quant_gemm.launches == before + 1
+        assert got.dtype == xdt and bool(torch.isfinite(got).all())
+        readings = error_vs_plain(got, quant_gemm_plain(x, wq, s))
+        assert within_tolerance(readings, xdt), (K, F, readings)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", POOL_KINDS)
+def test_paged_decode_per_lane_verify_reads_match_plain_on_card(cuda_device,
+                                                                kind):
+    """The verify's attention read: lane t of 8 slots at position pos + t
+    (over page edges, to the table's last position) through rows 1-2,
+    one call a lane, each within 1e-3 of the plain version."""
+    from paddle_tpu_torch.serving import paged_decode as pd
+    args = _decode_args(cuda_device, kind, 8,
+                        [p + VERIFY_LANES - 1 for p in VERIFY_POS], seed=50)
+    fn = pd.paged_decode_attention if kind == "bfloat16" else \
+        pd.paged_decode_attention_q
+    plain = pd.paged_decode_plain if kind == "bfloat16" else \
+        pd.paged_decode_q_plain
+    base = torch.tensor(VERIFY_POS, dtype=torch.int32, device=cuda_device)
+    before = fn.launches
+    for t in range(VERIFY_LANES):
+        lane = list(args)
+        lane[4] = base + t
+        got = fn(*lane, 16)
+        torch.testing.assert_close(got, plain(*lane, 16), rtol=1e-3,
+                                   atol=1e-3)
+    assert fn.launches == before + VERIFY_LANES
+
+
+def _small_gpt(device):
+    from paddle_tpu_torch.models import GPTConfig, init_gpt_params
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=2, max_seq_len=256)
+    return cfg, init_gpt_params(cfg, seed=0, device=device,
+                                dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_spec_engine_verifies_through_the_kernels_on_card(cuda_device,
+                                                          quant):
+    """A small speculative engine (k = 4, int8 self-draft) on the card:
+    every decode dispatch is a verify dispatch launching the paged-decode
+    kernel once per layer per lane; its quantized GEMMs run the kernel at
+    4 x 5 rows (the verify) and 4 rows (the draft), none of the plain
+    [4, 1] decode; the first greedy token of each request is the plain
+    engine's."""
+    from paddle_tpu_torch.ops.quant_gemm import quant_gemm
+    from paddle_tpu_torch.serving import (Engine, Request,
+                                          reset_serving_counters,
+                                          serving_counters)
+    from paddle_tpu_torch.serving.paged_decode import (
+        paged_decode_attention, paged_decode_attention_q)
+    cfg, params = _small_gpt(cuda_device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, n) for n in (5, 40, 77, 130)]
+    runs = []
+    for k in (4, 0):
+        eng = Engine(params=params, config=cfg, num_slots=4, prefill_chunk=64,
+                     device=cuda_device, quant=quant, speculate_k=k)
+        reset_serving_counters()
+        for f in (paged_decode_attention, paged_decode_attention_q,
+                  quant_gemm):
+            f.launches = 0
+        quant_gemm.shapes.clear()
+        reqs = [Request(p, max_new_tokens=9) for p in prompts]
+        res = eng.run(reqs)
+        c = serving_counters()
+        runs.append([res[r.request_id].tokens for r in reqs])
+        assert eng.pool.balance()["refcounts_accounted"]
+        if not k:
+            continue
+        L = cfg.num_layers
+        assert c["decode_dispatches"] == c["verify_dispatches"] > 0
+        reads = c["verify_dispatches"] * L * (k + 1)
+        decode = paged_decode_attention if quant is None else \
+            paged_decode_attention_q
+        other = paged_decode_attention_q if quant is None else \
+            paged_decode_attention
+        assert decode.launches == reads and other.launches == 0
+        rows = {}
+        for (R, _, _), n in quant_gemm.shapes.items():
+            rows[R] = rows.get(R, 0) + n
+        assert rows.get(4, 0) == c["draft_dispatches"] * k * (4 * L + 1)
+        assert rows.get(4 * (k + 1), 0) == (
+            0 if quant is None else c["verify_dispatches"] * (4 * L + 1))
+        assert 0 < c["draft_dispatches"] <= c["verify_dispatches"]
+    for a, b in zip(*runs):
+        assert len(a) == len(b) == 9 and a[0] == b[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_kv_rewind_restores_the_pre_dispatch_bytes_on_card(cuda_device,
+                                                           quant):
+    """A verify window of 5 lanes over 4 slots through the kernels, then a
+    rewind to 1..4 accepted lanes: every pool byte (page 0 aside) is the
+    pre-dispatch byte except at the accepted positions, which were
+    written."""
+    from paddle_tpu_torch.serving import Engine
+    from paddle_tpu_torch.serving.paged_attention import (
+        _raw, paged_kv_rewind, paged_verify_forward)
+    cfg, params = _small_gpt(cuda_device)
+    eng = Engine(params=params, config=cfg, num_slots=4, prefill_chunk=64,
+                 device=cuda_device, quant=quant)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for pool in (eng._kc, eng._vc):      # stale values everywhere
+        a = torch.randn(pool.shape, generator=gen, device=cuda_device)
+        if quant is None:
+            pool.copy_(a)
+        else:
+            _raw(pool).copy_((a * 40).round().clamp(-127, 127).to(
+                torch.int8).view(torch.uint8))
+    before = [p.view(torch.uint8).clone() for p in (eng._kc, eng._vc)]
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    table = torch.arange(1, 17, **i32).view(4, 4)
+    start = torch.tensor([3, 14, 30, 47], **i32)
+    valid = torch.full((4,), 5, **i32)
+    n_emit = torch.tensor([1, 2, 3, 4], **i32)
+    ids = torch.randint(0, 512, (4, 5), generator=gen, device=cuda_device)
+    logits, sk, sv = paged_verify_forward(
+        eng.params, cfg, ids, eng._kc, eng._vc, start, valid, table, 16,
+        use_kernel=True, kv_scales=eng._kv_scales,
+        wq_kernel=eng.quant_kernel)
+    paged_kv_rewind(eng._kc, eng._vc, sk, sv, table, start, valid, n_emit,
+                    16)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits[torch.arange(4), n_emit.long() - 1])
+                .all())
+    accepted = torch.zeros(eng._kc.shape[1:3], dtype=torch.bool,
+                           device=cuda_device)
+    for b in range(4):
+        for t in range(int(n_emit[b])):
+            p = int(start[b]) + t
+            accepted[int(table[b, p // 16]), p % 16] = True
+    for pool, old in zip((eng._kc, eng._vc), before):
+        same = (pool.view(torch.uint8) == old).flatten(3).all(
+            dim=(0, 3))                                          # [P, ps]
+        assert bool(same[1:][~accepted[1:]].all())
+        assert not bool(same[accepted].any())
+
+
 # the tensor-parallel serving slice's GEMMs at mp = 4 over GPT-3 1.3B:
 # (K, F/4) of the out and down projections (bf16 x) and the LM head shard
 # (fp32 x)

@@ -169,7 +169,7 @@ def test_submit_validation_and_expiry():
 
 
 @pytest.mark.parametrize("kwarg,item", [
-    ("mesh", "item 11"), ("speculate_k", "item 9"),
+    ("mesh", "item 11"), ("tenant_adapters", "item 9"),
     ("adapter_slots", "item 9"), ("priority", "item 10"),
     ("shed", "item 10"), ("role", "item 10"), ("prefill_buckets", "item 7"),
 ])
